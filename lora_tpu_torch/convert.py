@@ -1,0 +1,73 @@
+"""Carry the JAX package's params and LoRA trees across to the port.
+
+lora_tpu keeps params as a flat {HF name: array} dict in torch weight
+layout, so a state dict is the same names with the arrays as tensors:
+
+    import numpy as np
+    from lora_tpu_torch.convert import lora_from_jax, state_dict_from_jax
+
+    sd = state_dict_from_jax({k: np.asarray(v) for k, v in jax_params.items()})
+    unet.load_state_dict(sd, strict=True)
+    lora = lora_from_jax(jax_lora_tree)
+
+Inputs are numpy arrays (np.asarray on the JAX leaves); bfloat16 arrays keep
+their bits. This module imports no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .core.lora import LoraTree
+
+
+def to_torch(a, device="cpu", dtype: Optional[torch.dtype] = None
+             ) -> torch.Tensor:
+    """A writable copy of array `a` as a tensor on `device`, cast to `dtype`
+    when given."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(np.array(a.view(np.int16))).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def state_dict_from_jax(params: Dict[str, np.ndarray], *, device="cpu",
+                        dtype: Optional[torch.dtype] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX params -> a state dict that UNet / CLIPTextModel / VAE take with
+    load_state_dict(..., strict=True)."""
+    out = {}
+    for name, a in params.items():
+        if name.endswith("_scale") or np.asarray(a).dtype == np.int8:
+            raise NotImplementedError(
+                f"{name}: int8-quantized params are not ported yet (ROADMAP "
+                "Queue A: the int8 path)")
+        out[name] = to_torch(a, device, dtype)
+    return out
+
+
+def lora_from_jax(tree: dict, *, device="cpu",
+                  dtype: Optional[torch.dtype] = None) -> LoraTree:
+    """A JAX LoRA tree -> the port's: per-site up/down (+ diag) or full-rank
+    delta, scale, and the stacked adapters' per-sample idx."""
+    extra = set(tree) - {"sites", "scale", "idx"}
+    if extra:
+        raise NotImplementedError(
+            f"LoRA tree keys {sorted(extra)} are not ported yet (LyCORIS "
+            "param_deltas: ROADMAP Queue A kohya/LyCORIS; dropout: the "
+            "training slice)")
+    out = {
+        "sites": {name: {k: to_torch(v, device, dtype)
+                         for k, v in entry.items()}
+                  for name, entry in tree["sites"].items()},
+        "scale": to_torch(tree["scale"], device, torch.float32),
+    }
+    if "idx" in tree:
+        out["idx"] = to_torch(tree["idx"], device, torch.long)
+    return out

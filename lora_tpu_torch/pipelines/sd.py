@@ -1,0 +1,247 @@
+"""Stable Diffusion txt2img pipeline in PyTorch: the serving path.
+
+The counterpart of lora_tpu/pipelines/sd.py for txt2img with the DDIM
+sampler. The pipeline owns the UNet, the CLIP text encoder and the VAE as
+nn.Modules and the loaded LoRAs as data (core/lora.py): patch_pipe loads a
+LoRA (+ TI embeds) file in the indexed "{model}:{idx}:up|down" schema, and
+every UNet / text-encoder call gets the LoRA tree passed in. The denoising
+loop is a Python loop under torch.inference_mode(); latents and images are
+NHWC, as in the JAX package.
+
+Still to port (ROADMAP Queue A): the other samplers (PNDM, Euler,
+DPM-Solver++), img2img and inpainting, kohya-ss / LyCORIS files in
+patch_pipe, from_pretrained (models/hf_import.py) and the int8 base.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..core import lora as lora_core
+from ..core.sites import text_encoder_lora_sites, unet_lora_sites
+from ..data.tokenizer import CLIPTokenizer, default_tokenizer
+from ..formats.safetensors_io import (
+    SafetensorsFile,
+    parse_safeloras,
+    parse_safeloras_embeds,
+)
+from ..models import schedulers
+from ..models.clip import CLIPTextModel, apply_ti
+from ..models.config import SD15_TEXT, SD15_UNET, SD15_VAE
+from ..models.unet import UNet, unet_forward
+from ..models.vae import VAE
+
+_TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
+
+
+class StableDiffusionPipeline:
+    def __init__(self, unet: UNet, text_encoder: CLIPTextModel, vae: VAE,
+                 tokenizer: CLIPTokenizer,
+                 schedule: Optional[schedulers.NoiseSchedule] = None):
+        self.unet = unet
+        self.text_encoder = text_encoder
+        self.vae = vae
+        self.tokenizer = tokenizer
+        self.schedule = schedule or schedulers.make_schedule()
+        self.lora_unet: Optional[dict] = None
+        self.lora_text: Optional[dict] = None
+
+    @classmethod
+    def random_init(cls, generator: torch.Generator, device,
+                    dtype=torch.float32, unet_cfg=SD15_UNET,
+                    text_cfg=SD15_TEXT, vae_cfg=SD15_VAE,
+                    tokenizer: Optional[CLIPTokenizer] = None):
+        """Random weights drawn from `generator` on `device` (the serving
+        bench's configuration needs no download). The tokenizer defaults to
+        the hashed fallback sized to the text encoder's vocabulary."""
+        return cls(
+            UNet(unet_cfg, device=device, dtype=dtype, generator=generator),
+            CLIPTextModel(text_cfg, device=device, dtype=dtype,
+                          generator=generator),
+            VAE(vae_cfg, device=device, dtype=dtype, generator=generator),
+            tokenizer or default_tokenizer(vocab_size=text_cfg.vocab_size))
+
+    @property
+    def device(self) -> torch.device:
+        return self.unet.get_parameter("conv_in.weight").device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.unet.get_parameter("conv_in.weight").dtype
+
+    # -- LoRA / TI management (patch_pipe) ----------------------------------
+    def unet_sites(self, target=None):
+        return unet_lora_sites(self.unet.cfg, target)
+
+    def text_sites(self, target=None):
+        return text_encoder_lora_sites(self.text_encoder.cfg, target)
+
+    def patch_pipe(self, path: str, patch_unet: bool = True,
+                   patch_text: bool = True,
+                   patch_ti: bool = True) -> Dict[str, np.ndarray]:
+        """Load a LoRA (+ TI embeds) file in the indexed schema; returns the
+        embeds. The reference's patch_pipe (lora.py:958-1022)."""
+        with SafetensorsFile(path) as f:
+            if any(k.startswith(("lora_unet_", "lora_te_")) for k in f.keys()):
+                raise NotImplementedError(
+                    f"{path} is a kohya-ss / LyCORIS file: not ported yet "
+                    "(ROADMAP Queue A: kohya/LyCORIS in patch_pipe)")
+            loras = parse_safeloras(f)
+            embeds = parse_safeloras_embeds(f)
+        for model, sites_of, attr, wanted in (
+                ("unet", self.unet_sites, "lora_unet", patch_unet),
+                ("text_encoder", self.text_sites, "lora_text", patch_text)):
+            if wanted and model in loras:
+                weights, _, target = loras[model]
+                setattr(self, attr, lora_core.lora_from_flat(
+                    weights, sites_of(set(target)), dtype=self.dtype,
+                    device=self.device))
+        if patch_ti and embeds:
+            self.apply_ti(embeds)
+        return embeds
+
+    def apply_ti(self, embeds: Dict[str, np.ndarray]) -> List[str]:
+        """Add TI tokens to the tokenizer (a token already there keeps its
+        id) and write their rows into the token table, grown as needed (the
+        reference's apply_learned_embed_in_clip, lora.py:899-942)."""
+        applied = []
+        for token, vec in embeds.items():
+            self.tokenizer.add_tokens(token)
+            tok_id = self.tokenizer.convert_tokens_to_ids(token)
+            table = self.text_encoder.get_parameter(_TOKEN_TABLE).detach()
+            if tok_id >= table.shape[0]:
+                table = torch.cat([table, table.new_zeros(
+                    (tok_id + 1 - table.shape[0], table.shape[1]))])
+            table = apply_ti(
+                {_TOKEN_TABLE: table},
+                torch.as_tensor(np.array(vec), device=table.device)[None],
+                torch.tensor([tok_id], device=table.device))
+            self.text_encoder.set_param(_TOKEN_TABLE, table)
+            applied.append(token)
+        return applied
+
+    def tune_lora_scale(self, alpha: float,
+                        text_alpha: Optional[float] = None) -> None:
+        if self.lora_unet is not None:
+            self.lora_unet = lora_core.tune_lora_scale(self.lora_unet, alpha)
+        if self.lora_text is not None:
+            self.lora_text = lora_core.tune_lora_scale(
+                self.lora_text, alpha if text_alpha is None else text_alpha)
+
+    def remove_lora(self) -> None:
+        """The reference's monkeypatch_remove_lora (lora.py:812-847)."""
+        self.lora_unet = None
+        self.lora_text = None
+
+    # -- encoding -----------------------------------------------------------
+    @torch.inference_mode()
+    def encode_prompt(self, prompt: Union[str, Sequence[str]]) -> torch.Tensor:
+        ids = torch.tensor(self.tokenizer(prompt)["input_ids"],
+                           dtype=torch.long, device=self.device)
+        return self.text_encoder(ids, lora=self.lora_text, dtype=self.dtype)
+
+    def prepare_latents(self, batch: int, height: int, width: int,
+                        generator: torch.Generator) -> torch.Tensor:
+        self._check_size(height, width)
+        shape = (batch, height // 8, width // 8, self.unet.cfg.out_channels)
+        return torch.randn(shape, generator=generator, device=self.device,
+                           dtype=self.dtype)
+
+    def _check_size(self, height: int, width: int) -> None:
+        """Sizes that do not survive the UNet's stride-2 round trip would
+        fail deep inside it; reject them up front."""
+        stride = 8 * 2 ** (len(self.unet.cfg.block_out_channels) - 1)
+        if height % stride or width % stride:
+            raise ValueError(
+                f"height/width must be multiples of {stride} for this UNet "
+                f"({len(self.unet.cfg.block_out_channels)} levels); got "
+                f"{height}x{width}")
+
+    # -- sampling -----------------------------------------------------------
+    @torch.inference_mode()
+    def __call__(
+        self,
+        prompt: Union[str, Sequence[str]],
+        negative_prompt: Union[str, Sequence[str]] = "",
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        height: int = 512,
+        width: int = 512,
+        generator: Optional[torch.Generator] = None,
+        latents: Optional[torch.Tensor] = None,
+        scheduler: str = "ddim",
+        lora_idx: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """txt2img: float32 images (B, height, width, 3) in [0, 1], NHWC.
+        Latents are drawn from `generator` unless given. lora_idx routes
+        each prompt through its own adapter of a stacked LoRA."""
+        if scheduler != "ddim":
+            raise NotImplementedError(
+                f"scheduler={scheduler!r}: only 'ddim' is ported (ROADMAP "
+                "Queue A: the other samplers)")
+        use_cfg = guidance_scale > 1.0
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        B = len(prompts)
+        if isinstance(negative_prompt, str):
+            negative_prompt = [negative_prompt] * B
+        text_emb = self.encode_prompt(prompts)
+        uncond = self.encode_prompt(list(negative_prompt)) if use_cfg else None
+        if latents is None:
+            if generator is None:
+                raise ValueError("pass generator= (or latents=)")
+            latents = self.prepare_latents(B, height, width, generator)
+        else:
+            latents = torch.as_tensor(latents, device=self.device)
+        latents = self._denoise_ddim(latents, text_emb, uncond,
+                                     guidance_scale, num_inference_steps,
+                                     lora_idx)
+        return self._decode(latents)
+
+    def _denoise_ddim(self, latents, text_emb, uncond, guidance_scale: float,
+                      num_inference_steps: int, lora_idx=None):
+        """The DDIM loop; CFG batches uncond before cond, as the JAX
+        package does."""
+        dev = latents.device
+        sched = self.schedule.to(dev)
+        ts = schedulers.ddim_timesteps(sched, num_inference_steps)
+        step_delta = sched.num_train_timesteps // num_inference_steps
+        use_cfg = uncond is not None
+        ctx = torch.cat([uncond, text_emb]) if use_cfg else text_emb
+        lora = self.lora_unet
+        if lora_idx is not None and lora is not None:
+            idx = torch.as_tensor(lora_idx, dtype=torch.long, device=dev)
+            lora = {**lora, "idx": torch.cat([idx, idx]) if use_cfg else idx}
+        params = self.unet.flat_params()
+        B = latents.shape[0]
+        n_in = 2 * B if use_cfg else B
+        for t in ts.tolist():
+            model_in = torch.cat([latents, latents]) if use_cfg else latents
+            out = unet_forward(params, model_in,
+                               torch.full((n_in,), t, device=dev), ctx,
+                               self.unet.cfg, lora=lora)
+            if use_cfg:
+                u, c = out[:B], out[B:]
+                out = u + guidance_scale * (c - u)
+            latents = schedulers.ddim_step(
+                sched, out, torch.full((B,), t, device=dev), latents,
+                torch.full((B,), t - step_delta, device=dev))
+        return latents
+
+    @torch.inference_mode()
+    def _decode(self, latents: torch.Tensor) -> np.ndarray:
+        """VAE-decode latents to [0, 1] float32 images on the host."""
+        images = self.vae.decode(latents)
+        return (images.float() / 2 + 0.5).clamp(0.0, 1.0).cpu().numpy()
+
+    def img2img(self, *args, **kwargs):
+        raise NotImplementedError(
+            "img2img is not ported yet (ROADMAP Queue A: img2img and "
+            "inpaint)")
+
+    def inpaint(self, *args, **kwargs):
+        raise NotImplementedError(
+            "inpaint is not ported yet (ROADMAP Queue A: img2img and "
+            "inpaint)")
