@@ -3,22 +3,39 @@
 
     python3 chip_smoke.py        # from the repo root, one CUDA device
 
-Phases, each printing its own lines:
+Phases, each printing its own lines (about 7 minutes on one H100, half of
+it the build):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-  2. build: compiles the flash-attention forward kernel from
-     lora_tpu_torch/ops/csrc/ with nvcc (sm_90a) into lora_tpu_torch/_build/.
-  3. kernel: the kernel against its plain PyTorch version on the card at the
-     SD-1.5 512px attention shapes, bf16 and f32, plus one ragged call;
-     max abs errors and median times (CUDA events).
-  4. slice: the SD-1.5 txt2img serving path at full width with random
+  2. build: compiles the flash-attention kernels of
+     lora_tpu_torch/ops/csrc/ (flash_fwd.cu, flash_bwd.cu; one nvcc each,
+     in parallel) for sm_90a into lora_tpu_torch/_build/.
+  3. kernel: the forward kernel against its plain PyTorch version on the
+     card at the SD-1.5 512px attention shapes (serving batch 4), bf16 and
+     f32, plus one ragged call; max abs errors and median times (CUDA
+     events).
+  4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
+     the SD-1.5 training shapes (batch 1), bf16 and f32, plus one ragged
+     call; relative errors and median times.
+  5. slice: the SD-1.5 txt2img serving path at full width with random
      weights from a seed: a rank-4 LoRA + one TI embed saved to a
      .safetensors file and loaded with patch_pipe, 2 prompts, 512x512,
      50 DDIM steps, CFG 7.5. Checks the images and that every spatial
-     self-attention of every UNet call went through the kernel.
+     self-attention of every UNet call went through the forward kernel.
+  6. train: the DreamBooth-LoRA step of bench.py at full SD-1.5 width
+     (bf16, 512px, batch 1, rank-4 LoRA on the default UNet sites, cached
+     latents and text embeddings, AdamW lr 1e-4, clip 1.0) through
+     make_optimizer and make_train_step: 3 warm-up and 10 timed steps.
+     Checks finite losses, moved LoRA up leaves, and 15 forward, 15 dQ and
+     15 dK/dV launches per step; prints step time, steps/s, peak memory.
+  7. grad: one loss-and-backward on a LoRA with nonzero up factors and
+     fixed draws, through the kernels and through the plain attention path:
+     the relative L2 distance of the two LoRA gradients; then the same with
+     gradient checkpointing: the same loss, and 30 forward launches.
 
 Any failed check raises, so the script exits nonzero. The last line of
-stdout is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launch counts, errors and times.
+stdout is {"ok": true, "device": {...}}; the line before it is the card
+line from nvidia-smi, and the one before that lists the kernels with their
+launch counts, errors and times.
 """
 
 from __future__ import annotations
@@ -48,12 +65,33 @@ TOL = {torch.bfloat16: {"o": 2e-2, "lse": 1e-3},
 # channels)
 SD15_ATTN_SHAPES = ((4096, 40), (1024, 80), (256, 160))
 RAGGED = (300, 77, 64)  # (T, S, D): masked tails in T, S and in the tiles
+# max |kernel - plain| / max |plain| of dQ, dK and dV, on the same inputs.
+# bf16: the gradients are stored in bf16 (an ulp is 2^-8 = 3.9e-3 relative)
+# and P and dS are rounded to bf16 before their products in both versions,
+# but a value that lands on the other side of a rounding boundary changes by
+# an ulp and the f32 sums run in another order; dQ is rounded twice (before
+# and after the scale). 3e-2 is the forward's O limit (2e-2 absolute on
+# outputs of magnitude ~1) with room for that second rounding. f32: the same
+# f32 arithmetic summed in another order over up to 4096 terms.
+BWD_REL_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 PROMPTS = ["a photo of <s1> dog", "a <s1> style town"]
 STEPS = 50
 # routed self-attentions per UNet call at 512px: 2 transformers in each of
 # the 3 attention down blocks and 3 in each of the 3 attention up blocks;
 # the 8x8 mid block (T = 64) and all cross-attention (S = 77) stay plain
 ROUTED_PER_UNET_CALL = 15
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# relative L2 distance of the full-width LoRA gradient through the kernels
+# from the one through the plain attention path (bf16 model, f32 LoRA
+# leaves). The two paths round P, O and the attention gradients to bf16 at
+# different places (2^-8 = 3.9e-3 relative each), and those differences
+# pass through the backward of 16 transformer blocks and 25 resnets before
+# they reach a LoRA leaf: a few parts in 100 bounds that; an attention
+# gradient that is wrong in any one block moves the LoRA gradient by O(1).
+GRAD_REL_L2_TOL = 5e-2
+# the same step with gradient checkpointing recomputes the same forward on
+# the same inputs: the loss agrees to f32 rounding of the bf16 model's sums
+REMAT_LOSS_RTOL = 1e-3
 
 
 def log(*parts) -> None:
@@ -79,8 +117,9 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    path = fa.build()
-    log(f"build: {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s")
+    paths = fa.build()
+    log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -115,7 +154,7 @@ def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     scale = D ** -0.5
     with torch.inference_mode():
-        o, lse = fa.flash_attention(q, k, v, scale)
+        o, lse = fa.flash_fwd(q, k, v, scale)
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, scale)
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
@@ -124,7 +163,7 @@ def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
                "dtype": str(dtype).replace("torch.", ""),
                "err_o": err_o, "err_lse": err_l}
         if timed:
-            row["ms"] = _time_ms(lambda: fa.flash_attention(q, k, v, scale))
+            row["ms"] = _time_ms(lambda: fa.flash_fwd(q, k, v, scale))
             row["plain_ms"] = _time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, scale))
     tol = TOL[dtype]
@@ -145,6 +184,57 @@ def phase_kernels():
         T, S, D = RAGGED
         check_kernel(1, 2, T, S, D, dtype, gen, heads_inner=False,
                      timed=False)
+    return rows
+
+
+def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
+                      timed=True):
+    """flash_bwd_dq and flash_bwd_dkv against their plain versions on the
+    same inputs: q, k, v, dO as the UNet passes them, O and L from the
+    forward kernel, delta = rowsum(dO * O)."""
+    q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
+    do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
+    scale = D ** -0.5
+    row = {"B": B, "H": H, "T": T, "S": S, "D": D,
+           "dtype": str(dtype).replace("torch.", "")}
+    with torch.inference_mode():
+        o, lse = fa.flash_fwd(q, k, v, scale)
+        delta = fa._delta(o, do)
+        args = (q, k, v, do, lse, delta, scale)
+        got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+        ref = (fa.flash_bwd_dq_reference(*args),
+               *fa.flash_bwd_dkv_reference(*args))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            err = (a.float() - b.float()).abs().max().item()
+            row[f"err_{name}"] = err
+            row[f"rel_{name}"] = err / max(b.float().abs().max().item(),
+                                           1e-30)
+        if timed:
+            for name, kern, plain in (
+                    ("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
+                    ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
+                row[f"{name}_ms"] = _time_ms(lambda: kern(*args))
+                row[f"{name}_plain_ms"] = _time_ms(lambda: plain(*args))
+    log("bwd kernel: " + json.dumps(row))
+    tol = BWD_REL_TOL[dtype]
+    bad = [n for n in ("dq", "dk", "dv")
+           if not (np.isfinite(row[f"rel_{n}"]) and row[f"rel_{n}"] <= tol)]
+    if bad:
+        raise AssertionError(f"flash_bwd kernels disagree with their plain "
+                             f"versions on {bad}: {row}, limit {tol}")
+    return row
+
+
+def phase_bwd_kernels():
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, D in SD15_ATTN_SHAPES:
+            rows.append(check_bwd_kernels(1, 8, T, T, D, dtype, gen))
+        T, S, D = RAGGED
+        rows.append(check_bwd_kernels(1, 2, T, S, D, dtype, gen,
+                                      heads_inner=False, timed=False))
     return rows
 
 
@@ -202,21 +292,24 @@ def phase_slice(smi: str):
                     height=512, width=512, generator=lat_gen)
 
     want = ROUTED_PER_UNET_CALL * STEPS
-    fa.flash_attention.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     first = run()
     cold_s = time.perf_counter() - t0
-    if fa.flash_attention.launches != want:
+    if fa.flash_fwd.launches != want:
         raise AssertionError(f"warm-up call launched the kernel "
-                             f"{fa.flash_attention.launches} times, not {want}")
+                             f"{fa.flash_fwd.launches} times, not {want}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0  # the counted main-path run
+    _zero_counts()  # the counted main-path run
     t0 = time.perf_counter()
     images = run()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
+    launches, *bwd_launches = _counts()
+    if bwd_launches != [0, 0]:
+        raise AssertionError(f"serving launched backward kernels: "
+                             f"{bwd_launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches != want:
         raise AssertionError(f"main path launched the kernel {launches} "
@@ -246,29 +339,238 @@ def phase_slice(smi: str):
         "launches": launches, "unet_lora_max_diff": lora_diff,
         "rerun_max_diff": float(np.abs(images - first).max()),
         "card": smi}))
+    del pipe
+    torch.cuda.empty_cache()
     return launches
+
+
+def _counts():
+    return (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches)
+
+
+def _zero_counts():
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+
+
+def _train_models(gen):
+    """SD-1.5 UNet (bf16, random weights from `gen`), the bench.py
+    trainable (a rank-4 LoRA on the default UNet sites, f32 leaves that
+    require grad), and a cached batch: 64x64x4 latents and the text
+    embeddings of one random prompt from the SD-1.5 CLIP text encoder."""
+    from lora_tpu_torch.core.lora import init_lora
+    from lora_tpu_torch.core.sites import unet_lora_sites
+    from lora_tpu_torch.models.clip import CLIPTextModel
+    from lora_tpu_torch.models.config import SD15_TEXT, SD15_UNET
+    from lora_tpu_torch.models.unet import UNet
+
+    dt = torch.bfloat16
+    unet = UNet(SD15_UNET, device="cuda", dtype=dt, generator=gen)
+    text = CLIPTextModel(SD15_TEXT, device="cuda", dtype=dt, generator=gen)
+    ids = torch.randint(0, SD15_TEXT.vocab_size, (1, 77), generator=gen,
+                        device="cuda")
+    with torch.inference_mode():
+        enc = text(ids, dtype=dt)
+    batch = {"latents": torch.randn((1, 64, 64, 4), generator=gen,
+                                    device="cuda").to(dt),
+             "encoder_hidden_states": enc.clone()}
+    lora = init_lora(unet_lora_sites(SD15_UNET), r=4, generator=gen,
+                     device="cuda")
+    return unet, batch, lora
+
+
+def _make_step(optimizer, remat=False):
+    from lora_tpu_torch.models.config import SD15_TEXT, SD15_UNET, SD15_VAE
+    from lora_tpu_torch.models.schedulers import make_schedule
+    from lora_tpu_torch.training.loss import LossConfig
+    from lora_tpu_torch.training.train_step import make_train_step
+
+    return make_train_step(
+        unet_cfg=SD15_UNET, text_cfg=SD15_TEXT, vae_cfg=SD15_VAE,
+        sched=make_schedule(),
+        loss_cfg=LossConfig(cached_latents=True,
+                            gradient_checkpointing=remat),
+        optimizer=optimizer, dtype=torch.bfloat16)
+
+
+def phase_train(smi: str):
+    from lora_tpu_torch.training.optim import make_optimizer, tree_leaves
+    from lora_tpu_torch.training.train_step import make_trainable
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    t0 = time.perf_counter()
+    unet, batch, lora = _train_models(gen)
+    trainable = make_trainable({"lora_unet": lora})
+    opt = make_optimizer(trainable, {"lora_unet": 1e-4})
+    step = _make_step(opt)
+    base = (unet.flat_params(), {}, {})
+    torch.cuda.synchronize()
+    log(f"train: SD-1.5 bf16 UNet + rank-4 LoRA "
+        f"({sum(x.numel() for x in tree_leaves(trainable))} trainable "
+        f"params) built in {time.perf_counter() - t0:.1f} s")
+
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        losses.append(step(trainable, base, batch, gen))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    _zero_counts()  # the counted main-path run
+    for _ in range(TRAIN_STEPS):
+        before = _counts()
+        t0 = time.perf_counter()
+        losses.append(step(trainable, base, batch, gen))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step = tuple(a - b for a, b in zip(_counts(), before))
+        if per_step != (ROUTED_PER_UNET_CALL,) * 3:
+            raise AssertionError(f"a training step launched (fwd, dq, dkv) "
+                                 f"= {per_step}, not 15 each")
+    launches = _counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    ups = [e["up"] for e in lora["sites"].values()]
+    still_zero = sum(int(not (u.detach().abs().max() > 0)) for u in ups)
+    if still_zero:
+        raise AssertionError(f"{still_zero} of {len(ups)} LoRA up leaves "
+                             f"never moved from zero")
+    med = statistics.median(step_ms)
+    log("train: " + json.dumps({
+        "steps": TRAIN_WARMUP + TRAIN_STEPS, "timed_steps": TRAIN_STEPS,
+        "losses": [round(x, 6) for x in losses.tolist()],
+        "warmup_s": warmup_s, "step_ms_median": med,
+        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "steps_per_s": 1e3 / med, "peak_mem_gib": peak_gib,
+        "launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+        "up_max_abs": max(u.detach().abs().max().item() for u in ups),
+        "card": smi}))
+    del step, opt, trainable, base, unet, batch, lora
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_grad():
+    """The full-width LoRA gradient through the kernels against the one
+    through the plain attention path, then with gradient checkpointing."""
+    from lora_tpu_torch.ops.attention import set_use_memory_efficient_attention
+    from lora_tpu_torch.training.optim import make_optimizer, tree_leaves
+    from lora_tpu_torch.training.train_step import make_trainable
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+    unet, batch, lora = _train_models(gen)
+    for entry in lora["sites"].values():
+        entry["up"] = 0.05 * torch.randn(entry["up"].shape, generator=gen,
+                                         device="cuda")
+    trainable = make_trainable({"lora_unet": lora})
+    leaves = tree_leaves(trainable)
+    base = (unet.flat_params(), {}, {})
+    draws = {"noise": torch.randn((1, 64, 64, 4), generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+             "timesteps": torch.tensor([500], device="cuda")}
+
+    def loss_and_grad(remat=False):
+        # lr 0 and no clip: the step computes the loss and the gradients
+        # and leaves the leaves where they are
+        opt = make_optimizer(trainable, {"lora_unet": 0.0},
+                             weight_decay=0.0, max_grad_norm=None)
+        captured = []
+        opt.step = lambda: captured.append(torch.cat(
+            [x.grad.flatten() for x in leaves]))
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _make_step(opt, remat)(trainable, base, batch, **draws)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        for x in leaves:
+            x.grad = None
+        return loss.float().item(), captured[0], tuple(
+            a - b for a, b in zip(_counts(), before))
+
+    ms = []  # wall time of each single step (one sample each)
+    loss_k, g_k, n_k = loss_and_grad()
+    set_use_memory_efficient_attention(False)
+    try:
+        loss_p, g_p, n_p = loss_and_grad()
+    finally:
+        set_use_memory_efficient_attention(True)
+    loss_r, g_r, n_r = loss_and_grad(remat=True)
+    rel = ((g_k - g_p).norm() / g_p.norm()).item()
+    rel_r = ((g_r - g_k).norm() / g_k.norm()).item()
+    row = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_remat": loss_r,
+           "grad_rel_l2_kernels_vs_plain": rel,
+           "grad_rel_l2_remat_vs_kernels": rel_r,
+           "grad_norm": g_k.norm().item(), "launches_kernels": n_k,
+           "launches_plain": n_p, "launches_remat": n_r,
+           "step_ms_kernels_plain_remat": ms,
+           "limits": {"grad_rel_l2": GRAD_REL_L2_TOL,
+                      "remat_loss_rtol": REMAT_LOSS_RTOL}}
+    log("grad: " + json.dumps(row))
+    if n_k != (15, 15, 15) or n_p != (0, 0, 0) or n_r != (30, 15, 15):
+        raise AssertionError(f"launch counts {n_k} / {n_p} / {n_r}")
+    if not (np.isfinite(rel) and rel <= GRAD_REL_L2_TOL):
+        raise AssertionError(f"LoRA gradient through the kernels is {rel} "
+                             f"(relative L2) from the plain path's")
+    if not (abs(loss_r - loss_k) <= REMAT_LOSS_RTOL * abs(loss_k)
+            and np.isfinite(rel_r) and rel_r <= GRAD_REL_L2_TOL):
+        raise AssertionError(f"gradient checkpointing changed the step: "
+                             f"{row}")
+    del unet, batch, lora, trainable, base
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    launches = phase_slice(smi)
-    main_shape = next(r for r in rows if r["dtype"] == "bfloat16"
-                      and r["T"] == SD15_ATTN_SHAPES[0][0])
+    bwd_rows = phase_bwd_kernels()
+    serve_launches = phase_slice(smi)
+    train_launches = phase_train(smi)
+    phase_grad()
+
+    def at_main_shape(rs):  # bf16 at the largest training/serving shape
+        return next(r for r in rs if r["dtype"] == "bfloat16"
+                    and r["T"] == SD15_ATTN_SHAPES[0][0])
+
+    fwd, bwd = at_main_shape(rows), at_main_shape(bwd_rows)
+    bf16_bwd = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:104",
-        "launches": launches,
-        # worst O error over the bf16 shapes the main path runs
+        # the serving run (50 UNet calls) plus the timed training steps
+        "launches": serve_launches + train_launches[0],
+        "launches_by_path": {"txt2img": serve_launches,
+                             "train": train_launches[0]},
+        # worst O error over the bf16 shapes the main paths run
         "max_abs_err": max(r["err_o"] for r in rows
                            if r["dtype"] == "bfloat16"),
-        # median per launch at the largest main-path shape, bf16
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
+        # median per launch at the largest main-path shape, bf16 (batch 4)
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
     }]
+    for name, key, line in (("flash_bwd_dq", "dq", 178),
+                            ("flash_bwd_dkv", "dkv", 210)):
+        errs = ("dq",) if key == "dq" else ("dk", "dv")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"lora_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[1 if key == "dq" else 2],
+            "max_abs_err": max(r[f"err_{e}"] for r in bf16_bwd for e in errs),
+            # median per launch at T = S = 4096, D = 40, bf16, B = 1, H = 8
+            "ms": bwd[f"{key}_ms"],
+            "plain_ms": bwd[f"{key}_plain_ms"],
+        })
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ layout, so a state dict is the same names with the arrays as tensors:
     sd = state_dict_from_jax({k: np.asarray(v) for k, v in jax_params.items()})
     unet.load_state_dict(sd, strict=True)
     lora = lora_from_jax(jax_lora_tree)
+    trainable = trainable_from_jax(jax_trainable_tree)   # leaves require grad
 
 Inputs are numpy arrays (np.asarray on the JAX leaves); bfloat16 arrays keep
 their bits. This module imports no jax.
@@ -60,8 +61,7 @@ def lora_from_jax(tree: dict, *, device="cpu",
     if extra:
         raise NotImplementedError(
             f"LoRA tree keys {sorted(extra)} are not ported yet (LyCORIS "
-            "param_deltas: ROADMAP Queue A kohya/LyCORIS; dropout: the "
-            "training slice)")
+            "param_deltas: ROADMAP Queue A kohya/LyCORIS)")
     out = {
         "sites": {name: {k: to_torch(v, device, dtype)
                          for k, v in entry.items()}
@@ -71,3 +71,36 @@ def lora_from_jax(tree: dict, *, device="cpu",
     if "idx" in tree:
         out["idx"] = to_torch(tree["idx"], device, torch.long)
     return out
+
+
+def trainable_from_jax(tree: dict, *, device="cpu") -> dict:
+    """A JAX trainable tree ({"lora_unet": LoraTree, "lora_text": LoraTree,
+    "ti": {"embeds": (K, D)}}, numpy leaves) -> the port's, in the same
+    layout: float32 leaf tensors that require grad (the LoRA scale
+    included, as jax.grad differentiates every leaf)."""
+    def leaf(a):
+        return to_torch(a, device, torch.float32).requires_grad_(True)
+
+    out = {}
+    for group, sub in tree.items():
+        if sub is None:
+            out[group] = None
+        elif group == "ti":
+            out[group] = {"embeds": leaf(sub["embeds"])}
+        else:
+            lora = lora_from_jax(sub, device=device)
+            out[group] = {
+                "sites": {name: {k: leaf(v) for k, v in entry.items()}
+                          for name, entry in lora["sites"].items()},
+                "scale": leaf(lora["scale"]),
+            }
+    return out
+
+
+def trainable_to_numpy(tree):
+    """The way back: the same nested layout with float32 numpy leaves."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().float().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: trainable_to_numpy(v) for k, v in tree.items()}
+    return tree

@@ -16,7 +16,8 @@ up/down, (K,) scale) routed per batch element by an "idx" (B,) tensor.
 Injection is passing the tree to a model's forward; removal is passing None.
 Weight layout is torch's Linear/Conv2d (out, in[, kh, kw]).
 
-Dropout is a training feature and lands with the training slice.
+Training adds LoRA dropout: a keep mask on the bypass output, scaled by
+1 / (1 - p), drawn from a per-site generator (models/layers.py).
 """
 
 from __future__ import annotations
@@ -137,16 +138,33 @@ def _maybe_diag(h: torch.Tensor, entry: dict, channel_dim: int) -> torch.Tensor:
     return h * diag.to(h.dtype).reshape(shape)
 
 
+def _dropout(d: torch.Tensor, generator: Optional[torch.Generator],
+             p: float) -> torch.Tensor:
+    """The JAX package's bypass dropout (lora_tpu/core/lora.py:381-383):
+    keep each element with probability 1 - p and scale it by 1 / (1 - p).
+    The mask comes from `generator` (one per site and step), so a
+    checkpointed recompute draws the same mask."""
+    if generator is None or p <= 0.0:
+        return d
+    keep = torch.rand(d.shape, generator=generator, device=d.device) < 1.0 - p
+    return torch.where(keep, d / (1.0 - p), torch.zeros((), dtype=d.dtype,
+                                                        device=d.device))
+
+
 def lora_delta_dense(x: torch.Tensor, entry: dict, scale: torch.Tensor,
+                     dropout_generator: Optional[torch.Generator] = None,
+                     dropout_p: float = 0.0,
                      idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """scale * up(selector(down(x))) for a linear site. x: (..., in).
 
     Stacked adapters (up (K, out, r)) route each batch element through
     adapter idx[b] (x must be batch-leading). A full-rank delta entry applies
-    as one matmul: scale * x @ delta.T."""
+    as one matmul: scale * x @ delta.T. Dropout (p > 0 with a generator)
+    masks the bypass output before the scale."""
     dt = x.dtype
     if "delta" in entry:
-        return (x @ entry["delta"].to(dt).T) * scale.to(dt)
+        d = _dropout(x @ entry["delta"].to(dt).T, dropout_generator, dropout_p)
+        return d * scale.to(dt)
     down, up = entry["down"], entry["up"]
     if up.ndim == 3:
         if idx is None:
@@ -159,22 +177,26 @@ def lora_delta_dense(x: torch.Tensor, entry: dict, scale: torch.Tensor,
         return d * s.reshape((-1,) + (1,) * (d.ndim - 1))
     h = x @ down.to(dt).T
     h = _maybe_diag(h, entry, -1)
-    return (h @ up.to(dt).T) * scale.to(dt)
+    d = _dropout(h @ up.to(dt).T, dropout_generator, dropout_p)
+    return d * scale.to(dt)
 
 
 def lora_delta_conv(x: torch.Tensor, entry: dict, scale: torch.Tensor,
                     stride: Tuple[int, int], padding: Tuple[int, int],
+                    dropout_generator: Optional[torch.Generator] = None,
+                    dropout_p: float = 0.0,
                     idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Conv LoRA bypass: down conv in the site's geometry, then a 1x1 up
     conv. x: NCHW; kernels OIHW.
 
     Stacked adapters: the per-sample down convs run as one grouped
     convolution with the batch folded into feature groups, then a
-    per-sample 1x1 up einsum. A full-rank delta applies as one conv."""
+    per-sample 1x1 up einsum. A full-rank delta applies as one conv.
+    Dropout as in lora_delta_dense."""
     dt = x.dtype
     if "delta" in entry:
         d = F.conv2d(x, entry["delta"].to(dt), stride=stride, padding=padding)
-        return d * scale.to(dt)
+        return _dropout(d, dropout_generator, dropout_p) * scale.to(dt)
     down, up = entry["down"], entry["up"]
     if up.ndim == 5:
         if idx is None:
@@ -193,5 +215,5 @@ def lora_delta_conv(x: torch.Tensor, entry: dict, scale: torch.Tensor,
         return d * s[:, None, None, None]
     dn = F.conv2d(x, down.to(dt), stride=stride, padding=padding)
     dn = _maybe_diag(dn, entry, 1)
-    d = F.conv2d(dn, up.to(dt))
+    d = _dropout(F.conv2d(dn, up.to(dt)), dropout_generator, dropout_p)
     return d * scale.to(dt)

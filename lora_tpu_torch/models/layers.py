@@ -10,12 +10,16 @@ converted JAX checkpoint loads with `load_state_dict(..., strict=True)`.
 Inside the models activations are NCHW; a contiguous NHWC tensor permuted
 with `permute(0, 3, 1, 2)` is already channels_last, so the NHWC public
 functions pay no copy for it. Every dense/conv consults an optional LoRA
-tree (core/lora.py) by its own param name.
+tree (core/lora.py) by its own param name:
+
+    lora = {"sites": {name: {"up", "down"[, "diag"]}}, "scale": tensor,
+            "dropout_p": float, "rng": int step seed | None}
 """
 
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -29,7 +33,8 @@ Params = Dict[str, torch.Tensor]
 
 class ParamModule(nn.Module):
     """nn.Module over a flat {dotted_name: tensor} dict. Parameters are
-    frozen (requires_grad=False): this slice serves, it does not train."""
+    frozen (requires_grad=False): only LoRA/TI leaves train, and they live
+    outside the module (training/train_step.py)."""
 
     def __init__(self, params: Params):
         super().__init__()
@@ -112,6 +117,24 @@ def _lora_entry(lora, name):
     return lora["sites"].get(name)
 
 
+def _lora_dropout(lora, name: str, device):
+    """The per-site random source of LoRA dropout, the counterpart of the
+    JAX _lora_rng (lora_tpu/models/layers.py:39-46, fold_in(rng,
+    crc32(name))). torch cannot give the JAX bits, so each site gets its own
+    generator seeded from (step seed, crc32(name)): the mask depends only on
+    the step and the site, never on call order, so the recompute of a
+    torch.utils.checkpoint region (which restores the global RNG state but
+    not explicit generators) draws the same mask as the forward."""
+    seed = lora.get("rng")
+    p = lora.get("dropout_p", 0.0)
+    if seed is None or p <= 0.0:
+        return None, 0.0
+    site = zlib.crc32(name.encode()) & 0x7FFFFFFF
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 31) | site)
+    return gen, p
+
+
 def dense(p: Params, name: str, x: torch.Tensor, lora=None) -> torch.Tensor:
     w = p[name + ".weight"]
     if w.dtype == torch.int8:
@@ -122,7 +145,9 @@ def dense(p: Params, name: str, x: torch.Tensor, lora=None) -> torch.Tensor:
     y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
     entry = _lora_entry(lora, name)
     if entry is not None:
-        y = y + lora_delta_dense(x, entry, lora["scale"], idx=lora.get("idx"))
+        gen, drop = _lora_dropout(lora, name, x.device)
+        y = y + lora_delta_dense(x, entry, lora["scale"], gen, drop,
+                                 idx=lora.get("idx"))
     return y
 
 
@@ -140,8 +165,9 @@ def conv2d(
                  None if b is None else b.to(x.dtype), stride, padding)
     entry = _lora_entry(lora, name)
     if entry is not None:
+        gen, drop = _lora_dropout(lora, name, x.device)
         y = y + lora_delta_conv(x, entry, lora["scale"], stride, padding,
-                                idx=lora.get("idx"))
+                                gen, drop, idx=lora.get("idx"))
     return y
 
 

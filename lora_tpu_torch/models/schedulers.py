@@ -1,4 +1,5 @@
-"""Diffusion noise schedules: the DDPM forward process and the DDIM sampler.
+"""Diffusion noise schedules: the DDPM forward process (add_noise, and
+get_velocity for v-prediction training) and the DDIM sampler.
 
 The counterpart of lora_tpu/models/schedulers.py (SD-1.5 schedule:
 scaled_linear betas 0.00085..0.012 over 1000 train steps). The scheduler
@@ -71,6 +72,14 @@ def add_noise(sched: NoiseSchedule, sample: torch.Tensor,
               noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     sa, sb = _gather(sched, t, sample)
     return sa * sample + sb * noise
+
+
+def get_velocity(sched: NoiseSchedule, sample: torch.Tensor,
+                 noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The v-prediction target sqrt(abar_t) * noise - sqrt(1 - abar_t) *
+    sample."""
+    sa, sb = _gather(sched, t, sample)
+    return sa * noise - sb * sample
 
 
 def pred_to_x0_eps(sched: NoiseSchedule, model_out: torch.Tensor,

@@ -12,9 +12,11 @@ raises until then.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from . import structure
@@ -199,9 +201,30 @@ def unet_forward(
     encoder_hidden_states: torch.Tensor,  # (B, S, cross_dim)
     cfg: UNetConfig,
     lora=None,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Noise prediction (B, H, W, Cout), NHWC."""
+    """Noise prediction (B, H, W, Cout), NHWC.
+
+    remat=True is gradient checkpointing: each resnet and transformer block
+    keeps only its inputs for the backward and recomputes the rest there
+    (torch.utils.checkpoint, non-reentrant), as jax.checkpoint does in the
+    JAX package (lora_tpu/models/unet.py:247-253)."""
     _check_cfg(cfg)
+    resnet_fn, transformer_fn = _resnet, _transformer
+    if remat:
+        # only the activations go through checkpoint's arguments: it walks
+        # every tensor argument of every region (device and RNG-state
+        # bookkeeping), and the params and LoRA tree are ~1,000 tensors
+        def resnet_fn(p, prefix, x, temb, cfg, spec, lora):
+            return checkpoint(functools.partial(
+                _resnet, p, prefix, cfg=cfg, spec=spec, lora=lora),
+                x, temb, use_reentrant=False)
+
+        def transformer_fn(p, prefix, x, ctx, cfg, spec, lora):
+            return checkpoint(functools.partial(
+                _transformer, p, prefix, cfg=cfg, spec=spec, lora=lora),
+                x, ctx, use_reentrant=False)
+
     dt = sample.dtype
     c0 = cfg.block_out_channels[0]
     temb = timestep_embedding(
@@ -216,11 +239,11 @@ def unet_forward(
     for i, block in enumerate(structure.down_blocks(cfg)):
         pre = f"down_blocks.{i}"
         for j, res in enumerate(block.resnets):
-            h = _resnet(params, f"{pre}.resnets.{j}", h, temb, cfg, res, lora)
+            h = resnet_fn(params, f"{pre}.resnets.{j}", h, temb, cfg, res, lora)
             if block.attentions[j] is not None:
-                h = _transformer(params, f"{pre}.attentions.{j}", h,
-                                 encoder_hidden_states, cfg,
-                                 block.attentions[j], lora)
+                h = transformer_fn(params, f"{pre}.attentions.{j}", h,
+                                   encoder_hidden_states, cfg,
+                                   block.attentions[j], lora)
             skips.append(h)
         if block.has_downsample:
             h = conv2d(params, f"{pre}.downsamplers.0.conv", h,
@@ -228,22 +251,22 @@ def unet_forward(
             skips.append(h)
 
     mid = structure.mid_block(cfg)
-    h = _resnet(params, "mid_block.resnets.0", h, temb, cfg, mid.resnets[0],
-                lora)
-    h = _transformer(params, "mid_block.attentions.0", h,
-                     encoder_hidden_states, cfg, mid.attentions[0], lora)
-    h = _resnet(params, "mid_block.resnets.1", h, temb, cfg, mid.resnets[1],
-                lora)
+    h = resnet_fn(params, "mid_block.resnets.0", h, temb, cfg, mid.resnets[0],
+                  lora)
+    h = transformer_fn(params, "mid_block.attentions.0", h,
+                       encoder_hidden_states, cfg, mid.attentions[0], lora)
+    h = resnet_fn(params, "mid_block.resnets.1", h, temb, cfg, mid.resnets[1],
+                  lora)
 
     for i, block in enumerate(structure.up_blocks(cfg)):
         pre = f"up_blocks.{i}"
         for j, res in enumerate(block.resnets):
             h = torch.cat([h, skips.pop()], dim=1)
-            h = _resnet(params, f"{pre}.resnets.{j}", h, temb, cfg, res, lora)
+            h = resnet_fn(params, f"{pre}.resnets.{j}", h, temb, cfg, res, lora)
             if block.attentions[j] is not None:
-                h = _transformer(params, f"{pre}.attentions.{j}", h,
-                                 encoder_hidden_states, cfg,
-                                 block.attentions[j], lora)
+                h = transformer_fn(params, f"{pre}.attentions.{j}", h,
+                                   encoder_hidden_states, cfg,
+                                   block.attentions[j], lora)
         if block.has_upsample:
             h = upsample_nearest_2x(h)
             h = conv2d(params, f"{pre}.upsamplers.0.conv", h, padding=(1, 1),
@@ -263,6 +286,7 @@ class UNet(ParamModule):
         super().__init__(init_unet(cfg, generator, device=device, dtype=dtype))
         self.cfg = cfg
 
-    def forward(self, sample, timesteps, encoder_hidden_states, lora=None):
+    def forward(self, sample, timesteps, encoder_hidden_states, lora=None,
+                remat: bool = False):
         return unet_forward(self.flat_params(), sample, timesteps,
-                            encoder_hidden_states, self.cfg, lora)
+                            encoder_hidden_states, self.cfg, lora, remat)

@@ -144,24 +144,30 @@ def vae_encode_moments(p: Params, x: torch.Tensor,
 
 
 def vae_sample(moments: torch.Tensor,
-               generator: torch.Generator) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean + std * noise for the posterior moments; the noise is given, or
+    drawn from `generator` in the moments' dtype."""
     mean, logvar = moments.chunk(2, dim=-1)
     std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                        dtype=mean.dtype)
-    return mean + std * noise
+    if noise is None:
+        if generator is None:
+            raise ValueError("vae_sample needs a generator or the noise")
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    return mean + std * noise.to(mean.dtype)
 
 
 def vae_encode(p: Params, x: torch.Tensor, cfg: VAEConfig,
                generator: Optional[torch.Generator] = None,
-               sample: bool = True) -> torch.Tensor:
+               sample: bool = True,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Image -> scaled latent (x scaling_factor), NHWC. sample=False takes
-    the mean; sampling needs a generator."""
+    the mean; sampling takes the posterior noise, or a generator to draw
+    it from."""
     moments = vae_encode_moments(p, x, cfg)
     if sample:
-        if generator is None:
-            raise ValueError("vae_encode(sample=True) needs a generator")
-        z = vae_sample(moments, generator)
+        z = vae_sample(moments, generator, noise)
     else:
         z = moments.chunk(2, dim=-1)[0]
     return z * cfg.scaling_factor

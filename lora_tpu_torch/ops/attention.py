@@ -2,8 +2,9 @@
 
 `attention()` is the single entry point of all models. Non-causal calls on
 CUDA tensors whose shapes pass `flash_attention.supported()` (the JAX
-package's rule) go to the hand-written flash kernel; a kernel failure
-raises. Everything else (CPU tensors, causal attention, the UNet's
+package's rule) go to the hand-written flash kernels, in serving and in
+training (inputs that require grad take the autograd Function, whose
+backward is the dQ and dK/dV kernels); a kernel failure raises. Everything else (CPU tensors, causal attention, the UNet's
 cross-attention with S = 77 and its 64-token mid block) takes a plain
 matmul path with a float32 softmax, kept plain on purpose so that
 measurements can hold both against torch's own fused attention.

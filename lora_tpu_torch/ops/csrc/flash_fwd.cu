@@ -48,16 +48,16 @@
 // launches on the given stream and returns cudaGetLastError() after the
 // launch; it does not synchronise and allocates nothing.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
+
+using namespace flash;
 
 namespace {
 
 constexpr int BM = 64;        // q rows per CTA
 constexpr int BN = 64;        // k/v rows per tile
-constexpr int NTHREADS = 128;  // 4 warps
 constexpr float NEG_INIT = -1e30f;  // running-max init, as the Pallas kernel
 
 struct Params {
@@ -75,94 +75,7 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// tile loads: rows [r0, r0 + 64) x columns [0, DP) into shared memory with
-// row stride LD; rows >= n_rows and columns >= D are zero-filled. 16-byte
-// chunks; D % 8 == 0 and 16-byte aligned rows are checked by the wrapper.
-// ---------------------------------------------------------------------------
-
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long row_stride, int r0,
-                                               int n_rows, int D, bool scale_q,
-                                               float scale) {
-  constexpr int CHUNKS = DP / 8;
-  for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n_rows && c < D) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * row_stride + c);
-      if (scale_q) {
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float2 f = __bfloat1622float2(h[i]);
-          h[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long row_stride, int r0,
-                                              int n_rows, int D, bool scale_q,
-                                              float scale) {
-  constexpr int CHUNKS = DP / 4;
-  for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n_rows && c < D) {
-      val = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * row_stride + c);
-      if (scale_q) {
-        val.x *= scale;
-        val.y *= scale;
-        val.z *= scale;
-        val.w *= scale;
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_smem_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from separate shared addresses -> one .b32 (lo = first)
-__device__ __forceinline__ uint32_t pack_smem_pair(const __nv_bfloat16* lo,
-                                                   const __nv_bfloat16* hi) {
-  const uint32_t l = *reinterpret_cast<const unsigned short*>(lo);
-  const uint32_t h = *reinterpret_cast<const unsigned short*>(hi);
-  return l | (h << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32_pair(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16. Fragment layout (PTX ISA, per lane, g = lane / 4,
-// t = lane % 4):
-//   A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B 16x8:  b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
-//   C 16x8:  c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// bf16: mma.sync m16n8k16 (fragment layout in flash_common.cuh)
 // ---------------------------------------------------------------------------
 
 template <int DP>
@@ -191,7 +104,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(Params p) {
   const int g = lane >> 2;
   const int t4 = lane & 3;
 
-  load_tile_bf16<DP, LD>(sQ, Q, p.q_st, q0, p.T, p.D, true, p.scale);
+  load_tile_bf16<BM, DP, LD>(sQ, Q, p.q_st, q0, p.T, p.D, true, p.scale);
 
   float m[2] = {NEG_INIT, NEG_INIT};
   float l[2] = {0.f, 0.f};
@@ -206,8 +119,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(Params p) {
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BN;
     __syncthreads();  // the previous tile's readers are done
-    load_tile_bf16<DP, LD>(sK, K, p.k_st, kv0, p.S, p.D, false, 1.f);
-    load_tile_bf16<DP, LD>(sV, V, p.v_st, kv0, p.S, p.D, false, 1.f);
+    load_tile_bf16<BM, DP, LD>(sK, K, p.k_st, kv0, p.S, p.D, false, 1.f);
+    load_tile_bf16<BM, DP, LD>(sV, V, p.v_st, kv0, p.S, p.D, false, 1.f);
     __syncthreads();
 
     // S = Q_w K^T: 16 x 64 per warp, 8 n-tiles of 8 columns
@@ -336,7 +249,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
   const int r = threadIdx.x >> 1;
   const int hf = threadIdx.x & 1;
 
-  load_tile_f32<DP, LD>(sQ, Q, p.q_st, q0, p.T, p.D, true, p.scale);
+  load_tile_f32<BM, DP, LD>(sQ, Q, p.q_st, q0, p.T, p.D, true, p.scale);
 
   float m = NEG_INIT;
   float l = 0.f;
@@ -349,8 +262,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BN;
     __syncthreads();
-    load_tile_f32<DP, LD>(sK, K, p.k_st, kv0, p.S, p.D, false, 1.f);
-    load_tile_f32<DP, LD>(sV, V, p.v_st, kv0, p.S, p.D, false, 1.f);
+    load_tile_f32<BM, DP, LD>(sK, K, p.k_st, kv0, p.S, p.D, false, 1.f);
+    load_tile_f32<BM, DP, LD>(sV, V, p.v_st, kv0, p.S, p.D, false, 1.f);
     __syncthreads();
 
     float s[BN / 2];
@@ -405,27 +318,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
   }
 }
 
-template <int DP>
-cudaError_t launch(const Params& p, int B, bool bf16, cudaStream_t stream) {
-  const dim3 grid((p.T + BM - 1) / BM, B * p.H);
-  if (bf16) {
-    const size_t smem = 3 * BM * (DP + 8) * sizeof(__nv_bfloat16);
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    flash_fwd_bf16_kernel<DP><<<grid, NTHREADS, smem, stream>>>(p);
-  } else {
-    const size_t smem = 3 * BM * (DP + 4) * sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    flash_fwd_f32_kernel<DP><<<grid, NTHREADS, smem, stream>>>(p);
-  }
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // strides: 12 int64 element strides, (batch, head, row) for q, k, v, o.
@@ -456,24 +348,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
   const bool bf16 = is_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dp = (D + 15) / 16 * 16;
-  switch (dp) {
-    case 16: return (int)launch<16>(p, B, bf16, st);
-    case 32: return (int)launch<32>(p, B, bf16, st);
-    case 48: return (int)launch<48>(p, B, bf16, st);
-    case 64: return (int)launch<64>(p, B, bf16, st);
-    case 80: return (int)launch<80>(p, B, bf16, st);
-    case 96: return (int)launch<96>(p, B, bf16, st);
-    case 112: return (int)launch<112>(p, B, bf16, st);
-    case 128: return (int)launch<128>(p, B, bf16, st);
-    case 144: return (int)launch<144>(p, B, bf16, st);
-    case 160: return (int)launch<160>(p, B, bf16, st);
-    case 176: return (int)launch<176>(p, B, bf16, st);
-    case 192: return (int)launch<192>(p, B, bf16, st);
-    case 208: return (int)launch<208>(p, B, bf16, st);
-    case 224: return (int)launch<224>(p, B, bf16, st);
-    case 240: return (int)launch<240>(p, B, bf16, st);
-    case 256: return (int)launch<256>(p, B, bf16, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch_dp(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    const dim3 grid((T + BM - 1) / BM, B * H);
+    if (bf16) {
+      return launch_kernel(flash_fwd_bf16_kernel<DP>, grid,
+                           3 * BM * (DP + 8) * sizeof(__nv_bfloat16), st, p);
+    }
+    return launch_kernel(flash_fwd_f32_kernel<DP>, grid,
+                         3 * BM * (DP + 4) * sizeof(float), st, p);
+  });
 }

@@ -1,43 +1,56 @@
-"""Flash-attention forward: the hand-written CUDA kernel for Hopper
-(csrc/flash_fwd.cu), its wrapper, and its plain PyTorch version.
+"""Flash attention: the hand-written CUDA kernels for Hopper (csrc/), their
+wrappers, their plain PyTorch versions, and the autograd Function over them.
 
-The kernel replaces the Pallas TPU kernel
-lora_tpu/ops/flash_attention.py::_fwd_kernel. It serves the UNet's spatial
-self-attention (ops/attention.py routes the shapes that `supported()`
-accepts to it), computing O and the per-row logsumexp L.
+Three kernels, each replacing a Pallas TPU kernel of
+lora_tpu/ops/flash_attention.py:
 
-Build: the first CUDA call compiles the source with nvcc for sm_90a into a
-shared library with a plain C entry point, cached under
-lora_tpu_torch/_build/ by a hash of the source and flags, and loads it with
-ctypes. Nothing is compiled or imported at module import.
+    flash_fwd      csrc/flash_fwd.cu   _fwd_kernel       O and the f32 logsumexp L
+    flash_bwd_dq   csrc/flash_bwd.cu   _bwd_dq_kernel    dQ
+    flash_bwd_dkv  csrc/flash_bwd.cu   _bwd_dkv_kernel   dK and dV
 
-This slice ports the forward only. A CUDA call whose inputs require grad
-raises: the backward kernels (ROADMAP Queue B items 2-3) land with the
-training slice, together with the torch.autograd.Function.
+`flash_attention(q, k, v, scale)` is the entry point: a
+torch.autograd.Function (the JAX custom_vjp, `scale` not differentiated)
+whose forward saves (q, k, v, O, L) and whose backward computes
+delta = rowsum(dO * O) in f32 with a torch reduction (the JAX package does
+it in XLA, outside its kernels) and runs the two backward kernels. It serves
+the UNet's spatial self-attention (ops/attention.py routes the shapes that
+`supported()` accepts to it), in serving and in training.
+
+Each wrapper runs its plain version for CPU tensors, launches its kernel for
+CUDA tensors (or raises), and counts its launches in `<wrapper>.launches`.
+
+Build: the first CUDA call compiles every csrc/*.cu with nvcc for sm_90a,
+one nvcc process per source, all started together, into shared libraries
+with plain C entry points, cached under lora_tpu_torch/_build/ by a hash of
+every source under csrc/ and the flags, and loads them with ctypes. Nothing
+is compiled or imported at module import.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Optional, Tuple
+import types
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 BQ = 256  # the JAX kernel's q block: the routing rule below keeps its shapes
 
-_CSRC = os.path.join(os.path.dirname(__file__), "csrc", "flash_fwd.cu")
+_CSRC_DIR = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[types.SimpleNamespace] = None  # .fwd, .bwd: ctypes.CDLL
 
 
 def _find_nvcc() -> Optional[str]:
@@ -50,140 +63,329 @@ def _find_nvcc() -> Optional[str]:
     return shutil.which("nvcc")
 
 
-def build() -> str:
-    """Compile csrc/flash_fwd.cu into _build/ (once per source hash) and
-    return the library's path. nvcc's ptxas report (registers, shared
-    memory, spills per kernel) is kept beside it as build.log."""
-    with open(_CSRC, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(_BUILD_DIR, f"flash_fwd_{key}.so")
-    if os.path.exists(lib_path):
-        return lib_path
+def _sources() -> Tuple[list, str]:
+    """The csrc/*.cu sources and a key over every file under csrc/ (headers
+    included) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(_CSRC_DIR, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu"))), h.hexdigest()[:16]
+
+
+def build() -> Dict[str, str]:
+    """Compile each csrc/*.cu into _build/ (once per key), one nvcc process
+    per source, all started together; return {source stem: library path}.
+    nvcc's ptxas report (registers, shared memory, spills per kernel) is
+    kept beside them as build.log."""
+    sources, key = _sources()
+    libs = {os.path.splitext(os.path.basename(s))[0]: s for s in sources}
+    paths = {stem: os.path.join(_BUILD_DIR, f"{stem}_{key}.so")
+             for stem in libs}
+    todo = [stem for stem, path in paths.items() if not os.path.exists(path)]
+    if not todo:
+        return paths
     nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (CUDA_HOME/bin/nvcc or PATH): the flash-attention "
-            "kernel cannot be built, and CUDA tensors have no other path")
+            "kernels cannot be built, and CUDA tensors have no other path")
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    tmps, procs = {}, {}
     try:
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _CSRC],
-                             capture_output=True, text=True)
+        for stem in todo:
+            fd, tmps[stem] = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            procs[stem] = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmps[stem], libs[stem]],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        outs = {stem: proc.communicate() for stem, proc in procs.items()}
         with open(os.path.join(_BUILD_DIR, "build.log"), "w") as f:
-            f.write(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}) building {_CSRC}:\n"
-                f"{res.stderr[-4000:]}")
-        os.replace(tmp, lib_path)
+            for stem, (out, err) in outs.items():
+                f.write(f"==== {libs[stem]}\n{out}{err}")
+        for stem, proc in procs.items():
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) building {libs[stem]}:\n"
+                    f"{outs[stem][1][-4000:]}")
+        for stem in todo:
+            os.replace(tmps[stem], paths[stem])
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib_path
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps.values():
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
 
 
-def _load() -> ctypes.CDLL:
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# pointers..., strides, B, H, T, S, D, is_bf16, scale, stream
+_TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
+
+
+def _load() -> types.SimpleNamespace:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.flash_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.POINTER(ctypes.c_longlong),
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-            ]
-            lib.flash_fwd.restype = ctypes.c_int
-            _lib = lib
+            paths = build()
+            fwd = ctypes.CDLL(paths["flash_fwd"])
+            bwd = ctypes.CDLL(paths["flash_bwd"])
+            for fn, n_ptrs in ((fwd.flash_fwd, 5), (bwd.flash_bwd_dq, 7),
+                               (bwd.flash_bwd_dkv, 8)):
+                fn.argtypes = [_PTR] * n_ptrs + _TAIL
+                fn.restype = ctypes.c_int
+            _lib = types.SimpleNamespace(fwd=fwd, bwd=bwd)
         return _lib
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _scale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q pre-scaled in f32 and rounded to the input dtype (the JAX
+    _scale_q), returned as f32."""
+    return (q.float() * scale).to(q.dtype).float()
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the kernel: (B, H, T, D) x (B, H, S, D) ->
+    """The plain version of flash_fwd: (B, H, T, D) x (B, H, S, D) ->
     (O (B, H, T, D) in the input dtype, L (B, H, T) float32).
 
     q is pre-scaled in f32 and rounded to the input dtype (the JAX
     _scale_q); the scores, softmax and L are float32."""
-    qs = (q.float() * scale).to(q.dtype)
-    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    s = torch.matmul(_scale_q(q, scale), k.float().transpose(-1, -2))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.matmul(p, v.float()).to(q.dtype), lse
 
 
-def _check(q, k, v):
+def _probs(q, k, lse, scale):
+    """(Q~ as f32, P = exp(Q~ K^T - L) in f32)."""
+    qs = _scale_q(q, scale)
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    return qs, torch.exp(s - lse[..., None])
+
+
+def _ds(p, do, v, delta, dt):
+    """dS = P * (dO V^T - delta) in f32, rounded to the input dtype."""
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return (p * (dp - delta[..., None])).to(dt).float()
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale: float
+                           ) -> torch.Tensor:
+    """The plain version of flash_bwd_dq (the JAX _bwd_dq_kernel and the
+    scale _bwd applies after it): dQ = scale * dS K, rounded to the input
+    dtype before and after the scale."""
+    _, p = _probs(q, k, lse, scale)
+    ds = _ds(p, do, v, delta, q.dtype)
+    dq = torch.matmul(ds, k.float()).to(q.dtype)
+    return (dq.float() * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of flash_bwd_dkv (the JAX _bwd_dkv_kernel):
+    dV = P^T dO with P rounded to the input dtype; dK = dS^T Q~ with no
+    further scale."""
+    qs, p = _probs(q, k, lse, scale)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do.float())
+    ds = _ds(p, do, v, delta, q.dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (B, H, T) contiguous."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, scale: float
+                                       ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the whole backward (the JAX _bwd): (dq, dk, dv)
+    in the input dtype, from the forward's residuals (q, k, v, O, L) and
+    dO."""
+    delta = _delta(o, do)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale), dk, dv
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _layout_ok(t: torch.Tensor) -> bool:
+    """What the kernels' 16-byte vector loads take: a unit last stride,
+    other strides multiples of 8 elements, a 16-byte aligned base."""
+    return (t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check(q, k, v, do=None):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention needs CUDA or CPU tensors, got "
+                         f"{q.device}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes (B, H, T, D) tensors")
     B, H, T, D = q.shape
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+    named = [("q", q), ("k", k), ("v", v)]
+    if do is not None:
+        if do.shape != q.shape:
+            raise ValueError(f"dO{tuple(do.shape)} is not q's shape "
+                             f"{tuple(q.shape)}")
+        named.append(("dO", do))
+    if any(t.dtype != q.dtype for _, t in named) or q.dtype not in (
             torch.bfloat16, torch.float32):
         raise ValueError(f"flash_attention takes bf16 or f32, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+                         f"{[str(t.dtype) for _, t in named]}")
     if D % 8 or D > 256 or T < 1 or k.shape[2] < 1 or B * H > 65535:
         raise ValueError(f"unsupported shape q{tuple(q.shape)} "
                          f"k{tuple(k.shape)}: needs D % 8 == 0, D <= 256")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        # 16-byte vector loads: unit last stride, other strides multiples
-        # of 8 elements, 16-byte aligned base
-        if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
-                or t.data_ptr() % 16):
+        if not _layout_ok(t):
             raise ValueError(
                 f"{name} must have a unit last stride, strides that are "
                 f"multiples of 8 and a 16-byte aligned base; got strides "
                 f"{t.stride()}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, T, D) non-causal attention -> (O, L), O in q's layout and
-    dtype, L float32 (B, H, T).
+def _check_stats(q, *stats):
+    B, H, T, _ = q.shape
+    for t in stats:
+        if (t.shape != (B, H, T) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"L and delta must be contiguous float32 "
+                             f"({B}, {H}, {T}) on {q.device}, got "
+                             f"{t.dtype}{tuple(t.shape)}")
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. `flash_attention.launches` counts kernel launches."""
+
+def _strides(*tensors) -> ctypes.Array:
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch(fn, name, ptrs, strides, q, k, scale):
+    B, H, T, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*ptrs, strides, B, H, T, k.shape[2], D,
+                int(q.dtype == torch.bfloat16), float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc} for "
+                           f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, T, D) non-causal attention forward -> (O, L), O in q's layout
+    and dtype, L float32 (B, H, T). No autograd: see flash_attention."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention has no backward yet (ROADMAP Queue B items 2-3: "
-            "the dQ and dK/dV kernels); call it under torch.no_grad() or "
-            "torch.inference_mode()")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention needs CUDA or CPU tensors, got "
-                         f"{q.device}")
     _check(q, k, v)
-    B, H, T, D = q.shape
-    S = k.shape[2]
+    B, H, T, _ = q.shape
     # O in q's layout when q is dense (the UNet's transposed views), else
     # contiguous; either way strides the kernel takes (checked for q above)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    lib = _load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), lse.data_ptr(), strides, B, H, T,
-                           S, D, int(q.dtype == torch.bfloat16),
-                           float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {rc} for "
-                           f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
-    flash_attention.launches += 1
+    _launch(_load().fwd.flash_fwd, "flash_fwd",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr()), _strides(q, k, v, out), q, k, scale)
+    flash_fwd.launches += 1
     return out, lse
 
 
-flash_attention.launches = 0
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """dQ in q's layout and dtype, from the forward's q, k, v, L, the
+    incoming dO and delta = rowsum(dO * O)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    _check(q, k, v, do)
+    _check_stats(q, lse, delta)
+    dq = torch.empty_like(q)
+    _launch(_load().bwd.flash_bwd_dq, "flash_bwd_dq",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
+            _strides(q, k, v, do, dq), q, k, scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) in k's and v's layouts and dtype; inputs as flash_bwd_dq."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    _check(q, k, v, do)
+    _check_stats(q, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_load().bwd.flash_bwd_dkv, "flash_bwd_dkv",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            _strides(q, k, v, do, dk, dv), q, k, scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, do, scale: float
+                             ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) through the two backward kernels (their plain versions
+    on the CPU)."""
+    if do.device.type == "cuda" and not _layout_ok(do):
+        # dO comes with whatever strides autograd gives it (the UNet's is
+        # a transposed view the kernels take as it is); one copy otherwise
+        do = do.contiguous()
+    delta = _delta(o, do)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+    return flash_bwd_dq(q, k, v, do, lse, delta, scale), dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX custom_vjp (flash_attention.py:340-353): the forward saves
+    (q, k, v, O, L); `scale` takes no gradient; L is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
+                                              ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, T, D) non-causal attention -> (O, L), O in q's layout and
+    dtype, L float32 (B, H, T), differentiable in q, k and v.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels or
+    raise."""
+    return _FlashAttention.apply(q, k, v, scale)
 
 
 def supported(q_shape, k_shape) -> bool:

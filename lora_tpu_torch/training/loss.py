@@ -1,0 +1,187 @@
+"""The diffusion training loss, the counterpart of lora_tpu/training/loss.py.
+
+The trainable leaves (LoRA trees and the TI buffer) are inputs of the loss,
+as in the JAX package; the frozen base never requires grad, so autograd
+reaches only them:
+
+    trainable = {"lora_unet": LoraTree | None,
+                 "lora_text": LoraTree | None,
+                 "ti": {"embeds": (K, D)} | None}
+
+Random draws (posterior noise of the VAE, diffusion noise, timesteps, the
+LoRA dropout seed) come from an explicit torch.Generator, in that order.
+torch cannot give jax.random's bits, so a caller can hand any of them in
+instead (`noise=`, `timesteps=`, `vae_noise=`, `masked_vae_noise=`,
+`dropout_seed=`): the parity tests draw them with jax.random and pass them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from ..models import schedulers
+from ..models.clip import clip_text_forward
+from ..models.config import CLIPTextConfig, UNetConfig, VAEConfig
+from ..models.unet import unet_forward
+from ..models.vae import vae_encode
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    t_multiplier: float = 1.0
+    mask_temperature: float = 1.0
+    cached_latents: bool = True
+    train_inpainting: bool = False
+    with_prior_preservation: bool = False
+    prior_loss_weight: float = 1.0
+    lora_dropout_p: float = 0.0
+    gradient_checkpointing: bool = False
+
+
+def _resize_mask_nearest(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W, 1) -> (B, h, w, 1) nearest, with the JAX package's index
+    arithmetic (f32 product, truncated)."""
+    _, H, W, _ = mask.shape
+    ys = (torch.arange(h, dtype=torch.float32) * (H / h)).long()
+    xs = (torch.arange(w, dtype=torch.float32) * (W / w)).long()
+    return mask[:, ys.to(mask.device)][:, :, xs.to(mask.device)]
+
+
+def loss_step(
+    trainable: Dict,
+    batch: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    *,
+    unet_params,
+    text_params,
+    vae_params,
+    unet_cfg: UNetConfig,
+    text_cfg: CLIPTextConfig,
+    vae_cfg: VAEConfig,
+    sched: schedulers.NoiseSchedule,
+    cfg: LossConfig,
+    ti_ids: Optional[torch.Tensor] = None,
+    dtype=torch.float32,
+    noise: Optional[torch.Tensor] = None,
+    timesteps: Optional[torch.Tensor] = None,
+    vae_noise: Optional[torch.Tensor] = None,
+    masked_vae_noise: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """The scalar f32 loss; differentiable in the trainable leaves.
+
+    Batch keys (NHWC images and latents, as in the JAX package): "latents"
+    (cached) or "pixel_values"; "encoder_hidden_states" (precomputed) or
+    "input_ids"; optionally "mask" (pixel space), "is_instance", and for
+    inpainting "masked_image_latents" + "mask_values" (cached) or
+    "masked_image_values" + "mask_values"."""
+    if unet_cfg.addition_embed_type == "text_time":
+        raise NotImplementedError(
+            "SDXL training (text_time conditioning) is not ported yet "
+            "(ROADMAP Slice 6)")
+    ref = batch.get("latents", batch.get("pixel_values"))
+    device = ref.device
+
+    if cfg.cached_latents:
+        latents = batch["latents"].to(dtype)
+    else:
+        latents = vae_encode(vae_params, batch["pixel_values"].to(dtype),
+                             vae_cfg, generator, noise=vae_noise)
+
+    if noise is None:
+        noise = torch.randn(latents.shape, generator=generator,
+                            device=device, dtype=latents.dtype)
+    noise = noise.to(device=device, dtype=latents.dtype)
+    bsz = latents.shape[0]
+    t_hi = int(sched.num_train_timesteps * cfg.t_multiplier)
+    if timesteps is None:
+        timesteps = torch.randint(0, t_hi, (bsz,), generator=generator,
+                                  device=device)
+    timesteps = timesteps.to(device=device, dtype=torch.long)
+
+    noisy = schedulers.add_noise(sched, latents, noise, timesteps)
+
+    if cfg.train_inpainting:
+        if cfg.cached_latents:
+            masked_latents = batch["masked_image_latents"].to(dtype)
+            mask_small = batch["mask_values"].to(dtype)
+        else:
+            masked_latents = vae_encode(
+                vae_params, batch["masked_image_values"].to(dtype), vae_cfg,
+                generator, noise=masked_vae_noise)
+            mask_small = _resize_mask_nearest(
+                batch["mask_values"].to(dtype), latents.shape[1],
+                latents.shape[2])
+        model_input = torch.cat([noisy, mask_small, masked_latents], dim=-1)
+    else:
+        model_input = noisy
+
+    lora_text = trainable.get("lora_text")
+    ti = trainable.get("ti")
+    if "encoder_hidden_states" in batch:
+        # precomputed text embeddings (only valid when neither the text LoRA
+        # nor TI trains): CLIP leaves the hot loop, as VAE caching does
+        encoder_hidden = batch["encoder_hidden_states"].to(dtype)
+    else:
+        encoder_hidden = clip_text_forward(
+            text_params, batch["input_ids"], text_cfg, lora=lora_text,
+            ti_embeds=ti["embeds"] if ti is not None else None,
+            ti_ids=ti_ids, dtype=dtype)
+
+    lora_unet = trainable.get("lora_unet")
+    if lora_unet is not None and cfg.lora_dropout_p > 0.0:
+        if dropout_seed is None:
+            # the per-site generators need a host int: with a CUDA generator
+            # this is one sync per step, and only when dropout is on
+            dropout_seed = int(torch.randint(
+                0, 2**31 - 1, (1,), generator=generator, device=device).item())
+        lora_unet = {**lora_unet, "rng": dropout_seed,
+                     "dropout_p": cfg.lora_dropout_p}
+    model_pred = unet_forward(unet_params, model_input, timesteps,
+                              encoder_hidden, unet_cfg, lora=lora_unet,
+                              remat=cfg.gradient_checkpointing)
+
+    if sched.prediction_type == "epsilon":
+        target = noise
+    elif sched.prediction_type == "v_prediction":
+        target = schedulers.get_velocity(sched, latents, noise, timesteps)
+    else:
+        raise ValueError(f"Unknown prediction type {sched.prediction_type}")
+
+    if batch.get("mask") is not None:
+        # pixel-space mask -> latent resolution, temperature-sharpened,
+        # peak-normalised (the JAX loss.py:169-178)
+        mask = _resize_mask_nearest(batch["mask"].float(),
+                                    model_pred.shape[1], model_pred.shape[2])
+        mask = (mask + 0.01) ** cfg.mask_temperature
+        mask = mask / mask.max()
+        model_pred = model_pred * mask.to(model_pred.dtype)
+        target = target * mask.to(target.dtype)
+
+    se = (model_pred.float() - target.float()) ** 2
+    per_example = se.mean(dim=(1, 2, 3))
+
+    if cfg.with_prior_preservation:
+        return prior_preserving_reduce(per_example, batch.get("is_instance"),
+                                       cfg.prior_loss_weight)
+    return per_example.mean()
+
+
+def prior_preserving_reduce(per_example: torch.Tensor,
+                            is_instance: Optional[torch.Tensor],
+                            prior_loss_weight: float) -> torch.Tensor:
+    """instance.mean() + w * class.mean(). `is_instance` (1.0 for instance
+    rows, 0.0 for class rows) carries the row layout; without it the batch
+    is split at its midpoint ([instance | class])."""
+    if is_instance is not None:
+        m = is_instance.float()
+        inst = (per_example * m).sum() / m.sum()
+        prior = (per_example * (1.0 - m)).sum() / (1.0 - m).sum()
+    else:
+        half = per_example.shape[0] // 2
+        inst = per_example[:half].mean()
+        prior = per_example[half:].mean()
+    return inst + prior_loss_weight * prior

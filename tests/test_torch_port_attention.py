@@ -1,8 +1,12 @@
-"""The port's attention against lora_tpu's: the flash kernel's plain PyTorch
-version against the Pallas forward (interpret mode on the CPU), the plain
-attention path against the XLA path, the routing rule, and the wrapper's
-no-fallback rule for CUDA tensors (the CUDA kernel itself runs only on the
-card: chip_smoke.py compares it with the plain version there)."""
+"""The port's attention against lora_tpu's: the flash kernels' plain PyTorch
+versions against the Pallas forward and backward (interpret mode on the
+CPU), the autograd Function's backward against autograd through the plain
+attention path, the plain attention path against the XLA path, the routing
+rule, and the wrappers' no-fallback rule for CUDA tensors (the CUDA kernels
+themselves run only on the card: chip_smoke.py compares them with their
+plain versions there)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -75,12 +79,70 @@ def test_supported_agrees_with_jax(q_shape, k_shape):
     assert t_fa.supported(q_shape, k_shape) == j_fa.supported(q_shape, k_shape)
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 256, 512, 40), (1, 2, 256, 256, 32),
+                                   (1, 2, 512, 256, 64), (1, 2, 256, 384, 160)])
+def test_backward_reference_matches_pallas(shape):
+    """flash_attention_backward_reference against the Pallas _bwd on _fwd's
+    residuals: the shapes of tests/test_flash_attention.py (D = 32, 40, 64,
+    and 160; T != S) and its gradient tolerance."""
+    B, H, T, S, D = shape
+    q, k, v = _qkv(*shape, seed=4)
+    do = np.random.default_rng(5).standard_normal((B, H, T, D),
+                                                  dtype=np.float32)
+    scale = D ** -0.5
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    o_j, lse_j = j_fa._fwd(jq, jk, jv, scale)
+    want = j_fa._bwd(scale, (jq, jk, jv, o_j, lse_j), jnp.asarray(do))
+    got = t_fa.flash_attention_backward_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(np.array(o_j)),
+        torch.from_numpy(np.array(lse_j).reshape(B, H, T)),
+        torch.from_numpy(do), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-3,
+                                   atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 2, 256, 256, 40), torch.float32),
+    ((2, 2, 300, 77, 64), torch.float32),
+    ((1, 2, 256, 128, 80), torch.bfloat16),
+])
+def test_function_backward_matches_autograd(shape, dtype):
+    """The autograd Function's CPU backward (the two plain backward pieces)
+    against autograd through the plain attention path. f32: the same
+    function, differentiated two ways: 1e-5. bf16: both round P to bf16
+    (the Function before P.V and dS, the plain path after its f32 softmax)
+    and the gradients to bf16: 2e-2 of the largest gradient."""
+    B, H, T, S, D = shape
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(*shape, seed=6))
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (B, H, T, D), dtype=np.float32)).to(dtype)
+    scale = D ** -0.5
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = t_fa.flash_attention(*a, scale)
+    assert not lse.requires_grad
+    (o.float() * do.float()).sum().backward()
+    ref = t_att._plain_attention(*b, scale, None)
+    (ref.float() * do.float()).sum().backward()
+    for name, x, y in zip(("dq", "dk", "dv"), a, b):
+        assert x.grad.dtype == dtype and x.grad.shape == x.shape
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        big = y.grad.float().abs().max().item()
+        torch.testing.assert_close(x.grad.float(), y.grad.float(), rtol=tol,
+                                   atol=tol * big, msg=name)
+
+
 def test_cpu_wrapper_runs_the_plain_version():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 300, 77, 64, seed=2))
-    before = t_fa.flash_attention.launches
+    counters = (t_fa.flash_fwd, t_fa.flash_bwd_dq, t_fa.flash_bwd_dkv)
+    before = [f.launches for f in counters]
+    q.requires_grad_()
     o, lse = t_fa.flash_attention(q, k, v, 0.125)
-    o_ref, lse_ref = t_fa.flash_attention_reference(q, k, v, 0.125)
-    assert t_fa.flash_attention.launches == before
+    o.sum().backward()
+    o_ref, lse_ref = t_fa.flash_attention_reference(q.detach(), k, v, 0.125)
+    assert [f.launches for f in counters] == before
     torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=0)
     assert o.shape == (1, 2, 300, 64) and lse.shape == (1, 2, 300)
@@ -88,15 +150,20 @@ def test_cpu_wrapper_runs_the_plain_version():
 
 
 def test_non_cpu_tensors_never_fall_back():
-    """Off the CPU the wrapper launches its kernel or raises: a tensor that
-    requires grad raises (no backward kernel yet), and a device that is not
-    CUDA raises instead of taking the plain version."""
+    """Off the CPU each wrapper launches its kernel or raises: a device that
+    is not CUDA raises instead of taking the plain version, whether or not
+    the tensors require grad, in the forward and in both backward
+    wrappers."""
     q = torch.empty((1, 2, 256, 64), device="meta", requires_grad=True)
     k = torch.empty((1, 2, 256, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B items 2-3"):
+    stats = torch.empty((1, 2, 256), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         t_fa.flash_attention(q, k, k, 0.125)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         t_fa.flash_attention(q.detach(), k, k, 0.125)
+    for bwd in (t_fa.flash_bwd_dq, t_fa.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            bwd(q.detach(), k, k, k, stats, stats, 0.125)
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
@@ -113,4 +180,18 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         t_fa.build()
     assert not any(p.suffix == ".so" for p in tmp_path.iterdir())
+
+
+def test_build_key_covers_every_source(tmp_path, monkeypatch):
+    """One library per csrc/*.cu, keyed by every file under csrc/ (the
+    shared header included): editing any of them rebuilds all."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (src / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(t_fa, "_CSRC_DIR", str(src))
+    sources, key = t_fa._sources()
+    assert [os.path.basename(s) for s in sources] == ["a.cu", "b.cu"]
+    (src / "common.cuh").write_text("// changed\n")
+    assert t_fa._sources()[1] != key
 

@@ -175,7 +175,10 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.models.unet", "lora_tpu_torch.models.vae",
                "lora_tpu_torch.ops.attention",
                "lora_tpu_torch.ops.flash_attention",
-               "lora_tpu_torch.pipelines.sd"]
+               "lora_tpu_torch.pipelines.sd",
+               "lora_tpu_torch.training.loss",
+               "lora_tpu_torch.training.optim",
+               "lora_tpu_torch.training.train_step"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
