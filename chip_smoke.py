@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the repo root, one CUDA device
 
-Phases, each printing its own lines (about 7 minutes on one H100, half of
+Phases, each printing its own lines (about 5 minutes on one H100, half of
 it the build):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-  2. build: compiles the flash-attention kernels of
-     lora_tpu_torch/ops/csrc/ (flash_fwd.cu, flash_bwd.cu; one nvcc each,
-     in parallel) for sm_90a into lora_tpu_torch/_build/.
+  2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
+     (flash_fwd.cu, flash_bwd.cu, int8_matmul.cu; one nvcc each, in
+     parallel) for sm_90a into lora_tpu_torch/_build/.
   3. kernel: the forward kernel against its plain PyTorch version on the
      card at the SD-1.5 512px attention shapes (serving batch 4), bf16 and
      f32, plus one ragged call; max abs errors and median times (CUDA
@@ -31,6 +31,22 @@ it the build):
      fixed draws, through the kernels and through the plain attention path:
      the relative L2 distance of the two LoRA gradients; then the same with
      gradient checkpointing: the same loss, and 30 forward launches.
+  8. int8 kernel: the int8-weight matmul kernel against its plain version
+     at every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the
+     VAE decoder's attention), bf16 and f32, plus ragged and unaligned
+     calls; relative errors, and median times at request A's shapes. Every
+     int8 call of phase 9 is recorded, and one at a shape not checked
+     here fails the run.
+  9. serve_int8: quantized serving at full SD-1.5 width through HTTP. The
+     slice's bf16 pipeline with the LoRA + TI at scale 0.8, then
+     quantize_base(): param bytes before and after (UNet <= 0.55x), one
+     UNet call at batch 4 within relative L2 5e-2 of the bf16 one and 182
+     int8 launches; a PipelineServer on localhost (max_batch 4, 500 ms
+     window) warmed up, then request A (the 2 prompts, 50 steps, CFG 7.5):
+     two 512x512 PNGs, exactly the int8 launches the weights imply and 750
+     forward-attention launches, pixels equal to the pipeline called
+     directly; request B (4 concurrent one-prompt requests) coalesced into
+     one device batch of 4; healthz, metrics and drain.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -40,18 +56,25 @@ launch counts, errors and times.
 
 from __future__ import annotations
 
+import base64
+import contextlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
+from lora_tpu_torch.ops import build as kernel_build
 from lora_tpu_torch.ops import flash_attention as fa
+from lora_tpu_torch.ops import int8_matmul as i8
 
 SEED = 0
 # max |kernel - plain| over O and over L. bf16: O is stored in bf16 (an ulp
@@ -92,6 +115,26 @@ GRAD_REL_L2_TOL = 5e-2
 # the same step with gradient checkpointing recomputes the same forward on
 # the same inputs: the loss agrees to f32 rounding of the bf16 model's sums
 REMAT_LOSS_RTOL = 1e-3
+# max |kernel - plain| / max |plain| of the int8 matmul. Both round x to
+# bf16 and sum exact bf16 x int8 products in f32, in another order (up to
+# K = 5120 terms). f32 outputs: that order alone, 1e-5. bf16 outputs: the
+# one rounding to bf16 (2^-8 = 3.9e-3 relative) may land on either side.
+INT8_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# (M, K, N) that are not on the path: masked M, N and K tails, K % 16 != 0
+# (W read element by element), odd K (x too)
+INT8_RAGGED = ((7, 64, 77), (100, 320, 320), (33, 40, 48), (5, 13, 9))
+INT8_MAIN_SHAPE = (16384, 320, 2560)  # the GEGLU projection at 64x64
+# the quantized UNet call at batch 4 against the bf16 one on the same
+# inputs: per-channel int8 weights (half a step of 1/127 of each channel's
+# largest value) through 16 transformers and 22 resnets
+QUANT_UNET_REL_L2_TOL = 5e-2
+QUANT_UNET_BYTES_MAX = 0.55  # of the bf16 UNet's parameter bytes
+# 2-D int8 dense weights of SD-1.5 after quantize_base(), one int8_matmul
+# launch each per call: UNet (16 transformers: q/k/v/out x 2 attentions,
+# GEGLU proj, ff net.2; 22 resnets: time_emb_proj), CLIP (12 layers: q/k/v/
+# out, fc1, fc2), the VAE decoder's mid-block attention (q/k/v/out)
+INT8_PER_CALL = {"unet": 182, "clip_encode": 72, "vae_decode": 4}
+B_REQUESTS = 4  # request B: concurrent one-prompt requests, one device batch
 
 
 def log(*parts) -> None:
@@ -117,7 +160,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = fa.build()
+    paths = kernel_build.build()
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -238,6 +281,116 @@ def phase_bwd_kernels():
     return rows
 
 
+def int8_path_shapes(unet_batches=(4,), clip_prompts=(2, 1),
+                     vae_latents=(2,)):
+    """Every (M, K, N) the int8 kernel runs at in SD-1.5 at 512px: the UNet
+    at each device batch (CFG rows), CLIP on each encode's prompt count,
+    the VAE decoder's mid-block attention on each latent count. The
+    defaults are request A's: the UNet at batch 4 (2 prompts under CFG),
+    CLIP on the 2 prompts and on the 1 negative prompt, 2 latents."""
+    shapes = []
+    for b in unet_batches:
+        # transformers at 64x64, 32x32, 16x16 and the 8x8 mid block:
+        # q/k/v/out of self-attention and q/out of cross-attention, GEGLU
+        # proj, ff net.2
+        hw = 64 * 64 * b
+        for m, c in ((hw, 320), (hw // 4, 640), (hw // 16, 1280),
+                     (hw // 64, 1280)):
+            shapes += [(m, c, c), (m, c, 8 * c), (m, 4 * c, c)]
+        for c in (320, 640, 1280):
+            shapes += [(b * 77, 768, c),   # cross-attention k/v
+                       (b, 1280, c)]       # resnet time_emb_proj
+    for n in clip_prompts:                 # CLIP q/k/v/out, fc1, fc2
+        m = 77 * n
+        shapes += [(m, 768, 768), (m, 768, 3072), (m, 3072, 768)]
+    for n in vae_latents:                  # VAE decoder attention
+        shapes.append((n * 64 * 64, 512, 512))
+    return list(dict.fromkeys(shapes))
+
+
+def int8_phase_shapes():
+    """The shapes phase 9 runs besides request A's: warmup of the batch
+    buckets 1, 2 and 4 (UNet at batch 2, 4, 8; CLIP on 1 or 2 new prompts;
+    1, 2, 4 latents) and request B (4 coalesced prompts: UNet at batch 8,
+    CLIP on 4 prompts, 4 latents)."""
+    request_a = set(int8_path_shapes())
+    return [s for s in int8_path_shapes((2, 4, 2 * B_REQUESTS),
+                                        (1, 2, B_REQUESTS), (1, 2, 4))
+            if s not in request_a]
+
+
+@contextlib.contextmanager
+def recording_int8_shapes(seen: set):
+    """Adds (M, K, N, dtype) of every int8 dense call made inside to `seen`
+    (the name models/layers.py calls; the wrapper and its count are
+    unchanged)."""
+    from lora_tpu_torch.models import layers
+
+    kernel = layers.int8_matmul
+
+    def recorded(x, wq, scale):
+        seen.add((x.numel() // x.shape[-1], x.shape[-1], wq.shape[0],
+                  str(x.dtype).replace("torch.", "")))
+        return kernel(x, wq, scale)
+
+    layers.int8_matmul = recorded
+    try:
+        yield seen
+    finally:
+        layers.int8_matmul = kernel
+
+
+def check_int8(M, K, N, dtype, gen, timed=True):
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.05
+    scale = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
+    wq = torch.round(w / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    with torch.inference_mode():
+        got = i8.int8_matmul(x, wq, scale)
+        want = i8.int8_matmul_reference(x, wq, scale)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        row = {"M": M, "K": K, "N": N,
+               "dtype": str(dtype).replace("torch.", ""), "err": err,
+               "rel": err / max(want.float().abs().max().item(), 1e-30)}
+        if timed:
+            row["ms"] = _time_ms(lambda: i8.int8_matmul(x, wq, scale))
+            row["plain_ms"] = _time_ms(
+                lambda: i8.int8_matmul_reference(x, wq, scale))
+    log("int8 kernel: " + json.dumps(row))
+    tol = INT8_REL_TOL[dtype]
+    if got.shape != (M, N) or got.dtype != dtype or not (
+            np.isfinite(row["rel"]) and row["rel"] <= tol):
+        raise AssertionError(f"int8_matmul disagrees with its plain version: "
+                             f"{row}, limit {tol}")
+    return row
+
+
+def phase_int8_kernels():
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, K, N in int8_path_shapes():
+            rows.append(check_int8(M, K, N, dtype, gen))
+        for M, K, N in int8_phase_shapes():
+            rows.append(check_int8(M, K, N, dtype, gen, timed=False))
+        for M, K, N in INT8_RAGGED:
+            check_int8(M, K, N, dtype, gen, timed=False)
+        # a leading batch dimension and an x whose rows are not contiguous
+        x = torch.randn((2, 7, 96), generator=gen, device="cuda").to(dtype)
+        wq = torch.randint(-127, 128, (40, 64), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        s = torch.rand((40,), generator=gen, device="cuda")
+        with torch.inference_mode():
+            got = i8.int8_matmul(x[..., 16:80], wq, s)
+            want = i8.int8_matmul_reference(x[..., 16:80], wq, s)
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        if got.shape != (2, 7, 40) or not rel <= INT8_REL_TOL[dtype]:
+            raise AssertionError(f"int8_matmul on a strided 3-D x: rel {rel}")
+    return rows
+
+
 def _random_lora_file(pipe, path, gen):
     """A rank-4 LoRA over the default UNet and text-encoder sites with
     nonzero up factors, plus one TI embed, in the indexed safetensors
@@ -265,7 +418,10 @@ def _random_lora_file(pipe, path, gen):
     save_safeloras_with_embeds(modelmap, embeds, path)
 
 
-def phase_slice(smi: str):
+def _patched_pipe(phase: str):
+    """The serving configuration: SD-1.5 in bf16 with random weights from
+    the seed, the rank-4 LoRA + one TI embed loaded with patch_pipe, at
+    scale 0.8."""
     from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
 
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -283,8 +439,13 @@ def phase_slice(smi: str):
                              f"unet={pipe.lora_unet is not None}, "
                              f"text={pipe.lora_text is not None}")
     torch.cuda.synchronize()
-    log(f"slice: SD-1.5 bf16 pipeline built and patched in "
+    log(f"{phase}: SD-1.5 bf16 pipeline built and patched in "
         f"{time.perf_counter() - t0:.1f} s")
+    return pipe
+
+
+def phase_slice(smi: str):
+    pipe = _patched_pipe("slice")
 
     def run():
         lat_gen = torch.Generator("cuda").manual_seed(SEED + 1)
@@ -339,9 +500,11 @@ def phase_slice(smi: str):
         "launches": launches, "unet_lora_max_diff": lora_diff,
         "rerun_max_diff": float(np.abs(images - first).max()),
         "card": smi}))
+    if i8.int8_matmul.launches:
+        raise AssertionError("the bf16 pipeline launched the int8 kernel")
     del pipe
     torch.cuda.empty_cache()
-    return launches
+    return launches, warm_s
 
 
 def _counts():
@@ -353,6 +516,7 @@ def _zero_counts():
     fa.flash_fwd.launches = 0
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
+    i8.int8_matmul.launches = 0
 
 
 def _train_models(gen):
@@ -526,14 +690,234 @@ def phase_grad():
     return row
 
 
+def _param_bytes(module) -> int:
+    return sum(t.numel() * t.element_size() for t in module.parameters())
+
+
+def _int8_dense(module, prefix: str = "") -> int:
+    """2-D int8 weights under `prefix`: the int8_matmul launches of one
+    call through them."""
+    return sum(1 for name, t in module.named_parameters()
+               if t.dtype == torch.int8 and t.ndim == 2
+               and name.startswith(prefix))
+
+
+def _http(port: int, path: str, payload=None):
+    """(status, JSON body) of a request to the server on localhost; any
+    status but 200 raises."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.loads(r.read())
+
+
+def _check_pngs(images, n: int, size: int) -> None:
+    """n base64 PNGs, each 8-bit RGB of size x size (signature and IHDR)."""
+    if len(images) != n:
+        raise AssertionError(f"{len(images)} images, not {n}")
+    for b64 in images:
+        png = base64.b64decode(b64)
+        w, h, depth, color = struct.unpack(">IIBB", png[16:26])
+        if png[:8] != b"\x89PNG\r\n\x1a\n" or png[12:16] != b"IHDR" or \
+                (w, h, depth, color) != (size, size, 8, 2):
+            raise AssertionError(f"not a {size}x{size} RGB PNG: {png[:32]!r}")
+
+
+def phase_serve_int8(smi: str, bf16_request_s: float):
+    """Quantized serving at full SD-1.5 width through PipelineServer."""
+    from lora_tpu_torch import serve
+
+    pipe = _patched_pipe("serve_int8")
+    # one UNet call at batch 4 (the 2 prompts under CFG), bf16 weights
+    with torch.inference_mode():
+        ctx = torch.cat([pipe.encode_prompt([""] * len(PROMPTS)),
+                         pipe.encode_prompt(PROMPTS)])
+        lat = pipe.prepare_latents(2 * len(PROMPTS), 512, 512,
+                                   torch.Generator("cuda").manual_seed(SEED))
+        t = torch.full((2 * len(PROMPTS),), 501, device="cuda")
+        ref = pipe.unet(lat, t, ctx, lora=pipe.lora_unet).float()
+    modules = {"unet": pipe.unet, "text_encoder": pipe.text_encoder,
+               "vae": pipe.vae}
+    bytes_bf16 = {k: _param_bytes(m) for k, m in modules.items()}
+    t0 = time.perf_counter()
+    pipe.quantize_base()
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    bytes_int8 = {k: _param_bytes(m) for k, m in modules.items()}
+    per_call = {"unet": _int8_dense(pipe.unet),
+                "clip_encode": _int8_dense(pipe.text_encoder),
+                "vae_decode": _int8_dense(pipe.vae, "decoder.")}
+    if per_call != INT8_PER_CALL:
+        raise AssertionError(f"2-D int8 weights per call {per_call}, not "
+                             f"{INT8_PER_CALL}")
+    ratio = bytes_int8["unet"] / bytes_bf16["unet"]
+    _zero_counts()
+    with torch.inference_mode():
+        out = pipe.unet(lat, t, ctx, lora=pipe.lora_unet).float()
+    torch.cuda.synchronize()
+    unet_launches = i8.int8_matmul.launches
+    rel = ((out - ref).norm() / ref.norm()).item()
+    log("serve_int8: " + json.dumps({
+        "param_bytes_bf16": bytes_bf16, "param_bytes_int8": bytes_int8,
+        "unet_bytes_ratio": ratio, "quantize_s": quantize_s,
+        "unet_call_rel_l2_vs_bf16": rel, "unet_call_int8_launches":
+        unet_launches, "limits": {"rel_l2": QUANT_UNET_REL_L2_TOL,
+                                  "unet_bytes_ratio": QUANT_UNET_BYTES_MAX}}))
+    if ratio > QUANT_UNET_BYTES_MAX:
+        raise AssertionError(f"quantized UNet holds {ratio:.3f}x its bf16 "
+                             f"bytes")
+    if unet_launches != per_call["unet"]:
+        raise AssertionError(f"one UNet call launched int8_matmul "
+                             f"{unet_launches} times")
+    if not (np.isfinite(rel) and rel <= QUANT_UNET_REL_L2_TOL):
+        raise AssertionError(f"quantized UNet call is {rel} (relative L2) "
+                             f"from the bf16 one")
+    del ref, out, ctx, lat
+
+    encodes = [0]  # CLIP encode calls, each one int8 launch per 2-D weight
+    encode_prompt = pipe.encode_prompt
+
+    def counted_encode(prompts):
+        encodes[0] += 1
+        return encode_prompt(prompts)
+
+    pipe.encode_prompt = counted_encode
+    srv = serve.PipelineServer(pipe, port=0, max_batch=4,
+                               batch_window_ms=500.0).start()
+    try:
+        warmup_s = srv.warmup(steps=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def want(encode_calls):
+            return (per_call["unet"] * STEPS + per_call["clip_encode"]
+                    * encode_calls + per_call["vae_decode"])
+
+        # request A: the 2 prompts at 50 steps, CFG 7.5; the counted run
+        encodes[0] = 0
+        _zero_counts()
+        t0 = time.perf_counter()
+        _, body = _http(srv.port, "/generate", {
+            "prompt": PROMPTS, "steps": STEPS, "guidance": 7.5,
+            "height": 512, "width": 512, "seed": 1})
+        wall_a = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches_a, fwd_a = i8.int8_matmul.launches, fa.flash_fwd.launches
+        encodes_a = encodes[0]
+        _check_pngs(body["images"], len(PROMPTS), 512)
+        if launches_a != want(encodes_a) or \
+                fwd_a != ROUTED_PER_UNET_CALL * STEPS:
+            raise AssertionError(
+                f"request A launched int8_matmul {launches_a} times (want "
+                f"{want(encodes_a)}, {encodes_a} CLIP encodes) and flash_fwd "
+                f"{fwd_a} times")
+        # the pipeline called directly with the same latents and the
+        # embeddings the server used gives the same PNGs
+        with srv.lock:
+            key = srv._embed_key_alpha()
+            emb = torch.stack([srv._embeds[(p, key)] for p in PROMPTS])
+            neg = torch.stack([srv._embeds[("", key)]] * len(PROMPTS))
+            t0 = time.perf_counter()
+            direct = pipe(None, num_inference_steps=STEPS, guidance_scale=7.5,
+                          height=512, width=512, prompt_embeds=emb,
+                          negative_prompt_embeds=neg,
+                          latents=pipe.prepare_latents(
+                              len(PROMPTS), 512, 512,
+                              torch.Generator("cuda").manual_seed(1)))
+            direct_s = time.perf_counter() - t0
+        if [serve._png_b64(im) for im in direct] != body["images"]:
+            raise AssertionError("request A's PNGs differ from the pipeline "
+                                 "called directly")
+
+        # request B: concurrent one-prompt requests in one device batch
+        results = [None] * B_REQUESTS
+        errors = []
+
+        def fire(i):
+            try:
+                results[i] = _http(srv.port, "/generate", {
+                    "prompt": f"a <s1> request {i}", "steps": STEPS,
+                    "guidance": 7.5, "height": 512, "width": 512,
+                    "seed": 10 + i})[1]
+            except Exception as e:  # re-raised below, in the main thread
+                errors.append(e)
+
+        encodes[0] = 0
+        _zero_counts()
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(B_REQUESTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall_b = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        launches_b, encodes_b = i8.int8_matmul.launches, encodes[0]
+        fwd_b = fa.flash_fwd.launches
+        for r in results:
+            _check_pngs(r["images"], 1, 512)
+        batched = [r["batched_with"] for r in results]
+        if batched != [B_REQUESTS] * B_REQUESTS or \
+                srv.last_device_batch != B_REQUESTS:
+            raise AssertionError(f"request B ran as batched_with {batched}, "
+                                 f"device batch {srv.last_device_batch}")
+        if launches_b != want(encodes_b) or \
+                fwd_b != ROUTED_PER_UNET_CALL * STEPS:
+            raise AssertionError(f"request B launched int8_matmul "
+                                 f"{launches_b} times (want "
+                                 f"{want(encodes_b)}) and flash_fwd {fwd_b}")
+
+        _, health = _http(srv.port, "/healthz")
+        _, metrics = _http(srv.port, "/metrics")
+        expect = {"requests": 1 + B_REQUESTS,
+                  "images": len(PROMPTS) + B_REQUESTS, "shed": 0,
+                  "inflight": 0, "queued_rows": 0, "scheduler_alive": True,
+                  "last_device_batch": B_REQUESTS}
+        got = {k: metrics[k] for k in expect}
+        if health.get("ok") is not True or got != expect:
+            raise AssertionError(f"healthz {health}, metrics {got} "
+                                 f"(want {expect})")
+        if srv.drain(timeout=60) is not True:
+            raise AssertionError("the server did not drain")
+    finally:
+        srv.stop()
+    log("serve_int8: " + json.dumps({
+        "request_a_wall_s": wall_a, "request_a_latency_ms": body["latency_ms"],
+        "request_a_peak_mem_gib": peak_gib, "direct_call_s": direct_s,
+        "bf16_slice_request_s": bf16_request_s,
+        "request_b_wall_s": wall_b, "request_b_batched_with": batched,
+        "warmup_s": warmup_s, "int8_launches_per_call": per_call,
+        "launches_a": {"int8_matmul": launches_a, "flash_fwd": fwd_a,
+                       "clip_encodes": encodes_a},
+        "launches_b": {"int8_matmul": launches_b, "flash_fwd": fwd_b,
+                       "clip_encodes": encodes_b},
+        "healthz_devices": health["devices"], "metrics": metrics,
+        "card": smi}))
+    del srv, pipe
+    torch.cuda.empty_cache()
+    return launches_a + launches_b, fwd_a + fwd_b
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
     bwd_rows = phase_bwd_kernels()
-    serve_launches = phase_slice(smi)
+    serve_launches, bf16_request_s = phase_slice(smi)
     train_launches = phase_train(smi)
     phase_grad()
+    int8_rows = phase_int8_kernels()
+    with recording_int8_shapes(set()) as seen:
+        int8_launches, serve_int8_fwd = phase_serve_int8(smi, bf16_request_s)
+    unchecked = seen - {(r["M"], r["K"], r["N"], r["dtype"])
+                        for r in int8_rows}
+    if unchecked:
+        raise AssertionError(f"quantized serving ran int8_matmul at shapes "
+                             f"phase 8 did not check: {sorted(unchecked)}")
 
     def at_main_shape(rs):  # bf16 at the largest training/serving shape
         return next(r for r in rs if r["dtype"] == "bfloat16"
@@ -546,10 +930,12 @@ def main() -> int:
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:104",
-        # the serving run (50 UNet calls) plus the timed training steps
-        "launches": serve_launches + train_launches[0],
+        # the serving run (50 UNet calls), the timed training steps and the
+        # two quantized HTTP requests (50 UNet calls each)
+        "launches": serve_launches + train_launches[0] + serve_int8_fwd,
         "launches_by_path": {"txt2img": serve_launches,
-                             "train": train_launches[0]},
+                             "train": train_launches[0],
+                             "serve_int8": serve_int8_fwd},
         # worst O error over the bf16 shapes the main paths run
         "max_abs_err": max(r["err_o"] for r in rows
                            if r["dtype"] == "bfloat16"),
@@ -571,6 +957,24 @@ def main() -> int:
             "ms": bwd[f"{key}_ms"],
             "plain_ms": bwd[f"{key}_plain_ms"],
         })
+    main_int8 = next(r for r in int8_rows if r["dtype"] == "bfloat16"
+                     and (r["M"], r["K"], r["N"]) == INT8_MAIN_SHAPE)
+    kernels.append({
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "lora_tpu/ops/int8_matmul.py:35",
+        # quantized serving: request A and request B, every call at a shape
+        # phase 8 checked
+        "launches": int8_launches,
+        "launches_by_path": {"serve_int8": int8_launches},
+        # worst error over the bf16 shapes the phase runs
+        "max_abs_err": max(r["err"] for r in int8_rows
+                           if r["dtype"] == "bfloat16"),
+        # median per launch at the GEGLU projection at 64x64, bf16
+        "ms": main_int8["ms"],
+        "plain_ms": main_int8["plain_ms"],
+    })
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -25,9 +25,17 @@ make_optimizer, make_train_step, LoRA dropout, gradient checkpointing):
     step = make_train_step(..., optimizer=make_optimizer(trainable, {"lora_unet": 1e-4}))
     loss = step(trainable, (unet_params, {}, {}), batch, generator)
 
+Serving also takes diffusers-layout checkpoints
+(StableDiffusionPipeline.from_pretrained), an int8 base
+(pipe.quantize_base()) and an HTTP server (serve.py, txt2img):
+
+    python -m lora_tpu_torch.serve --model DIR --quantize
+
 The UNet's spatial self-attention runs through hand-written CUDA
 flash-attention kernels (ops/csrc/flash_fwd.cu, and flash_bwd.cu for the
-dQ and dK/dV of training), built with nvcc at first use.
+dQ and dK/dV of training), and every 2-D int8 weight through a
+hand-written CUDA int8-weight matmul (ops/csrc/int8_matmul.cu), all built
+with nvcc at first use (ops/build.py).
 """
 
 __version__ = "0.1.0"

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .core.lora import LoraTree
+from .core.quantize import SCALE_SUFFIX
 
 
 def to_torch(a, device="cpu", dtype: Optional[torch.dtype] = None
@@ -42,14 +43,18 @@ def state_dict_from_jax(params: Dict[str, np.ndarray], *, device="cpu",
                         dtype: Optional[torch.dtype] = None
                         ) -> Dict[str, torch.Tensor]:
     """JAX params -> a state dict that UNet / CLIPTextModel / VAE take with
-    load_state_dict(..., strict=True)."""
+    load_state_dict(..., strict=True). Int8-quantized params
+    (core/quantize.py) keep their types whatever `dtype` says: int8 weights
+    stay int8 and their "*_scale" companions float32, so JAX-quantized
+    params load into a module that ran quantize_base()."""
     out = {}
     for name, a in params.items():
-        if name.endswith("_scale") or np.asarray(a).dtype == np.int8:
-            raise NotImplementedError(
-                f"{name}: int8-quantized params are not ported yet (ROADMAP "
-                "Queue A: the int8 path)")
-        out[name] = to_torch(a, device, dtype)
+        if np.asarray(a).dtype == np.int8:
+            out[name] = to_torch(a, device, torch.int8)
+        elif name.endswith(SCALE_SUFFIX):
+            out[name] = to_torch(a, device, torch.float32)
+        else:
+            out[name] = to_torch(a, device, dtype)
     return out
 
 

@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.lora import lora_delta_conv, lora_delta_dense
+from ..core.quantize import SCALE_SUFFIX, dequantize_weight
+from ..ops.int8_matmul import int8_matmul
 
 Params = Dict[str, torch.Tensor]
 
@@ -34,7 +36,9 @@ Params = Dict[str, torch.Tensor]
 class ParamModule(nn.Module):
     """nn.Module over a flat {dotted_name: tensor} dict. Parameters are
     frozen (requires_grad=False): only LoRA/TI leaves train, and they live
-    outside the module (training/train_step.py)."""
+    outside the module (training/train_step.py). Int8-quantized weights and
+    their float32 "*_scale" companions (core/quantize.py) are parameters
+    like any other."""
 
     def __init__(self, params: Params):
         super().__init__()
@@ -137,12 +141,16 @@ def _lora_dropout(lora, name: str, device):
 
 def dense(p: Params, name: str, x: torch.Tensor, lora=None) -> torch.Tensor:
     w = p[name + ".weight"]
-    if w.dtype == torch.int8:
-        raise NotImplementedError(
-            f"{name}: int8 base weights are the quantized serving path, not "
-            "ported yet (ROADMAP Queue A, int8 path; Queue B item 4)")
     b = p.get(name + ".bias")
-    y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    if w.dtype == torch.int8 and w.ndim == 2:
+        # int8 base (core/quantize.py): the int8 bytes go to the kernel,
+        # which widens them on chip (ops/int8_matmul.py)
+        y = int8_matmul(x, w, p[name + ".weight" + SCALE_SUFFIX])
+        if b is not None:
+            y = y + b.to(x.dtype)
+    else:
+        y = F.linear(x, dequantize_weight(p, name + ".weight", x.dtype),
+                     None if b is None else b.to(x.dtype))
     entry = _lora_entry(lora, name)
     if entry is not None:
         gen, drop = _lora_dropout(lora, name, x.device)
@@ -159,9 +167,10 @@ def conv2d(
     padding: Tuple[int, int] = (0, 0),
     lora=None,
 ) -> torch.Tensor:
-    """x: NCHW."""
+    """x: NCHW. An int8 weight is dequantized with its per-channel scale
+    (the JAX _weight, lora_tpu/models/layers.py:49)."""
     b = p.get(name + ".bias")
-    y = F.conv2d(x, p[name + ".weight"].to(x.dtype),
+    y = F.conv2d(x, dequantize_weight(p, name + ".weight", x.dtype),
                  None if b is None else b.to(x.dtype), stride, padding)
     entry = _lora_entry(lora, name)
     if entry is not None:

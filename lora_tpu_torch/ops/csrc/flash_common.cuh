@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile loads from device memory into shared memory, and the bf16 mma.sync
-// m16n8k16 instruction with the register packing its fragments need.
+// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
+// and the int8-weight matmul (int8_matmul.cu): tile loads from device memory
+// into shared memory, and the bf16 mma.sync m16n8k16 instruction with the
+// register packing its fragments need.
 //
 // Fragment layout of mma.sync m16n8k16 (PTX ISA, per lane, g = lane / 4,
 // t = lane % 4):

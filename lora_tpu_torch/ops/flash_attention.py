@@ -19,108 +19,27 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises), and counts its launches in `<wrapper>.launches`.
 
-Build: the first CUDA call compiles every csrc/*.cu with nvcc for sm_90a,
-one nvcc process per source, all started together, into shared libraries
-with plain C entry points, cached under lora_tpu_torch/_build/ by a hash of
-every source under csrc/ and the flags, and loads them with ctypes. Nothing
-is compiled or imported at module import.
+Build: the first CUDA call compiles every csrc/*.cu through ops/build.py
+(nvcc for sm_90a, plain C entry points loaded with ctypes). Nothing is
+compiled or imported at module import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import glob
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 import types
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-BQ = 256  # the JAX kernel's q block: the routing rule below keeps its shapes
+from . import build
 
-_CSRC_DIR = os.path.join(os.path.dirname(__file__), "csrc")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BQ = 256  # the JAX kernel's q block: the routing rule below keeps its shapes
 
 _lib_lock = threading.Lock()
 _lib: Optional[types.SimpleNamespace] = None  # .fwd, .bwd: ctypes.CDLL
-
-
-def _find_nvcc() -> Optional[str]:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    return shutil.which("nvcc")
-
-
-def _sources() -> Tuple[list, str]:
-    """The csrc/*.cu sources and a key over every file under csrc/ (headers
-    included) and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(_CSRC_DIR, "*"))):
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu"))), h.hexdigest()[:16]
-
-
-def build() -> Dict[str, str]:
-    """Compile each csrc/*.cu into _build/ (once per key), one nvcc process
-    per source, all started together; return {source stem: library path}.
-    nvcc's ptxas report (registers, shared memory, spills per kernel) is
-    kept beside them as build.log."""
-    sources, key = _sources()
-    libs = {os.path.splitext(os.path.basename(s))[0]: s for s in sources}
-    paths = {stem: os.path.join(_BUILD_DIR, f"{stem}_{key}.so")
-             for stem in libs}
-    todo = [stem for stem, path in paths.items() if not os.path.exists(path)]
-    if not todo:
-        return paths
-    nvcc = _find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found (CUDA_HOME/bin/nvcc or PATH): the flash-attention "
-            "kernels cannot be built, and CUDA tensors have no other path")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmps, procs = {}, {}
-    try:
-        for stem in todo:
-            fd, tmps[stem] = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            procs[stem] = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmps[stem], libs[stem]],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        outs = {stem: proc.communicate() for stem, proc in procs.items()}
-        with open(os.path.join(_BUILD_DIR, "build.log"), "w") as f:
-            for stem, (out, err) in outs.items():
-                f.write(f"==== {libs[stem]}\n{out}{err}")
-        for stem, proc in procs.items():
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {libs[stem]}:\n"
-                    f"{outs[stem][1][-4000:]}")
-        for stem in todo:
-            os.replace(tmps[stem], paths[stem])
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for tmp in tmps.values():
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return paths
-
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -132,9 +51,8 @@ def _load() -> types.SimpleNamespace:
     global _lib
     with _lib_lock:
         if _lib is None:
-            paths = build()
-            fwd = ctypes.CDLL(paths["flash_fwd"])
-            bwd = ctypes.CDLL(paths["flash_bwd"])
+            fwd = build.load_library("flash_fwd")
+            bwd = build.load_library("flash_bwd")
             for fn, n_ptrs in ((fwd.flash_fwd, 5), (bwd.flash_bwd_dq, 7),
                                (bwd.flash_bwd_dkv, 8)):
                 fn.argtypes = [_PTR] * n_ptrs + _TAIL

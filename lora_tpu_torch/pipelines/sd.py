@@ -6,11 +6,14 @@ nn.Modules and the loaded LoRAs as data (core/lora.py): patch_pipe loads a
 LoRA (+ TI embeds) file in the indexed "{model}:{idx}:up|down" schema, and
 every UNet / text-encoder call gets the LoRA tree passed in. The denoising
 loop is a Python loop under torch.inference_mode(); latents and images are
-NHWC, as in the JAX package.
+NHWC, as in the JAX package. `from_pretrained` loads a diffusers-layout
+directory (models/hf_import.py); `quantize_base` turns the base weights
+int8 (core/quantize.py); `prompt_embeds` pass precomputed conditioning
+through, as the serving embed cache does (serve.py).
 
 Still to port (ROADMAP Queue A): the other samplers (PNDM, Euler,
 DPM-Solver++), img2img and inpainting, kohya-ss / LyCORIS files in
-patch_pipe, from_pretrained (models/hf_import.py) and the int8 base.
+patch_pipe.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core import lora as lora_core
+from ..core.quantize import quantize_params_int8
 from ..core.sites import text_encoder_lora_sites, unet_lora_sites
 from ..data.tokenizer import CLIPTokenizer, default_tokenizer
 from ..formats.safetensors_io import (
@@ -37,6 +41,12 @@ from ..models.vae import VAE
 _TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
 
 
+def _float_param(module: torch.nn.Module) -> torch.Tensor:
+    """The module's first floating-point parameter (biases and norms stay
+    float under quantize_base)."""
+    return next(t for t in module.parameters() if t.is_floating_point())
+
+
 class StableDiffusionPipeline:
     def __init__(self, unet: UNet, text_encoder: CLIPTextModel, vae: VAE,
                  tokenizer: CLIPTokenizer,
@@ -46,8 +56,17 @@ class StableDiffusionPipeline:
         self.vae = vae
         self.tokenizer = tokenizer
         self.schedule = schedule or schedulers.make_schedule()
+        # the compute dtype and device, stored here rather than read from a
+        # weight later: quantize_base() turns the weights int8
+        ref = _float_param(unet)
+        self.dtype: torch.dtype = ref.dtype
+        self.device: torch.device = ref.device
         self.lora_unet: Optional[dict] = None
         self.lora_text: Optional[dict] = None
+        # bumped whenever the loaded adapters change by means other than
+        # tune_lora_scale (patch_pipe / apply_ti / remove_lora), so caches of
+        # adapter-dependent results (the serving embed LRU) see the change
+        self.adapter_generation = 0
 
     @classmethod
     def random_init(cls, generator: torch.Generator, device,
@@ -64,13 +83,30 @@ class StableDiffusionPipeline:
             VAE(vae_cfg, device=device, dtype=dtype, generator=generator),
             tokenizer or default_tokenizer(vocab_size=text_cfg.vocab_size))
 
-    @property
-    def device(self) -> torch.device:
-        return self.unet.get_parameter("conv_in.weight").device
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.float32, device="cpu",
+                        tokenizer: Optional[CLIPTokenizer] = None,
+                        require_real_tokenizer: bool = True):
+        """A diffusers-layout directory (unet/ vae/ text_encoder/
+        [scheduler/ tokenizer/]) on `device` in `dtype`.
+        require_real_tokenizer: with pretrained weights a missing CLIP vocab
+        raises rather than silently degrading to hashed ids
+        (data/tokenizer.py)."""
+        from ..models.hf_import import load_pipeline_params, load_scheduler_config
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.unet.get_parameter("conv_in.weight").dtype
+        unet_p, text_p, vae_p, cfgs = load_pipeline_params(path, dtype, device)
+        modules = []
+        for cls_, cfg, params in ((UNet, cfgs[0], unet_p),
+                                  (CLIPTextModel, cfgs[1], text_p),
+                                  (VAE, cfgs[2], vae_p)):
+            m = cls_(cfg, device="meta", dtype=dtype)
+            m.load_state_dict(params, strict=True, assign=True)
+            modules.append(m)
+        return cls(*modules,
+                   tokenizer or default_tokenizer(
+                       path, vocab_size=cfgs[1].vocab_size,
+                       require_real=require_real_tokenizer),
+                   schedule=load_scheduler_config(path))
 
     # -- LoRA / TI management (patch_pipe) ----------------------------------
     def unet_sites(self, target=None):
@@ -101,6 +137,7 @@ class StableDiffusionPipeline:
                     device=self.device))
         if patch_ti and embeds:
             self.apply_ti(embeds)
+        self.adapter_generation += 1
         return embeds
 
     def apply_ti(self, embeds: Dict[str, np.ndarray]) -> List[str]:
@@ -121,6 +158,7 @@ class StableDiffusionPipeline:
                 torch.tensor([tok_id], device=table.device))
             self.text_encoder.set_param(_TOKEN_TABLE, table)
             applied.append(token)
+        self.adapter_generation += 1
         return applied
 
     def tune_lora_scale(self, alpha: float,
@@ -135,6 +173,21 @@ class StableDiffusionPipeline:
         """The reference's monkeypatch_remove_lora (lora.py:812-847)."""
         self.lora_unet = None
         self.lora_text = None
+        self.adapter_generation += 1
+
+    def has_base_deltas(self, model: str) -> bool:
+        """Whether alpha-dependent base-param deltas (LyCORIS norm/full
+        modules) are installed on `model`. None are until kohya/LyCORIS
+        files load (ROADMAP Queue A); serving caches ask."""
+        return False
+
+    def quantize_base(self) -> None:
+        """Serving memory lever: int8 per-channel base weights for the UNet,
+        the text encoder and the VAE, in place (~2x less device memory for
+        the weights); LoRA/TI stay full precision (core/quantize.py)."""
+        for module in (self.unet, self.text_encoder, self.vae):
+            for name, t in quantize_params_int8(module.flat_params()).items():
+                module.set_param(name, t)
 
     # -- encoding -----------------------------------------------------------
     @torch.inference_mode()
@@ -174,21 +227,23 @@ class StableDiffusionPipeline:
         latents: Optional[torch.Tensor] = None,
         scheduler: str = "ddim",
         lora_idx: Optional[Sequence[int]] = None,
-    ) -> np.ndarray:
-        """txt2img: float32 images (B, height, width, 3) in [0, 1], NHWC.
-        Latents are drawn from `generator` unless given. lora_idx routes
-        each prompt through its own adapter of a stacked LoRA."""
+        prompt_embeds: Optional[torch.Tensor] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        return_latents: bool = False,
+    ):
+        """txt2img: float32 images (B, height, width, 3) in [0, 1], NHWC
+        (and the final latents with return_latents=True). Latents are drawn
+        from `generator` unless given. lora_idx routes each prompt through
+        its own adapter of a stacked LoRA. prompt_embeds (and, with CFG,
+        negative_prompt_embeds) replace the prompt strings."""
         if scheduler != "ddim":
             raise NotImplementedError(
                 f"scheduler={scheduler!r}: only 'ddim' is ported (ROADMAP "
                 "Queue A: the other samplers)")
         use_cfg = guidance_scale > 1.0
-        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
-        B = len(prompts)
-        if isinstance(negative_prompt, str):
-            negative_prompt = [negative_prompt] * B
-        text_emb = self.encode_prompt(prompts)
-        uncond = self.encode_prompt(list(negative_prompt)) if use_cfg else None
+        text_emb, uncond, B = self._resolve_cond(
+            prompt, negative_prompt, use_cfg, prompt_embeds,
+            negative_prompt_embeds)
         if latents is None:
             if generator is None:
                 raise ValueError("pass generator= (or latents=)")
@@ -198,7 +253,34 @@ class StableDiffusionPipeline:
         latents = self._denoise_ddim(latents, text_emb, uncond,
                                      guidance_scale, num_inference_steps,
                                      lora_idx)
-        return self._decode(latents)
+        images = self._decode(latents)
+        if return_latents:
+            return images, latents
+        return images
+
+    def _resolve_cond(self, prompt, negative_prompt, use_cfg: bool,
+                      prompt_embeds=None, negative_prompt_embeds=None):
+        """(text_emb, uncond or None without CFG, B) from prompt strings or
+        precomputed embeddings (the serving embed cache's passthrough; with
+        prompt_embeds the prompt strings are ignored)."""
+        if prompt_embeds is not None:
+            text_emb = torch.as_tensor(prompt_embeds, device=self.device,
+                                       dtype=self.dtype)
+            if use_cfg and negative_prompt_embeds is None:
+                raise ValueError(
+                    "negative_prompt_embeds required with prompt_embeds "
+                    "when guidance_scale > 1")
+            uncond = (torch.as_tensor(negative_prompt_embeds,
+                                      device=self.device, dtype=self.dtype)
+                      if use_cfg else None)
+            return text_emb, uncond, int(text_emb.shape[0])
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        B = len(prompts)
+        if isinstance(negative_prompt, str):
+            negative_prompt = [negative_prompt] * B
+        text_emb = self.encode_prompt(prompts)
+        uncond = self.encode_prompt(list(negative_prompt)) if use_cfg else None
+        return text_emb, uncond, B
 
     def _denoise_ddim(self, latents, text_emb, uncond, guidance_scale: float,
                       num_inference_steps: int, lora_idx=None):

@@ -1,0 +1,682 @@
+"""Serving endpoint over the port's StableDiffusionPipeline: the counterpart
+of lora_tpu/serve.py for txt2img (stdlib HTTP, no other dependency).
+
+  POST /generate   {"prompt": str | [str], "steps": int, "guidance": float,
+                    "height": int, "width": int, "seed": int,
+                    "scheduler": str, "alpha": float, "lora_idx": [int],
+                    "negative_prompt": str, "deadline_ms": float}
+                   -> {"images": [base64 PNG, ...], "latency_ms": float,
+                       "batched_with": int}
+                   -> 400 {"error": ...} for a malformed or unsupported
+                      request, rejected at admit
+                   -> 503 {"error": ...} when queued ROWS reach max_queue
+                      (prompt lists count once per prompt) or the server is
+                      draining for shutdown
+                   -> 500 {"error": ...} once the scheduler thread died
+  GET  /healthz    -> {"ok": bool, "devices": [...], "draining": bool}
+  GET  /metrics    -> requests/images served, shed count, embed cache
+                      hits/misses, queue depth, exec-time EWMA, uptime
+
+Concurrent requests with the same sampling config (steps/guidance/size/
+scheduler/alpha/negative prompt/routing) are MICRO-BATCHED: a worker thread
+coalesces them (up to `max_batch` rows, within `batch_window_ms`, cut early
+when a member's `deadline_ms` budget minus the EWMA-estimated batch
+execution time is about to be spent) into one device batch, padded up to a
+batch bucket so only len(batch_buckets) batch shapes ever run; each request
+keeps its own prompt, seed-derived latents (torch.Generator(device)
+.manual_seed(seed)) and `lora_idx` adapter routing. Prompt embeddings come
+from an LRU keyed by (text, adapter generation, effective alpha).
+
+Not ported yet (ROADMAP Queue A, Slice 3): the image modes (mode "img2img" /
+"inpaint") and their PNG decoding; such requests get a 400 at admit and are
+never half-run. SDXL pipelines (Slice 6) are refused at construction.
+"""
+
+from __future__ import annotations
+
+import base64
+import collections
+import json
+import os
+import queue
+import struct
+import sys
+import threading
+import time
+import traceback
+import zlib
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+import torch
+
+_IMAGE_MODES_TODO = ("not ported yet (ROADMAP Queue A, Slice 3: img2img / "
+                     "inpaint and the server's image modes)")
+
+
+def _png_bytes(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of a (H, W, 3) uint8 array: one IDAT, filter 0 on
+    every row. Written with zlib + struct because the serving host need not
+    have Pillow (the GPU machines this port targets do not)."""
+    h, w, _ = rgb.shape
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def _png_b64(arr: np.ndarray) -> str:
+    """A float image (H, W, 3) in [0, 1] as a base64 PNG, quantized as the
+    JAX package's _png_b64 does: clip, * 255, truncate to uint8."""
+    rgb = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+    return base64.b64encode(_png_bytes(rgb)).decode()
+
+
+class ServerOverloaded(Exception):
+    """Queue bound exceeded: shed with HTTP 503 instead of queueing into
+    certain deadline misses."""
+
+
+class SchedulerDown(Exception):
+    """The micro-batching scheduler thread died (HTTP 500): the server can
+    no longer execute work and healthz reports unhealthy; restart it."""
+
+
+class _Pending:
+    """One enqueued request awaiting its slot in a micro-batch."""
+
+    def __init__(self, req: dict):
+        self.req = req
+        self.done = threading.Event()
+        self.images = None
+        self.error: Optional[Exception] = None
+        self.batched_with = 1
+        # crash-path accounting (guarded by the server's _shed_lock):
+        # _dequeued = _collect already took our rows off _queued_rows;
+        # _failed = a crash path already failed us (idempotence flag)
+        self._dequeued = False
+        self._failed = False
+        self.t0 = time.monotonic()
+        pr = req.get("prompt", "")
+        self.n_rows = 1 if isinstance(pr, str) else len(pr)
+        # absolute latency budget; None = no deadline (fixed window only)
+        d = req.get("deadline_ms")
+        self.deadline = self.t0 + float(d) / 1000.0 if d is not None else None
+        self.mode = req.get("mode", "txt2img")
+        if self.mode in ("img2img", "inpaint"):
+            raise ValueError(f"mode {self.mode!r} is {_IMAGE_MODES_TODO}")
+        if self.mode != "txt2img":
+            raise ValueError(f"unknown mode {self.mode!r}; expected "
+                             "txt2img | img2img | inpaint")
+        # coerce EVERY field the scheduler thread would otherwise touch NOW,
+        # inside the requester's thread: malformed fields are a 400 at
+        # admit time, never a crash of a coalesced batch or of key()
+        try:
+            self.seed = int(req.get("seed", 0))
+            li = req.get("lora_idx")
+            if li is None:
+                self.lora_idx: Optional[list] = None
+            else:
+                items = li if isinstance(li, list) else [li] * self.n_rows
+                if len(items) != self.n_rows:
+                    raise ValueError(
+                        f"'lora_idx' carries {len(items)} entries for "
+                        f"{self.n_rows} prompt rows")
+                self.lora_idx = [int(i) for i in items]
+            self._key = (
+                int(req.get("steps", 30)), float(req.get("guidance", 7.5)),
+                int(req.get("height", 512)), int(req.get("width", 512)),
+                req.get("scheduler", "ddim"), req.get("alpha"),
+                req.get("negative_prompt", ""),
+                self.lora_idx is not None)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"malformed request field: {e}")
+
+    def key(self):
+        return self._key
+
+
+def _devices() -> list:
+    if torch.cuda.is_available():
+        return [f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                for i in range(torch.cuda.device_count())]
+    return ["cpu"]
+
+
+class PipelineServer:
+    def __init__(self, pipe, host: str = "127.0.0.1", port: int = 8500,
+                 max_batch: int = 8, batch_window_ms: float = 25.0,
+                 embed_cache_size: int = 256, max_queue: int = 32,
+                 batch_buckets: Optional[tuple] = None):
+        if hasattr(pipe, "encode_prompt_xl"):
+            raise NotImplementedError(
+                "SDXL pipelines are not ported yet (ROADMAP Queue A, "
+                "Slice 6: SDXL)")
+        self.pipe = pipe
+        self.lock = threading.Lock()
+        self.max_batch = max_batch
+        self.batch_window = batch_window_ms / 1000.0
+        # allowed device batch sizes (see _assemble_rows); default: powers
+        # of two up to max_batch
+        if batch_buckets is None:
+            batch_buckets = tuple(b for b in (1, 2, 4, 8, 16, 32, 64)
+                                  if b < max_batch) + (max_batch,)
+        self.batch_buckets = tuple(sorted(set(batch_buckets)))
+        # every group the coalescer cuts (rows <= max_batch) pads up into
+        # some warmed bucket: no live request meets an unwarmed shape
+        if self.batch_buckets[-1] != max_batch:
+            raise ValueError(
+                f"largest batch bucket {self.batch_buckets[-1]} must equal "
+                f"max_batch {max_batch}, or batches between them would run "
+                f"unwarmed shapes at serve time")
+        self.last_device_batch = 0
+        # backpressure in queued ROWS (prompt lists count once per prompt)
+        self.max_queue = max_queue
+        self.shed_count = 0
+        self._queued_rows = 0  # rows admitted but not yet pulled into a batch
+        self._shed_lock = threading.Lock()  # row check + count are atomic
+        # graceful drain: once set, new requests are shed with 503 while
+        # everything already admitted finishes
+        self.draining = False
+        self._inflight = 0            # admitted, not yet done.set()
+        self._idle = threading.Condition(self._shed_lock)
+        self.request_count = 0  # lifetime admits (monotonic, for /metrics)
+        self.image_count = 0
+        self._t_started = time.monotonic()
+        # EWMA of recent batch execution seconds: the deadline-aware
+        # coalescer's estimate of how long a batch takes once cut
+        self._exec_ewma: Optional[float] = None
+        # LRU (text, (adapter generation, effective alpha)) -> embedding on
+        # the pipe's device: repeated prompts (and the shared negative
+        # prompt) skip tokenize + CLIP forward
+        self._embeds: "collections.OrderedDict" = collections.OrderedDict()
+        self._embed_cache_size = embed_cache_size
+        self.embed_cache_hits = 0
+        self.embed_cache_misses = 0
+        self._queue: "queue.Queue[_Pending]" = queue.Queue()
+        self._spill: Optional[_Pending] = None
+        self._fatal: Optional[BaseException] = None
+        self._worker = threading.Thread(target=self._drain, daemon=True)
+        self._worker.start()
+        server_self = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def _send(self, code: int, payload: dict):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    fatal = server_self._fatal
+                    self._send(500 if fatal is not None else 200,
+                               {"ok": fatal is None,
+                                "draining": server_self.draining,
+                                **({"fatal": repr(fatal)}
+                                   if fatal is not None else {}),
+                                "devices": _devices()})
+                elif self.path == "/metrics":
+                    self._send(200, server_self.metrics())
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def do_POST(self):
+                if self.path != "/generate":
+                    self._send(404, {"error": "not found"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    out = server_self.generate(req)
+                    self._send(200, out)
+                except ServerOverloaded as e:
+                    self._send(503, {"error": str(e)})
+                except SchedulerDown as e:
+                    self._send(500, {"error": str(e)})
+                except Exception as e:
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+
+        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.port = self.httpd.server_address[1]
+        self.thread: Optional[threading.Thread] = None
+
+    def generate(self, req: dict) -> dict:
+        t0 = time.perf_counter()
+        pending = _Pending(req)
+        if pending.n_rows < 1:
+            # an empty prompt list would crash the whole coalesced group in
+            # the bucket padding (prompts[-1])
+            raise ValueError("prompt must be a non-empty string or list")
+        if pending.n_rows > self.max_batch:
+            raise ValueError(
+                f"prompt list of {pending.n_rows} exceeds max_batch "
+                f"{self.max_batch}; split the request")
+        self._check_txt2img()
+        if self._fatal is not None:
+            raise SchedulerDown(
+                f"serving scheduler crashed: {self._fatal!r}")
+        with self._shed_lock:
+            if self.draining:
+                self.shed_count += 1
+                raise ServerOverloaded(
+                    "server is draining for shutdown; retry elsewhere")
+            if self._queued_rows >= self.max_queue:
+                self.shed_count += 1
+                raise ServerOverloaded(
+                    f"queued rows {self._queued_rows} >= max_queue "
+                    f"{self.max_queue}; retry with backoff")
+            self._inflight += 1
+            self.request_count += 1
+            self._queued_rows += pending.n_rows
+            self._queue.put(pending)
+        # watchdog wait: if the scheduler dies between our enqueue and its
+        # crash-drain, the fatal flag still wakes us within one tick, and
+        # _fail_stranded undoes our accounting exactly once
+        while not pending.done.wait(timeout=2.0):
+            if self._fatal is not None:
+                self._fail_stranded(pending, SchedulerDown(
+                    f"serving scheduler crashed: {self._fatal!r}"))
+                break
+        pending.done.wait()
+        if pending.error is not None:
+            raise pending.error
+        with self._shed_lock:
+            self.image_count += pending.n_rows
+        return {"images": [_png_b64(im) for im in pending.images],
+                "latency_ms": round((time.perf_counter() - t0) * 1000, 1),
+                "batched_with": pending.batched_with}
+
+    def _check_txt2img(self) -> None:
+        """A 9-channel inpainting UNet cannot run txt2img: reject at admit
+        (400), never mid-batch."""
+        cfg = self.pipe.unet.cfg
+        if cfg.in_channels != cfg.out_channels:
+            raise ValueError(
+                "this checkpoint's UNet is a 9-channel inpainting UNet; it "
+                f"serves mode='inpaint' only, which is {_IMAGE_MODES_TODO}")
+
+    # -- micro-batching worker ----------------------------------------------
+    def _window_remaining(self, group, window_end: float) -> float:
+        """Seconds the coalescer may still wait: the fixed window, cut early
+        when any member's latency budget minus the EWMA-estimated batch
+        execution time is nearly spent."""
+        w = window_end - time.monotonic()
+        est = self._exec_ewma or 0.0
+        for p in group:
+            if p.deadline is not None:
+                w = min(w, p.deadline - est - time.monotonic())
+        return w
+
+    def _collect(self) -> list:
+        """Block for one request, then coalesce same-config arrivals within
+        the deadline-aware window (a config mismatch is spilled to seed the
+        next batch)."""
+        first = self._spill or self._queue.get()
+        self._spill = None
+        group = [first]
+        with self._shed_lock:  # first leaves the queue -> starts executing
+            self._queued_rows -= first.n_rows
+            first._dequeued = True
+        rows = first.n_rows
+        window_end = time.monotonic() + self.batch_window
+        # cap by ROW count: the bucketed device batch never exceeds
+        # max_batch, the largest warmed bucket
+        while rows < self.max_batch:
+            remaining = self._window_remaining(group, window_end)
+            if remaining <= 0:
+                break
+            try:
+                nxt = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if (nxt.key() == first.key()
+                    and rows + nxt.n_rows <= self.max_batch):
+                group.append(nxt)
+                rows += nxt.n_rows
+                with self._shed_lock:
+                    self._queued_rows -= nxt.n_rows
+                    nxt._dequeued = True
+            else:
+                # the spill stays logically queued (it seeds the next
+                # batch), so its rows remain counted against max_queue
+                self._spill = nxt
+                break
+        return group
+
+    def _note_exec_time(self, seconds: float) -> None:
+        self._exec_ewma = (seconds if self._exec_ewma is None
+                           else 0.3 * seconds + 0.7 * self._exec_ewma)
+
+    def _fail_stranded(self, p: "_Pending", err: Exception) -> None:
+        """Fail a pending the dead scheduler will never pull, undoing its
+        admit-time accounting exactly once (idempotent: the crash-drain and
+        a waiter's watchdog may both call it). Skips requests already done
+        or already in a cut group."""
+        with self._idle:  # _idle shares _shed_lock
+            if p.done.is_set() or p._failed:
+                return
+            p._failed = True
+            if not p._dequeued:
+                self._queued_rows -= p.n_rows
+            self._inflight -= 1
+            self._idle.notify_all()
+        p.error = err
+        p.done.set()
+
+    def _drain(self):
+        try:
+            while True:
+                group = self._collect()
+                t0 = time.monotonic()
+                try:
+                    self._run_group(group)
+                    self._note_exec_time(time.monotonic() - t0)
+                except Exception as e:
+                    for p in group:
+                        p.error = e
+                except BaseException as e:
+                    # about to kill the scheduler: the in-flight group gets
+                    # the same SchedulerDown contract as queued waiters
+                    for p in group:
+                        p.error = SchedulerDown(
+                            f"serving scheduler crashed: {e!r}")
+                    raise
+                finally:
+                    for p in group:
+                        p.batched_with = len(group)
+                        p.done.set()
+                    with self._idle:
+                        self._inflight -= len(group)
+                        if self._inflight == 0:
+                            self._idle.notify_all()
+        except BaseException as e:  # never die SILENTLY: flip healthz,
+            # refuse admits, and fail every waiter so no request hangs
+            self._fatal = e
+            err = SchedulerDown(f"serving scheduler crashed: {e!r}")
+            stranded = [self._spill] if self._spill is not None else []
+            self._spill = None
+            while True:
+                try:
+                    stranded.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            for p in stranded:
+                self._fail_stranded(p, err)
+            print("lora_serve: FATAL scheduler crash "
+                  f"({len(stranded)} queued requests failed)",
+                  file=sys.stderr)
+            traceback.print_exc(file=sys.stderr)
+
+    def _cached_embeds(self, texts: list, alpha) -> torch.Tensor:
+        """Encode `texts`, serving repeats from the LRU cache (caller holds
+        the pipe lock and has already applied `alpha`)."""
+        missing = [t for t in dict.fromkeys(texts)
+                   if (t, alpha) not in self._embeds]
+        if missing:
+            fresh = self.pipe.encode_prompt(missing)
+            for t, e in zip(missing, fresh):
+                self._embeds[(t, alpha)] = e
+        self.embed_cache_misses += len(missing)
+        self.embed_cache_hits += len(texts) - len(missing)
+        rows = []
+        for t in texts:
+            self._embeds.move_to_end((t, alpha))
+            rows.append(self._embeds[(t, alpha)])
+        while len(self._embeds) > self._embed_cache_size:
+            self._embeds.popitem(last=False)
+        return torch.stack(rows)
+
+    def _embed_key_alpha(self):
+        """The embed cache's adapter component: the adapter generation (a
+        patch_pipe / apply_ti / remove_lora on a live server invalidates
+        the entries) and, with a text-encoder LoRA patched, the EFFECTIVE
+        scale, read from the pipe's text LoRA (not the request field: a
+        request that omits alpha runs at the current scale, which may have
+        been tuned before the server started). Unlike lora_tpu, which
+        tracks the last request's alpha from an assumed 1.0, this key holds
+        whatever scale the pipe was given. Caller holds the pipe lock."""
+        gen = self.pipe.adapter_generation
+        if self.pipe.has_base_deltas("text_encoder"):
+            raise NotImplementedError(
+                "LyCORIS base deltas on the text encoder are not ported yet "
+                "(ROADMAP Queue A: kohya/LyCORIS in patch_pipe)")
+        lora = self.pipe.lora_text
+        if lora is None:
+            return gen, None
+        return gen, tuple(lora["scale"].reshape(-1).tolist())
+
+    def _assemble_rows(self, group: list):
+        """Flatten a coalesced group into device-batch rows: (prompts padded
+        up to the chosen bucket by repeating the last row, per-request row
+        counts, the merged per-row lora_idx or None, the pad count)."""
+        prompts, counts = [], []
+        lora_idx: Optional[list] = []
+        for p in group:
+            pr = p.req.get("prompt", "")
+            pr = [pr] if isinstance(pr, str) else list(pr)
+            prompts += pr
+            counts.append(len(pr))
+            if lora_idx is not None and p.lora_idx is not None:
+                lora_idx += p.lora_idx
+            else:
+                lora_idx = None
+        n_real = len(prompts)
+        bucket = next((b for b in self.batch_buckets if b >= n_real), n_real)
+        self.last_device_batch = bucket
+        pad = bucket - n_real
+        if pad:
+            prompts += [prompts[-1]] * pad
+            if lora_idx is not None:
+                lora_idx += [lora_idx[-1]] * pad
+        return prompts, counts, lora_idx, pad
+
+    @torch.inference_mode()
+    def _run_group(self, group: list):
+        r0 = group[0].req
+        height, width = int(r0.get("height", 512)), int(r0.get("width", 512))
+        prompts, counts, lora_idx, pad = self._assemble_rows(group)
+        dev = self.pipe.device
+        latents = [self.pipe.prepare_latents(
+            n, height, width, torch.Generator(device=dev).manual_seed(p.seed))
+            for p, n in zip(group, counts)]
+        guidance = float(r0.get("guidance", 7.5))
+        negative = r0.get("negative_prompt", "")
+        if pad:
+            latents.append(latents[-1][-1:].expand(pad, -1, -1, -1))
+        with self.lock:
+            alpha = r0.get("alpha")
+            if alpha is not None:
+                self.pipe.tune_lora_scale(float(alpha))
+            emb = self._cached_embeds(prompts, self._embed_key_alpha())
+            neg = (self._cached_embeds([negative] * len(prompts),
+                                       self._embed_key_alpha())
+                   if guidance > 1.0 else None)
+            imgs = self.pipe(
+                None,
+                num_inference_steps=int(r0.get("steps", 30)),
+                guidance_scale=guidance,
+                height=height, width=width,
+                scheduler=r0.get("scheduler", "ddim"),
+                latents=torch.cat(latents),
+                lora_idx=lora_idx,
+                prompt_embeds=emb,
+                negative_prompt_embeds=neg,
+            )
+        off = 0
+        for p, n in zip(group, counts):
+            p.images = imgs[off:off + n]
+            off += n
+
+    def warmup(self, steps: int = 30, height: int = 512, width: int = 512,
+               guidance: float = 7.5, scheduler: str = "ddim",
+               modes: tuple = ("txt2img",)) -> float:
+        """Run one group per batch bucket at this sampling config before
+        taking traffic (deploy-time warmup: the first call of each batch
+        shape pays the one-off costs: allocator growth, kernel builds).
+        Returns the wall seconds spent. Only txt2img is ported: another
+        mode raises, as a live request would."""
+        t0 = time.monotonic()
+        for mode in modes:
+            _Pending({"prompt": "warmup probe", "mode": mode})
+            self._check_txt2img()
+            for b in self.batch_buckets:
+                group = [_Pending({"prompt": f"warmup {i}", "steps": steps,
+                                   "height": height, "width": width,
+                                   "guidance": guidance,
+                                   "scheduler": scheduler, "seed": i})
+                         for i in range(b)]
+                self._run_group(group)
+        return time.monotonic() - t0
+
+    def metrics(self) -> dict:
+        """Counters for dashboards/autoscalers (also GET /metrics); all
+        monotonic or instantaneous, safe to scrape at any rate."""
+        with self._shed_lock:
+            return {
+                "uptime_s": round(time.monotonic() - self._t_started, 1),
+                "requests": self.request_count,
+                "images": self.image_count,
+                "shed": self.shed_count,
+                "inflight": self._inflight,
+                "queue_depth": self._queue.qsize(),
+                "queued_rows": self._queued_rows,
+                "draining": self.draining,
+                "last_device_batch": self.last_device_batch,
+                "exec_ewma_s": (round(self._exec_ewma, 4)
+                                if self._exec_ewma is not None else None),
+                "embed_cache_hits": self.embed_cache_hits,
+                "embed_cache_misses": self.embed_cache_misses,
+                "scheduler_alive": self._fatal is None,
+            }
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful shutdown, phase 1: stop admitting (new requests are shed
+        with 503) and wait until every admitted request has completed.
+        True when fully drained, False on timeout."""
+        with self._idle:
+            self.draining = True
+            return self._idle.wait_for(lambda: self._inflight == 0,
+                                       timeout=timeout)
+
+    def start(self):
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        return self
+
+    def stop(self):
+        # shutdown() blocks on serve_forever()'s exit handshake: only call
+        # it on a started server
+        if self.thread is not None:
+            self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m lora_tpu_torch.serve",
+        description="Serve txt2img from a diffusers-layout SD checkpoint.")
+    ap.add_argument("--model", required=True)
+    ap.add_argument("--lora", default=None)
+    ap.add_argument("--port", type=int, default=8500)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default: cuda)")
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 base weights (pipe.quantize_base())")
+    ap.add_argument("--max_batch", type=int, default=8)
+    ap.add_argument("--batch_window_ms", type=float, default=25.0)
+    ap.add_argument("--max_queue", type=int, default=32)
+    ap.add_argument("--batch_buckets", default=None,
+                    help="comma-separated allowed device batch sizes "
+                         "(largest must equal --max_batch); default: "
+                         "powers of two up to max_batch")
+    ap.add_argument("--no_warmup", action="store_true",
+                    help="skip the deploy-time run of every batch bucket")
+    ap.add_argument("--warmup_steps", type=int, default=30,
+                    help="sampler steps used for the warmup config")
+    ap.add_argument("--warmup_modes", default="txt2img",
+                    help="comma-separated modes to warm; only txt2img is "
+                         "ported")
+    args = ap.parse_args(argv)
+    # validate before the model loads: a typo must not cost a checkpoint
+    # load and a warmup before it fails
+    try:
+        buckets = (tuple(int(b.strip())
+                         for b in args.batch_buckets.split(",") if b.strip())
+                   if args.batch_buckets else None)
+    except ValueError:
+        ap.error(f"--batch_buckets: expected comma-separated ints, got "
+                 f"{args.batch_buckets!r}")
+    warm_modes = tuple(m.strip()
+                       for m in args.warmup_modes.split(",") if m.strip())
+    for m in warm_modes:
+        if m in ("img2img", "inpaint"):
+            ap.error(f"--warmup_modes: mode {m!r} is {_IMAGE_MODES_TODO}")
+        if m != "txt2img":
+            ap.error(f"--warmup_modes: unknown mode {m!r}; expected "
+                     "txt2img | img2img | inpaint")
+    if not warm_modes and not args.no_warmup:
+        ap.error("--warmup_modes is empty; pass --no_warmup to skip warmup")
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as e:
+        ap.error(f"--device: {e}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error(f"--device {args.device}: CUDA is not available on this "
+                 "host")
+    if os.path.isdir(os.path.join(args.model, "text_encoder_2")):
+        ap.error(f"{args.model} is an SDXL checkpoint: not ported yet "
+                 "(ROADMAP Queue A, Slice 6: SDXL)")
+
+    from .pipelines.sd import StableDiffusionPipeline
+
+    pipe = StableDiffusionPipeline.from_pretrained(
+        args.model, dtype=torch.bfloat16, device=device)
+    if args.lora:
+        pipe.patch_pipe(args.lora)
+    if args.quantize:
+        pipe.quantize_base()
+    srv = PipelineServer(pipe, port=args.port, max_batch=args.max_batch,
+                         batch_window_ms=args.batch_window_ms,
+                         max_queue=args.max_queue,
+                         batch_buckets=buckets)
+    if not args.no_warmup:
+        spent = srv.warmup(steps=args.warmup_steps, modes=warm_modes)
+        print(f"warmup ran buckets {srv.batch_buckets} in {spent:.1f}s")
+    srv.start()
+    print(f"serving on :{srv.port}", flush=True)
+
+    # graceful shutdown: on SIGTERM/SIGINT stop admitting (503), finish
+    # everything already in the queue, then exit
+    import signal
+
+    stop_evt = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop_evt.set())
+    signal.signal(signal.SIGINT, lambda *_: stop_evt.set())
+    stop_evt.wait()
+    print("draining...")
+    drained = srv.drain(timeout=float(
+        os.environ.get("LORA_TPU_DRAIN_TIMEOUT_S", 120)))
+    srv.stop()
+    print(f"drained={drained} served={srv.request_count} "
+          f"shed={srv.shed_count}")
+
+
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from lora_tpu.ops import attention as j_att  # noqa: E402
 from lora_tpu.ops import flash_attention as j_fa  # noqa: E402
 from lora_tpu_torch.ops import attention as t_att  # noqa: E402
+from lora_tpu_torch.ops import build as t_build  # noqa: E402
 from lora_tpu_torch.ops import flash_attention as t_fa  # noqa: E402
 
 
@@ -167,18 +168,19 @@ def test_non_cpu_tensors_never_fall_back():
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(t_fa, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(t_build, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(t_build, "_libs", {})
     monkeypatch.setattr(t_fa, "_lib", None)
-    monkeypatch.setattr(t_fa, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(t_build, "_find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         t_fa._load()
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(t_fa, "_BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(t_fa, "_find_nvcc", lambda: "false")
+    monkeypatch.setattr(t_build, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(t_build, "_find_nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        t_fa.build()
+        t_build.build()
     assert not any(p.suffix == ".so" for p in tmp_path.iterdir())
 
 
@@ -189,9 +191,9 @@ def test_build_key_covers_every_source(tmp_path, monkeypatch):
     src.mkdir()
     for name in ("a.cu", "b.cu", "common.cuh"):
         (src / name).write_text(f"// {name}\n")
-    monkeypatch.setattr(t_fa, "_CSRC_DIR", str(src))
-    sources, key = t_fa._sources()
+    monkeypatch.setattr(t_build, "_CSRC_DIR", str(src))
+    sources, key = t_build._sources()
     assert [os.path.basename(s) for s in sources] == ["a.cu", "b.cu"]
     (src / "common.cuh").write_text("// changed\n")
-    assert t_fa._sources()[1] != key
+    assert t_build._sources()[1] != key
 

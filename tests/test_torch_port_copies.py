@@ -164,18 +164,21 @@ def test_lora_file_parses_and_writes_identically(tmp_path, cast_fp16):
 
 def test_port_imports_no_jax():
     modules = ["lora_tpu_torch", "lora_tpu_torch.convert",
-               "lora_tpu_torch.core.lora", "lora_tpu_torch.core.sites",
+               "lora_tpu_torch.core.lora", "lora_tpu_torch.core.quantize",
+               "lora_tpu_torch.core.sites",
                "lora_tpu_torch.data.tokenizer",
                "lora_tpu_torch.formats.reader",
                "lora_tpu_torch.formats.safetensors_io",
                "lora_tpu_torch.models.clip", "lora_tpu_torch.models.config",
+               "lora_tpu_torch.models.hf_import",
                "lora_tpu_torch.models.layers",
                "lora_tpu_torch.models.schedulers",
                "lora_tpu_torch.models.structure",
                "lora_tpu_torch.models.unet", "lora_tpu_torch.models.vae",
-               "lora_tpu_torch.ops.attention",
+               "lora_tpu_torch.ops.attention", "lora_tpu_torch.ops.build",
                "lora_tpu_torch.ops.flash_attention",
-               "lora_tpu_torch.pipelines.sd",
+               "lora_tpu_torch.ops.int8_matmul",
+               "lora_tpu_torch.pipelines.sd", "lora_tpu_torch.serve",
                "lora_tpu_torch.training.loss",
                "lora_tpu_torch.training.optim",
                "lora_tpu_torch.training.train_step"]

@@ -107,9 +107,18 @@ def test_dense_without_lora_site_is_plain():
 
 
 def test_int8_base_weight_raises():
+    """An int8 dense weight needs its per-channel scale, and off the CPU it
+    launches the int8 kernel or raises (no silent plain path); with the
+    scale, on the CPU, it runs the kernel's plain version."""
     p = {"a.weight": torch.zeros((4, 4), dtype=torch.int8)}
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(KeyError, match="a.weight_scale"):
         t_layers.dense(p, "a", torch.zeros((1, 4)))
+    p["a.weight_scale"] = torch.ones(4)
+    assert torch.equal(t_layers.dense(p, "a", torch.ones((1, 4))),
+                       torch.zeros((1, 4)))
+    meta = {k: v.to("meta") for k, v in p.items()}
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        t_layers.dense(meta, "a", torch.zeros((1, 4), device="meta"))
 
 
 @pytest.mark.parametrize("groups,channels", [(8, 32), (32, 64)])

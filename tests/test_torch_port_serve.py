@@ -1,0 +1,752 @@
+"""The port's serving endpoint (lora_tpu_torch/serve.py) on the tiny CPU
+pipeline with int8 base weights: the txt2img behaviour of tests/test_serve.py
+(micro-batching, buckets, warmup, the embed cache, backpressure, drain, the
+crash path, admit-time validation), image modes refused with a 400, HTTP
+pixels equal to a direct pipeline call, the quantized pipeline against
+lora_tpu's, the stdlib PNG encoder against lora_tpu's Pillow one, and
+main()'s argument validation."""
+
+import base64
+import io
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from lora_tpu.data.tokenizer import CLIPTokenizer as JTokenizer  # noqa: E402
+from lora_tpu.models import config as j_cfg  # noqa: E402
+from lora_tpu.pipelines.sd import StableDiffusionPipeline as JPipe  # noqa: E402
+from lora_tpu_torch import serve as t_serve  # noqa: E402
+from lora_tpu_torch.core.lora import init_lora, lora_to_pairs  # noqa: E402
+from lora_tpu_torch.models.config import (  # noqa: E402
+    TINY_TEXT,
+    TINY_UNET,
+    TINY_VAE,
+)
+from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from lora_tpu_torch.serve import (  # noqa: E402
+    PipelineServer,
+    SchedulerDown,
+    ServerOverloaded,
+)
+
+# the quantized tiny pipeline, port vs lora_tpu with every 2-D int8 dense on
+# its Pallas kernel: both round each dense input to bf16, so f32 differences
+# in the sum order flip some of those roundings (2^-8 relative) in later
+# layers; the JAX UNet moves by up to 8e-4 of its output range under a 1e-7
+# input perturbation alone (tests/test_torch_port_quantize.py). Images in
+# [0, 1] after 2 steps and the VAE: 4x the measured gap (4.5e-3 max,
+# 3.3e-4 mean).
+IMAGE_MAX_ABS, IMAGE_MEAN_ABS = 2e-2, 1.5e-3
+
+
+def _tiny_pipe(in_channels=4):
+    import dataclasses
+
+    return StableDiffusionPipeline.random_init(
+        torch.Generator().manual_seed(0), "cpu",
+        unet_cfg=dataclasses.replace(TINY_UNET, in_channels=in_channels),
+        text_cfg=TINY_TEXT, vae_cfg=TINY_VAE)
+
+
+@pytest.fixture(scope="module")
+def server():
+    pipe = _tiny_pipe()
+    pipe.quantize_base()
+    srv = PipelineServer(pipe, port=0).start()
+    yield srv
+    srv.stop()
+
+
+def _post(srv, payload):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/generate",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read()), r.status
+
+
+def _status(srv, payload):
+    try:
+        return _post(srv, payload)[1], None
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_healthz(server):
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/healthz", timeout=30) as r:
+        body = json.loads(r.read())
+    assert body["ok"] is True and body["devices"]
+
+
+def test_generate(server):
+    out, status = _post(server, {"prompt": "a tiny tree", "steps": 2,
+                                 "height": 64, "width": 64, "seed": 1})
+    assert status == 200
+    assert len(out["images"]) == 1 and out["latency_ms"] > 0
+    png = base64.b64decode(out["images"][0])
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_generate_batch_and_errors(server):
+    out, status = _post(server, {"prompt": ["a", "b"], "steps": 2,
+                                 "height": 64, "width": 64})
+    assert status == 200 and len(out["images"]) == 2
+    assert _status(server, {"steps": "NaN?"})[0] == 400
+    try:
+        urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/nope", timeout=30)
+        missing = False
+    except urllib.error.HTTPError as e:
+        missing = e.code == 404
+    assert missing
+
+
+def test_micro_batching_coalesces_concurrent_requests(server):
+    """Concurrent same-config requests are served in ONE device batch, each
+    keeping its own seed."""
+    results = {}
+
+    def fire(name, seed):
+        results[name] = _post(server, {"prompt": "a tiny tree", "steps": 2,
+                                       "height": 64, "width": 64,
+                                       "seed": seed})
+
+    # occupy the worker so the followers queue up together
+    lead = threading.Thread(target=fire, args=("lead", 0))
+    lead.start()
+    time.sleep(0.3)
+    followers = [threading.Thread(target=fire, args=(f"f{i}", i + 1))
+                 for i in range(3)]
+    for t in followers:
+        t.start()
+    for t in [lead] + followers:
+        t.join()
+    assert all(status == 200 for _, status in results.values())
+    sizes = {k: out["batched_with"] for k, (out, _) in results.items()}
+    assert max(sizes.values()) >= 2, sizes
+    assert results["f0"][0]["images"][0] != results["f1"][0]["images"][0]
+
+
+def test_embed_cache_hits_and_determinism(server):
+    payload = {"prompt": "a cached prompt", "steps": 2,
+               "height": 64, "width": 64, "seed": 7}
+    out1, _ = _post(server, payload)
+    h0 = server.embed_cache_hits
+    out2, _ = _post(server, payload)
+    # second request: prompt AND negative prompt both hit the cache
+    assert server.embed_cache_hits >= h0 + 2
+    assert out1["images"] == out2["images"]
+
+
+def test_embed_cache_tracks_effective_alpha(server):
+    """With a text-encoder LoRA patched, a request that omits alpha runs at
+    the pipe's current scale, and the cache keys on that EFFECTIVE scale."""
+    pipe = server.pipe
+    had_text = pipe.lora_text
+    pipe.lora_text = init_lora(pipe.text_sites(), r=2, device="cpu",
+                               generator=torch.Generator().manual_seed(5))
+    for e in pipe.lora_text["sites"].values():
+        e["up"] = e["up"] + 0.05
+    try:
+        base = {"prompt": "alpha probe", "steps": 2, "height": 64,
+                "width": 64, "seed": 11}
+        out_a, _ = _post(server, {**base, "alpha": 0.0})
+        out_none, _ = _post(server, base)       # runs at effective 0.0
+        out_b, _ = _post(server, {**base, "alpha": 1.0})
+        out_none2, _ = _post(server, base)      # now effective 1.0
+        assert out_none["images"] == out_a["images"]
+        assert out_none2["images"] == out_b["images"]
+        assert out_a["images"] != out_b["images"]
+    finally:
+        pipe.lora_text = had_text
+        pipe.tune_lora_scale(1.0)
+
+
+def test_embed_cache_keys_on_scale_set_before_start(server):
+    """A pipe tuned to 0.8 before its server starts: a request without alpha
+    caches embeddings at 0.8, and a later alpha=1.0 request encodes afresh
+    (lora_tpu keys the first under an assumed 1.0 and would reuse them)."""
+    pipe = server.pipe
+    had_text = pipe.lora_text
+    pipe.lora_text = init_lora(pipe.text_sites(), r=2, device="cpu",
+                               generator=torch.Generator().manual_seed(6))
+    for e in pipe.lora_text["sites"].values():
+        e["up"] = e["up"] + 0.05
+    base = {"prompt": "scale probe", "steps": 2, "height": 64, "width": 64,
+            "seed": 13}
+    servers = []
+    try:
+        pipe.tune_lora_scale(0.8)
+        servers.append(PipelineServer(pipe, port=0).start())
+        out_08, _ = _post(servers[0], base)
+        misses = servers[0].embed_cache_misses
+        out_10, _ = _post(servers[0], {**base, "alpha": 1.0})
+        assert servers[0].embed_cache_misses == misses + 2  # prompt + ""
+        pipe.tune_lora_scale(1.0)
+        servers.append(PipelineServer(pipe, port=0).start())
+        fresh_10, _ = _post(servers[1], base)
+        assert out_10["images"] == fresh_10["images"]
+        assert out_08["images"] != out_10["images"]
+    finally:
+        for srv in servers:
+            srv.stop()
+        pipe.lora_text = had_text
+        pipe.tune_lora_scale(1.0)
+
+
+def test_embed_cache_invalidated_on_adapter_swap(server, tmp_path):
+    """patch_pipe on a live server at the SAME alpha must not serve the old
+    adapter's cached embeddings."""
+    from lora_tpu_torch.formats.safetensors_io import (
+        TEXT_ENCODER_DEFAULT_TARGET_REPLACE,
+        save_safeloras_with_embeds,
+    )
+
+    pipe = server.pipe
+    had_text, had_unet = pipe.lora_text, pipe.lora_unet
+
+    def make_file(seed, bump):
+        sites = pipe.text_sites()
+        lt = init_lora(sites, r=2, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+        for e in lt["sites"].values():
+            e["up"] = e["up"] + bump
+        p = str(tmp_path / f"adapter{seed}.safetensors")
+        save_safeloras_with_embeds(
+            {"text_encoder": (lora_to_pairs(lt, sites),
+                              TEXT_ENCODER_DEFAULT_TARGET_REPLACE)}, {}, p)
+        return p
+
+    base = {"prompt": "swap probe", "steps": 2, "height": 64, "width": 64,
+            "seed": 3, "alpha": 1.0}
+    try:
+        pipe.patch_pipe(make_file(21, 0.05), patch_unet=False)
+        out1, _ = _post(server, base)
+        pipe.patch_pipe(make_file(22, -0.05), patch_unet=False)
+        out2, _ = _post(server, base)  # same text, same alpha, new adapter
+        assert out1["images"] != out2["images"]
+    finally:
+        pipe.lora_text, pipe.lora_unet = had_text, had_unet
+        pipe.adapter_generation += 1
+
+
+def test_mixed_config_concurrency(server):
+    """Concurrent requests with DIFFERENT configs are never merged, and all
+    complete (the spill path seeds the next batch)."""
+    results = {}
+
+    def fire(name, payload):
+        results[name] = _post(server, payload)
+
+    threads = [threading.Thread(target=fire, args=(f"r{i}", {
+        "prompt": f"mixed {i % 2}", "steps": 2 if i % 2 == 0 else 3,
+        "height": 64, "width": 64, "seed": i})) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(status == 200 for _, status in results.values())
+    assert all(len(out["images"]) == 1 for out, _ in results.values())
+
+
+def test_deadline_cuts_coalescing_window(server):
+    """With a 3 s window, a lone deadline_ms=100 request returns far
+    sooner: the batch is cut once budget - estimated exec is spent."""
+    srv = PipelineServer(server.pipe, port=0, batch_window_ms=3000.0).start()
+    try:
+        _post(srv, {"prompt": "warm", "steps": 2, "height": 64, "width": 64,
+                    "deadline_ms": 100})
+        t0 = time.perf_counter()
+        out, status = _post(srv, {"prompt": "deadline probe", "steps": 2,
+                                  "height": 64, "width": 64,
+                                  "deadline_ms": 100})
+        wall = time.perf_counter() - t0
+        assert status == 200 and out["batched_with"] == 1
+        assert wall < 2.5, f"deadline did not cut the window ({wall:.2f}s)"
+    finally:
+        srv.stop()
+
+
+def test_queue_bound_sheds_with_503(server):
+    srv = PipelineServer(server.pipe, port=0, max_queue=0).start()
+    try:
+        status, body = _status(srv, {"prompt": "shed me", "steps": 2,
+                                     "height": 64, "width": 64})
+        assert status == 503 and "max_queue" in body["error"]
+        assert srv.shed_count == 1
+    finally:
+        srv.stop()
+
+
+def test_batch_bucketing_pads_device_batch(server):
+    """A group of 3 runs as the 4-bucket while each request keeps its own
+    image."""
+    srv = PipelineServer(server.pipe, port=0, batch_window_ms=1500.0).start()
+    try:
+        results = {}
+
+        def fire(name, seed):
+            results[name] = _post(srv, {"prompt": "bucket probe",
+                                        "steps": 2, "height": 64,
+                                        "width": 64, "seed": seed})
+
+        threads = [threading.Thread(target=fire, args=(f"f{i}", i + 1))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert all(s == 200 for _, s in results.values())
+        sizes = {k: out["batched_with"] for k, (out, _) in results.items()}
+        assert max(sizes.values()) == 3, sizes
+        assert srv.last_device_batch == 4
+        f_imgs = {k: results[k][0]["images"][0] for k in ("f0", "f1", "f2")}
+        assert len(set(f_imgs.values())) == 3
+    finally:
+        srv.stop()
+
+
+def test_warmup_runs_all_buckets(server):
+    srv = PipelineServer(server.pipe, port=0, max_batch=4).start()
+    try:
+        secs = srv.warmup(steps=2, height=64, width=64)
+        assert secs > 0 and srv.batch_buckets == (1, 2, 4)
+        assert srv.last_device_batch == 4  # largest bucket ran last
+        out, status = _post(srv, {"prompt": "after warmup", "steps": 2,
+                                  "height": 64, "width": 64})
+        assert status == 200 and len(out["images"]) == 1
+    finally:
+        srv.stop()
+
+
+def test_prompt_list_rows_count_toward_bucket_cap(server):
+    """Two 3-prompt requests in one window run as one 6-row group padded to
+    the 8-bucket."""
+    srv = PipelineServer(server.pipe, port=0, batch_window_ms=1500.0,
+                         max_batch=8).start()
+    try:
+        results = {}
+
+        def fire(name, seed):
+            results[name] = _post(srv, {
+                "prompt": [f"row {seed} {j}" for j in range(3)],
+                "steps": 2, "height": 64, "width": 64, "seed": seed})
+
+        ts = [threading.Thread(target=fire, args=(f"r{i}", i))
+              for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert all(s == 200 for _, s in results.values())
+        assert all(len(out["images"]) == 3 for out, _ in results.values())
+        assert srv.last_device_batch == 8
+    finally:
+        srv.stop()
+
+
+def test_oversize_prompt_list_rejected(server):
+    status, body = _status(server, {"prompt": [f"p{i}" for i in range(9)],
+                                    "steps": 2, "height": 64, "width": 64})
+    assert status == 400 and "max_batch" in body["error"]
+
+
+def test_largest_bucket_must_equal_max_batch(server):
+    with pytest.raises(ValueError, match="max_batch"):
+        PipelineServer(server.pipe, port=0, max_batch=8,
+                       batch_buckets=(1, 2, 4))
+    srv = PipelineServer(server.pipe, port=0, max_batch=12)
+    assert srv.batch_buckets == (1, 2, 4, 8, 12)
+    srv.stop()
+
+
+def test_metrics_endpoint(server):
+    out, status = _post(server, {"prompt": "metrics probe", "steps": 2,
+                                 "height": 64, "width": 64, "seed": 3})
+    assert status == 200
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics", timeout=30) as r:
+        m = json.loads(r.read())
+    assert m["requests"] >= 1 and m["images"] >= 1
+    assert m["inflight"] == 0 and m["draining"] is False
+    assert m["uptime_s"] > 0
+    assert m["exec_ewma_s"] is None or m["exec_ewma_s"] > 0
+    assert m["embed_cache_hits"] + m["embed_cache_misses"] > 0
+
+
+def test_drain_finishes_admitted_sheds_new(server):
+    srv = PipelineServer(server.pipe, port=0).start()
+    try:
+        results = {}
+
+        def fire(name, seed):
+            try:
+                results[name] = _post(srv, {"prompt": "drain probe",
+                                            "steps": 2, "height": 64,
+                                            "width": 64, "seed": seed})
+            except urllib.error.HTTPError as e:
+                results[name] = (None, e.code)
+
+        t = threading.Thread(target=fire, args=("admitted", 1))
+        t.start()
+        deadline = time.monotonic() + 30
+        while srv.metrics()["inflight"] == 0 and "admitted" not in results:
+            assert time.monotonic() < deadline, "request never admitted"
+            time.sleep(0.01)
+        assert srv.drain(timeout=120) is True
+        t.join()
+        out, status = results["admitted"]
+        assert status == 200 and len(out["images"]) == 1
+        fire("late", 2)
+        assert results["late"] == (None, 503)
+        m = srv.metrics()
+        assert m["draining"] is True and m["inflight"] == 0
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/healthz", timeout=30) as r:
+            assert json.loads(r.read())["draining"] is True
+    finally:
+        srv.stop()
+
+
+def test_empty_prompt_list_rejected(server):
+    for bad in ([], 7):
+        assert _status(server, {"prompt": bad, "steps": 2, "height": 64,
+                                "width": 64})[0] == 400
+
+
+def test_backpressure_counts_rows_not_requests(server):
+    """max_queue is a ROW budget: one queued 3-row request trips the shed
+    threshold that three queued 1-row requests would."""
+    srv = PipelineServer(server.pipe, port=0, max_queue=2)
+    results = {}
+
+    def submit(name, req):
+        try:
+            results[name] = srv.generate(req)
+        except Exception as e:
+            results[name] = e
+
+    # park the worker: it collects request A, then blocks on the pipe lock
+    with srv.lock:
+        ta = threading.Thread(target=submit, args=(
+            "a", {"prompt": "a", "steps": 2, "height": 64, "width": 64}),
+            daemon=True)
+        ta.start()
+        for _ in range(500):
+            if srv._queued_rows == 0 and srv._inflight == 1:
+                break
+            time.sleep(0.01)
+        tb = threading.Thread(target=submit, args=(
+            "b", {"prompt": ["b1", "b2", "b3"], "steps": 3,
+                  "height": 64, "width": 64}), daemon=True)
+        tb.start()
+        for _ in range(500):
+            if srv._queued_rows == 3:
+                break
+            time.sleep(0.01)
+        assert srv._queued_rows == 3
+        with pytest.raises(ServerOverloaded, match="queued rows"):
+            srv.generate({"prompt": "d", "steps": 2,
+                          "height": 64, "width": 64})
+        assert srv.shed_count == 1
+        assert srv.metrics()["queued_rows"] == 3
+    ta.join(timeout=300)
+    tb.join(timeout=300)
+    assert len(results["a"]["images"]) == 1
+    assert len(results["b"]["images"]) == 3
+    assert srv._queued_rows == 0
+    srv.httpd.server_close()
+
+
+def test_malformed_numeric_field_rejected_at_admit(server):
+    for bad in ({"prompt": "x", "steps": "abc"},
+                {"prompt": "x", "guidance": "hot"},
+                {"prompt": "x", "height": "tall"}):
+        payload = {**bad, "steps": bad.get("steps", 2)}
+        assert _status(server, payload)[0] == 400, bad
+    out, status = _post(server, {"prompt": "still alive", "steps": 2,
+                                 "height": 64, "width": 64, "seed": 9})
+    assert status == 200 and len(out["images"]) == 1
+    assert server.metrics()["scheduler_alive"] is True
+
+
+def test_lora_idx_and_seed_validated_at_admit(server):
+    for bad in ({"prompt": ["a", "b"], "lora_idx": [0]},
+                {"prompt": "x", "lora_idx": ["zero"]},
+                {"prompt": "x", "lora_idx": "zero"},
+                {"prompt": "x", "seed": "abc"}):
+        with pytest.raises(ValueError):
+            server.generate({"steps": 2, "height": 64, "width": 64, **bad})
+    m = server.metrics()
+    assert m["queued_rows"] == 0 and m["inflight"] == 0
+    out, status = _post(server, {"prompt": "alive", "steps": 2,
+                                 "height": 64, "width": 64, "seed": 5})
+    assert status == 200 and len(out["images"]) == 1
+
+
+def test_image_modes_rejected_with_400(server):
+    """img2img / inpaint wait for ROADMAP Slice 3: a 400 that says so, at
+    admit, for live requests and for warmup."""
+    for mode in ("img2img", "inpaint"):
+        status, body = _status(server, {"mode": mode, "prompt": "x",
+                                        "image": "aGk=", "steps": 2})
+        assert status == 400 and "Slice 3" in body["error"], body
+        with pytest.raises(ValueError, match="Slice 3"):
+            server.warmup(steps=2, height=64, width=64, modes=(mode,))
+    assert _status(server, {"mode": "paint-by-numbers", "prompt": "x"})[0] \
+        == 400
+    m = server.metrics()
+    assert m["queued_rows"] == 0 and m["inflight"] == 0
+
+
+def test_nine_channel_checkpoint_rejects_txt2img():
+    srv = PipelineServer(_tiny_pipe(in_channels=9), port=0)
+    try:
+        with pytest.raises(ValueError, match="9-channel"):
+            srv.generate({"prompt": "x", "steps": 2})
+        with pytest.raises(ValueError, match="9-channel"):
+            srv.warmup(steps=2, height=64, width=64)
+        m = srv.metrics()
+        assert m["queued_rows"] == 0 and m["inflight"] == 0
+    finally:
+        srv.stop()
+
+
+def test_sdxl_pipeline_refused():
+    pipe = _tiny_pipe()
+    pipe.encode_prompt_xl = lambda prompts: None
+    with pytest.raises(NotImplementedError, match="Slice 6"):
+        PipelineServer(pipe, port=0)
+
+
+def _crash_after_one(srv):
+    release = threading.Event()
+
+    def boom():
+        release.wait(60)
+        raise RuntimeError("collector exploded")
+
+    srv._collect = boom
+    # the worker is blocked inside the ORIGINAL _collect; one request flows
+    # through it, after which the next loop iteration hits boom()
+    out = srv.generate({"prompt": "last good", "steps": 2,
+                        "height": 64, "width": 64, "seed": 1})
+    assert len(out["images"]) == 1
+    return release
+
+
+def _waiter(srv, name, errs):
+    try:
+        srv.generate({"prompt": name, "steps": 2, "height": 64, "width": 64})
+    except Exception as e:
+        errs[name] = e
+
+
+def _wait_queued(srv):
+    deadline = time.monotonic() + 30
+    while srv._queue.qsize() == 0 and time.monotonic() < deadline:
+        time.sleep(0.01)
+
+
+def test_scheduler_crash_fails_loudly_not_hangs(server):
+    srv = PipelineServer(server.pipe, port=0).start()
+    try:
+        release = _crash_after_one(srv)
+        errs = {}
+        t = threading.Thread(target=_waiter, args=(srv, "stranded", errs))
+        t.start()
+        _wait_queued(srv)
+        assert srv._queue.qsize() == 1
+        release.set()
+        t.join(timeout=30)
+        assert not t.is_alive(), "stranded waiter HUNG after scheduler death"
+        assert isinstance(errs["stranded"], SchedulerDown)
+        with pytest.raises(SchedulerDown):
+            srv.generate({"prompt": "after crash", "steps": 2})
+        assert srv.metrics()["scheduler_alive"] is False
+        try:
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/healthz", timeout=30)
+            code, body = 200, {}
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        assert code == 500 and body["ok"] is False
+        assert "collector exploded" in body["fatal"]
+    finally:
+        srv.stop()
+
+
+def test_crash_restores_accounting_and_drain_unblocks(server):
+    srv = PipelineServer(server.pipe, port=0)
+    try:
+        release = _crash_after_one(srv)
+        errs = {}
+        t1 = threading.Thread(target=_waiter, args=(srv, "stranded", errs))
+        t1.start()
+        _wait_queued(srv)
+        assert srv.metrics()["queued_rows"] == 1
+        release.set()
+        t1.join(timeout=30)
+        assert isinstance(errs["stranded"], SchedulerDown)
+        m = srv.metrics()
+        assert m["queued_rows"] == 0 and m["inflight"] == 0
+        # enqueue race: slip a request past the fatal check
+        fatal, srv._fatal = srv._fatal, None
+        t2 = threading.Thread(target=_waiter, args=(srv, "racer", errs))
+        t2.start()
+        _wait_queued(srv)
+        assert srv.metrics()["inflight"] == 1
+        srv._fatal = fatal
+        t2.join(timeout=30)  # watchdog tick is 2 s
+        assert not t2.is_alive(), "racer HUNG on a dead scheduler"
+        assert isinstance(errs["racer"], SchedulerDown)
+        m = srv.metrics()
+        assert m["queued_rows"] == 0 and m["inflight"] == 0
+        assert srv.drain(timeout=5) is True
+    finally:
+        srv.stop()
+
+
+def test_base_exception_in_group_gets_scheduler_down(server):
+    srv = PipelineServer(server.pipe, port=0)
+    try:
+        def boom(group):
+            raise SystemExit("operator pulled the plug")
+
+        srv._run_group = boom
+        with pytest.raises(SchedulerDown):
+            srv.generate({"prompt": "inflight", "steps": 2,
+                          "height": 64, "width": 64})
+        m = srv.metrics()
+        assert m["scheduler_alive"] is False
+        assert m["queued_rows"] == 0 and m["inflight"] == 0
+        assert srv.drain(timeout=5) is True
+    finally:
+        srv.stop()
+
+
+def test_http_pixels_equal_direct_pipeline_call(server):
+    """Slice parity on the quantized server: an HTTP generate returns the
+    PNGs of the pipeline called directly with the same seed's latents and
+    the same embeddings."""
+    pipe = server.pipe
+    prompts = ["a parity probe", "a second row"]
+    out, status = _post(server, {"prompt": prompts, "steps": 2,
+                                 "guidance": 7.5, "height": 64, "width": 64,
+                                 "seed": 13})
+    assert status == 200
+    lat = pipe.prepare_latents(2, 64, 64, torch.Generator().manual_seed(13))
+    with torch.inference_mode():
+        emb = pipe.encode_prompt(prompts)
+        neg = pipe.encode_prompt(["", ""])
+    direct = pipe(None, num_inference_steps=2, guidance_scale=7.5,
+                  height=64, width=64, latents=lat, prompt_embeds=emb,
+                  negative_prompt_embeds=neg)
+    assert out["images"] == [t_serve._png_b64(im) for im in direct]
+    # and the string path of the pipeline gives the same pixels
+    by_text = pipe(prompts, num_inference_steps=2, guidance_scale=7.5,
+                   height=64, width=64, latents=lat)
+    np.testing.assert_array_equal(by_text, direct)
+
+
+@pytest.fixture
+def jax_kernel_route(monkeypatch):
+    """lora_tpu routes every 2-D int8 dense through its Pallas kernel
+    (interpret mode on the CPU), as the port routes them through
+    int8_matmul; the traces made under the patch are dropped afterwards."""
+    from lora_tpu.ops import int8_matmul as j_i8
+
+    monkeypatch.setattr(j_i8, "supported", lambda x, wq: wq.ndim == 2)
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def test_quantized_pipeline_matches_jax(jax_kernel_route):
+    pipe = _tiny_pipe()
+    params = [{k: jnp.asarray(v.numpy()) for k, v in m.state_dict().items()}
+              for m in (pipe.unet, pipe.text_encoder, pipe.vae)]
+    jpipe = JPipe(unet_params=params[0], text_params=params[1],
+                  vae_params=params[2],
+                  tokenizer=JTokenizer(vocab_size=TINY_TEXT.vocab_size),
+                  unet_cfg=j_cfg.TINY_UNET, text_cfg=j_cfg.TINY_TEXT,
+                  vae_cfg=j_cfg.TINY_VAE)
+    jpipe.quantize_base()
+    pipe.quantize_base()
+    for m, jp in ((pipe.unet, jpipe.unet_params),
+                  (pipe.text_encoder, jpipe.text_params),
+                  (pipe.vae, jpipe.vae_params)):
+        sd = m.state_dict()
+        assert set(sd) == set(jp)
+        for k in sd:
+            np.testing.assert_array_equal(sd[k].numpy(), np.asarray(jp[k]))
+    lat = np.random.default_rng(1).standard_normal((2, 8, 8, 4)).astype(
+        np.float32)
+    prompts = ["a photo of a dog", "a town"]
+    kw = dict(num_inference_steps=2, guidance_scale=7.5, height=64, width=64)
+    ref = jpipe(prompts, latents=jnp.asarray(lat), **kw)
+    out = pipe(prompts, latents=torch.from_numpy(lat), **kw)
+    err = np.abs(out - ref)
+    assert err.max() < IMAGE_MAX_ABS and err.mean() < IMAGE_MEAN_ABS
+
+
+def test_png_encoder_matches_jax_pillow_png():
+    """The stdlib encoder's PNG decodes (with Pillow, here only) to the same
+    uint8 pixels as lora_tpu's Pillow-written PNG of the same image."""
+    from PIL import Image
+
+    from lora_tpu import serve as j_serve
+
+    rng = np.random.default_rng(0)
+    img = rng.uniform(-0.1, 1.1, (37, 64, 3)).astype(np.float32)
+    img[0, :4, 0] = [0.0, 1.0, 0.5, 254.5 / 255]
+
+    def pixels(b64):
+        im = Image.open(io.BytesIO(base64.b64decode(b64)))
+        assert im.mode == "RGB" and im.size == (64, 37)
+        return np.asarray(im)
+
+    got, want = pixels(t_serve._png_b64(img)), pixels(j_serve._png_b64(img))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+
+def test_main_validates_arguments(tmp_path, monkeypatch, capsys):
+    """Malformed flags, a missing device and an SDXL checkpoint exit 2
+    before any model loads."""
+    cases = [
+        (["--model", "/nonexistent", "--batch_buckets", "1, x"],
+         "comma-separated ints"),
+        (["--model", "/nonexistent", "--device", "nonsense"], "--device"),
+        (["--model", "/nonexistent", "--warmup_modes", "txt2img, img2img"],
+         "Slice 3"),
+        (["--model", "/nonexistent", "--warmup_modes", "paint"],
+         "unknown mode"),
+        (["--model", "/nonexistent", "--warmup_modes", ","], "--no_warmup"),
+    ]
+    for argv, msg in cases:
+        with pytest.raises(SystemExit) as ei:
+            t_serve.main(argv)
+        assert ei.value.code == 2 and msg in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as ei:
+        t_serve.main(["--model", "/nonexistent"])
+    assert ei.value.code == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+    (tmp_path / "text_encoder_2").mkdir()
+    with pytest.raises(SystemExit) as ei:
+        t_serve.main(["--model", str(tmp_path), "--device", "cpu"])
+    assert ei.value.code == 2 and "SDXL" in capsys.readouterr().err
