@@ -2,20 +2,27 @@
 """Smoke run of the PyTorch port (lora_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repo root, one CUDA device
+    python3 chip_smoke.py --int8        # phases 1, 2 (int8 sources only), 8
+    python3 chip_smoke.py --int8-tiles  # the same, then every wgmma tile
+                                        # instance at every phase 8 shape
+                                        # (the data of int8_matmul._TILE_US)
 
-Phases, each printing its own lines (about 5 minutes on one H100, half of
-it the build):
+Phases, each printing its own lines (about 3 minutes on one H100, most of
+it the build of the flash sources):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
-     (flash_fwd.cu, flash_bwd.cu, int8_matmul.cu; one nvcc each, in
-     parallel) for sm_90a into lora_tpu_torch/_build/.
+     (flash_fwd.cu, flash_bwd.cu, int8_matmul.cu, int8_matmul_wgmma.cu;
+     one nvcc each, in parallel) for sm_90a into lora_tpu_torch/_build/,
+     and prints ptxas's registers, shared memory and spills of the int8
+     kernels.
   3. kernel: the forward kernel against its plain PyTorch version on the
      card at the SD-1.5 512px attention shapes (serving batch 4), bf16 and
      f32, plus one ragged call; max abs errors and median times (CUDA
-     events).
+     events), and torch's SDPA on the same inputs (timed only).
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
      the SD-1.5 training shapes (batch 1), bf16 and f32, plus one ragged
-     call; relative errors and median times.
+     call; relative errors and median times, and one autograd.grad of a
+     retained SDPA graph (dQ, dK, dV together; timed only).
   5. slice: the SD-1.5 txt2img serving path at full width with random
      weights from a seed: a rank-4 LoRA + one TI embed saved to a
      .safetensors file and loaded with patch_pipe, 2 prompts, 512x512,
@@ -31,27 +38,36 @@ it the build):
      fixed draws, through the kernels and through the plain attention path:
      the relative L2 distance of the two LoRA gradients; then the same with
      gradient checkpointing: the same loss, and 30 forward launches.
-  8. int8 kernel: the int8-weight matmul kernel against its plain version
-     at every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the
-     VAE decoder's attention), bf16 and f32, plus ragged and unaligned
-     calls; relative errors, and median times at request A's shapes. Every
-     int8 call of phase 9 is recorded, and one at a shape not checked
-     here fails the run.
+  8. int8 kernel: the int8-weight matmul against its plain version at
+     every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
+     decoder's attention), bf16 (each call must launch the wgmma kernel,
+     int8_matmul_wgmma.cu) and f32 (the mma.sync kernel, int8_matmul.cu),
+     plus ragged calls routed to each kernel and an unaligned bf16 call
+     (mma); relative errors. At request A's shapes, median times of the
+     routed kernel, of the mma kernel called directly on the same bf16
+     inputs, of cuBLAS (F.linear on the dequantized bf16 weight), of the
+     plain version, and the bound; their sums over one UNet call at
+     batch 4. Every int8 call of phases 9 and 9a is recorded, and one at a
+     shape not checked here fails the run.
+  9a. serve_int8 f32: the SD-1.5 UNet in f32, quantized: one call at
+     batch 4, within relative L2 5e-2 of the f32 UNet, 182 launches, all
+     of the mma kernel (f32 x).
   9. serve_int8: quantized serving at full SD-1.5 width through HTTP. The
      slice's bf16 pipeline with the LoRA + TI at scale 0.8, then
      quantize_base(): param bytes before and after (UNet <= 0.55x), one
      UNet call at batch 4 within relative L2 5e-2 of the bf16 one and 182
      int8 launches; a PipelineServer on localhost (max_batch 4, 500 ms
      window) warmed up, then request A (the 2 prompts, 50 steps, CFG 7.5):
-     two 512x512 PNGs, exactly the int8 launches the weights imply and 750
-     forward-attention launches, pixels equal to the pipeline called
-     directly; request B (4 concurrent one-prompt requests) coalesced into
-     one device batch of 4; healthz, metrics and drain.
+     two 512x512 PNGs, exactly the int8 launches the weights imply (all of
+     the wgmma kernel) and 750 forward-attention launches, pixels equal to
+     the pipeline called directly; request B (4 concurrent one-prompt
+     requests) coalesced into one device batch of 4; healthz, metrics and
+     drain.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
 line from nvidia-smi, and the one before that lists the kernels with their
-launch counts, errors and times.
+launch counts, errors, times, bounds and library times.
 """
 
 from __future__ import annotations
@@ -120,10 +136,21 @@ REMAT_LOSS_RTOL = 1e-3
 # K = 5120 terms). f32 outputs: that order alone, 1e-5. bf16 outputs: the
 # one rounding to bf16 (2^-8 = 3.9e-3 relative) may land on either side.
 INT8_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-# (M, K, N) that are not on the path: masked M, N and K tails, K % 16 != 0
-# (W read element by element), odd K (x too)
-INT8_RAGGED = ((7, 64, 77), (100, 320, 320), (33, 40, 48), (5, 13, 9))
+# (M, K, N) that are not on the path, with the kernel each routes to:
+# masked M and N tails and a K tail (48 < 64) through the TMA ring's zero
+# fill; N % 8 != 0, K % 16 != 0 (W read element by element) and odd K (x
+# too) through the mma kernel
+INT8_RAGGED = (((7, 64, 72), "wgmma"), ((100, 320, 320), "wgmma"),
+               ((16383, 320, 2560), "wgmma"), ((33, 48, 40), "wgmma"),
+               ((7, 64, 77), "mma"), ((33, 40, 48), "mma"),
+               ((5, 13, 9), "mma"))
 INT8_MAIN_SHAPE = (16384, 320, 2560)  # the GEGLU projection at 64x64
+# the card's published dense peaks (H100 SXM, NVIDIA's data sheet): the
+# bound of a kernel is the larger of its FLOPs over the bf16 tensor-core
+# rate and its bytes (each input read once, each output written once) over
+# the memory rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 # the quantized UNet call at batch 4 against the bf16 one on the same
 # inputs: per-channel int8 weights (half a step of 1/127 of each channel's
 # largest value) through 16 transformers and 22 resnets
@@ -158,11 +185,28 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build(stems=None) -> None:
+    """Builds the given csrc stems (all when None), one nvcc each, in
+    parallel; prints ptxas's report of the int8 kernels."""
     t0 = time.perf_counter()
-    paths = kernel_build.build()
+    paths = kernel_build.build(stems)
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    for stem in ("int8_matmul", "int8_matmul_wgmma"):
+        if stem in paths:
+            with open(paths[stem][:-3] + ".log") as f:
+                for line in f:
+                    if any(w in line for w in ("Compiling", "Used", "spill",
+                                               "arning", "Potential")):
+                        log(f"build: {stem}: {line.strip()}")
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the FLOPs over
+    the bf16 peak and the bytes over the memory rate, and which it is."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -179,6 +223,44 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         events.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+_capture_stream = None  # the one stream of every capture (see _graph_ms)
+
+
+def _graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time per call: n calls captured in one CUDA graph, the median
+    over `reps` replays divided by n. Unlike _time_ms, no host launch path
+    between the two events. Every capture runs on one side stream: cuBLAS
+    keeps a workspace for each stream it has run on until the process
+    ends, so a new stream per capture would hold ~1 GiB by phase 9."""
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    side = _capture_stream
+    fn()
+    torch.cuda.synchronize()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return statistics.median(times)
 
 
 def _qkv(B, H, T, S, D, dtype, gen, heads_inner: bool):
@@ -209,6 +291,14 @@ def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
             row["ms"] = _time_ms(lambda: fa.flash_fwd(q, k, v, scale))
             row["plain_ms"] = _time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, scale))
+            if dtype == torch.bfloat16:  # the serving dtype
+                row["library_ms"] = _time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, scale=scale))
+            e = q.element_size()
+            # Q K^T and P V; q, k, v read, O and the f32 L written
+            row.update(_bound(4 * B * H * T * S * D,
+                              e * B * H * (2 * T + 2 * S) * D + 4 * B * H * T))
     tol = TOL[dtype]
     log("kernel: " + json.dumps(row))
     if not (np.isfinite(err_o) and np.isfinite(err_l)
@@ -259,6 +349,25 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                     ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
                 row[f"{name}_ms"] = _time_ms(lambda: kern(*args))
                 row[f"{name}_plain_ms"] = _time_ms(lambda: plain(*args))
+            # q, k, v, dO read (and the f32 L and delta); dQ recomputes
+            # Q K^T and dO V^T and forms dS K, dK/dV also P^T dO and dS^T Q
+            e = q.element_size()
+            reads = e * B * H * (2 * T + 2 * S) * D + 8 * B * H * T
+            for name, f, out in (("dq", 6, B * H * T * D),
+                                 ("dkv", 8, 2 * B * H * S * D)):
+                b = _bound(f * B * H * T * S * D, reads + e * out)
+                row[f"{name}_bound_ms"] = b["bound_ms"]
+                row[f"{name}_bound_by"] = b["bound_by"]
+    if timed and dtype == torch.bfloat16:  # the training dtype
+        # one PyTorch call for the same gradients: autograd.grad of a
+        # retained SDPA graph computes dQ, dK and dV together
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, scale=scale)
+            row["library_ms"] = _time_ms(lambda: torch.autograd.grad(
+                o_sdpa, leaves, do, retain_graph=True))
+        del o_sdpa, leaves
     log("bwd kernel: " + json.dumps(row))
     tol = BWD_REL_TOL[dtype]
     bad = [n for n in ("dq", "dk", "dv")
@@ -281,25 +390,35 @@ def phase_bwd_kernels():
     return rows
 
 
+def unet_int8_calls(b: int):
+    """(M, K, N) of every int8 launch of one SD-1.5 UNet call at 512px and
+    device batch b (CFG rows), with repeats: 182."""
+    hw = 64 * 64 * b
+    calls = []
+    # 16 transformers: 5 at each of 64x64, 32x32 and 16x16 (2 down, 3 up)
+    # and the 8x8 mid block. Each runs q/k/v/out of self-attention and q/out
+    # of cross-attention, the GEGLU proj, ff net.2, and cross-attention k/v
+    # on the 77 text tokens
+    for m, c, n in ((hw, 320, 5), (hw // 4, 640, 5), (hw // 16, 1280, 5),
+                    (hw // 64, 1280, 1)):
+        calls += n * ([(m, c, c)] * 6 + [(m, c, 8 * c), (m, 4 * c, c)]
+                      + [(b * 77, 768, c)] * 2)
+    # 22 resnets' time_emb_proj: 5 at 320 channels, 5 at 640, 12 at 1280
+    for c, n in ((320, 5), (640, 5), (1280, 12)):
+        calls += [(b, 1280, c)] * n
+    return calls
+
+
 def int8_path_shapes(unet_batches=(4,), clip_prompts=(2, 1),
                      vae_latents=(2,)):
-    """Every (M, K, N) the int8 kernel runs at in SD-1.5 at 512px: the UNet
-    at each device batch (CFG rows), CLIP on each encode's prompt count,
-    the VAE decoder's mid-block attention on each latent count. The
+    """Every (M, K, N) the int8 kernels run at in SD-1.5 at 512px: the
+    UNet at each device batch (CFG rows), CLIP on each encode's prompt
+    count, the VAE decoder's mid-block attention on each latent count. The
     defaults are request A's: the UNet at batch 4 (2 prompts under CFG),
     CLIP on the 2 prompts and on the 1 negative prompt, 2 latents."""
     shapes = []
     for b in unet_batches:
-        # transformers at 64x64, 32x32, 16x16 and the 8x8 mid block:
-        # q/k/v/out of self-attention and q/out of cross-attention, GEGLU
-        # proj, ff net.2
-        hw = 64 * 64 * b
-        for m, c in ((hw, 320), (hw // 4, 640), (hw // 16, 1280),
-                     (hw // 64, 1280)):
-            shapes += [(m, c, c), (m, c, 8 * c), (m, 4 * c, c)]
-        for c in (320, 640, 1280):
-            shapes += [(b * 77, 768, c),   # cross-attention k/v
-                       (b, 1280, c)]       # resnet time_emb_proj
+        shapes += unet_int8_calls(b)
     for n in clip_prompts:                 # CLIP q/k/v/out, fc1, fc2
         m = 77 * n
         shapes += [(m, 768, 768), (m, 768, 3072), (m, 3072, 768)]
@@ -340,30 +459,113 @@ def recording_int8_shapes(seen: set):
         layers.int8_matmul = kernel
 
 
-def check_int8(M, K, N, dtype, gen, timed=True):
+def _int8_inputs(M, K, N, dtype, gen):
     w = torch.randn((N, K), generator=gen, device="cuda") * 0.05
     scale = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
     wq = torch.round(w / scale[:, None]).clamp(-127, 127).to(torch.int8)
     x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    return x, wq, scale
+
+
+def _int8_direct(route, x, wq, scale, tile=None):
+    """One kernel's C entry point called directly (no routing, no count):
+    the mma kernel on bf16 inputs for its time beside the wgmma kernel's,
+    or the wgmma kernel at a given tile."""
+    (M, K), N = x.shape, wq.shape[0]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    tail = tile if route == "wgmma" else (int(x.dtype == torch.bfloat16),)
+    rc = i8._entry(route)(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                          out.data_ptr(), M, N, K, *tail,
+                          torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{route} entry failed: cudaError {rc} at "
+                           f"{(M, K, N)} tile {tile}")
+    return out
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-30))
+
+
+def check_int8(M, K, N, dtype, gen, timed=True, route=None):
+    """The wrapper against the plain version at one shape; `route` is the
+    kernel it must launch (by default wgmma for bf16, mma for f32). Timed:
+    the routed kernel and the mma kernel (bf16), each through its C entry
+    point on the same inputs (one launch path for both), the wrapper,
+    cuBLAS (F.linear on the dequantized weight in x's dtype, made once
+    before timing), the plain version, and the bound."""
+    route = route or ("wgmma" if dtype == torch.bfloat16 else "mma")
+    x, wq, scale = _int8_inputs(M, K, N, dtype, gen)
     with torch.inference_mode():
+        before = dict(i8.int8_matmul.launches_by_kernel)
         got = i8.int8_matmul(x, wq, scale)
+        ran = [k for k, v in i8.int8_matmul.launches_by_kernel.items()
+               if v != before[k]]
         want = i8.int8_matmul_reference(x, wq, scale)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         row = {"M": M, "K": K, "N": N,
-               "dtype": str(dtype).replace("torch.", ""), "err": err,
-               "rel": err / max(want.float().abs().max().item(), 1e-30)}
+               "dtype": str(dtype).replace("torch.", ""), "kernel": ran,
+               "err": err, "rel": _rel(got, want)}
         if timed:
-            row["ms"] = _time_ms(lambda: i8.int8_matmul(x, wq, scale))
+            if dtype == torch.bfloat16:
+                row["rel_prev"] = _rel(_int8_direct("mma", x, wq, scale),
+                                       want)
+            w_lib = (wq.float() * scale[:, None]).to(dtype)
+            tile = (i8._tile(M, K, N, torch.cuda.get_device_properties(
+                0).multi_processor_count) if route == "wgmma" else None)
+            calls = {"": lambda: _int8_direct(route, x, wq, scale, tile),
+                     "wrapper_": lambda: i8.int8_matmul(x, wq, scale),
+                     "library_": lambda: torch.nn.functional.linear(x, w_lib)}
+            if dtype == torch.bfloat16:
+                calls["prev_"] = lambda: _int8_direct("mma", x, wq, scale)
+            for name, call in calls.items():
+                row[name + "ms"] = _time_ms(call)
+                if name != "wrapper_":  # the same kernel as ""
+                    row[name + "device_ms"] = _graph_ms(call)
+            del w_lib
             row["plain_ms"] = _time_ms(
                 lambda: i8.int8_matmul_reference(x, wq, scale))
+            e = x.element_size()
+            row.update(_bound(2 * M * N * K,
+                              e * M * K + N * K + 4 * N + e * M * N))
     log("int8 kernel: " + json.dumps(row))
     tol = INT8_REL_TOL[dtype]
-    if got.shape != (M, N) or got.dtype != dtype or not (
-            np.isfinite(row["rel"]) and row["rel"] <= tol):
-        raise AssertionError(f"int8_matmul disagrees with its plain version: "
-                             f"{row}, limit {tol}")
+    if got.shape != (M, N) or got.dtype != dtype or ran != [route] or not (
+            np.isfinite(row["rel"]) and row["rel"] <= tol
+            and row.get("rel_prev", 0.0) <= tol):
+        raise AssertionError(f"int8_matmul disagrees with its plain version "
+                             f"or ran another kernel than {route}: {row}, "
+                             f"limit {tol}")
     return row
+
+
+def int8_call_sums(rows) -> dict:
+    """Sums over the 182 launches of one UNet call at batch 4 (bf16) of
+    each timed column, weighted by each shape's count per call; over all
+    launches and over the M >= 1024 ones. The *ms columns time each call
+    alone, its host launch path included (it sets the time at M <= 308:
+    ctypes for the kernels, the Python wrapper for wrapper_ms, PyTorch's
+    dispatcher for cuBLAS); the *device_ms columns replay CUDA graphs of
+    the calls."""
+    counts = {}
+    for s in unet_int8_calls(4):
+        counts[s] = counts.get(s, 0) + 1
+    by_shape = {(r["M"], r["K"], r["N"]): r for r in rows
+                if r["dtype"] == "bfloat16" and "ms" in r}
+    sums = {"launches": sum(counts.values()),
+            "launches_m_ge_1024": sum(c for s, c in counts.items()
+                                      if s[0] >= 1024)}
+    for key in ("ms", "wrapper_ms", "prev_ms", "library_ms", "plain_ms",
+                "device_ms", "prev_device_ms", "library_device_ms",
+                "bound_ms"):
+        sums[key] = sum(c * by_shape[s][key] for s, c in counts.items())
+        sums[key + "_m_ge_1024"] = sum(c * by_shape[s][key]
+                                       for s, c in counts.items()
+                                       if s[0] >= 1024)
+    log("int8 per UNet call: " + json.dumps(sums))
+    return sums
 
 
 def phase_int8_kernels():
@@ -374,8 +576,9 @@ def phase_int8_kernels():
             rows.append(check_int8(M, K, N, dtype, gen))
         for M, K, N in int8_phase_shapes():
             rows.append(check_int8(M, K, N, dtype, gen, timed=False))
-        for M, K, N in INT8_RAGGED:
-            check_int8(M, K, N, dtype, gen, timed=False)
+        for (M, K, N), route in INT8_RAGGED:
+            check_int8(M, K, N, dtype, gen, timed=False,
+                       route=route if dtype == torch.bfloat16 else "mma")
         # a leading batch dimension and an x whose rows are not contiguous
         x = torch.randn((2, 7, 96), generator=gen, device="cuda").to(dtype)
         wq = torch.randint(-127, 128, (40, 64), generator=gen, device="cuda",
@@ -384,11 +587,45 @@ def phase_int8_kernels():
         with torch.inference_mode():
             got = i8.int8_matmul(x[..., 16:80], wq, s)
             want = i8.int8_matmul_reference(x[..., 16:80], wq, s)
-        rel = ((got.float() - want.float()).abs().max()
-               / want.float().abs().max()).item()
+        rel = _rel(got, want)
         if got.shape != (2, 7, 40) or not rel <= INT8_REL_TOL[dtype]:
             raise AssertionError(f"int8_matmul on a strided 3-D x: rel {rel}")
+    # bf16 x whose base is 2 bytes past a 16-byte boundary: the mma kernel
+    M, K, N = 100, 320, 320
+    x = torch.randn((M * K + 8,), generator=gen, device="cuda").to(
+        torch.bfloat16)[1:M * K + 1].view(M, K)
+    _, wq, s = _int8_inputs(M, K, N, torch.bfloat16, gen)
+    with torch.inference_mode():
+        before = i8.int8_matmul.launches_by_kernel["mma"]
+        got = i8.int8_matmul(x, wq, s)
+        rel = _rel(got, i8.int8_matmul_reference(x, wq, s))
+    if i8.int8_matmul.launches_by_kernel["mma"] != before + 1 or \
+            not rel <= INT8_REL_TOL[torch.bfloat16]:
+        raise AssertionError(f"int8_matmul on an unaligned bf16 x: rel {rel}")
+    log(f"int8 kernel: unaligned bf16 x {(M, K, N)} through mma: rel {rel}")
     return rows
+
+
+def int8_tile_sweep(shapes=None):
+    """The wgmma kernel at every tile instance, called directly, at request
+    A's bf16 shapes: each instance checked against the plain version and
+    its device time taken (CUDA graph replay); the tile _tile picks beside
+    them."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, N in shapes or int8_path_shapes():
+        x, wq, scale = _int8_inputs(M, K, N, torch.bfloat16, gen)
+        row = {"M": M, "K": K, "N": N, "picked": list(i8._tile(M, K, N, sms))}
+        with torch.inference_mode():
+            want = i8.int8_matmul_reference(x, wq, scale)
+            for tile in i8.TILES:
+                rel = _rel(_int8_direct("wgmma", x, wq, scale, tile), want)
+                if not rel <= INT8_REL_TOL[torch.bfloat16]:
+                    raise AssertionError(f"wgmma tile {tile} at {(M, K, N)}: "
+                                         f"rel {rel}")
+                row[f"{tile[0]}x{tile[1]}"] = _graph_ms(
+                    lambda: _int8_direct("wgmma", x, wq, scale, tile))
+        log("int8 tiles: " + json.dumps(row))
 
 
 def _random_lora_file(pipe, path, gen):
@@ -517,6 +754,7 @@ def _zero_counts():
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
     i8.int8_matmul.launches = 0
+    i8.int8_matmul.launches_by_kernel.update(wgmma=0, mma=0)
 
 
 def _train_models(gen):
@@ -758,19 +996,21 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         out = pipe.unet(lat, t, ctx, lora=pipe.lora_unet).float()
     torch.cuda.synchronize()
     unet_launches = i8.int8_matmul.launches
+    unet_by_kernel = dict(i8.int8_matmul.launches_by_kernel)
     rel = ((out - ref).norm() / ref.norm()).item()
     log("serve_int8: " + json.dumps({
         "param_bytes_bf16": bytes_bf16, "param_bytes_int8": bytes_int8,
         "unet_bytes_ratio": ratio, "quantize_s": quantize_s,
         "unet_call_rel_l2_vs_bf16": rel, "unet_call_int8_launches":
-        unet_launches, "limits": {"rel_l2": QUANT_UNET_REL_L2_TOL,
+        unet_by_kernel, "limits": {"rel_l2": QUANT_UNET_REL_L2_TOL,
                                   "unet_bytes_ratio": QUANT_UNET_BYTES_MAX}}))
     if ratio > QUANT_UNET_BYTES_MAX:
         raise AssertionError(f"quantized UNet holds {ratio:.3f}x its bf16 "
                              f"bytes")
-    if unet_launches != per_call["unet"]:
+    if unet_by_kernel != {"wgmma": per_call["unet"], "mma": 0} or \
+            unet_launches != per_call["unet"]:
         raise AssertionError(f"one UNet call launched int8_matmul "
-                             f"{unet_launches} times")
+                             f"{unet_by_kernel} times")
     if not (np.isfinite(rel) and rel <= QUANT_UNET_REL_L2_TOL):
         raise AssertionError(f"quantized UNet call is {rel} (relative L2) "
                              f"from the bf16 one")
@@ -805,12 +1045,15 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         wall_a = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         launches_a, fwd_a = i8.int8_matmul.launches, fa.flash_fwd.launches
+        by_kernel_a = dict(i8.int8_matmul.launches_by_kernel)
         encodes_a = encodes[0]
         _check_pngs(body["images"], len(PROMPTS), 512)
+        # every bf16 int8 call of the request launched the wgmma kernel
         if launches_a != want(encodes_a) or \
+                by_kernel_a != {"wgmma": launches_a, "mma": 0} or \
                 fwd_a != ROUTED_PER_UNET_CALL * STEPS:
             raise AssertionError(
-                f"request A launched int8_matmul {launches_a} times (want "
+                f"request A launched int8_matmul {by_kernel_a} times (want "
                 f"{want(encodes_a)}, {encodes_a} CLIP encodes) and flash_fwd "
                 f"{fwd_a} times")
         # the pipeline called directly with the same latents and the
@@ -857,6 +1100,7 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         if errors:
             raise errors[0]
         launches_b, encodes_b = i8.int8_matmul.launches, encodes[0]
+        by_kernel_b = dict(i8.int8_matmul.launches_by_kernel)
         fwd_b = fa.flash_fwd.launches
         for r in results:
             _check_pngs(r["images"], 1, 512)
@@ -866,9 +1110,10 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
             raise AssertionError(f"request B ran as batched_with {batched}, "
                                  f"device batch {srv.last_device_batch}")
         if launches_b != want(encodes_b) or \
+                by_kernel_b != {"wgmma": launches_b, "mma": 0} or \
                 fwd_b != ROUTED_PER_UNET_CALL * STEPS:
             raise AssertionError(f"request B launched int8_matmul "
-                                 f"{launches_b} times (want "
+                                 f"{by_kernel_b} times (want "
                                  f"{want(encodes_b)}) and flash_fwd {fwd_b}")
 
         _, health = _http(srv.port, "/healthz")
@@ -891,15 +1136,69 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         "bf16_slice_request_s": bf16_request_s,
         "request_b_wall_s": wall_b, "request_b_batched_with": batched,
         "warmup_s": warmup_s, "int8_launches_per_call": per_call,
-        "launches_a": {"int8_matmul": launches_a, "flash_fwd": fwd_a,
+        "launches_a": {"int8_matmul": by_kernel_a, "flash_fwd": fwd_a,
                        "clip_encodes": encodes_a},
-        "launches_b": {"int8_matmul": launches_b, "flash_fwd": fwd_b,
+        "launches_b": {"int8_matmul": by_kernel_b, "flash_fwd": fwd_b,
                        "clip_encodes": encodes_b},
         "healthz_devices": health["devices"], "metrics": metrics,
         "card": smi}))
     del srv, pipe
     torch.cuda.empty_cache()
     return launches_a + launches_b, fwd_a + fwd_b
+
+
+def phase_serve_int8_f32(smi: str) -> int:
+    """The SD-1.5 UNet served in f32 with int8 weights: one call at batch 4
+    (random weights and inputs from the seed) through the mma kernel (the
+    wgmma kernel takes bf16 x only), within QUANT_UNET_REL_L2_TOL of the
+    same UNet unquantized."""
+    from lora_tpu_torch.core.quantize import quantize_params_int8
+    from lora_tpu_torch.models.config import SD15_UNET
+    from lora_tpu_torch.models.unet import UNet
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 6)
+    unet = UNet(SD15_UNET, device="cuda", dtype=torch.float32, generator=gen)
+    b = 2 * len(PROMPTS)
+    lat = torch.randn((b, 64, 64, SD15_UNET.in_channels), generator=gen,
+                      device="cuda")
+    ctx = torch.randn((b, 77, SD15_UNET.cross_attention_dim), generator=gen,
+                      device="cuda")
+    t = torch.full((b,), 501, device="cuda")
+    with torch.inference_mode():
+        ref = unet(lat, t, ctx)
+        for name, v in quantize_params_int8(unet.flat_params()).items():
+            unet.set_param(name, v)
+        torch.cuda.synchronize()
+        _zero_counts()  # the counted main-path run
+        out = unet(lat, t, ctx)
+        torch.cuda.synchronize()
+    by_kernel = dict(i8.int8_matmul.launches_by_kernel)
+    rel = ((out - ref).norm() / ref.norm()).item()
+    log("serve_int8_f32: " + json.dumps({
+        "unet_call_rel_l2_vs_f32": rel, "int8_launches": by_kernel,
+        "limit": QUANT_UNET_REL_L2_TOL, "card": smi}))
+    if by_kernel != {"wgmma": 0, "mma": INT8_PER_CALL["unet"]}:
+        raise AssertionError(f"the f32 quantized UNet call launched "
+                             f"{by_kernel}")
+    if not (out.shape == ref.shape and np.isfinite(rel)
+            and rel <= QUANT_UNET_REL_L2_TOL):
+        raise AssertionError(f"f32 quantized UNet call is {rel} (relative "
+                             f"L2) from the f32 one")
+    del unet, ref, out
+    torch.cuda.empty_cache()
+    return by_kernel["mma"]
+
+
+def main_int8(tiles: bool) -> int:
+    """The int8 kernels alone: the device line, their two builds, phase 8
+    with its per-call sums, and with `tiles` every wgmma tile instance."""
+    smi = phase_device()
+    phase_build(["int8_matmul", "int8_matmul_wgmma"])
+    int8_call_sums(phase_int8_kernels())
+    if tiles:
+        int8_tile_sweep(int8_path_shapes() + int8_phase_shapes())
+    log(smi)
+    return 0
 
 
 def main() -> int:
@@ -911,7 +1210,9 @@ def main() -> int:
     train_launches = phase_train(smi)
     phase_grad()
     int8_rows = phase_int8_kernels()
+    int8_sums = int8_call_sums(int8_rows)
     with recording_int8_shapes(set()) as seen:
+        f32_launches = phase_serve_int8_f32(smi)
         int8_launches, serve_int8_fwd = phase_serve_int8(smi, bf16_request_s)
     unchecked = seen - {(r["M"], r["K"], r["N"], r["dtype"])
                         for r in int8_rows}
@@ -922,6 +1223,10 @@ def main() -> int:
     def at_main_shape(rs):  # bf16 at the largest training/serving shape
         return next(r for r in rs if r["dtype"] == "bfloat16"
                     and r["T"] == SD15_ATTN_SHAPES[0][0])
+
+    def timed(row, prefix=""):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+        return {k: row[prefix + k] for k in keys}
 
     fwd, bwd = at_main_shape(rows), at_main_shape(bwd_rows)
     bf16_bwd = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
@@ -939,9 +1244,10 @@ def main() -> int:
         # worst O error over the bf16 shapes the main paths run
         "max_abs_err": max(r["err_o"] for r in rows
                            if r["dtype"] == "bfloat16"),
-        # median per launch at the largest main-path shape, bf16 (batch 4)
-        "ms": fwd["ms"],
-        "plain_ms": fwd["plain_ms"],
+        # median per launch at the largest main-path shape, bf16 (batch 4);
+        # library: torch's SDPA on the same q, k, v
+        **timed(fwd),
+        "library_ms": fwd["library_ms"],
     }]
     for name, key, line in (("flash_bwd_dq", "dq", 178),
                             ("flash_bwd_dkv", "dkv", 210)):
@@ -953,27 +1259,52 @@ def main() -> int:
             "replaces": f"lora_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[1 if key == "dq" else 2],
             "max_abs_err": max(r[f"err_{e}"] for r in bf16_bwd for e in errs),
-            # median per launch at T = S = 4096, D = 40, bf16, B = 1, H = 8
-            "ms": bwd[f"{key}_ms"],
-            "plain_ms": bwd[f"{key}_plain_ms"],
+            # median per launch at T = S = 4096, D = 40, bf16, B = 1, H = 8;
+            # library: one autograd.grad of SDPA, which computes dQ, dK and
+            # dV together (compare it with the two kernels' sum)
+            **timed(bwd, f"{key}_"),
+            "library_ms": bwd["library_ms"],
+            "library_computes": "dq, dk, dv",
         })
-    main_int8 = next(r for r in int8_rows if r["dtype"] == "bfloat16"
-                     and (r["M"], r["K"], r["N"]) == INT8_MAIN_SHAPE)
+    main_int8 = {r["dtype"]: r for r in int8_rows if "ms" in r
+                 and (r["M"], r["K"], r["N"]) == INT8_MAIN_SHAPE}
     kernels.append({
         "name": "int8_matmul",
         "route": "cuda",
-        "source": "lora_tpu_torch/ops/csrc/int8_matmul.cu",
+        "source": "lora_tpu_torch/ops/csrc/int8_matmul_wgmma.cu",
         "replaces": "lora_tpu/ops/int8_matmul.py:35",
-        # quantized serving: request A and request B, every call at a shape
-        # phase 8 checked
+        # quantized serving: request A and request B, every bf16 call (all
+        # of them wgmma), at shapes phase 8 checked
         "launches": int8_launches,
         "launches_by_path": {"serve_int8": int8_launches},
-        # worst error over the bf16 shapes the phase runs
+        "launches_by_kernel": {"wgmma": int8_launches, "mma": f32_launches},
+        # worst error over the bf16 shapes of phase 8 (all through wgmma)
         "max_abs_err": max(r["err"] for r in int8_rows
                            if r["dtype"] == "bfloat16"),
-        # median per launch at the GEGLU projection at 64x64, bf16
-        "ms": main_int8["ms"],
-        "plain_ms": main_int8["plain_ms"],
+        # median per launch at the GEGLU projection at 64x64, bf16, through
+        # the kernel's C entry point; prev: the mma kernel the same way on
+        # the same inputs; library: cuBLAS F.linear on the dequantized bf16
+        # weight
+        **timed(main_int8["bfloat16"]),
+        "prev_ms": main_int8["bfloat16"]["prev_ms"],
+        "library_ms": main_int8["bfloat16"]["library_ms"],
+        # every column summed over the 182 launches of one UNet call at
+        # batch 4 (each launch timed alone, host launch path included)
+        "per_unet_call": int8_sums,
+    })
+    kernels.append({
+        "name": "int8_matmul_mma",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "lora_tpu/ops/int8_matmul.py:35",
+        # the f32 quantized UNet call of phase 9a (f32 x)
+        "launches": f32_launches,
+        "launches_by_path": {"serve_int8_f32": f32_launches},
+        "max_abs_err": max(r["err"] for r in int8_rows
+                           if r["dtype"] == "float32"),
+        # at the GEGLU projection at 64x64, f32 x; library: F.linear in f32
+        **timed(main_int8["float32"]),
+        "library_ms": main_int8["float32"]["library_ms"],
     })
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -984,4 +1315,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] in (["--int8"], ["--int8-tiles"]):
+        sys.exit(main_int8(sys.argv[1] == "--int8-tiles"))
+    if sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles]")
     sys.exit(main())

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels of ops/csrc/.
 
 Every csrc/*.cu is compiled with nvcc for sm_90a into a shared library with
-plain C entry points, one nvcc process per source, all started together,
-and loaded with ctypes. The libraries are cached under lora_tpu_torch/_build/
-by a key over every file under csrc/ (headers included) and the flags, so
-editing any source rebuilds all of them. The first CUDA call of any kernel
-wrapper builds every library; nothing is compiled at import, and a failed
-or impossible build raises (CUDA tensors have no other path).
+plain C entry points and loaded with ctypes. Each library is cached under
+lora_tpu_torch/_build/ by a key over its own source, every csrc/*.cuh and
+the flags: editing a source rebuilds only its library, editing a header
+rebuilds them all. The first CUDA call of a kernel wrapper builds only the
+library it needs; build() with no arguments compiles them all, one nvcc
+process per source, all started together. Nothing is compiled at import,
+and a failed or impossible build raises (CUDA tensors have no other path).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional
 
 _CSRC_DIR = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -40,26 +41,39 @@ def _find_nvcc() -> Optional[str]:
     return shutil.which("nvcc")
 
 
-def _sources() -> Tuple[list, str]:
-    """The csrc/*.cu sources and a key over every file under csrc/ (headers
-    included) and the flags."""
+def _sources() -> Dict[str, str]:
+    """{stem: path} of every csrc/*.cu."""
+    return {os.path.splitext(os.path.basename(p))[0]: p
+            for p in sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu")))}
+
+
+def _key(source: str) -> str:
+    """A key over one source, every csrc/*.cuh (a source may include any
+    of them) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(_CSRC_DIR, "*"))):
+    headers = sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cuh")))
+    for path in [source, *headers]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    return sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu"))), h.hexdigest()[:16]
+    return h.hexdigest()[:16]
 
 
-def build() -> Dict[str, str]:
-    """Compile each csrc/*.cu into _build/ (once per key), one nvcc process
-    per source, all started together; return {source stem: library path}.
-    nvcc's ptxas report (registers, shared memory, spills per kernel) is
-    kept beside them as build.log."""
-    sources, key = _sources()
-    libs = {os.path.splitext(os.path.basename(s))[0]: s for s in sources}
-    paths = {stem: os.path.join(_BUILD_DIR, f"{stem}_{key}.so")
-             for stem in libs}
+def build(stems: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile csrc/<stem>.cu for each stem (every source when None) into
+    _build/ (once per key), one nvcc process per source, all started
+    together; return {stem: library path}. nvcc's ptxas report (registers,
+    shared memory, spills per kernel) is kept beside each library as
+    <stem>_<key>.log."""
+    sources = _sources()
+    if stems is not None:
+        missing = sorted(set(stems) - set(sources))
+        if missing:
+            raise RuntimeError(f"no csrc/<stem>.cu for {missing} among "
+                               f"{sorted(sources)}")
+        sources = {s: sources[s] for s in stems}
+    paths = {stem: os.path.join(_BUILD_DIR, f"{stem}_{_key(src)}.so")
+             for stem, src in sources.items()}
     todo = [stem for stem, path in paths.items() if not os.path.exists(path)]
     if not todo:
         return paths
@@ -75,17 +89,17 @@ def build() -> Dict[str, str]:
             fd, tmps[stem] = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
             procs[stem] = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmps[stem], libs[stem]],
+                [nvcc, *NVCC_FLAGS, "-o", tmps[stem], sources[stem]],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         outs = {stem: proc.communicate() for stem, proc in procs.items()}
-        with open(os.path.join(_BUILD_DIR, "build.log"), "w") as f:
-            for stem, (out, err) in outs.items():
-                f.write(f"==== {libs[stem]}\n{out}{err}")
+        for stem, (out, err) in outs.items():
+            with open(paths[stem][:-3] + ".log", "w") as f:
+                f.write(f"==== {sources[stem]}\n{out}{err}")
         for stem, proc in procs.items():
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {libs[stem]}:\n"
-                    f"{outs[stem][1][-4000:]}")
+                    f"nvcc failed ({proc.returncode}) building "
+                    f"{sources[stem]}:\n{outs[stem][1][-4000:]}")
         for stem in todo:
             os.replace(tmps[stem], paths[stem])
     finally:
@@ -100,12 +114,9 @@ def build() -> Dict[str, str]:
 
 
 def load_library(stem: str) -> ctypes.CDLL:
-    """The library built from csrc/<stem>.cu, building every source first
-    if needed; loaded once per process."""
+    """The library built from csrc/<stem>.cu, building only that source
+    first if needed; loaded once per process."""
     with _lock:
         if stem not in _libs:
-            paths = build()
-            if stem not in paths:
-                raise RuntimeError(f"no csrc/{stem}.cu among {sorted(paths)}")
-            _libs[stem] = ctypes.CDLL(paths[stem])
+            _libs[stem] = ctypes.CDLL(build([stem])[stem])
         return _libs[stem]

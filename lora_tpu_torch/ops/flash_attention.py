@@ -19,9 +19,9 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises), and counts its launches in `<wrapper>.launches`.
 
-Build: the first CUDA call compiles every csrc/*.cu through ops/build.py
-(nvcc for sm_90a, plain C entry points loaded with ctypes). Nothing is
-compiled or imported at module import.
+Build: the first CUDA call compiles csrc/flash_fwd.cu and csrc/flash_bwd.cu
+through ops/build.py (nvcc for sm_90a, plain C entry points loaded with
+ctypes). Nothing is compiled or imported at module import.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ def _load() -> types.SimpleNamespace:
     global _lib
     with _lib_lock:
         if _lib is None:
+            build.build(("flash_fwd", "flash_bwd"))  # both nvccs at once
             fwd = build.load_library("flash_fwd")
             bwd = build.load_library("flash_bwd")
             for fn, n_ptrs in ((fwd.flash_fwd, 5), (bwd.flash_bwd_dq, 7),

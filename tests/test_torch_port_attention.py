@@ -184,16 +184,66 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not any(p.suffix == ".so" for p in tmp_path.iterdir())
 
 
-def test_build_key_covers_every_source(tmp_path, monkeypatch):
-    """One library per csrc/*.cu, keyed by every file under csrc/ (the
-    shared header included): editing any of them rebuilds all."""
+def _two_sources(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
     for name in ("a.cu", "b.cu", "common.cuh"):
         (src / name).write_text(f"// {name}\n")
     monkeypatch.setattr(t_build, "_CSRC_DIR", str(src))
-    sources, key = t_build._sources()
-    assert [os.path.basename(s) for s in sources] == ["a.cu", "b.cu"]
+    sources = t_build._sources()
+    assert {k: os.path.basename(v) for k, v in sources.items()} == {
+        "a": "a.cu", "b": "b.cu"}
+    return src, {stem: t_build._key(path) for stem, path in sources.items()}
+
+
+def test_build_key_covers_every_source(tmp_path, monkeypatch):
+    """One library per csrc/*.cu, each keyed by its own source, every
+    header and the flags: editing the shared header rebuilds all."""
+    src, keys = _two_sources(tmp_path, monkeypatch)
+    assert keys["a"] != keys["b"]
     (src / "common.cuh").write_text("// changed\n")
-    assert t_build._sources()[1] != key
+    new = {stem: t_build._key(p) for stem, p in t_build._sources().items()}
+    assert all(new[s] != keys[s] for s in keys)
+
+
+def test_build_key_source_edit_rebuilds_only_its_library(tmp_path,
+                                                         monkeypatch):
+    src, keys = _two_sources(tmp_path, monkeypatch)
+    (src / "a.cu").write_text("// changed\n")
+    new = {stem: t_build._key(p) for stem, p in t_build._sources().items()}
+    assert new["a"] != keys["a"] and new["b"] == keys["b"]
+
+
+def test_load_library_builds_only_its_source(tmp_path, monkeypatch):
+    """The first use of one kernel compiles its own source and no other."""
+    _two_sources(tmp_path, monkeypatch)
+    monkeypatch.setattr(t_build, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(t_build, "_libs", {})
+    monkeypatch.setattr(t_build, "_find_nvcc", lambda: "nvcc")
+    compiled = []
+
+    class Proc:  # nvcc that "builds" by writing its output file
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            compiled.append(os.path.basename(cmd[-1]))
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+        def communicate(self):
+            return "", ""
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(t_build.subprocess, "Popen", Proc)
+    monkeypatch.setattr(t_build.ctypes, "CDLL", lambda path: path)
+    path = t_build.load_library("b")
+    assert compiled == ["b.cu"]
+    assert os.path.basename(path).startswith("b_") and path.endswith(".so")
+    assert os.path.exists(path[:-3] + ".log")
+    assert t_build.load_library("b") == path and compiled == ["b.cu"]
+    assert sorted(t_build.build()) == ["a", "b"] and compiled == ["b.cu",
+                                                                 "a.cu"]
+    with pytest.raises(RuntimeError, match="no csrc"):
+        t_build.build(["c"])
 

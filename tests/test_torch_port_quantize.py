@@ -172,6 +172,140 @@ def test_non_cpu_tensors_never_fall_back():
         t_i8.int8_matmul(x, wq, torch.empty(8, device="meta"))
 
 
+def _sd15_int8_shapes():
+    """(M, K, N) of every int8 call of SD-1.5 quantized serving at 512px:
+    the UNet at device batch 2, 4 and 8 (warmup, request A and request B of
+    chip_smoke.py, CFG rows), CLIP on 1, 2 and 4 prompts, the VAE decoder's
+    attention on 1, 2 and 4 latents."""
+    shapes = set()
+    for b in (2, 4, 8):
+        hw = 64 * 64 * b
+        for m, c in ((hw, 320), (hw // 4, 640), (hw // 16, 1280),
+                     (hw // 64, 1280)):
+            shapes |= {(m, c, c), (m, c, 8 * c), (m, 4 * c, c)}
+        for c in (320, 640, 1280):
+            shapes |= {(77 * b, 768, c), (b, 1280, c)}
+    for n in (1, 2, 4):
+        m = 77 * n
+        shapes |= {(m, 768, 768), (m, 768, 3072), (m, 3072, 768),
+                   (4096 * n, 512, 512)}
+    return sorted(shapes)
+
+
+SD15_INT8_SHAPES = _sd15_int8_shapes()
+
+
+def _x(M, K, dtype=torch.bfloat16):
+    """An (M, K) x on a fresh (64-byte aligned) base, without M * K
+    storage: _route reads only dtype, shape and the base pointer."""
+    return torch.zeros((1, 1), dtype=dtype).expand(M, K)
+
+
+def _wq(N, K):
+    return torch.zeros((1, 1), dtype=torch.int8).expand(N, K)
+
+
+@pytest.mark.parametrize("mkn", SD15_INT8_SHAPES, ids=str)
+def test_route_sends_every_sd15_serving_shape_to_wgmma(mkn):
+    M, K, N = mkn
+    assert t_i8._route(_x(M, K), _wq(N, K)) == "wgmma"
+
+
+@pytest.mark.parametrize("case", ["f32", "k_not_16", "n_not_8",
+                                  "x_misaligned", "w_misaligned"])
+def test_route_sends_the_rest_to_mma(case):
+    """What TMA cannot load: f32 x, 16-byte row strides, N % 8 and bases
+    that are not 16-byte aligned."""
+    M, K, N = 100, 320, 320
+    x, wq = _x(M, K), _wq(N, K)
+    if case == "f32":
+        x = _x(M, K, torch.float32)
+    elif case == "k_not_16":
+        x, wq = _x(M, 40), _wq(N, 40)
+    elif case == "n_not_8":
+        wq = _wq(77, K)
+    elif case == "x_misaligned":
+        x = torch.zeros(M * K + 8, dtype=torch.bfloat16)[1:M * K + 1]
+        x = x.view(M, K)
+    else:
+        wq = torch.zeros(N * K + 16, dtype=torch.int8)[1:N * K + 1]
+        wq = wq.view(N, K)
+    assert t_i8._route(x, wq) == "mma"
+
+
+@pytest.mark.parametrize("mkn", SD15_INT8_SHAPES + [
+    (16383, 320, 2560), (7, 64, 72), (100, 320, 320), (33, 48, 40)], ids=str)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_tile_is_a_box_instance_of_least_modelled_time(mkn, sms):
+    """A tile TMA's boxes allow (at most 256 rows, rows of x a multiple of
+    16 for wgmma's n, 64 W rows per consumer warpgroup), and none of the
+    instances is modelled faster: whole waves of tiles on `sms` SMs, each
+    costing its per-wave time plus its time per K step of 64."""
+    M, K, N = mkn
+
+    def us(tile):
+        tiles = -(-M // tile[0]) * -(-N // tile[1])
+        per_wave, per_step = t_i8._TILE_US[tile]
+        return -(-tiles // sms) * (per_wave + per_step * -(-K // 64))
+
+    bm, bn = t_i8._tile(M, K, N, sms)
+    assert (bm, bn) in t_i8.TILES and set(t_i8._TILE_US) == set(t_i8.TILES)
+    assert bm <= 256 and bm % 16 == 0 and bn in (64, 128)
+    assert all(us((bm, bn)) <= us(t) for t in t_i8.TILES)
+
+
+@pytest.mark.parametrize("mkn, tile", [
+    ((16384, 320, 2560), (256, 128)),  # 1,280 tiles: the largest tile
+    ((4, 1280, 1280), (64, 64)),       # time_emb_proj: 64 rows of x
+    ((77, 3072, 768), (64, 64)),       # CLIP fc2: 12 tiles walk K alone
+    # 80 tiles of 256 x 64 on 132 SMs beat 320 of 64 x 64 in 3 waves
+    ((1024, 5120, 1280), (256, 64)),
+], ids=str)
+def test_tile_picks_as_measured(mkn, tile):
+    assert t_i8._tile(*mkn) == tile
+
+
+def test_meta_tensor_raises_on_the_wgmma_route():
+    x = torch.empty((64, 320), device="meta", dtype=torch.bfloat16)
+    wq = torch.empty((320, 320), device="meta", dtype=torch.int8)
+    assert t_i8._route(x, wq) == "wgmma"
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        t_i8.int8_matmul(x, wq, torch.empty(320, device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_wrapper_counts_no_launch_in_either_kernel(dtype):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 64, 320), generator=gen).to(dtype)
+    wq = torch.randint(-127, 128, (320, 320), generator=gen,
+                       dtype=torch.int8)
+    s = torch.rand(320, generator=gen)
+    before = (t_i8.int8_matmul.launches,
+              dict(t_i8.int8_matmul.launches_by_kernel))
+    out = t_i8.int8_matmul(x, wq, s)
+    assert (t_i8.int8_matmul.launches,
+            t_i8.int8_matmul.launches_by_kernel) == before
+    assert set(before[1]) == {"wgmma", "mma"}
+    assert before[0] == sum(before[1].values())
+    torch.testing.assert_close(out, t_i8.int8_matmul_reference(x, wq, s),
+                               rtol=0, atol=0)
+
+
+def test_int8_widening_bit_trick_is_exact():
+    """int8_matmul_wgmma.cu widens int8 to bf16 without the int-to-float
+    converter: u = q ^ 0x80 in the low byte of the f32 2^23 (0x4B000000),
+    minus 2^23 + 128 in f32, then the top 16 bits of the f32 as the bf16.
+    The same arithmetic in numpy, for every int8, gives exactly bf16(q)."""
+    q = np.arange(-128, 128, dtype=np.int32)
+    u = (q.astype(np.uint32) ^ 0x80) & 0xFF
+    f = (np.uint32(0x4B000000) | u).view(np.float32) - np.float32(8388736.0)
+    assert f.dtype == np.float32
+    np.testing.assert_array_equal(f, q.astype(np.float32))
+    top = (f.view(np.uint32) >> 16).astype(np.uint16)
+    want = torch.from_numpy(q).to(torch.bfloat16).view(torch.int16).numpy()
+    np.testing.assert_array_equal(top.view(np.int16), want)
+
+
 def _tiny_pipe(dtype=torch.float32):
     return StableDiffusionPipeline.random_init(
         torch.Generator().manual_seed(0), "cpu", dtype=dtype,
