@@ -6,19 +6,36 @@
     python3 chip_smoke.py --int8-tiles  # the same, then every wgmma tile
                                         # instance at every phase 8 shape
                                         # (the data of int8_matmul._TILE_US)
+    python3 chip_smoke.py --flash       # phases 1, 2 (the two forward
+                                        # sources only), a first wgmma call
+                                        # in a child process under a
+                                        # timeout, 3 and its sums over one
+                                        # UNet call
 
-Phases, each printing its own lines (about 3 minutes on one H100, most of
-it the build of the flash sources):
+Phases, each printing its own lines (about 5 minutes on one H100, most of
+it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
-     (flash_fwd.cu, flash_bwd.cu, int8_matmul.cu, int8_matmul_wgmma.cu;
-     one nvcc each, in parallel) for sm_90a into lora_tpu_torch/_build/,
-     and prints ptxas's registers, shared memory and spills of the int8
-     kernels.
-  3. kernel: the forward kernel against its plain PyTorch version on the
-     card at the SD-1.5 512px attention shapes (serving batch 4), bf16 and
-     f32, plus one ragged call; max abs errors and median times (CUDA
-     events), and torch's SDPA on the same inputs (timed only).
+     (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu, int8_matmul.cu,
+     int8_matmul_wgmma.cu; one nvcc each, in parallel) for sm_90a into the
+     build directory, and prints ptxas's registers, shared memory and
+     spills of the wgmma kernels.
+  3. kernel: the forward kernels against their plain PyTorch version on the
+     card at the SD-1.5 512px self-attention shapes, bf16 at the serving
+     batch (4) and the training batch (1), each call through the wgmma
+     kernel (flash_fwd_wgmma.cu; also called directly at the other q-tile
+     height, and the mma kernel flash_fwd.cu on the same inputs), the same
+     untimed at the other UNet batches of the main paths (8 and 2), plus
+     the ragged call, one contiguous (B, H, T, D) call and a ragged call at
+     every D the wgmma kernel takes (8 to 160); f32 at the serving
+     shapes and the ragged call through the mma kernel. Every flash
+     forward call of phases 5 to 9 is recorded (shapes, dtype, strides),
+     and one that phase 3 did not check fails the run. Max abs errors;
+     median times of the routed kernel through its C entry point (and its
+     device time from CUDA-graph replays), the wrapper, the mma kernel on
+     the same bf16 inputs, torch's SDPA (timed only), the plain version,
+     the FLOP bound and the exponential floor; their sums over one UNet
+     call (5 launches per level).
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
      the SD-1.5 training shapes (batch 1), bf16 and f32, plus one ragged
      call; relative errors and median times, and one autograd.grad of a
@@ -27,17 +44,20 @@ it the build of the flash sources):
      weights from a seed: a rank-4 LoRA + one TI embed saved to a
      .safetensors file and loaded with patch_pipe, 2 prompts, 512x512,
      50 DDIM steps, CFG 7.5. Checks the images and that every spatial
-     self-attention of every UNet call went through the forward kernel.
+     self-attention of every UNet call went through the wgmma forward
+     kernel.
   6. train: the DreamBooth-LoRA step of bench.py at full SD-1.5 width
      (bf16, 512px, batch 1, rank-4 LoRA on the default UNet sites, cached
      latents and text embeddings, AdamW lr 1e-4, clip 1.0) through
      make_optimizer and make_train_step: 3 warm-up and 10 timed steps.
-     Checks finite losses, moved LoRA up leaves, and 15 forward, 15 dQ and
-     15 dK/dV launches per step; prints step time, steps/s, peak memory.
+     Checks finite losses, moved LoRA up leaves, and 15 forward (all
+     wgmma), 15 dQ and 15 dK/dV launches per step; prints step time,
+     steps/s, peak memory.
   7. grad: one loss-and-backward on a LoRA with nonzero up factors and
      fixed draws, through the kernels and through the plain attention path:
      the relative L2 distance of the two LoRA gradients; then the same with
-     gradient checkpointing: the same loss, and 30 forward launches.
+     gradient checkpointing: the same loss, and 30 forward launches (every
+     forward launch of the phase wgmma).
   8. int8 kernel: the int8-weight matmul against its plain version at
      every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
      decoder's attention), bf16 (each call must launch the wgmma kernel,
@@ -51,7 +71,8 @@ it the build of the flash sources):
      shape not checked here fails the run.
   9a. serve_int8 f32: the SD-1.5 UNet in f32, quantized: one call at
      batch 4, within relative L2 5e-2 of the f32 UNet, 182 launches, all
-     of the mma kernel (f32 x).
+     of the mma kernel (f32 x), and 15 flash forward launches, all of the
+     mma kernel (flash_fwd.cu: f32).
   9. serve_int8: quantized serving at full SD-1.5 width through HTTP. The
      slice's bf16 pipeline with the LoRA + TI at scale 0.8, then
      quantize_base(): param bytes before and after (UNet <= 0.55x), one
@@ -59,7 +80,8 @@ it the build of the flash sources):
      int8 launches; a PipelineServer on localhost (max_batch 4, 500 ms
      window) warmed up, then request A (the 2 prompts, 50 steps, CFG 7.5):
      two 512x512 PNGs, exactly the int8 launches the weights imply (all of
-     the wgmma kernel) and 750 forward-attention launches, pixels equal to
+     the wgmma kernel) and 750 forward-attention launches (all wgmma),
+     pixels equal to
      the pipeline called directly; request B (4 concurrent one-prompt
      requests) coalesced into one device batch of 4; healthz, metrics and
      drain.
@@ -104,6 +126,7 @@ TOL = {torch.bfloat16: {"o": 2e-2, "lse": 1e-3},
 # channels)
 SD15_ATTN_SHAPES = ((4096, 40), (1024, 80), (256, 160))
 RAGGED = (300, 77, 64)  # (T, S, D): masked tails in T, S and in the tiles
+FLASH_D_SWEEP = (200, 130)  # (T, S) of the sweep over the wgmma kernel's D
 # max |kernel - plain| / max |plain| of dQ, dK and dV, on the same inputs.
 # bf16: the gradients are stored in bf16 (an ulp is 2^-8 = 3.9e-3 relative)
 # and P and dS are rounded to bf16 before their products in both versions,
@@ -150,7 +173,11 @@ INT8_MAIN_SHAPE = (16384, 320, 2560)  # the GEGLU projection at 64x64
 # rate and its bytes (each input read once, each output written once) over
 # the memory rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores: the f32 mma kernel's FMAs
 PEAK_BYTES = 3.35e12
+# exponentials per clock per SM (the SFU's ex2): the softmax's B*H*T*S
+# exponentials at the card's maximum SM clock bound the forward kernel too
+EXP_PER_CLOCK_PER_SM = 16
 # the quantized UNet call at batch 4 against the bf16 one on the same
 # inputs: per-channel int8 weights (half a step of 1/127 of each channel's
 # largest value) through 16 transformers and 22 resnets
@@ -187,12 +214,13 @@ def phase_device() -> str:
 
 def phase_build(stems=None) -> None:
     """Builds the given csrc stems (all when None), one nvcc each, in
-    parallel; prints ptxas's report of the int8 kernels."""
+    parallel; prints ptxas's report of the wgmma kernels and the int8 mma
+    kernel."""
     t0 = time.perf_counter()
     paths = kernel_build.build(stems)
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for stem in ("int8_matmul", "int8_matmul_wgmma"):
+    for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma"):
         if stem in paths:
             with open(paths[stem][:-3] + ".log") as f:
                 for line in f:
@@ -201,10 +229,12 @@ def phase_build(stems=None) -> None:
                         log(f"build: {stem}: {line.strip()}")
 
 
-def _bound(flops: float, nbytes: float) -> dict:
+def _bound(flops: float, nbytes: float,
+           peak: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of the FLOPs over
-    the bf16 peak and the bytes over the memory rate, and which it is."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    the peak for their type (bf16 tensor cores by default) and the bytes
+    over the memory rate, and which it is."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -275,49 +305,222 @@ def _qkv(B, H, T, S, D, dtype, gen, heads_inner: bool):
     return make(T), make(S), make(S)
 
 
+_clock_hz = None
+
+
+def _exp_floor_ms(B, H, T, S) -> float:
+    """The least time the card's exponential units take for the softmax's
+    B*H*T*S exponentials: 16 a clock per SM at the maximum SM clock
+    (nvidia-smi)."""
+    global _clock_hz
+    if _clock_hz is None:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.split()[0]
+        _clock_hz = float(mhz) * 1e6
+    sms = i8._sm_count(torch.device("cuda"))
+    return 1e3 * B * H * T * S / (sms * EXP_PER_CLOCK_PER_SM * _clock_hz)
+
+
+def _fwd_direct(route, q, k, v, scale, bm=None):
+    """One forward kernel's C entry point called directly (no routing, no
+    count): the mma kernel on bf16 inputs for its time beside the wgmma
+    kernel's, or the wgmma kernel at a given q-tile height."""
+    B, H, T, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if route == "wgmma":
+        arg = bm or fa._fwd_bm(T, B * H, i8._sm_count(q.device))
+    else:
+        arg = int(q.dtype == torch.bfloat16)
+    fa._launch(fa._entry(route), f"flash_fwd {route} entry",
+               (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr()), fa._strides(q, k, v, out), q, k, arg, scale)
+    return out, lse
+
+
+def _flash_key(q, k, v):
+    """What a forward launch depends on: the shapes, the dtype and the
+    strides of q, k and v (the wgmma kernel's tensor maps are built from
+    them)."""
+    B, H, T, D = q.shape
+    return (B, H, T, k.shape[2], D, str(q.dtype).replace("torch.", ""),
+            tuple(tuple(t.stride()) for t in (q, k, v)))
+
+
+def _row_key(row):
+    return (row["B"], row["H"], row["T"], row["S"], row["D"], row["dtype"],
+            tuple(tuple(s) for s in row["strides"]))
+
+
+@contextlib.contextmanager
+def recording_flash_shapes(seen: set):
+    """Adds _flash_key of every flash forward call made inside on CUDA
+    tensors to `seen` (through the route lookup flash_fwd makes; the wrapper
+    and its counts are unchanged)."""
+    route = fa._fwd_route
+
+    def recorded(q, k, v):
+        seen.add(_flash_key(q, k, v))
+        return route(q, k, v)
+
+    fa._fwd_route = recorded
+    try:
+        yield seen
+    finally:
+        fa._fwd_route = route
+
+
+def _errs(got, want):
+    (o, lse), (o_ref, lse_ref) = got, want
+    return ((o.float() - o_ref.float()).abs().max().item(),
+            (lse - lse_ref).abs().max().item())
+
+
 def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
+    """flash_fwd against its plain version: the call must launch the wgmma
+    kernel for bf16 and the mma kernel for f32. bf16 also checks the wgmma
+    kernel at the other q-tile height and the mma kernel on the same
+    inputs. Timed: the routed kernel through its C entry point (and its
+    device time from CUDA-graph replays), the wrapper, the mma kernel on
+    the bf16 inputs, SDPA, the plain version, the FLOP bound and the
+    exponential floor."""
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     scale = D ** -0.5
+    bf16 = dtype == torch.bfloat16
+    route = "wgmma" if bf16 else "mma"
     with torch.inference_mode():
-        o, lse = fa.flash_fwd(q, k, v, scale)
-        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, scale)
+        before = dict(fa.flash_fwd.launches_by_kernel)
+        got = fa.flash_fwd(q, k, v, scale)
+        ran = [r for r, n in fa.flash_fwd.launches_by_kernel.items()
+               if n != before[r]]
+        want = fa.flash_attention_reference(q, k, v, scale)
         torch.cuda.synchronize()
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
+        err_o, err_l = _errs(got, want)
         row = {"B": B, "H": H, "T": T, "S": S, "D": D,
                "dtype": str(dtype).replace("torch.", ""),
-               "err_o": err_o, "err_lse": err_l}
+               "strides": [list(t.stride()) for t in (q, k, v)],
+               "kernel": ran, "err_o": err_o, "err_lse": err_l}
+        checked = [(err_o, err_l)]
+        if bf16:
+            bm = fa._fwd_bm(T, B * H, i8._sm_count(q.device))
+            row["bm"] = bm
+            for name, call in (
+                    ("other_bm", lambda: _fwd_direct("wgmma", q, k, v, scale,
+                                                     192 - bm)),
+                    ("prev", lambda: _fwd_direct("mma", q, k, v, scale))):
+                e = _errs(call(), want)
+                row[f"err_o_{name}"], row[f"err_lse_{name}"] = e
+                checked.append(e)
         if timed:
-            row["ms"] = _time_ms(lambda: fa.flash_fwd(q, k, v, scale))
+            direct = {"": lambda: _fwd_direct(route, q, k, v, scale),
+                      "library_": lambda: torch.nn.functional.
+                      scaled_dot_product_attention(q, k, v, scale=scale)}
+            if bf16:
+                direct["prev_"] = lambda: _fwd_direct("mma", q, k, v, scale)
+            for name, call in direct.items():
+                row[name + "ms"] = _time_ms(call)
+                row[name + "device_ms"] = _graph_ms(call)
+            row["wrapper_ms"] = _time_ms(lambda: fa.flash_fwd(q, k, v, scale))
             row["plain_ms"] = _time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, scale))
-            if dtype == torch.bfloat16:  # the serving dtype
-                row["library_ms"] = _time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        q, k, v, scale=scale))
             e = q.element_size()
             # Q K^T and P V; q, k, v read, O and the f32 L written
             row.update(_bound(4 * B * H * T * S * D,
-                              e * B * H * (2 * T + 2 * S) * D + 4 * B * H * T))
+                              e * B * H * (2 * T + 2 * S) * D + 4 * B * H * T,
+                              PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS))
+            row["exp_floor_ms"] = _exp_floor_ms(B, H, T, S)
     tol = TOL[dtype]
     log("kernel: " + json.dumps(row))
-    if not (np.isfinite(err_o) and np.isfinite(err_l)
-            and err_o <= tol["o"] and err_l <= tol["lse"]):
-        raise AssertionError(f"flash_fwd disagrees with its plain version: "
-                             f"{row} limits {tol}")
+    if ran != [route] or not all(
+            np.isfinite(eo) and np.isfinite(el) and eo <= tol["o"]
+            and el <= tol["lse"] for eo, el in checked):
+        raise AssertionError(f"flash_fwd disagrees with its plain version "
+                             f"or ran another kernel than {route}: {row} "
+                             f"limits {tol}")
     return row
 
 
 def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(SEED)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for B in (4, 1):  # serving, training
         for T, D in SD15_ATTN_SHAPES:
-            rows.append(check_kernel(4, 8, T, T, D, dtype, gen))
-        T, S, D = RAGGED
-        check_kernel(1, 2, T, S, D, dtype, gen, heads_inner=False,
-                     timed=False)
+            rows.append(check_kernel(B, 8, T, T, D, torch.bfloat16, gen))
+    # the other UNet batches of the main paths: the server's warm-up
+    # buckets and request B (2 and 8 rows under CFG), the LoRA check of
+    # phase 5 (2 rows, no CFG)
+    for B in (8, 2):
+        for T, D in SD15_ATTN_SHAPES:
+            rows.append(check_kernel(B, 8, T, T, D, torch.bfloat16, gen,
+                                     timed=False))
+    T, S, D = RAGGED
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(check_kernel(1, 2, T, S, D, dtype, gen,
+                                 heads_inner=False, timed=False))
+    # one contiguous (B, H, T, D) call at a main-path shape
+    rows.append(check_kernel(4, 8, 1024, 1024, 80, torch.bfloat16, gen,
+                             heads_inner=False, timed=False))
+    # every D the route sends to the wgmma kernel (each of its instances),
+    # with ragged T and S
+    for D in range(8, fa.WGMMA_MAX_D + 1, 8):
+        rows.append(check_kernel(1, 2, *FLASH_D_SWEEP, D, torch.bfloat16,
+                                 gen, timed=False))
+    for T, D in SD15_ATTN_SHAPES:
+        rows.append(check_kernel(4, 8, T, T, D, torch.float32, gen))
     return rows
+
+
+FLASH_SUM_KEYS = ("ms", "device_ms", "wrapper_ms", "prev_ms",
+                  "prev_device_ms", "library_ms", "library_device_ms",
+                  "plain_ms", "bound_ms", "exp_floor_ms")
+
+
+def flash_call_sums(rows) -> dict:
+    """Sums over the 15 forward launches of one UNet call (5 at each of
+    the three levels) of each timed bf16 column, at the serving batch (4)
+    and the training batch (1)."""
+    sums = {}
+    for B in (4, 1):
+        level = [r for r in rows if r["dtype"] == "bfloat16" and r["B"] == B
+                 and "ms" in r]
+        if len(level) != len(SD15_ATTN_SHAPES):
+            raise AssertionError(f"{len(level)} timed bf16 rows at B = {B}")
+        n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
+        sums[f"B{B}"] = {k: n * sum(r[k] for r in level)
+                         for k in FLASH_SUM_KEYS}
+    log("flash per UNet call: " + json.dumps(sums))
+    return sums
+
+
+def flash_probe(timeout_s: float = 60.0) -> None:
+    """The wgmma forward kernel's first calls (the ragged call and the
+    main-path shape, checked against the plain version) in a child
+    process under a timeout, so a kernel that hangs on its mbarriers is
+    killed rather than held to the run's limit."""
+    code = ("import torch, chip_smoke as c; "
+            "g = torch.Generator('cuda').manual_seed(c.SEED); "
+            "c.check_kernel(1, 2, *c.RAGGED, torch.bfloat16, g, "
+            "heads_inner=False, timed=False); "
+            "c.check_kernel(4, 8, 4096, 4096, 40, torch.bfloat16, g, "
+            "timed=False)")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", code],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True,
+                              timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"the wgmma forward kernel's first calls did "
+                             f"not finish in {timeout_s} s") from e
+    for line in (proc.stdout + proc.stderr).splitlines()[-20:]:
+        log(f"probe: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the wgmma forward kernel's first calls "
+                             f"failed ({proc.returncode})")
+    log(f"probe: passed in {time.perf_counter() - t0:.1f} s")
 
 
 def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
@@ -705,13 +908,14 @@ def phase_slice(smi: str):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches, *bwd_launches = _counts()
+    by_kernel = dict(fa.flash_fwd.launches_by_kernel)
     if bwd_launches != [0, 0]:
         raise AssertionError(f"serving launched backward kernels: "
                              f"{bwd_launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if launches != want:
-        raise AssertionError(f"main path launched the kernel {launches} "
-                             f"times, not {want}")
+    if launches != want or by_kernel != {"wgmma": want, "mma": 0}:
+        raise AssertionError(f"main path launched the forward kernels "
+                             f"{by_kernel} times, not {want} wgmma")
     if images.shape != (len(PROMPTS), 512, 512, 3):
         raise AssertionError(f"images have shape {images.shape}")
     if not (np.isfinite(images).all() and images.min() >= 0.0
@@ -734,14 +938,15 @@ def phase_slice(smi: str):
         "images": list(images.shape), "min": float(images.min()),
         "max": float(images.max()), "steps": STEPS, "cfg": 7.5,
         "cold_s": cold_s, "warm_s": warm_s, "peak_mem_gib": peak_gib,
-        "launches": launches, "unet_lora_max_diff": lora_diff,
+        "launches": launches, "launches_by_kernel": by_kernel,
+        "unet_lora_max_diff": lora_diff,
         "rerun_max_diff": float(np.abs(images - first).max()),
         "card": smi}))
     if i8.int8_matmul.launches:
         raise AssertionError("the bf16 pipeline launched the int8 kernel")
     del pipe
     torch.cuda.empty_cache()
-    return launches, warm_s
+    return by_kernel, warm_s
 
 
 def _counts():
@@ -751,6 +956,7 @@ def _counts():
 
 def _zero_counts():
     fa.flash_fwd.launches = 0
+    fa.flash_fwd.launches_by_kernel.update(wgmma=0, mma=0)
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
     i8.int8_matmul.launches = 0
@@ -833,6 +1039,10 @@ def phase_train(smi: str):
             raise AssertionError(f"a training step launched (fwd, dq, dkv) "
                                  f"= {per_step}, not 15 each")
     launches = _counts()
+    by_kernel = dict(fa.flash_fwd.launches_by_kernel)
+    if by_kernel != {"wgmma": launches[0], "mma": 0}:
+        raise AssertionError(f"training launched the forward kernels "
+                             f"{by_kernel} times")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = torch.stack(losses).float().cpu()
     if not torch.isfinite(losses).all():
@@ -850,11 +1060,12 @@ def phase_train(smi: str):
         "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
         "steps_per_s": 1e3 / med, "peak_mem_gib": peak_gib,
         "launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+        "fwd_launches_by_kernel": by_kernel,
         "up_max_abs": max(u.detach().abs().max().item() for u in ups),
         "card": smi}))
     del step, opt, trainable, base, unet, batch, lora
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_kernel
 
 
 def phase_grad():
@@ -896,6 +1107,7 @@ def phase_grad():
             a - b for a, b in zip(_counts(), before))
 
     ms = []  # wall time of each single step (one sample each)
+    fwd_before = dict(fa.flash_fwd.launches_by_kernel)
     loss_k, g_k, n_k = loss_and_grad()
     set_use_memory_efficient_attention(False)
     try:
@@ -903,6 +1115,8 @@ def phase_grad():
     finally:
         set_use_memory_efficient_attention(True)
     loss_r, g_r, n_r = loss_and_grad(remat=True)
+    fwd_by_kernel = {r: n - fwd_before[r]
+                     for r, n in fa.flash_fwd.launches_by_kernel.items()}
     rel = ((g_k - g_p).norm() / g_p.norm()).item()
     rel_r = ((g_r - g_k).norm() / g_k.norm()).item()
     row = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_remat": loss_r,
@@ -910,12 +1124,15 @@ def phase_grad():
            "grad_rel_l2_remat_vs_kernels": rel_r,
            "grad_norm": g_k.norm().item(), "launches_kernels": n_k,
            "launches_plain": n_p, "launches_remat": n_r,
+           "fwd_launches_by_kernel": fwd_by_kernel,
            "step_ms_kernels_plain_remat": ms,
            "limits": {"grad_rel_l2": GRAD_REL_L2_TOL,
                       "remat_loss_rtol": REMAT_LOSS_RTOL}}
     log("grad: " + json.dumps(row))
-    if n_k != (15, 15, 15) or n_p != (0, 0, 0) or n_r != (30, 15, 15):
-        raise AssertionError(f"launch counts {n_k} / {n_p} / {n_r}")
+    if n_k != (15, 15, 15) or n_p != (0, 0, 0) or n_r != (30, 15, 15) or \
+            fwd_by_kernel != {"wgmma": 45, "mma": 0}:
+        raise AssertionError(f"launch counts {n_k} / {n_p} / {n_r}, "
+                             f"forward {fwd_by_kernel}")
     if not (np.isfinite(rel) and rel <= GRAD_REL_L2_TOL):
         raise AssertionError(f"LoRA gradient through the kernels is {rel} "
                              f"(relative L2) from the plain path's")
@@ -1046,16 +1263,18 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         launches_a, fwd_a = i8.int8_matmul.launches, fa.flash_fwd.launches
         by_kernel_a = dict(i8.int8_matmul.launches_by_kernel)
+        fwd_by_kernel_a = dict(fa.flash_fwd.launches_by_kernel)
         encodes_a = encodes[0]
         _check_pngs(body["images"], len(PROMPTS), 512)
         # every bf16 int8 call of the request launched the wgmma kernel
         if launches_a != want(encodes_a) or \
                 by_kernel_a != {"wgmma": launches_a, "mma": 0} or \
-                fwd_a != ROUTED_PER_UNET_CALL * STEPS:
+                fwd_a != ROUTED_PER_UNET_CALL * STEPS or \
+                fwd_by_kernel_a != {"wgmma": fwd_a, "mma": 0}:
             raise AssertionError(
                 f"request A launched int8_matmul {by_kernel_a} times (want "
                 f"{want(encodes_a)}, {encodes_a} CLIP encodes) and flash_fwd "
-                f"{fwd_a} times")
+                f"{fwd_by_kernel_a} times")
         # the pipeline called directly with the same latents and the
         # embeddings the server used gives the same PNGs
         with srv.lock:
@@ -1102,6 +1321,7 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         launches_b, encodes_b = i8.int8_matmul.launches, encodes[0]
         by_kernel_b = dict(i8.int8_matmul.launches_by_kernel)
         fwd_b = fa.flash_fwd.launches
+        fwd_by_kernel_b = dict(fa.flash_fwd.launches_by_kernel)
         for r in results:
             _check_pngs(r["images"], 1, 512)
         batched = [r["batched_with"] for r in results]
@@ -1111,10 +1331,12 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
                                  f"device batch {srv.last_device_batch}")
         if launches_b != want(encodes_b) or \
                 by_kernel_b != {"wgmma": launches_b, "mma": 0} or \
-                fwd_b != ROUTED_PER_UNET_CALL * STEPS:
+                fwd_b != ROUTED_PER_UNET_CALL * STEPS or \
+                fwd_by_kernel_b != {"wgmma": fwd_b, "mma": 0}:
             raise AssertionError(f"request B launched int8_matmul "
                                  f"{by_kernel_b} times (want "
-                                 f"{want(encodes_b)}) and flash_fwd {fwd_b}")
+                                 f"{want(encodes_b)}) and flash_fwd "
+                                 f"{fwd_by_kernel_b}")
 
         _, health = _http(srv.port, "/healthz")
         _, metrics = _http(srv.port, "/metrics")
@@ -1136,22 +1358,26 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         "bf16_slice_request_s": bf16_request_s,
         "request_b_wall_s": wall_b, "request_b_batched_with": batched,
         "warmup_s": warmup_s, "int8_launches_per_call": per_call,
-        "launches_a": {"int8_matmul": by_kernel_a, "flash_fwd": fwd_a,
+        "launches_a": {"int8_matmul": by_kernel_a,
+                       "flash_fwd": fwd_by_kernel_a,
                        "clip_encodes": encodes_a},
-        "launches_b": {"int8_matmul": by_kernel_b, "flash_fwd": fwd_b,
+        "launches_b": {"int8_matmul": by_kernel_b,
+                       "flash_fwd": fwd_by_kernel_b,
                        "clip_encodes": encodes_b},
         "healthz_devices": health["devices"], "metrics": metrics,
         "card": smi}))
     del srv, pipe
     torch.cuda.empty_cache()
-    return launches_a + launches_b, fwd_a + fwd_b
+    return launches_a + launches_b, {
+        r: fwd_by_kernel_a[r] + fwd_by_kernel_b[r] for r in fwd_by_kernel_a}
 
 
-def phase_serve_int8_f32(smi: str) -> int:
+def phase_serve_int8_f32(smi: str):
     """The SD-1.5 UNet served in f32 with int8 weights: one call at batch 4
-    (random weights and inputs from the seed) through the mma kernel (the
-    wgmma kernel takes bf16 x only), within QUANT_UNET_REL_L2_TOL of the
-    same UNet unquantized."""
+    (random weights and inputs from the seed) through the int8 mma kernel
+    (the wgmma kernel takes bf16 x only) and the flash mma kernel (the
+    wgmma one takes bf16 only), within QUANT_UNET_REL_L2_TOL of the same
+    UNet unquantized. Returns the two kernels' launch counts."""
     from lora_tpu_torch.core.quantize import quantize_params_int8
     from lora_tpu_torch.models.config import SD15_UNET
     from lora_tpu_torch.models.unet import UNet
@@ -1173,20 +1399,36 @@ def phase_serve_int8_f32(smi: str) -> int:
         out = unet(lat, t, ctx)
         torch.cuda.synchronize()
     by_kernel = dict(i8.int8_matmul.launches_by_kernel)
+    fwd_by_kernel = dict(fa.flash_fwd.launches_by_kernel)
     rel = ((out - ref).norm() / ref.norm()).item()
     log("serve_int8_f32: " + json.dumps({
         "unet_call_rel_l2_vs_f32": rel, "int8_launches": by_kernel,
+        "flash_fwd_launches": fwd_by_kernel,
         "limit": QUANT_UNET_REL_L2_TOL, "card": smi}))
-    if by_kernel != {"wgmma": 0, "mma": INT8_PER_CALL["unet"]}:
+    if by_kernel != {"wgmma": 0, "mma": INT8_PER_CALL["unet"]} or \
+            fwd_by_kernel != {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL}:
         raise AssertionError(f"the f32 quantized UNet call launched "
-                             f"{by_kernel}")
+                             f"{by_kernel} int8 and {fwd_by_kernel} flash "
+                             f"forward kernels")
     if not (out.shape == ref.shape and np.isfinite(rel)
             and rel <= QUANT_UNET_REL_L2_TOL):
         raise AssertionError(f"f32 quantized UNet call is {rel} (relative "
                              f"L2) from the f32 one")
     del unet, ref, out
     torch.cuda.empty_cache()
-    return by_kernel["mma"]
+    return by_kernel["mma"], fwd_by_kernel
+
+
+def main_flash() -> int:
+    """The two forward kernels alone: the device line, their builds, the
+    wgmma kernel's first calls in a child process under a timeout, phase 3
+    and its per-call sums."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma"])
+    flash_probe()
+    flash_call_sums(phase_kernels())
+    log(smi)
+    return 0
 
 
 def main_int8(tiles: bool) -> int:
@@ -1205,23 +1447,34 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
+    fwd_sums = flash_call_sums(rows)
     bwd_rows = phase_bwd_kernels()
-    serve_launches, bf16_request_s = phase_slice(smi)
-    train_launches = phase_train(smi)
-    phase_grad()
-    int8_rows = phase_int8_kernels()
-    int8_sums = int8_call_sums(int8_rows)
-    with recording_int8_shapes(set()) as seen:
-        f32_launches = phase_serve_int8_f32(smi)
-        int8_launches, serve_int8_fwd = phase_serve_int8(smi, bf16_request_s)
+    with recording_flash_shapes(set()) as flash_seen:
+        serve_fwd, bf16_request_s = phase_slice(smi)
+        train_launches, train_fwd = phase_train(smi)
+        phase_grad()
+        int8_rows = phase_int8_kernels()
+        int8_sums = int8_call_sums(int8_rows)
+        with recording_int8_shapes(set()) as seen:
+            f32_launches, f32_fwd = phase_serve_int8_f32(smi)
+            int8_launches, serve_int8_fwd = phase_serve_int8(smi,
+                                                             bf16_request_s)
     unchecked = seen - {(r["M"], r["K"], r["N"], r["dtype"])
                         for r in int8_rows}
     if unchecked:
         raise AssertionError(f"quantized serving ran int8_matmul at shapes "
                              f"phase 8 did not check: {sorted(unchecked)}")
+    unchecked = flash_seen - {_row_key(r) for r in rows}
+    if unchecked:
+        raise AssertionError(f"phases 5-9 ran flash_fwd at shapes or "
+                             f"layouts phase 3 did not check: "
+                             f"{sorted(unchecked)}")
+    log(f"flash_fwd: phases 5-9 ran {len(flash_seen)} shapes and layouts, "
+        f"each checked in phase 3")
 
-    def at_main_shape(rs):  # bf16 at the largest training/serving shape
-        return next(r for r in rs if r["dtype"] == "bfloat16"
+    def at_main_shape(rs, dtype="bfloat16"):  # the largest main-path shape
+        # (the forward's first such row is batch 4's, the backward's only)
+        return next(r for r in rs if r["dtype"] == dtype
                     and r["T"] == SD15_ATTN_SHAPES[0][0])
 
     def timed(row, prefix=""):
@@ -1229,25 +1482,56 @@ def main() -> int:
         return {k: row[prefix + k] for k in keys}
 
     fwd, bwd = at_main_shape(rows), at_main_shape(bwd_rows)
+    fwd_f32 = at_main_shape(rows, "float32")
     bf16_bwd = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
+    # the per-kernel counts each bf16 main path measured, summed
+    by_path = {"txt2img": serve_fwd, "train": train_fwd,
+               "serve_int8": serve_int8_fwd}
+    fwd_by_kernel = {r: sum(c[r] for c in by_path.values())
+                     for r in ("wgmma", "mma")}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "lora_tpu_torch/ops/csrc/flash_fwd.cu",
+        "source": "lora_tpu_torch/ops/csrc/flash_fwd_wgmma.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:104",
         # the serving run (50 UNet calls), the timed training steps and the
-        # two quantized HTTP requests (50 UNet calls each)
-        "launches": serve_launches + train_launches[0] + serve_int8_fwd,
-        "launches_by_path": {"txt2img": serve_launches,
-                             "train": train_launches[0],
-                             "serve_int8": serve_int8_fwd},
-        # worst O error over the bf16 shapes the main paths run
+        # two quantized HTTP requests (50 UNet calls each): all bf16, all
+        # through the wgmma kernel (each phase checks it)
+        "launches": fwd_by_kernel["wgmma"],
+        "launches_by_path": {p: c["wgmma"] for p, c in by_path.items()},
+        "launches_by_kernel": fwd_by_kernel,
+        # worst O error over the bf16 calls of phase 3
         "max_abs_err": max(r["err_o"] for r in rows
                            if r["dtype"] == "bfloat16"),
-        # median per launch at the largest main-path shape, bf16 (batch 4);
-        # library: torch's SDPA on the same q, k, v
+        # median per launch at the largest main-path shape, bf16 (batch 4),
+        # through the kernel's C entry point; device: CUDA-graph replay;
+        # prev: the mma kernel (flash_fwd.cu) the same way on the same
+        # inputs; library: torch's SDPA on the same q, k, v; exp_floor: the
+        # softmax's exponentials at 16 a clock per SM
         **timed(fwd),
+        "device_ms": fwd["device_ms"],
+        "prev_ms": fwd["prev_ms"],
+        "prev_device_ms": fwd["prev_device_ms"],
         "library_ms": fwd["library_ms"],
+        "exp_floor_ms": fwd["exp_floor_ms"],
+        # every column summed over the 15 launches of one UNet call
+        "per_unet_call": fwd_sums,
+    }, {
+        "name": "flash_fwd_mma",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:104",
+        # the f32 quantized UNet call of phase 9a (f32 attention)
+        "launches": f32_fwd["mma"],
+        "launches_by_path": {"serve_int8_f32": f32_fwd["mma"]},
+        "launches_by_kernel": f32_fwd,
+        "max_abs_err": max(r["err_o"] for r in rows
+                           if r["dtype"] == "float32"),
+        # at the largest main-path shape in f32 (batch 4); the bound at the
+        # f32 rate (the kernel's CUDA-core FMAs); library: SDPA in f32
+        **timed(fwd_f32),
+        "library_ms": fwd_f32["library_ms"],
+        "exp_floor_ms": fwd_f32["exp_floor_ms"],
     }]
     for name, key, line in (("flash_bwd_dq", "dq", 178),
                             ("flash_bwd_dkv", "dkv", 210)):
@@ -1317,6 +1601,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] in (["--int8"], ["--int8-tiles"]):
         sys.exit(main_int8(sys.argv[1] == "--int8-tiles"))
+    if sys.argv[1:] == ["--flash"]:
+        sys.exit(main_flash())
     if sys.argv[1:]:
-        sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles]")
+        sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash]")
     sys.exit(main())

@@ -1,13 +1,17 @@
 """Build and load the hand-written CUDA kernels of ops/csrc/.
 
 Every csrc/*.cu is compiled with nvcc for sm_90a into a shared library with
-plain C entry points and loaded with ctypes. Each library is cached under
-lora_tpu_torch/_build/ by a key over its own source, every csrc/*.cuh and
-the flags: editing a source rebuilds only its library, editing a header
-rebuilds them all. The first CUDA call of a kernel wrapper builds only the
-library it needs; build() with no arguments compiles them all, one nvcc
-process per source, all started together. Nothing is compiled at import,
-and a failed or impossible build raises (CUDA tensors have no other path).
+plain C entry points and loaded with ctypes. Each library is cached in the
+build directory by a key over its own source, every csrc/*.cuh and the
+flags: editing a source rebuilds only its library, editing a header
+rebuilds them all. The build directory is $LORA_TPU_TORCH_BUILD_DIR when
+that is set, else lora_tpu_torch/_build/ beside the sources (a checkout),
+else, where the package directory cannot be written (an installed wheel),
+lora_tpu_torch/build under the user's cache directory. The first CUDA call
+of a kernel wrapper builds only the library it needs; build() with no
+arguments compiles them all, one nvcc process per source, all started
+together. Nothing is compiled at import, and a failed or impossible build
+raises (CUDA tensors have no other path).
 """
 
 from __future__ import annotations
@@ -24,11 +28,26 @@ from typing import Dict, Iterable, Optional
 
 _CSRC_DIR = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+BUILD_DIR_ENV = "LORA_TPU_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> str:
+    """Where the libraries are built and cached (see the module note)."""
+    override = os.environ.get(BUILD_DIR_ENV)
+    if override:
+        return override
+    existing = _BUILD_DIR if os.path.isdir(_BUILD_DIR) else os.path.dirname(
+        _BUILD_DIR)
+    if os.access(existing, os.W_OK):
+        return _BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "lora_tpu_torch", "build")
 
 
 def _find_nvcc() -> Optional[str]:
@@ -61,7 +80,7 @@ def _key(source: str) -> str:
 
 def build(stems: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile csrc/<stem>.cu for each stem (every source when None) into
-    _build/ (once per key), one nvcc process per source, all started
+    build_dir() (once per key), one nvcc process per source, all started
     together; return {stem: library path}. nvcc's ptxas report (registers,
     shared memory, spills per kernel) is kept beside each library as
     <stem>_<key>.log."""
@@ -72,7 +91,8 @@ def build(stems: Optional[Iterable[str]] = None) -> Dict[str, str]:
             raise RuntimeError(f"no csrc/<stem>.cu for {missing} among "
                                f"{sorted(sources)}")
         sources = {s: sources[s] for s in stems}
-    paths = {stem: os.path.join(_BUILD_DIR, f"{stem}_{_key(src)}.so")
+    out_dir = build_dir()
+    paths = {stem: os.path.join(out_dir, f"{stem}_{_key(src)}.so")
              for stem, src in sources.items()}
     todo = [stem for stem, path in paths.items() if not os.path.exists(path)]
     if not todo:
@@ -82,11 +102,11 @@ def build(stems: Optional[Iterable[str]] = None) -> Dict[str, str]:
         raise RuntimeError(
             "nvcc not found (CUDA_HOME/bin/nvcc or PATH): the CUDA kernels "
             "cannot be built, and CUDA tensors have no other path")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     tmps, procs = {}, {}
     try:
         for stem in todo:
-            fd, tmps[stem] = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            fd, tmps[stem] = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             procs[stem] = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmps[stem], sources[stem]],

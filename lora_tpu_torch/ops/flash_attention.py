@@ -1,12 +1,19 @@
 """Flash attention: the hand-written CUDA kernels for Hopper (csrc/), their
 wrappers, their plain PyTorch versions, and the autograd Function over them.
 
-Three kernels, each replacing a Pallas TPU kernel of
+Four kernels, each replacing a Pallas TPU kernel of
 lora_tpu/ops/flash_attention.py:
 
-    flash_fwd      csrc/flash_fwd.cu   _fwd_kernel       O and the f32 logsumexp L
-    flash_bwd_dq   csrc/flash_bwd.cu   _bwd_dq_kernel    dQ
-    flash_bwd_dkv  csrc/flash_bwd.cu   _bwd_dkv_kernel   dK and dV
+    flash_fwd      _fwd_kernel      O and the f32 logsumexp L, through
+        "wgmma"    csrc/flash_fwd_wgmma.cu  bf16: TMA ring, producer warp,
+                                            warpgroup wgmma
+        "mma"      csrc/flash_fwd.cu        mma.sync: f32, D > 160, a
+                                            stride of 0
+    flash_bwd_dq   _bwd_dq_kernel   dQ          csrc/flash_bwd.cu
+    flash_bwd_dkv  _bwd_dkv_kernel  dK and dV   csrc/flash_bwd.cu
+
+`_fwd_route` picks the forward kernel from dtype, D and layout alone, and
+`_fwd_bm` the wgmma kernel's q rows per CTA from T, B * H and the SM count.
 
 `flash_attention(q, k, v, scale)` is the entry point: a
 torch.autograd.Function (the JAX custom_vjp, `scale` not differentiated)
@@ -17,49 +24,59 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 `supported()` accepts to it), in serving and in training.
 
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
-CUDA tensors (or raises), and counts its launches in `<wrapper>.launches`.
+CUDA tensors (or raises: nothing reacts to a failure), and counts its
+launches in `<wrapper>.launches`; the forward also per kernel in
+`flash_fwd.launches_by_kernel` ({"wgmma", "mma"}, summing to `launches`).
 
-Build: the first CUDA call compiles csrc/flash_fwd.cu and csrc/flash_bwd.cu
-through ops/build.py (nvcc for sm_90a, plain C entry points loaded with
-ctypes). Nothing is compiled or imported at module import.
+Build: the first CUDA call of a kernel compiles its own source (and no
+other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
+with ctypes). Nothing is compiled or imported at module import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-import types
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import build
+from .int8_matmul import _sm_count
 
 BQ = 256  # the JAX kernel's q block: the routing rule below keeps its shapes
+# the widest head the wgmma forward kernel instantiates: MAX_DP and the
+# instance switch of csrc/flash_fwd_wgmma.cu (a CPU test holds them equal)
+WGMMA_MAX_D = 160
 
 _lib_lock = threading.Lock()
-_lib: Optional[types.SimpleNamespace] = None  # .fwd, .bwd: ctypes.CDLL
+_fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# pointers..., strides, B, H, T, S, D, is_bf16, scale, stream
+# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
+_ENTRY = {
+    # entry: (source stem, C function, pointer arguments)
+    "wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma", 5),
+    "mma": ("flash_fwd", "flash_fwd", 5),
+    "dq": ("flash_bwd", "flash_bwd_dq", 7),
+    "dkv": ("flash_bwd", "flash_bwd_dkv", 8),
+}
 
 
-def _load() -> types.SimpleNamespace:
-    global _lib
+def _entry(name: str):
+    """The ctypes function of one kernel ("wgmma" or "mma" forward, "dq",
+    "dkv"), building its source on first use."""
     with _lib_lock:
-        if _lib is None:
-            build.build(("flash_fwd", "flash_bwd"))  # both nvccs at once
-            fwd = build.load_library("flash_fwd")
-            bwd = build.load_library("flash_bwd")
-            for fn, n_ptrs in ((fwd.flash_fwd, 5), (bwd.flash_bwd_dq, 7),
-                               (bwd.flash_bwd_dkv, 8)):
-                fn.argtypes = [_PTR] * n_ptrs + _TAIL
-                fn.restype = ctypes.c_int
-            _lib = types.SimpleNamespace(fwd=fwd, bwd=bwd)
-        return _lib
+        if name not in _fns:
+            stem, fn_name, n_ptrs = _ENTRY[name]
+            fn = getattr(build.load_library(stem), fn_name)
+            fn.argtypes = [_PTR] * n_ptrs + _TAIL
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
+        return _fns[name]
 
 
 # ---------------------------------------------------------------------------
@@ -191,17 +208,39 @@ def _check_stats(q, *stats):
                              f"{t.dtype}{tuple(t.shape)}")
 
 
+def _fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The forward kernel of a call: "wgmma" (csrc/flash_fwd_wgmma.cu) for
+    bf16 with D <= WGMMA_MAX_D and layouts TMA's tensor maps take
+    (_layout_ok: 16-byte strides and bases; and no stride of 0), "mma"
+    (csrc/flash_fwd.cu) for the rest: f32, D > WGMMA_MAX_D, a broadcast.
+    A layout _layout_ok refuses never launches: _check raises first."""
+    if (q.dtype == torch.bfloat16 and q.shape[3] <= WGMMA_MAX_D
+            and all(_layout_ok(t) and min(t.stride()[:3]) > 0
+                    for t in (q, k, v))):
+        return "wgmma"
+    return "mma"
+
+
+def _fwd_bm(T: int, bh: int, sms: int = 132) -> int:
+    """q rows per CTA of the wgmma kernel for T q rows and bh = B * H heads
+    on `sms` SMs: 128 (two consumer warpgroups) unless that gives fewer
+    CTAs than SMs, then 64."""
+    return 128 if -(-T // 128) * bh >= sms else 64
+
+
 def _strides(*tensors) -> ctypes.Array:
     vals = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(fn, name, ptrs, strides, q, k, scale):
+def _launch(fn, name, ptrs, strides, q, k, arg, scale):
+    """One C entry point on the current stream; `arg` is is_bf16 (bm for
+    the wgmma forward)."""
     B, H, T, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*ptrs, strides, B, H, T, k.shape[2], D,
-                int(q.dtype == torch.bfloat16), float(scale), stream)
+        rc = fn(*ptrs, strides, B, H, T, k.shape[2], D, arg, float(scale),
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc} for "
                            f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
@@ -210,18 +249,23 @@ def _launch(fn, name, ptrs, strides, q, k, scale):
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, T, D) non-causal attention forward -> (O, L), O in q's layout
-    and dtype, L float32 (B, H, T). No autograd: see flash_attention."""
+    and dtype, L float32 (B, H, T). No autograd: see flash_attention. CUDA
+    tensors launch the kernel `_fwd_route` picks."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     _check(q, k, v)
     B, H, T, _ = q.shape
     # O in q's layout when q is dense (the UNet's transposed views), else
-    # contiguous; either way strides the kernel takes (checked for q above)
+    # contiguous; either way strides the kernels take (checked for q above)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _launch(_load().fwd.flash_fwd, "flash_fwd",
+    route = _fwd_route(q, k, v)
+    arg = (_fwd_bm(T, B * H, _sm_count(q.device)) if route == "wgmma"
+           else int(q.dtype == torch.bfloat16))
+    _launch(_entry(route), f"flash_fwd ({route})",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr()), _strides(q, k, v, out), q, k, scale)
+             lse.data_ptr()), _strides(q, k, v, out), q, k, arg, scale)
+    flash_fwd.launches_by_kernel[route] += 1
     flash_fwd.launches += 1
     return out, lse
 
@@ -234,10 +278,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q)
-    _launch(_load().bwd.flash_bwd_dq, "flash_bwd_dq",
+    _launch(_entry("dq"), "flash_bwd_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-            _strides(q, k, v, do, dq), q, k, scale)
+            _strides(q, k, v, do, dq), q, k,
+            int(q.dtype == torch.bfloat16), scale)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -250,15 +295,17 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_load().bwd.flash_bwd_dkv, "flash_bwd_dkv",
+    _launch(_entry("dkv"), "flash_bwd_dkv",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            _strides(q, k, v, do, dk, dv), q, k, scale)
+            _strides(q, k, v, do, dk, dv), q, k,
+            int(q.dtype == torch.bfloat16), scale)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-flash_fwd.launches = 0
+flash_fwd.launches_by_kernel = {"wgmma": 0, "mma": 0}
+flash_fwd.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 

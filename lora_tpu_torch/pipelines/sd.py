@@ -84,15 +84,24 @@ class StableDiffusionPipeline:
             tokenizer or default_tokenizer(vocab_size=text_cfg.vocab_size))
 
     @classmethod
-    def from_pretrained(cls, path: str, dtype=torch.float32, device="cpu",
+    def from_pretrained(cls, path: str, dtype=torch.float32, device="cuda",
                         tokenizer: Optional[CLIPTokenizer] = None,
                         require_real_tokenizer: bool = True):
         """A diffusers-layout directory (unet/ vae/ text_encoder/
-        [scheduler/ tokenizer/]) on `device` in `dtype`.
+        [scheduler/ tokenizer/]) on `device` in `dtype`. The device defaults
+        to the card, as the JAX package lands on its accelerator; without
+        CUDA this raises, and device="cpu" loads on the CPU.
         require_real_tokenizer: with pretrained weights a missing CLIP vocab
         raises rather than silently degrading to hashed ids
         (data/tokenizer.py)."""
         from ..models.hf_import import load_pipeline_params, load_scheduler_config
+
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError(
+                f"from_pretrained({path!r}) loads onto device={device!r} "
+                f"(the default) and no CUDA device is available; pass "
+                f"device='cpu' to load on the CPU")
 
         unet_p, text_p, vae_p, cfgs = load_pipeline_params(path, dtype, device)
         modules = []

@@ -7,6 +7,7 @@ themselves run only on the card: chip_smoke.py compares them with their
 plain versions there)."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -170,10 +171,121 @@ def test_non_cpu_tensors_never_fall_back():
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(t_build, "_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(t_build, "_libs", {})
-    monkeypatch.setattr(t_fa, "_lib", None)
+    monkeypatch.setattr(t_fa, "_fns", {})
     monkeypatch.setattr(t_build, "_find_nvcc", lambda: None)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        t_fa._load()
+    for entry in t_fa._ENTRY:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            t_fa._entry(entry)
+
+
+def _bthd(B, T, H, D, dtype=torch.bfloat16):
+    """(B, H, T, D) as the UNet passes it: a transposed view of (B, T, H, D)."""
+    return torch.zeros((B, T, H, D), dtype=dtype).transpose(1, 2)
+
+
+# (T, D) of SD-1.5's spatial self-attention at 512px, at the serving batch
+# (B = 4) and the training batch (B = 1), all 8 heads
+SD15_SELF_ATTN = [(B, T, D) for B in (4, 1)
+                  for T, D in ((4096, 40), (1024, 80), (256, 160))]
+
+
+def _route_case(case):
+    """(q, k, v) of one routing case and the kernel it must take."""
+    if case[0] == "main":
+        _, B, T, D = case
+        q = _bthd(B, T, 8, D)
+        return (q, q, q), "wgmma"
+    name = case[0]
+    if name == "contiguous":  # (B, H, T, D) itself, D = 64 (SD-2's heads)
+        q = torch.zeros((1, 2, 300, 64), dtype=torch.bfloat16)
+        k = torch.zeros((1, 2, 77, 64), dtype=torch.bfloat16)
+        return (q, k, k), "wgmma"
+    if name == "widest":
+        q = _bthd(1, 64, 2, 160)
+        return (q, q, q), "wgmma"
+    if name == "f32":
+        q = _bthd(1, 64, 2, 40, torch.float32)
+        return (q, q, q), "mma"
+    if name == "wide_head":  # D > 160: the mma kernel takes up to 256
+        q = _bthd(1, 64, 2, 168)
+        return (q, q, q), "mma"
+    if name == "broadcast":  # k and v shared over heads: a stride of 0
+        q = _bthd(1, 64, 2, 40)
+        k = torch.zeros((1, 1, 64, 40), dtype=torch.bfloat16).expand(
+            1, 2, 64, 40)
+        return (q, k, k), "mma"
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("case", [("main", *s) for s in SD15_SELF_ATTN] + [
+    ("contiguous",), ("widest",), ("f32",), ("wide_head",), ("broadcast",)],
+    ids=lambda c: "-".join(map(str, c)))
+def test_fwd_route(case):
+    """bf16 at every main-path shape (the UNet's transposed views) and
+    contiguous tensors take the wgmma kernel; f32, D > 160 and broadcast
+    strides the mma kernel. The route reads dtype, D and strides only."""
+    (q, k, v), want = _route_case(case)
+    assert all(t_fa._layout_ok(t) for t in (q, k, v))
+    assert t_fa._fwd_route(q, k, v) == want
+
+
+def test_fwd_route_leaves_odd_layouts_to_check():
+    """A layout _check refuses (strides that are not multiples of 8, here
+    a D = 40 slice of 44-wide rows) never reaches the wgmma kernel's tensor
+    maps: the route gives mma, and on the card _check raises before any
+    launch, as it did before the wgmma kernel."""
+    q = torch.zeros((1, 2, 64, 44), dtype=torch.bfloat16)[..., :40]
+    assert not t_fa._layout_ok(q)
+    assert t_fa._fwd_route(q, q, q) == "mma"
+
+
+def test_wgmma_max_d_matches_the_kernel_instances():
+    """The route's widest wgmma head is the source's MAX_DP, and the
+    source instantiates every 16-column width up to it, so each D the route
+    sends (8 to WGMMA_MAX_D, D % 8 == 0) has an instance."""
+    src = open(os.path.join(os.path.dirname(t_fa.__file__), "csrc",
+                            "flash_fwd_wgmma.cu")).read()
+    max_dp = int(re.search(r"constexpr int MAX_DP = (\d+);", src).group(1))
+    cases = [int(x) for x in re.findall(r"^\s*FLASH_WGMMA_CASE\((\d+)\)\s*$",
+                                        src, re.M)]
+    assert max_dp == t_fa.WGMMA_MAX_D
+    assert cases == list(range(16, max_dp + 1, 16))
+
+
+@pytest.mark.parametrize("B,T,D", SD15_SELF_ATTN)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_fwd_bm_fills_the_card(B, T, D, sms):
+    """128 q rows per CTA where that still gives a CTA per SM, else 64:
+    the grid is at least the SM count whenever 64-row tiles can reach it,
+    and never larger than it needs to be."""
+    bh = B * 8
+    bm = t_fa._fwd_bm(T, bh, sms)
+    assert bm in (64, 128)
+    ctas = -(-T // bm) * bh
+    if bm == 64:
+        assert -(-T // 128) * bh < sms
+    else:
+        assert ctas >= sms
+    assert {(4, 4096): 128, (4, 1024): 128, (4, 256): 64, (1, 4096): 128,
+            (1, 256): 64}.get((B, T), bm) == bm
+
+
+def test_cpu_bf16_call_launches_nothing():
+    """A bf16 call at a wgmma shape on CPU tensors takes the plain version
+    and moves neither count."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 256, 2, 40), np.float32)).to(
+        torch.bfloat16).transpose(1, 2)
+    before = (dict(t_fa.flash_fwd.launches_by_kernel), t_fa.flash_fwd.launches)
+    assert t_fa._fwd_route(q, q, q) == "wgmma"
+    o, lse = t_fa.flash_fwd(q, q, q, 40 ** -0.5)
+    o_ref, lse_ref = t_fa.flash_attention_reference(q, q, q, 40 ** -0.5)
+    assert (dict(t_fa.flash_fwd.launches_by_kernel),
+            t_fa.flash_fwd.launches) == before
+    assert sum(before[0].values()) == before[1]
+    torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=0)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -81,7 +81,8 @@ def test_load_pipeline_params_matches_jax(jax_dir):
 
 def test_from_pretrained_renders_like_the_converted_pipeline(jax_dir):
     tok = CLIPTokenizer(vocab_size=TINY_TEXT.vocab_size)
-    pipe = StableDiffusionPipeline.from_pretrained(jax_dir, tokenizer=tok)
+    pipe = StableDiffusionPipeline.from_pretrained(jax_dir, tokenizer=tok,
+                                                   device="cpu")
     ref = _port_pipe()
     assert pipe.dtype == torch.float32 and pipe.device == torch.device("cpu")
     assert not any(p.requires_grad for p in pipe.unet.parameters())
@@ -89,6 +90,18 @@ def test_from_pretrained_renders_like_the_converted_pipeline(jax_dir):
     kw = dict(num_inference_steps=2, height=64, width=64, latents=lat)
     np.testing.assert_allclose(pipe("z", **kw), ref("z", **kw), atol=1e-6)
     with pytest.raises(FileNotFoundError, match="vocab"):
+        StableDiffusionPipeline.from_pretrained(jax_dir, device="cpu")
+
+
+def test_from_pretrained_defaults_to_the_card(jax_dir, monkeypatch):
+    """The default device is "cuda"; where CUDA is missing, the call says
+    so and names device="cpu" before it reads any weights."""
+    import inspect
+
+    sig = inspect.signature(StableDiffusionPipeline.from_pretrained)
+    assert sig.parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         StableDiffusionPipeline.from_pretrained(jax_dir)
 
 
