@@ -11,15 +11,24 @@
                                         # in a child process under a
                                         # timeout, 3 and its sums over one
                                         # UNet call
+    python3 chip_smoke.py --flash-bwd   # phases 1, 2 (flash_fwd_wgmma.cu,
+                                        # flash_bwd.cu and
+                                        # flash_bwd_dkv_wgmma.cu only), the
+                                        # wgmma dK/dV kernel's first calls
+                                        # in a child process under a
+                                        # timeout, 4 and its sums over one
+                                        # training step
 
 Phases, each printing its own lines (about 5 minutes on one H100, most of
 it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
-     (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu, int8_matmul.cu,
-     int8_matmul_wgmma.cu; one nvcc each, in parallel) for sm_90a into the
-     build directory, and prints ptxas's registers, shared memory and
-     spills of the wgmma kernels.
+     (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu,
+     flash_bwd_dkv_wgmma.cu, int8_matmul.cu, int8_matmul_wgmma.cu; one
+     nvcc each, in parallel) for sm_90a into the build directory, and
+     prints ptxas's registers, shared memory and spills of the wgmma
+     kernels; then the wgmma dK/dV kernel's first calls in a child process
+     under a timeout.
   3. kernel: the forward kernels against their plain PyTorch version on the
      card at the SD-1.5 512px self-attention shapes, bf16 at the serving
      batch (4) and the training batch (1), each call through the wgmma
@@ -35,11 +44,22 @@ it the build of the kernels):
      device time from CUDA-graph replays), the wrapper, the mma kernel on
      the same bf16 inputs, torch's SDPA (timed only), the plain version,
      the FLOP bound and the exponential floor; their sums over one UNet
-     call (5 launches per level).
+     call (5 launches per level). f32 also untimed at batch 1 (phase 7's
+     f32 run).
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
-     the SD-1.5 training shapes (batch 1), bf16 and f32, plus one ragged
-     call; relative errors and median times, and one autograd.grad of a
-     retained SDPA graph (dQ, dK, dV together; timed only).
+     the SD-1.5 training shapes (batch 1; untimed at batch 2), bf16 and
+     f32, plus the ragged call and a ragged call at every D the wgmma
+     dK/dV kernel takes (8 to 160); each flash_bwd_dkv call must launch
+     the kernel _bwd_route picks (bf16: flash_bwd_dkv_wgmma.cu, also
+     called directly at both kv tile heights, and the mma kernel of
+     flash_bwd.cu on the same inputs; f32: the mma kernel). Relative
+     errors; at the training levels, median times of dQ and of both dK/dV
+     kernels through their C entry points and as device time (CUDA-graph
+     replays), the flash_bwd_dkv wrapper, the plain versions, one
+     autograd.grad of a retained SDPA graph (dQ, dK, dV together; timed
+     only, its device time from torch.profiler), the FLOP bounds and the
+     exponential floor; their sums over one training step (5 launches of
+     each kernel per level).
   5. slice: the SD-1.5 txt2img serving path at full width with random
      weights from a seed: a rank-4 LoRA + one TI embed saved to a
      .safetensors file and loaded with patch_pipe, 2 prompts, 512x512,
@@ -51,13 +71,18 @@ it the build of the kernels):
      latents and text embeddings, AdamW lr 1e-4, clip 1.0) through
      make_optimizer and make_train_step: 3 warm-up and 10 timed steps.
      Checks finite losses, moved LoRA up leaves, and 15 forward (all
-     wgmma), 15 dQ and 15 dK/dV launches per step; prints step time,
-     steps/s, peak memory.
+     wgmma), 15 dQ and 15 dK/dV launches per step (dK/dV: wgmma at every
+     D <= WGMMA_DKV_MAX_D); prints step time, steps/s, peak memory; then
+     one more warm step under torch.profiler: its device time by kernel
+     class, busy share and longest kernels.
   7. grad: one loss-and-backward on a LoRA with nonzero up factors and
      fixed draws, through the kernels and through the plain attention path:
      the relative L2 distance of the two LoRA gradients; then the same with
      gradient checkpointing: the same loss, and 30 forward launches (every
-     forward launch of the phase wgmma).
+     forward launch of the phase wgmma, every dK/dV launch as in phase 6).
+     Then the same in f32 (the f32 training path, counted: 15 launches of
+     flash_fwd.cu, of dQ and of the mma dK/dV kernel; the LoRA gradients
+     within 1e-3).
   8. int8 kernel: the int8-weight matmul against its plain version at
      every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
      decoder's attention), bf16 (each call must launch the wgmma kernel,
@@ -96,6 +121,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -151,6 +177,11 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # they reach a LoRA leaf: a few parts in 100 bounds that; an attention
 # gradient that is wrong in any one block moves the LoRA gradient by O(1).
 GRAD_REL_L2_TOL = 5e-2
+# the same in f32 (flash_fwd.cu and flash_bwd.cu's f32 kernels against the
+# plain path): both keep every value in f32 and differ only in the order
+# of their sums, which the backward carries to the LoRA leaves at a few
+# parts in 1e5; 1e-3 leaves room and still catches any wrong block
+GRAD_F32_REL_L2_TOL = 1e-3
 # the same step with gradient checkpointing recomputes the same forward on
 # the same inputs: the loss agrees to f32 rounding of the bf16 model's sums
 REMAT_LOSS_RTOL = 1e-3
@@ -220,13 +251,26 @@ def phase_build(stems=None) -> None:
     paths = kernel_build.build(stems)
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma"):
+    for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma",
+                 "flash_bwd_dkv_wgmma"):
         if stem in paths:
             with open(paths[stem][:-3] + ".log") as f:
                 for line in f:
                     if any(w in line for w in ("Compiling", "Used", "spill",
                                                "arning", "Potential")):
                         log(f"build: {stem}: {line.strip()}")
+    if "flash_bwd_dkv_wgmma" in paths:
+        # each wgmma dK/dV instance's q tile, ring depth and dynamic shared
+        # memory (ptxas reports static shared memory only)
+        config = kernel_build.load_library(
+            "flash_bwd_dkv_wgmma").flash_bwd_dkv_wgmma_config
+        config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        for dp in range(16, fa.WGMMA_DKV_MAX_D + 1, 16):
+            out = (ctypes.c_int * 4)()
+            if config(dp, out) != 0:
+                raise AssertionError(f"no wgmma dK/dV instance for D = {dp}")
+            log("build: flash_bwd_dkv_wgmma: " + json.dumps(dict(zip(
+                ("DP", "BQ", "stages", "smem_bytes"), out))))
 
 
 def _bound(flops: float, nbytes: float,
@@ -253,6 +297,24 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         events.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def _kernel_ms(fn, reps: int = 10) -> float:
+    """Device time per call from torch.profiler: the kernels of `reps`
+    calls (after one warm-up), their device times summed, over `reps`. For
+    work a CUDA graph cannot capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / (
+                   1e3 * reps)
 
 
 _capture_stream = None  # the one stream of every capture (see _graph_ms)
@@ -470,6 +532,10 @@ def phase_kernels():
                                  gen, timed=False))
     for T, D in SD15_ATTN_SHAPES:
         rows.append(check_kernel(4, 8, T, T, D, torch.float32, gen))
+    # f32 at the training batch: phase 7's f32 training run
+    for T, D in SD15_ATTN_SHAPES:
+        rows.append(check_kernel(1, 8, T, T, D, torch.float32, gen,
+                                 timed=False))
     return rows
 
 
@@ -495,17 +561,10 @@ def flash_call_sums(rows) -> dict:
     return sums
 
 
-def flash_probe(timeout_s: float = 60.0) -> None:
-    """The wgmma forward kernel's first calls (the ragged call and the
-    main-path shape, checked against the plain version) in a child
-    process under a timeout, so a kernel that hangs on its mbarriers is
-    killed rather than held to the run's limit."""
-    code = ("import torch, chip_smoke as c; "
-            "g = torch.Generator('cuda').manual_seed(c.SEED); "
-            "c.check_kernel(1, 2, *c.RAGGED, torch.bfloat16, g, "
-            "heads_inner=False, timed=False); "
-            "c.check_kernel(4, 8, 4096, 4096, 40, torch.bfloat16, g, "
-            "timed=False)")
+def _probe(what: str, code: str, timeout_s: float) -> None:
+    """A new kernel's first calls (`code`, checked against the plain
+    version) in a child process under a timeout, so a kernel that hangs on
+    its mbarriers is killed rather than held to the run's limit."""
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([sys.executable, "-c", code],
@@ -513,44 +572,120 @@ def flash_probe(timeout_s: float = 60.0) -> None:
                               capture_output=True, text=True,
                               timeout=timeout_s)
     except subprocess.TimeoutExpired as e:
-        raise AssertionError(f"the wgmma forward kernel's first calls did "
-                             f"not finish in {timeout_s} s") from e
+        raise AssertionError(f"the {what} kernel's first calls did not "
+                             f"finish in {timeout_s} s") from e
     for line in (proc.stdout + proc.stderr).splitlines()[-20:]:
         log(f"probe: {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"the wgmma forward kernel's first calls "
-                             f"failed ({proc.returncode})")
-    log(f"probe: passed in {time.perf_counter() - t0:.1f} s")
+        raise AssertionError(f"the {what} kernel's first calls failed "
+                             f"({proc.returncode})")
+    log(f"probe: {what} passed in {time.perf_counter() - t0:.1f} s")
+
+
+def flash_probe(timeout_s: float = 60.0) -> None:
+    """The wgmma forward kernel's first calls: the ragged call and the
+    main-path shape."""
+    _probe("wgmma forward", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_kernel(1, 2, *c.RAGGED, torch.bfloat16, g, "
+        "heads_inner=False, timed=False); "
+        "c.check_kernel(4, 8, 4096, 4096, 40, torch.bfloat16, g, "
+        "timed=False)"), timeout_s)
+
+
+def dkv_probe(timeout_s: float = 60.0) -> None:
+    """The wgmma dK/dV kernel's first calls: the ragged call and the main
+    training shape, each also at both kv tile heights."""
+    _probe("wgmma dK/dV", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_bwd_kernels(1, 2, *c.RAGGED, torch.bfloat16, g, "
+        "heads_inner=False, timed=False); "
+        "c.check_bwd_kernels(1, 8, 4096, 4096, 40, torch.bfloat16, g, "
+        "timed=False)"), timeout_s)
+
+
+def _dq_entry(q, k, v, do, lse, delta, scale):
+    """flash_bwd_dq's C entry point called directly (no count)."""
+    dq = torch.empty_like(q)
+    fa._launch(fa._entry("dq"), "flash_bwd_dq entry",
+               (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
+               fa._strides(q, k, v, do, dq), q, k,
+               int(q.dtype == torch.bfloat16), scale)
+    return dq
 
 
 def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                       timed=True):
     """flash_bwd_dq and flash_bwd_dkv against their plain versions on the
     same inputs: q, k, v, dO as the UNet passes them, O and L from the
-    forward kernel, delta = rowsum(dO * O)."""
+    forward kernel, delta = rowsum(dO * O). flash_bwd_dkv must launch the
+    kernel _bwd_route picks. bf16 also checks the mma dK/dV kernel on the
+    same inputs and, where the route is wgmma, the wgmma kernel called
+    directly at both kv tile heights (bn 64 and 128). Timed: dQ, the
+    routed dK/dV kernel (the wgmma one on Q~ formed beforehand) and, for
+    bf16, the mma dK/dV kernel, each through its C entry point and as
+    device time (CUDA-graph replays), and the wgmma kernel's device time
+    at the other kv tile height; the flash_bwd_dkv wrapper (Q~ included);
+    the plain versions; SDPA's backward (bf16); the FLOP bounds and the
+    exponential floor."""
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
     scale = D ** -0.5
+    bf16 = dtype == torch.bfloat16
+    route = fa._bwd_route(q, k, v, do)
     row = {"B": B, "H": H, "T": T, "S": S, "D": D,
-           "dtype": str(dtype).replace("torch.", "")}
+           "dtype": str(dtype).replace("torch.", ""), "route": route}
     with torch.inference_mode():
         o, lse = fa.flash_fwd(q, k, v, scale)
         delta = fa._delta(o, do)
         args = (q, k, v, do, lse, delta, scale)
-        got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
-        ref = (fa.flash_bwd_dq_reference(*args),
-               *fa.flash_bwd_dkv_reference(*args))
+        qt = fa._q_tilde(q, scale)
+        before = dict(fa.flash_bwd_dkv.launches_by_kernel)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        row["kernel"] = [r for r, n in fa.flash_bwd_dkv.launches_by_kernel
+                         .items() if n != before[r]]
+        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*args)
+        checks = [("dq", fa.flash_bwd_dq(*args),
+                   fa.flash_bwd_dq_reference(*args)),
+                  ("dk", dk, ref_dk), ("dv", dv, ref_dv)]
+        direct = {}
+        if bf16:
+            direct["prev"] = lambda: fa._dkv_launch("mma", *args)
+        if route == "wgmma":
+            for bn in (64, 128):
+                direct[f"bn{bn}"] = lambda bn=bn: fa._dkv_launch(
+                    "wgmma", qt, k, v, do, lse, delta, scale, bn)
+        for name, call in direct.items():
+            got_k, got_v = call()
+            checks += [(f"dk_{name}", got_k, ref_dk),
+                       (f"dv_{name}", got_v, ref_dv)]
         torch.cuda.synchronize()
-        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        for name, a, b in checks:
             err = (a.float() - b.float()).abs().max().item()
             row[f"err_{name}"] = err
             row[f"rel_{name}"] = err / max(b.float().abs().max().item(),
                                            1e-30)
         if timed:
-            for name, kern, plain in (
-                    ("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
-                    ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
-                row[f"{name}_ms"] = _time_ms(lambda: kern(*args))
+            calls = {"dq_": lambda: _dq_entry(*args),
+                     "dkv_": lambda: fa._dkv_launch(
+                         route, qt if route == "wgmma" else q, k, v, do,
+                         lse, delta, scale)}
+            if bf16:
+                calls["dkv_prev_"] = direct["prev"]
+            for name, call in calls.items():
+                row[name + "ms"] = _time_ms(call)
+                row[name + "device_ms"] = _graph_ms(call)
+            row["dkv_wrapper_ms"] = _time_ms(lambda: fa.flash_bwd_dkv(*args))
+            if route == "wgmma":  # the kv tile height _dkv_bn did not pick
+                other = 192 - fa._dkv_bn(S, B * H, i8._sm_count(q.device))
+                row["dkv_other_bn"] = other
+                row["dkv_other_bn_device_ms"] = _graph_ms(
+                    direct[f"bn{other}"])
+            for name, plain in (("dq", fa.flash_bwd_dq_reference),
+                                ("dkv", fa.flash_bwd_dkv_reference)):
                 row[f"{name}_plain_ms"] = _time_ms(lambda: plain(*args))
             # q, k, v, dO read (and the f32 L and delta); dQ recomputes
             # Q K^T and dO V^T and forms dS K, dK/dV also P^T dO and dS^T Q
@@ -558,26 +693,39 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
             reads = e * B * H * (2 * T + 2 * S) * D + 8 * B * H * T
             for name, f, out in (("dq", 6, B * H * T * D),
                                  ("dkv", 8, 2 * B * H * S * D)):
-                b = _bound(f * B * H * T * S * D, reads + e * out)
+                b = _bound(f * B * H * T * S * D, reads + e * out,
+                           PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
                 row[f"{name}_bound_ms"] = b["bound_ms"]
                 row[f"{name}_bound_by"] = b["bound_by"]
-    if timed and dtype == torch.bfloat16:  # the training dtype
+            # each kernel recomputes P: B*H*T*S exponentials
+            row["exp_floor_ms"] = _exp_floor_ms(B, H, T, S)
+    if timed and bf16:  # the training dtype
         # one PyTorch call for the same gradients: autograd.grad of a
-        # retained SDPA graph computes dQ, dK and dV together
+        # retained SDPA graph computes dQ, dK and dV together. Its device
+        # time is the profiler's: autograd's backward cannot be captured
+        # in a CUDA graph here (it makes the legacy stream wait on the
+        # capturing one)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             o_sdpa = torch.nn.functional.scaled_dot_product_attention(
                 *leaves, scale=scale)
-            row["library_ms"] = _time_ms(lambda: torch.autograd.grad(
-                o_sdpa, leaves, do, retain_graph=True))
+
+            def sdpa_bwd():
+                return torch.autograd.grad(o_sdpa, leaves, do,
+                                           retain_graph=True)
+
+            row["library_ms"] = _time_ms(sdpa_bwd)
+            row["library_device_ms"] = _kernel_ms(sdpa_bwd)
         del o_sdpa, leaves
     log("bwd kernel: " + json.dumps(row))
     tol = BWD_REL_TOL[dtype]
-    bad = [n for n in ("dq", "dk", "dv")
+    bad = [n for n, _, _ in checks
            if not (np.isfinite(row[f"rel_{n}"]) and row[f"rel_{n}"] <= tol)]
-    if bad:
+    if bad or row["kernel"] != [route] or route != (
+            "wgmma" if bf16 and D <= fa.WGMMA_DKV_MAX_D else "mma"):
         raise AssertionError(f"flash_bwd kernels disagree with their plain "
-                             f"versions on {bad}: {row}, limit {tol}")
+                             f"versions on {bad} or ran another kernel "
+                             f"than {route}: {row}, limit {tol}")
     return row
 
 
@@ -590,7 +738,44 @@ def phase_bwd_kernels():
         T, S, D = RAGGED
         rows.append(check_bwd_kernels(1, 2, T, S, D, dtype, gen,
                                       heads_inner=False, timed=False))
+    # batch 2 at the three levels (two instance prompts, or prior
+    # preservation)
+    for T, D in SD15_ATTN_SHAPES:
+        rows.append(check_bwd_kernels(2, 8, T, T, D, torch.bfloat16, gen,
+                                      timed=False))
+    # every D the route sends to the wgmma dK/dV kernel (each of its
+    # instances), with ragged T and S
+    for D in range(8, fa.WGMMA_DKV_MAX_D + 1, 8):
+        rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
+                                      torch.bfloat16, gen, timed=False))
     return rows
+
+
+BWD_SUM_KEYS = ("dq_ms", "dq_device_ms", "dkv_ms", "dkv_device_ms",
+                "dkv_prev_ms", "dkv_prev_device_ms", "dkv_wrapper_ms",
+                "dq_plain_ms", "dkv_plain_ms", "library_ms",
+                "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
+                "exp_floor_ms")
+
+
+def bwd_step_sums(rows) -> dict:
+    """Sums over one training step's backward launches (5 of each kernel
+    at each of the three levels, batch 1, bf16) of each timed column."""
+    level = [r for r in rows if r["dtype"] == "bfloat16" and "dq_ms" in r]
+    if len(level) != len(SD15_ATTN_SHAPES):
+        raise AssertionError(f"{len(level)} timed bf16 backward rows")
+    n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
+    sums = {k: n * sum(r[k] for r in level) for k in BWD_SUM_KEYS}
+    log("bwd per training step: " + json.dumps(sums))
+    return sums
+
+
+def dkv_per_step() -> dict:
+    """flash_bwd_dkv's launches per training step by kernel: 5 at each
+    level, through the wgmma kernel where D <= WGMMA_DKV_MAX_D."""
+    n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
+    wgmma = n * sum(D <= fa.WGMMA_DKV_MAX_D for _, D in SD15_ATTN_SHAPES)
+    return {"wgmma": wgmma, "mma": ROUTED_PER_UNET_CALL - wgmma}
 
 
 def unet_int8_calls(b: int):
@@ -959,12 +1144,13 @@ def _zero_counts():
     fa.flash_fwd.launches_by_kernel.update(wgmma=0, mma=0)
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
+    fa.flash_bwd_dkv.launches_by_kernel.update(wgmma=0, mma=0)
     i8.int8_matmul.launches = 0
     i8.int8_matmul.launches_by_kernel.update(wgmma=0, mma=0)
 
 
-def _train_models(gen):
-    """SD-1.5 UNet (bf16, random weights from `gen`), the bench.py
+def _train_models(gen, dt=torch.bfloat16):
+    """SD-1.5 UNet (in `dt`, random weights from `gen`), the bench.py
     trainable (a rank-4 LoRA on the default UNet sites, f32 leaves that
     require grad), and a cached batch: 64x64x4 latents and the text
     embeddings of one random prompt from the SD-1.5 CLIP text encoder."""
@@ -974,7 +1160,6 @@ def _train_models(gen):
     from lora_tpu_torch.models.config import SD15_TEXT, SD15_UNET
     from lora_tpu_torch.models.unet import UNet
 
-    dt = torch.bfloat16
     unet = UNet(SD15_UNET, device="cuda", dtype=dt, generator=gen)
     text = CLIPTextModel(SD15_TEXT, device="cuda", dtype=dt, generator=gen)
     ids = torch.randint(0, SD15_TEXT.vocab_size, (1, 77), generator=gen,
@@ -989,7 +1174,7 @@ def _train_models(gen):
     return unet, batch, lora
 
 
-def _make_step(optimizer, remat=False):
+def _make_step(optimizer, remat=False, dtype=torch.bfloat16):
     from lora_tpu_torch.models.config import SD15_TEXT, SD15_UNET, SD15_VAE
     from lora_tpu_torch.models.schedulers import make_schedule
     from lora_tpu_torch.training.loss import LossConfig
@@ -1000,7 +1185,63 @@ def _make_step(optimizer, remat=False):
         sched=make_schedule(),
         loss_cfg=LossConfig(cached_latents=True,
                             gradient_checkpointing=remat),
-        optimizer=optimizer, dtype=torch.bfloat16)
+        optimizer=optimizer, dtype=dtype)
+
+
+# device kernels by class in the profile of a training step: the first
+# pattern a kernel's name matches (lower case) names its class
+KERNEL_CLASSES = (
+    ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma"),
+    ("flash_bwd_dkv_mma", "bwd_dkv"),
+    ("flash_bwd_dq", "bwd_dq"),
+    ("flash_fwd", "flash_fwd"),
+    ("conv", "conv|fprop|dgrad|wgrad|winograd"),
+    ("gemm", "gemm|cutlass|xmma|cublas|matmul"),
+    ("layout", "nchw|nhwc|transpose|permute"),
+    ("copy_cast", "copy|memcpy|memset|fill"),
+    ("norm_reduce", "norm|moments|reduce|softmax"),
+    ("elementwise", "elementwise"),
+)
+
+
+def profile_step(run) -> dict:
+    """One call of `run` (a warm training step, synchronised) under
+    torch.profiler: its wall time, the device time of its kernels by class
+    (KERNEL_CLASSES) with their share of it, the busy share (device time
+    over wall time, one stream), and the ten longest kernels."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_class = {}
+    for e in kernels:
+        name = e.key.lower()
+        cls = next((c for c, pat in KERNEL_CLASSES if re.search(pat, name)),
+                   "other")
+        c = by_class.setdefault(cls, {"ms": 0.0, "launches": 0})
+        c["ms"] += e.self_device_time_total / 1e3
+        c["launches"] += e.count
+    for c in by_class.values():
+        c["share"] = c["ms"] / device_ms if device_ms else None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "launches": sum(e.count for e in kernels),
+            "busy_share": device_ms / wall_ms,
+            "by_class": dict(sorted(by_class.items(),
+                                    key=lambda kv: -kv[1]["ms"])),
+            "top": [[e.key[:90], e.count, e.self_device_time_total / 1e3]
+                    for e in top]}
 
 
 def phase_train(smi: str):
@@ -1027,19 +1268,25 @@ def phase_train(smi: str):
     warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
+    dkv_want = dkv_per_step()
     _zero_counts()  # the counted main-path run
     for _ in range(TRAIN_STEPS):
         before = _counts()
+        dkv_before = dict(fa.flash_bwd_dkv.launches_by_kernel)
         t0 = time.perf_counter()
         losses.append(step(trainable, base, batch, gen))
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         per_step = tuple(a - b for a, b in zip(_counts(), before))
-        if per_step != (ROUTED_PER_UNET_CALL,) * 3:
+        dkv_step = {r: n - dkv_before[r]
+                    for r, n in fa.flash_bwd_dkv.launches_by_kernel.items()}
+        if per_step != (ROUTED_PER_UNET_CALL,) * 3 or dkv_step != dkv_want:
             raise AssertionError(f"a training step launched (fwd, dq, dkv) "
-                                 f"= {per_step}, not 15 each")
+                                 f"= {per_step}, not 15 each, dK/dV "
+                                 f"{dkv_step}, not {dkv_want}")
     launches = _counts()
     by_kernel = dict(fa.flash_fwd.launches_by_kernel)
+    dkv_by_kernel = dict(fa.flash_bwd_dkv.launches_by_kernel)
     if by_kernel != {"wgmma": launches[0], "mma": 0}:
         raise AssertionError(f"training launched the forward kernels "
                              f"{by_kernel} times")
@@ -1053,6 +1300,9 @@ def phase_train(smi: str):
         raise AssertionError(f"{still_zero} of {len(ups)} LoRA up leaves "
                              f"never moved from zero")
     med = statistics.median(step_ms)
+    # one more warm step, after the counted run, under the profiler
+    log("train profile: " + json.dumps(profile_step(
+        lambda: step(trainable, base, batch, gen))))
     log("train: " + json.dumps({
         "steps": TRAIN_WARMUP + TRAIN_STEPS, "timed_steps": TRAIN_STEPS,
         "losses": [round(x, 6) for x in losses.tolist()],
@@ -1061,22 +1311,26 @@ def phase_train(smi: str):
         "steps_per_s": 1e3 / med, "peak_mem_gib": peak_gib,
         "launches": dict(zip(("fwd", "dq", "dkv"), launches)),
         "fwd_launches_by_kernel": by_kernel,
+        "dkv_launches_by_kernel": dkv_by_kernel,
         "up_max_abs": max(u.detach().abs().max().item() for u in ups),
         "card": smi}))
     del step, opt, trainable, base, unet, batch, lora
     torch.cuda.empty_cache()
-    return launches, by_kernel
+    return launches, by_kernel, dkv_by_kernel
 
 
-def phase_grad():
+def phase_grad(dt=torch.bfloat16):
     """The full-width LoRA gradient through the kernels against the one
-    through the plain attention path, then with gradient checkpointing."""
+    through the plain attention path; in bf16 (the training dtype) also
+    with gradient checkpointing. f32 runs the f32 kernels: flash_fwd.cu
+    and flash_bwd.cu's dQ and dK/dV."""
     from lora_tpu_torch.ops.attention import set_use_memory_efficient_attention
     from lora_tpu_torch.training.optim import make_optimizer, tree_leaves
     from lora_tpu_torch.training.train_step import make_trainable
 
+    bf16 = dt == torch.bfloat16
     gen = torch.Generator("cuda").manual_seed(SEED + 4)
-    unet, batch, lora = _train_models(gen)
+    unet, batch, lora = _train_models(gen, dt)
     for entry in lora["sites"].values():
         entry["up"] = 0.05 * torch.randn(entry["up"].shape, generator=gen,
                                          device="cuda")
@@ -1084,7 +1338,7 @@ def phase_grad():
     leaves = tree_leaves(trainable)
     base = (unet.flat_params(), {}, {})
     draws = {"noise": torch.randn((1, 64, 64, 4), generator=gen,
-                                  device="cuda").to(torch.bfloat16),
+                                  device="cuda").to(dt),
              "timesteps": torch.tensor([500], device="cuda")}
 
     def loss_and_grad(remat=False):
@@ -1098,7 +1352,7 @@ def phase_grad():
         before = _counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = _make_step(opt, remat)(trainable, base, batch, **draws)
+        loss = _make_step(opt, remat, dt)(trainable, base, batch, **draws)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         for x in leaves:
@@ -1108,36 +1362,55 @@ def phase_grad():
 
     ms = []  # wall time of each single step (one sample each)
     fwd_before = dict(fa.flash_fwd.launches_by_kernel)
+    dkv_before = dict(fa.flash_bwd_dkv.launches_by_kernel)
     loss_k, g_k, n_k = loss_and_grad()
     set_use_memory_efficient_attention(False)
     try:
         loss_p, g_p, n_p = loss_and_grad()
     finally:
         set_use_memory_efficient_attention(True)
-    loss_r, g_r, n_r = loss_and_grad(remat=True)
+    row = {"dtype": str(dt).replace("torch.", ""), "loss_kernels": loss_k,
+           "loss_plain": loss_p}
+    if bf16:
+        loss_r, g_r, n_r = loss_and_grad(remat=True)
+        rel_r = ((g_r - g_k).norm() / g_k.norm()).item()
+        row.update(loss_remat=loss_r, grad_rel_l2_remat_vs_kernels=rel_r,
+                   launches_remat=n_r)
     fwd_by_kernel = {r: n - fwd_before[r]
                      for r, n in fa.flash_fwd.launches_by_kernel.items()}
+    dkv_by_kernel = {r: n - dkv_before[r]
+                     for r, n in fa.flash_bwd_dkv.launches_by_kernel.items()}
     rel = ((g_k - g_p).norm() / g_p.norm()).item()
-    rel_r = ((g_r - g_k).norm() / g_k.norm()).item()
-    row = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_remat": loss_r,
-           "grad_rel_l2_kernels_vs_plain": rel,
-           "grad_rel_l2_remat_vs_kernels": rel_r,
-           "grad_norm": g_k.norm().item(), "launches_kernels": n_k,
-           "launches_plain": n_p, "launches_remat": n_r,
-           "fwd_launches_by_kernel": fwd_by_kernel,
-           "step_ms_kernels_plain_remat": ms,
-           "limits": {"grad_rel_l2": GRAD_REL_L2_TOL,
-                      "remat_loss_rtol": REMAT_LOSS_RTOL}}
+    tol = GRAD_REL_L2_TOL if bf16 else GRAD_F32_REL_L2_TOL
+    row.update({"grad_rel_l2_kernels_vs_plain": rel,
+                "grad_norm": g_k.norm().item(), "launches_kernels": n_k,
+                "launches_plain": n_p,
+                "fwd_launches_by_kernel": fwd_by_kernel,
+                "dkv_launches_by_kernel": dkv_by_kernel,
+                "step_ms_kernels_plain_remat": ms,
+                "limits": {"grad_rel_l2": tol,
+                           "remat_loss_rtol": REMAT_LOSS_RTOL}})
     log("grad: " + json.dumps(row))
-    if n_k != (15, 15, 15) or n_p != (0, 0, 0) or n_r != (30, 15, 15) or \
-            fwd_by_kernel != {"wgmma": 45, "mma": 0}:
-        raise AssertionError(f"launch counts {n_k} / {n_p} / {n_r}, "
-                             f"forward {fwd_by_kernel}")
-    if not (np.isfinite(rel) and rel <= GRAD_REL_L2_TOL):
+    # bf16: two steps through the kernels (plain, checkpointed), the
+    # forward twice in the checkpointed one; f32: one step, all mma
+    runs = 2 if bf16 else 1
+    if bf16:
+        want_dkv = {r: runs * n for r, n in dkv_per_step().items()}
+        want_fwd = {"wgmma": 45, "mma": 0}
+    else:
+        want_dkv = {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL}
+        want_fwd = {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL}
+    if n_k != (15, 15, 15) or n_p != (0, 0, 0) or (
+            bf16 and n_r != (30, 15, 15)) or fwd_by_kernel != want_fwd or \
+            dkv_by_kernel != want_dkv:
+        raise AssertionError(f"launch counts {row}: forward "
+                             f"{fwd_by_kernel}, not {want_fwd}; dK/dV "
+                             f"{dkv_by_kernel}, not {want_dkv}")
+    if not (np.isfinite(rel) and rel <= tol):
         raise AssertionError(f"LoRA gradient through the kernels is {rel} "
                              f"(relative L2) from the plain path's")
-    if not (abs(loss_r - loss_k) <= REMAT_LOSS_RTOL * abs(loss_k)
-            and np.isfinite(rel_r) and rel_r <= GRAD_REL_L2_TOL):
+    if bf16 and not (abs(loss_r - loss_k) <= REMAT_LOSS_RTOL * abs(loss_k)
+                     and np.isfinite(rel_r) and rel_r <= GRAD_REL_L2_TOL):
         raise AssertionError(f"gradient checkpointing changed the step: "
                              f"{row}")
     del unet, batch, lora, trainable, base
@@ -1431,6 +1704,19 @@ def main_flash() -> int:
     return 0
 
 
+def main_flash_bwd() -> int:
+    """The backward kernels alone: the device line, the builds of the wgmma
+    forward (the residuals), flash_bwd.cu and flash_bwd_dkv_wgmma.cu, the
+    wgmma dK/dV kernel's first calls in a child process under a timeout,
+    phase 4 and its sums over one training step."""
+    smi = phase_device()
+    phase_build(["flash_fwd_wgmma", "flash_bwd", "flash_bwd_dkv_wgmma"])
+    dkv_probe()
+    bwd_step_sums(phase_bwd_kernels())
+    log(smi)
+    return 0
+
+
 def main_int8(tiles: bool) -> int:
     """The int8 kernels alone: the device line, their two builds, phase 8
     with its per-call sums, and with `tiles` every wgmma tile instance."""
@@ -1446,13 +1732,17 @@ def main_int8(tiles: bool) -> int:
 def main() -> int:
     smi = phase_device()
     phase_build()
+    dkv_probe()
     rows = phase_kernels()
     fwd_sums = flash_call_sums(rows)
     bwd_rows = phase_bwd_kernels()
+    bwd_sums = bwd_step_sums(bwd_rows)
     with recording_flash_shapes(set()) as flash_seen:
         serve_fwd, bf16_request_s = phase_slice(smi)
-        train_launches, train_fwd = phase_train(smi)
+        train_launches, train_fwd, train_dkv = phase_train(smi)
         phase_grad()
+        _zero_counts()  # the counted f32 training run
+        grad_f32 = phase_grad(torch.float32)
         int8_rows = phase_int8_kernels()
         int8_sums = int8_call_sums(int8_rows)
         with recording_int8_shapes(set()) as seen:
@@ -1521,10 +1811,15 @@ def main() -> int:
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:104",
-        # the f32 quantized UNet call of phase 9a (f32 attention)
-        "launches": f32_fwd["mma"],
-        "launches_by_path": {"serve_int8_f32": f32_fwd["mma"]},
-        "launches_by_kernel": f32_fwd,
+        # the f32 quantized UNet call of phase 9a and the f32 training run
+        # of phase 7 (f32 attention)
+        "launches": f32_fwd["mma"] + grad_f32["fwd_launches_by_kernel"]["mma"],
+        "launches_by_path": {
+            "serve_int8_f32": f32_fwd["mma"],
+            "train_f32_grad": grad_f32["fwd_launches_by_kernel"]["mma"]},
+        "launches_by_kernel": {
+            r: f32_fwd[r] + grad_f32["fwd_launches_by_kernel"][r]
+            for r in f32_fwd},
         "max_abs_err": max(r["err_o"] for r in rows
                            if r["dtype"] == "float32"),
         # at the largest main-path shape in f32 (batch 4); the bound at the
@@ -1533,23 +1828,83 @@ def main() -> int:
         "library_ms": fwd_f32["library_ms"],
         "exp_floor_ms": fwd_f32["exp_floor_ms"],
     }]
-    for name, key, line in (("flash_bwd_dq", "dq", 178),
-                            ("flash_bwd_dkv", "dkv", 210)):
-        errs = ("dq",) if key == "dq" else ("dk", "dv")
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
-            "replaces": f"lora_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[1 if key == "dq" else 2],
-            "max_abs_err": max(r[f"err_{e}"] for r in bf16_bwd for e in errs),
-            # median per launch at T = S = 4096, D = 40, bf16, B = 1, H = 8;
-            # library: one autograd.grad of SDPA, which computes dQ, dK and
-            # dV together (compare it with the two kernels' sum)
-            **timed(bwd, f"{key}_"),
-            "library_ms": bwd["library_ms"],
-            "library_computes": "dq, dk, dv",
-        })
+    bwd_f32 = at_main_shape(bwd_rows, "float32")
+    f32_grad = {"train_f32_grad": grad_f32["launches_kernels"][1]}
+    # median per launch at T = S = 4096, D = 40, bf16, B = 1, H = 8,
+    # through each kernel's C entry point; device: CUDA-graph replay;
+    # library: one autograd.grad of SDPA, which computes dQ, dK and dV
+    # together (compare it with the two kernels' sum; its device time is a
+    # graph of SDPA's forward and backward less one of the forward);
+    # exp_floor: the recomputed P's exponentials at 16 a clock per SM
+    kernels.append({
+        "name": "flash_bwd_dq",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:178",
+        # the timed training steps (bf16); the f32 training run of phase 7
+        "launches": train_launches[1],
+        "launches_by_path": {"train": train_launches[1], **f32_grad},
+        "max_abs_err": max(r["err_dq"] for r in bf16_bwd),
+        **timed(bwd, "dq_"),
+        "device_ms": bwd["dq_device_ms"],
+        "library_ms": bwd["library_ms"],
+        "library_device_ms": bwd["library_device_ms"],
+        "library_computes": "dq, dk, dv",
+        "exp_floor_ms": bwd["exp_floor_ms"],
+        "per_training_step": {k: v for k, v in bwd_sums.items()
+                              if not k.startswith("dkv_")},
+    })
+    kernels.append({
+        "name": "flash_bwd_dkv",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd_dkv_wgmma.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:210",
+        # the timed training steps: every launch at D <= WGMMA_DKV_MAX_D
+        # (phase 6 checks it)
+        "launches": train_dkv["wgmma"],
+        "launches_by_path": {"train": train_dkv["wgmma"]},
+        "launches_by_kernel": train_dkv,
+        # worst dK / dV error over the bf16 calls of phase 4 routed here
+        "max_abs_err": max(r[f"err_{e}"] for r in bf16_bwd
+                           if r["route"] == "wgmma"
+                           for e in ("dk", "dv", "dk_bn64", "dv_bn64",
+                                     "dk_bn128", "dv_bn128")),
+        # the kernel on Q~ formed beforehand; wrapper: flash_bwd_dkv with
+        # its Q~; prev: the mma kernel (flash_bwd.cu) on the same inputs
+        **timed(bwd, "dkv_"),
+        "device_ms": bwd["dkv_device_ms"],
+        "wrapper_ms": bwd["dkv_wrapper_ms"],
+        "prev_ms": bwd["dkv_prev_ms"],
+        "prev_device_ms": bwd["dkv_prev_device_ms"],
+        "library_ms": bwd["library_ms"],
+        "library_device_ms": bwd["library_device_ms"],
+        "library_computes": "dq, dk, dv",
+        "exp_floor_ms": bwd["exp_floor_ms"],
+        # every column summed over the 15 launches of one training step
+        "per_training_step": {k: v for k, v in bwd_sums.items()
+                              if not k.startswith("dq_")},
+    })
+    kernels.append({
+        "name": "flash_bwd_dkv_mma",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:210",
+        # the f32 training run of phase 7 (f32 attention), and the bf16
+        # training steps at D > WGMMA_DKV_MAX_D
+        "launches": grad_f32["dkv_launches_by_kernel"]["mma"]
+        + train_dkv["mma"],
+        "launches_by_path": {"train_f32_grad":
+                             grad_f32["dkv_launches_by_kernel"]["mma"],
+                             "train": train_dkv["mma"]},
+        "max_abs_err": max(max(r["err_dk"], r["err_dv"]) for r in bwd_rows
+                           if r["dtype"] == "float32"),
+        # at the main training shape in f32, the bound at the f32 rate
+        # (the kernel's CUDA-core FMAs); no single PyTorch call is timed
+        # in f32
+        **timed(bwd_f32, "dkv_"),
+        "library_ms": None,
+        "exp_floor_ms": bwd_f32["exp_floor_ms"],
+    })
     main_int8 = {r["dtype"]: r for r in int8_rows if "ms" in r
                  and (r["M"], r["K"], r["N"]) == INT8_MAIN_SHAPE}
     kernels.append({
@@ -1603,6 +1958,9 @@ if __name__ == "__main__":
         sys.exit(main_int8(sys.argv[1] == "--int8-tiles"))
     if sys.argv[1:] == ["--flash"]:
         sys.exit(main_flash())
+    if sys.argv[1:] == ["--flash-bwd"]:
+        sys.exit(main_flash_bwd())
     if sys.argv[1:]:
-        sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash]")
+        sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
+                 f"--flash-bwd]")
     sys.exit(main())

@@ -390,18 +390,6 @@ cudaError_t prepare() {
   return cudaSuccess;
 }
 
-// One tensor (B, H, rows, D) as a 4-D map (D, rows, H, B) from its element
-// strides (batch, head, row), boxes of 16 columns by box_rows rows
-bool encode_bhtd(EncodeTiled fn, CUtensorMap* map, const void* base, const long long* st,
-                 int B, int H, int rows, int D, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)BOX, (cuuint32_t)box_rows, 1, 1};
-  return encode_4d(fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
-                   CU_TENSOR_MAP_SWIZZLE_32B);
-}
-
 template <int DP>
 cudaError_t launch(EncodeTiled fn, const void* q, const void* k, const void* v, void* o,
                    float* lse, const long long* st, int B, int H, int T, int S, int D, int bm,

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
-// directory (int8_matmul_wgmma.cu, flash_fwd_wgmma.cu): mbarriers, TMA loads
+// directory (int8_matmul_wgmma.cu, flash_fwd_wgmma.cu,
+// flash_bwd_dkv_wgmma.cu): mbarriers, TMA loads
 // and stores, wgmma shared-memory descriptors, the wgmma instructions and
 // their fence / commit / wait, and the host-side encoding of TMA tensor maps
 // through cudaGetDriverEntryPoint (so nothing links against libcuda).
 //
 // Every function is header-inline; each kernel library compiles its own
 // copy. ops/build.py keys every library on every csrc/*.cuh, so an edit here
-// rebuilds both.
+// rebuilds them all.
 
 #pragma once
 
@@ -359,6 +360,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a, uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
 }
 
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -441,6 +453,19 @@ inline bool encode_4d(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type
   return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One bf16 tensor (B, H, rows, D) as a 4-D map (D, rows, H, B) from its
+// element strides st = (batch, head, row), boxes of 16 columns (32-byte rows,
+// the 32-byte swizzle) by box_rows rows
+inline bool encode_bhtd(EncodeTiled fn, CUtensorMap* map, const void* base, const long long* st,
+                        int B, int H, int rows, int D, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {16, (cuuint32_t)box_rows, 1, 1};
+  return encode_4d(fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 }  // namespace sm90

@@ -9,11 +9,17 @@ lora_tpu/ops/flash_attention.py:
                                             warpgroup wgmma
         "mma"      csrc/flash_fwd.cu        mma.sync: f32, D > 160, a
                                             stride of 0
-    flash_bwd_dq   _bwd_dq_kernel   dQ          csrc/flash_bwd.cu
-    flash_bwd_dkv  _bwd_dkv_kernel  dK and dV   csrc/flash_bwd.cu
+    flash_bwd_dq   _bwd_dq_kernel   dQ          csrc/flash_bwd.cu (mma.sync)
+    flash_bwd_dkv  _bwd_dkv_kernel  dK and dV, through
+        "wgmma"    csrc/flash_bwd_dkv_wgmma.cu  bf16: TMA ring, producer
+                                                warp, warpgroup wgmma
+        "mma"      csrc/flash_bwd.cu            mma.sync: f32, D > 160, a
+                                                stride of 0
 
-`_fwd_route` picks the forward kernel from dtype, D and layout alone, and
-`_fwd_bm` the wgmma kernel's q rows per CTA from T, B * H and the SM count.
+`_fwd_route` and `_bwd_route` pick the forward and the dK/dV kernel from
+dtype, D and layout alone; `_fwd_bm` the wgmma forward's q rows per CTA
+from T, B * H and the SM count, `_dkv_bn` the wgmma dK/dV kernel's kv rows
+per CTA from S, B * H and the SM count.
 
 `flash_attention(q, k, v, scale)` is the entry point: a
 torch.autograd.Function (the JAX custom_vjp, `scale` not differentiated)
@@ -25,8 +31,9 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises: nothing reacts to a failure), and counts its
-launches in `<wrapper>.launches`; the forward also per kernel in
-`flash_fwd.launches_by_kernel` ({"wgmma", "mma"}, summing to `launches`).
+launches in `<wrapper>.launches`; the forward and flash_bwd_dkv also per
+kernel in `<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, summing to
+`launches`).
 
 Build: the first CUDA call of a kernel compiles its own source (and no
 other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
@@ -49,26 +56,31 @@ BQ = 256  # the JAX kernel's q block: the routing rule below keeps its shapes
 # the widest head the wgmma forward kernel instantiates: MAX_DP and the
 # instance switch of csrc/flash_fwd_wgmma.cu (a CPU test holds them equal)
 WGMMA_MAX_D = 160
+# the same for the wgmma dK/dV kernel, csrc/flash_bwd_dkv_wgmma.cu
+WGMMA_DKV_MAX_D = 160
 
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma"), scale, stream
+# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma", bn for
+# "dkv_wgmma"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
 _ENTRY = {
     # entry: (source stem, C function, pointer arguments)
     "wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma", 5),
     "mma": ("flash_fwd", "flash_fwd", 5),
     "dq": ("flash_bwd", "flash_bwd_dq", 7),
-    "dkv": ("flash_bwd", "flash_bwd_dkv", 8),
+    # flash_bwd_dkv's two routes, "dkv_" + route
+    "dkv_wgmma": ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma", 8),
+    "dkv_mma": ("flash_bwd", "flash_bwd_dkv", 8),
 }
 
 
 def _entry(name: str):
     """The ctypes function of one kernel ("wgmma" or "mma" forward, "dq",
-    "dkv"), building its source on first use."""
+    "dkv_wgmma" or "dkv_mma"), building its source on first use."""
     with _lib_lock:
         if name not in _fns:
             stem, fn_name, n_ptrs = _ENTRY[name]
@@ -83,10 +95,15 @@ def _entry(name: str):
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _q_tilde(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """Q~: q pre-scaled in f32 and rounded once to the input dtype (the JAX
+    _scale_q), in q's dtype and, where q is dense, its layout."""
+    return (q.float() * scale).to(q.dtype)
+
+
 def _scale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
-    """q pre-scaled in f32 and rounded to the input dtype (the JAX
-    _scale_q), returned as f32."""
-    return (q.float() * scale).to(q.dtype).float()
+    """Q~ as f32."""
+    return _q_tilde(q, scale).float()
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -228,6 +245,27 @@ def _fwd_bm(T: int, bh: int, sms: int = 132) -> int:
     return 128 if -(-T // 128) * bh >= sms else 64
 
 
+def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               do: torch.Tensor) -> str:
+    """The dK/dV kernel of a call: "wgmma" (csrc/flash_bwd_dkv_wgmma.cu)
+    for bf16 with D <= WGMMA_DKV_MAX_D and layouts TMA's tensor maps take
+    (_layout_ok, and no stride of 0), "mma" (csrc/flash_bwd.cu) for the
+    rest: f32, wider D, a broadcast. A layout _layout_ok refuses never
+    launches: _check raises first."""
+    if (q.dtype == torch.bfloat16 and q.shape[3] <= WGMMA_DKV_MAX_D
+            and all(_layout_ok(t) and min(t.stride()[:3]) > 0
+                    for t in (q, k, v, do))):
+        return "wgmma"
+    return "mma"
+
+
+def _dkv_bn(S: int, bh: int, sms: int = 132) -> int:
+    """kv rows per CTA of the wgmma dK/dV kernel for S kv rows and
+    bh = B * H heads on `sms` SMs: _fwd_bm's rule over the kv rows (128,
+    two consumer warpgroups, unless that gives fewer CTAs than SMs)."""
+    return _fwd_bm(S, bh, sms)
+
+
 def _strides(*tensors) -> ctypes.Array:
     vals = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -235,7 +273,7 @@ def _strides(*tensors) -> ctypes.Array:
 
 def _launch(fn, name, ptrs, strides, q, k, arg, scale):
     """One C entry point on the current stream; `arg` is is_bf16 (bm for
-    the wgmma forward)."""
+    the wgmma forward, bn for the wgmma dK/dV kernel)."""
     B, H, T, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -287,19 +325,38 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     return dq
 
 
+def _dkv_launch(route, q, k, v, do, lse, delta, scale, bn=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dK/dV kernel through its C entry point (no routing, no count).
+    The wgmma kernel takes q as Q~ (_q_tilde: TMA cannot scale on load)
+    and `bn` kv rows per CTA (by default _dkv_bn's); the mma kernel takes
+    q and scales it itself."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if route == "wgmma":
+        B, H, _, _ = q.shape
+        arg = bn or _dkv_bn(k.shape[2], B * H, _sm_count(q.device))
+    else:
+        arg = int(q.dtype == torch.bfloat16)
+    _launch(_entry(f"dkv_{route}"), f"flash_bwd_dkv ({route})",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            _strides(q, k, v, do, dk, dv), q, k, arg, scale)
+    return dk, dv
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) in k's and v's layouts and dtype; inputs as flash_bwd_dq."""
+    """(dK, dV) in k's and v's layouts and dtype; inputs as flash_bwd_dq.
+    CUDA tensors launch the kernel `_bwd_route` picks."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_entry("dkv"), "flash_bwd_dkv",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            _strides(q, k, v, do, dk, dv), q, k,
-            int(q.dtype == torch.bfloat16), scale)
+    route = _bwd_route(q, k, v, do)
+    if route == "wgmma":
+        q = _q_tilde(q, scale)
+    dk, dv = _dkv_launch(route, q, k, v, do, lse, delta, scale)
+    flash_bwd_dkv.launches_by_kernel[route] += 1
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -307,7 +364,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float
 flash_fwd.launches_by_kernel = {"wgmma": 0, "mma": 0}
 flash_fwd.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "mma": 0}
+flash_bwd_dkv.launches = 0  # the sum of launches_by_kernel
 
 
 def flash_attention_backward(q, k, v, o, lse, do, scale: float

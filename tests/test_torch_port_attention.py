@@ -82,11 +82,13 @@ def test_supported_agrees_with_jax(q_shape, k_shape):
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 256, 512, 40), (1, 2, 256, 256, 32),
-                                   (1, 2, 512, 256, 64), (1, 2, 256, 384, 160)])
+                                   (1, 2, 512, 256, 64), (1, 2, 256, 384, 160),
+                                   (1, 2, 256, 256, 80)])
 def test_backward_reference_matches_pallas(shape):
     """flash_attention_backward_reference against the Pallas _bwd on _fwd's
     residuals: the shapes of tests/test_flash_attention.py (D = 32, 40, 64,
-    and 160; T != S) and its gradient tolerance."""
+    and 160; T != S), D = 80 so that each SD-1.5 head width (40, 80, 160)
+    is held, and its gradient tolerance."""
     B, H, T, S, D = shape
     q, k, v = _qkv(*shape, seed=4)
     do = np.random.default_rng(5).standard_normal((B, H, T, D),
@@ -359,3 +361,123 @@ def test_load_library_builds_only_its_source(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no csrc"):
         t_build.build(["c"])
 
+
+
+@pytest.mark.parametrize("case", [("main", *s) for s in SD15_SELF_ATTN] + [
+    ("contiguous",), ("widest",), ("f32",), ("wide_head",), ("broadcast",)],
+    ids=lambda c: "-".join(map(str, c)))
+def test_bwd_route(case):
+    """The dK/dV kernel of a call: bf16 at every training-path shape (the
+    UNet's transposed views, dO alike) and contiguous tensors take the
+    wgmma kernel; f32, D above WGMMA_DKV_MAX_D and broadcast strides the
+    mma kernel. The route reads dtype, D and strides only."""
+    (q, k, v), want = _route_case(case)
+    if case[0] == "wide_head":
+        q = _bthd(1, 64, 2, t_fa.WGMMA_DKV_MAX_D + 8)
+        q, k, v = q, q, q
+    do = torch.zeros_like(q)
+    assert all(t_fa._layout_ok(t) for t in (q, k, v, do))
+    assert t_fa._bwd_route(q, k, v, do) == want
+
+
+def test_bwd_route_leaves_odd_layouts_to_check():
+    """A layout _check refuses (strides that are not multiples of 8) never
+    reaches the wgmma dK/dV kernel's tensor maps, in q, k, v or dO: the
+    route gives mma, and on the card _check raises before any launch."""
+    good = _bthd(1, 64, 2, 40)
+    odd = torch.zeros((1, 2, 64, 44), dtype=torch.bfloat16)[..., :40]
+    assert not t_fa._layout_ok(odd)
+    assert t_fa._bwd_route(good, good, good, good) == "wgmma"
+    for i in range(4):
+        args = [good] * 4
+        args[i] = odd
+        assert t_fa._bwd_route(*args) == "mma"
+
+
+def test_wgmma_dkv_max_d_matches_the_kernel_instances():
+    """The route's widest wgmma dK/dV head is the source's MAX_DP, and the
+    source instantiates every 16-column width up to it, so each D the route
+    sends (8 to WGMMA_DKV_MAX_D, D % 8 == 0) has an instance."""
+    src = open(os.path.join(os.path.dirname(t_fa.__file__), "csrc",
+                            "flash_bwd_dkv_wgmma.cu")).read()
+    max_dp = int(re.search(r"constexpr int MAX_DP = (\d+);", src).group(1))
+    cases = [int(x) for x in re.findall(r"^\s*DKV_WGMMA_CASE\((\d+)\)\s*$",
+                                        src, re.M)]
+    assert max_dp == t_fa.WGMMA_DKV_MAX_D
+    assert cases == list(range(16, max_dp + 1, 16))
+
+
+@pytest.mark.parametrize("B,T,D", SD15_SELF_ATTN)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_dkv_bn_fills_the_card(B, T, D, sms):
+    """128 kv rows per CTA where that still gives a CTA per SM, else 64:
+    the grid is at least the SM count whenever 64-row tiles can reach it,
+    and never larger than it needs to be. At the training shapes (B = 1)
+    that is 256 CTAs at S = 4096 and 128 (not 64) at S = 1024."""
+    bh = B * 8
+    bn = t_fa._dkv_bn(T, bh, sms)
+    assert bn in (64, 128)
+    ctas = -(-T // bn) * bh
+    if bn == 64:
+        assert -(-T // 128) * bh < sms
+    else:
+        assert ctas >= sms
+    assert {(1, 4096): (128, 256), (1, 1024): (64, 128),
+            (1, 256): (64, 32)}.get((B, T), (bn, ctas)) == (bn, ctas)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q_tilde_matches_jax_scale_q(dtype):
+    """The wgmma dK/dV kernel's Q~, formed by the wrapper before the
+    launch, is bit for bit the JAX _scale_q that _bwd hands its kernels:
+    f32(q) * scale rounded once to q's dtype."""
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((2, 3, 37, 40), dtype=np.float32) * 4)
+    scale = 40 ** -0.5
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = np.asarray(j_fa._scale_q(jnp.asarray(x).astype(jdt), scale)
+                      ).astype(np.float32)
+    q = torch.from_numpy(x).to(dtype)
+    got = t_fa._q_tilde(q, scale)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16:
+        # the inputs themselves agree bit for bit first
+        assert np.array_equal(
+            np.asarray(jnp.asarray(x).astype(jdt)).astype(np.float32),
+            q.float().numpy())
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_q_tilde_keeps_the_transposed_layout():
+    """Q~ of the UNet's transposed view keeps its strides, which the wgmma
+    kernel's tensor maps take as they are."""
+    q = torch.randn((1, 64, 2, 40)).to(torch.bfloat16).transpose(1, 2)
+    qt = t_fa._q_tilde(q, 0.125)
+    assert qt.stride() == q.stride() and t_fa._layout_ok(qt)
+
+
+def test_cpu_bwd_dkv_call_launches_nothing():
+    """A bf16 flash_bwd_dkv call at a wgmma shape on CPU tensors takes the
+    plain version and moves neither count."""
+    rng = np.random.default_rng(11)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = t(1, 256, 2, 40), t(1, 128, 2, 40), t(1, 128, 2, 40), \
+        t(1, 256, 2, 40)
+    _, lse = t_fa.flash_attention_reference(q, k, v, 40 ** -0.5)
+    delta = torch.from_numpy(rng.standard_normal((1, 2, 256), np.float32))
+    args = (q, k, v, do, lse, delta, 40 ** -0.5)
+    before = (dict(t_fa.flash_bwd_dkv.launches_by_kernel),
+              t_fa.flash_bwd_dkv.launches)
+    assert t_fa._bwd_route(q, k, v, do) == "wgmma"
+    dk, dv = t_fa.flash_bwd_dkv(*args)
+    dk_ref, dv_ref = t_fa.flash_bwd_dkv_reference(*args)
+    assert (dict(t_fa.flash_bwd_dkv.launches_by_kernel),
+            t_fa.flash_bwd_dkv.launches) == before
+    assert sum(before[0].values()) == before[1]
+    torch.testing.assert_close(dk, dk_ref, rtol=0, atol=0)
+    torch.testing.assert_close(dv, dv_ref, rtol=0, atol=0)
+    assert dk.dtype == dv.dtype == torch.bfloat16 and dk.shape == k.shape
