@@ -12,10 +12,11 @@
                                         # timeout, 3 and its sums over one
                                         # UNet call
     python3 chip_smoke.py --flash-bwd   # phases 1, 2 (flash_fwd_wgmma.cu,
-                                        # flash_bwd.cu and
-                                        # flash_bwd_dkv_wgmma.cu only), the
-                                        # wgmma dK/dV kernel's first calls
-                                        # in a child process under a
+                                        # flash_bwd.cu,
+                                        # flash_bwd_dkv_wgmma.cu and
+                                        # flash_bwd_dq_wgmma.cu only), the
+                                        # wgmma dQ and dK/dV kernels' first
+                                        # calls in child processes under a
                                         # timeout, 4 and its sums over one
                                         # training step
 
@@ -24,11 +25,12 @@ it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu,
-     flash_bwd_dkv_wgmma.cu, int8_matmul.cu, int8_matmul_wgmma.cu; one
-     nvcc each, in parallel) for sm_90a into the build directory, and
-     prints ptxas's registers, shared memory and spills of the wgmma
-     kernels; then the wgmma dK/dV kernel's first calls in a child process
-     under a timeout.
+     flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, int8_matmul.cu,
+     int8_matmul_wgmma.cu; one nvcc each, in parallel) for sm_90a into the
+     build directory, and prints ptxas's registers, shared memory and
+     spills of the wgmma kernels and each wgmma backward instance's tiles;
+     then the wgmma dQ kernel's first calls (that kernel alone) and the
+     wgmma dK/dV kernel's, each in a child process under a timeout.
   3. kernel: the forward kernels against their plain PyTorch version on the
      card at the SD-1.5 512px self-attention shapes, bf16 at the serving
      batch (4) and the training batch (1), each call through the wgmma
@@ -49,14 +51,16 @@ it the build of the kernels):
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
      the SD-1.5 training shapes (batch 1; untimed at batch 2), bf16 and
      f32, plus the ragged call and a ragged call at every D the wgmma
-     dK/dV kernel takes (8 to 160); each flash_bwd_dkv call must launch
-     the kernel _bwd_route picks (bf16: flash_bwd_dkv_wgmma.cu, also
-     called directly at both kv tile heights, and the mma kernel of
-     flash_bwd.cu on the same inputs; f32: the mma kernel). Relative
-     errors; at the training levels, median times of dQ and of both dK/dV
-     kernels through their C entry points and as device time (CUDA-graph
-     replays), the flash_bwd_dkv wrapper, the plain versions, one
-     autograd.grad of a retained SDPA graph (dQ, dK, dV together; timed
+     backward kernels take (8 to 160); each flash_bwd_dq and
+     flash_bwd_dkv call must launch the kernel _dq_route / _bwd_route
+     picks (bf16: flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu, each
+     also called directly at both tile heights, and the mma kernels of
+     flash_bwd.cu on the same inputs; f32: the mma kernels). Relative
+     errors; at the training levels, median times of both dQ and both
+     dK/dV kernels through their C entry points and as device time
+     (CUDA-graph replays), the wgmma kernels' device time at their other
+     tile height, the two wrappers, the plain versions, one autograd.grad
+     of a retained SDPA graph (dQ, dK, dV together, bf16 and f32; timed
      only, its device time from torch.profiler), the FLOP bounds and the
      exponential floor; their sums over one training step (5 launches of
      each kernel per level).
@@ -71,18 +75,19 @@ it the build of the kernels):
      latents and text embeddings, AdamW lr 1e-4, clip 1.0) through
      make_optimizer and make_train_step: 3 warm-up and 10 timed steps.
      Checks finite losses, moved LoRA up leaves, and 15 forward (all
-     wgmma), 15 dQ and 15 dK/dV launches per step (dK/dV: wgmma at every
-     D <= WGMMA_DKV_MAX_D); prints step time, steps/s, peak memory; then
-     one more warm step under torch.profiler: its device time by kernel
-     class, busy share and longest kernels.
+     wgmma), 15 dQ and 15 dK/dV launches per step (dQ: wgmma at every
+     D <= WGMMA_DQ_MAX_D; dK/dV: at every D <= WGMMA_DKV_MAX_D); prints
+     step time, steps/s, peak memory; then one more warm step under
+     torch.profiler: its device time by kernel class, busy share and
+     longest kernels.
   7. grad: one loss-and-backward on a LoRA with nonzero up factors and
      fixed draws, through the kernels and through the plain attention path:
      the relative L2 distance of the two LoRA gradients; then the same with
      gradient checkpointing: the same loss, and 30 forward launches (every
-     forward launch of the phase wgmma, every dK/dV launch as in phase 6).
-     Then the same in f32 (the f32 training path, counted: 15 launches of
-     flash_fwd.cu, of dQ and of the mma dK/dV kernel; the LoRA gradients
-     within 1e-3).
+     forward launch of the phase wgmma, every dQ and dK/dV launch as in
+     phase 6). Then the same in f32 (the f32 training path, counted: 15
+     launches of flash_fwd.cu and of the mma dQ and dK/dV kernels; the LoRA
+     gradients within 1e-3).
   8. int8 kernel: the int8-weight matmul against its plain version at
      every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
      decoder's attention), bf16 (each call must launch the wgmma kernel,
@@ -252,25 +257,29 @@ def phase_build(stems=None) -> None:
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma",
-                 "flash_bwd_dkv_wgmma"):
+                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma"):
         if stem in paths:
             with open(paths[stem][:-3] + ".log") as f:
                 for line in f:
                     if any(w in line for w in ("Compiling", "Used", "spill",
                                                "arning", "Potential")):
                         log(f"build: {stem}: {line.strip()}")
-    if "flash_bwd_dkv_wgmma" in paths:
-        # each wgmma dK/dV instance's q tile, ring depth and dynamic shared
-        # memory (ptxas reports static shared memory only)
-        config = kernel_build.load_library(
-            "flash_bwd_dkv_wgmma").flash_bwd_dkv_wgmma_config
+    # each wgmma backward instance's streamed tile (q rows for dK/dV, kv
+    # rows for dQ), ring depth and dynamic shared memory (ptxas reports
+    # static shared memory only)
+    for stem, tile, max_d in (
+            ("flash_bwd_dkv_wgmma", "BQ", fa.WGMMA_DKV_MAX_D),
+            ("flash_bwd_dq_wgmma", "BN", fa.WGMMA_DQ_MAX_D)):
+        if stem not in paths:
+            continue
+        config = getattr(kernel_build.load_library(stem), stem + "_config")
         config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        for dp in range(16, fa.WGMMA_DKV_MAX_D + 1, 16):
+        for dp in range(16, max_d + 1, 16):
             out = (ctypes.c_int * 4)()
             if config(dp, out) != 0:
-                raise AssertionError(f"no wgmma dK/dV instance for D = {dp}")
-            log("build: flash_bwd_dkv_wgmma: " + json.dumps(dict(zip(
-                ("DP", "BQ", "stages", "smem_bytes"), out))))
+                raise AssertionError(f"no {stem} instance for D = {dp}")
+            log(f"build: {stem}: " + json.dumps(dict(zip(
+                ("DP", tile, "stages", "smem_bytes"), out))))
 
 
 def _bound(flops: float, nbytes: float,
@@ -606,58 +615,96 @@ def dkv_probe(timeout_s: float = 60.0) -> None:
         "timed=False)"), timeout_s)
 
 
-def _dq_entry(q, k, v, do, lse, delta, scale):
-    """flash_bwd_dq's C entry point called directly (no count)."""
-    dq = torch.empty_like(q)
-    fa._launch(fa._entry("dq"), "flash_bwd_dq entry",
-               (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-               fa._strides(q, k, v, do, dq), q, k,
-               int(q.dtype == torch.bfloat16), scale)
-    return dq
+def check_dq_wgmma(B, H, T, S, D, gen, heads_inner=True) -> None:
+    """The wgmma dQ kernel alone, through its C entry point at both q tile
+    heights, against flash_bwd_dq_reference (bf16; the forward kernel
+    makes O and L): the calls of dq_probe."""
+    dt = torch.bfloat16
+    q, k, v = _qkv(B, H, T, S, D, dt, gen, heads_inner)
+    do = _qkv(B, H, T, T, D, dt, gen, heads_inner)[0]
+    scale = D ** -0.5
+    with torch.inference_mode():
+        o, lse = fa.flash_fwd(q, k, v, scale)
+        delta = fa._delta(o, do)
+        want = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                         scale).float()
+        qt = fa._q_tilde(q, scale)
+        rel = {}
+        for bm in (64, 128):
+            got = fa._dq_launch("wgmma", qt, k, v, do, lse, delta, scale, bm)
+            rel[bm] = ((got.float() - want).abs().max()
+                       / want.abs().max()).item()
+    log(f"dq probe: (B, H, T, S, D) = {(B, H, T, S, D)}, relative error "
+        f"by q tile height {rel}")
+    if not all(np.isfinite(r) and r <= BWD_REL_TOL[dt] for r in rel.values()):
+        raise AssertionError(f"the wgmma dQ kernel is {rel} from its plain "
+                             f"version, limit {BWD_REL_TOL[dt]}")
+
+
+def dq_probe(timeout_s: float = 60.0) -> None:
+    """The wgmma dQ kernel's first calls: the ragged call and the main
+    training shape, each at both q tile heights, before anything else
+    launches it (dkv_probe's calls go through it too)."""
+    _probe("wgmma dQ", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_dq_wgmma(1, 2, *c.RAGGED, g, heads_inner=False); "
+        "c.check_dq_wgmma(1, 8, 4096, 4096, 40, g)"), timeout_s)
 
 
 def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                       timed=True):
     """flash_bwd_dq and flash_bwd_dkv against their plain versions on the
     same inputs: q, k, v, dO as the UNet passes them, O and L from the
-    forward kernel, delta = rowsum(dO * O). flash_bwd_dkv must launch the
-    kernel _bwd_route picks. bf16 also checks the mma dK/dV kernel on the
-    same inputs and, where the route is wgmma, the wgmma kernel called
-    directly at both kv tile heights (bn 64 and 128). Timed: dQ, the
-    routed dK/dV kernel (the wgmma one on Q~ formed beforehand) and, for
-    bf16, the mma dK/dV kernel, each through its C entry point and as
-    device time (CUDA-graph replays), and the wgmma kernel's device time
-    at the other kv tile height; the flash_bwd_dkv wrapper (Q~ included);
-    the plain versions; SDPA's backward (bf16); the FLOP bounds and the
+    forward kernel, delta = rowsum(dO * O). Each wrapper must launch the
+    kernel _dq_route / _bwd_route picks. bf16 also checks both mma kernels
+    on the same inputs and, where the route is wgmma, each wgmma kernel
+    called directly at both tile heights (dQ: bm 64 and 128; dK/dV: bn 64
+    and 128). Timed: each routed kernel (a wgmma one on Q~ formed
+    beforehand) and, for bf16, each mma kernel, through its C entry point
+    and as device time (CUDA-graph replays), and each wgmma kernel's
+    device time at its other tile height; both wrappers (Q~ included);
+    the plain versions; SDPA's backward; the FLOP bounds and the
     exponential floor."""
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
     scale = D ** -0.5
     bf16 = dtype == torch.bfloat16
     route = fa._bwd_route(q, k, v, do)
+    dq_route = fa._dq_route(q, k, v, do)
     row = {"B": B, "H": H, "T": T, "S": S, "D": D,
-           "dtype": str(dtype).replace("torch.", ""), "route": route}
+           "dtype": str(dtype).replace("torch.", ""), "route": route,
+           "dq_route": dq_route}
     with torch.inference_mode():
         o, lse = fa.flash_fwd(q, k, v, scale)
         delta = fa._delta(o, do)
         args = (q, k, v, do, lse, delta, scale)
         qt = fa._q_tilde(q, scale)
-        before = dict(fa.flash_bwd_dkv.launches_by_kernel)
+        before = (dict(fa.flash_bwd_dq.launches_by_kernel),
+                  dict(fa.flash_bwd_dkv.launches_by_kernel))
+        dq = fa.flash_bwd_dq(*args)
         dk, dv = fa.flash_bwd_dkv(*args)
-        row["kernel"] = [r for r, n in fa.flash_bwd_dkv.launches_by_kernel
-                         .items() if n != before[r]]
+        for key, fn, was in (("dq_kernel", fa.flash_bwd_dq, before[0]),
+                             ("kernel", fa.flash_bwd_dkv, before[1])):
+            row[key] = [r for r, n in fn.launches_by_kernel.items()
+                        if n != was[r]]
+        ref_dq = fa.flash_bwd_dq_reference(*args)
         ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*args)
-        checks = [("dq", fa.flash_bwd_dq(*args),
-                   fa.flash_bwd_dq_reference(*args)),
-                  ("dk", dk, ref_dk), ("dv", dv, ref_dv)]
-        direct = {}
+        checks = [("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)]
+        direct_dq, direct = {}, {}
         if bf16:
+            direct_dq["prev"] = lambda: fa._dq_launch("mma", *args)
             direct["prev"] = lambda: fa._dkv_launch("mma", *args)
+        if dq_route == "wgmma":
+            for bm in (64, 128):
+                direct_dq[f"bm{bm}"] = lambda bm=bm: fa._dq_launch(
+                    "wgmma", qt, k, v, do, lse, delta, scale, bm)
         if route == "wgmma":
             for bn in (64, 128):
                 direct[f"bn{bn}"] = lambda bn=bn: fa._dkv_launch(
                     "wgmma", qt, k, v, do, lse, delta, scale, bn)
+        for name, call in direct_dq.items():
+            checks.append((f"dq_{name}", call(), ref_dq))
         for name, call in direct.items():
             got_k, got_v = call()
             checks += [(f"dk_{name}", got_k, ref_dk),
@@ -669,18 +716,31 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
             row[f"rel_{name}"] = err / max(b.float().abs().max().item(),
                                            1e-30)
         if timed:
-            calls = {"dq_": lambda: _dq_entry(*args),
+            def q_for(r):  # the wgmma kernels read Q~ formed beforehand
+                return qt if r == "wgmma" else q
+
+            calls = {"dq_": lambda: fa._dq_launch(
+                         dq_route, q_for(dq_route), k, v, do, lse, delta,
+                         scale),
                      "dkv_": lambda: fa._dkv_launch(
-                         route, qt if route == "wgmma" else q, k, v, do,
-                         lse, delta, scale)}
+                         route, q_for(route), k, v, do, lse, delta, scale)}
             if bf16:
+                calls["dq_prev_"] = direct_dq["prev"]
                 calls["dkv_prev_"] = direct["prev"]
             for name, call in calls.items():
                 row[name + "ms"] = _time_ms(call)
                 row[name + "device_ms"] = _graph_ms(call)
+            row["dq_wrapper_ms"] = _time_ms(lambda: fa.flash_bwd_dq(*args))
             row["dkv_wrapper_ms"] = _time_ms(lambda: fa.flash_bwd_dkv(*args))
-            if route == "wgmma":  # the kv tile height _dkv_bn did not pick
-                other = 192 - fa._dkv_bn(S, B * H, i8._sm_count(q.device))
+            sms = i8._sm_count(q.device)
+            # the tile height _dq_bm / _dkv_bn did not pick
+            if dq_route == "wgmma":
+                other = 192 - fa._dq_bm(T, B * H, sms)
+                row["dq_other_bm"] = other
+                row["dq_other_bm_device_ms"] = _graph_ms(
+                    direct_dq[f"bm{other}"])
+            if route == "wgmma":
+                other = 192 - fa._dkv_bn(S, B * H, sms)
                 row["dkv_other_bn"] = other
                 row["dkv_other_bn_device_ms"] = _graph_ms(
                     direct[f"bn{other}"])
@@ -699,7 +759,7 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                 row[f"{name}_bound_by"] = b["bound_by"]
             # each kernel recomputes P: B*H*T*S exponentials
             row["exp_floor_ms"] = _exp_floor_ms(B, H, T, S)
-    if timed and bf16:  # the training dtype
+    if timed:
         # one PyTorch call for the same gradients: autograd.grad of a
         # retained SDPA graph computes dQ, dK and dV together. Its device
         # time is the profiler's: autograd's backward cannot be captured
@@ -721,11 +781,15 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
     tol = BWD_REL_TOL[dtype]
     bad = [n for n, _, _ in checks
            if not (np.isfinite(row[f"rel_{n}"]) and row[f"rel_{n}"] <= tol)]
-    if bad or row["kernel"] != [route] or route != (
-            "wgmma" if bf16 and D <= fa.WGMMA_DKV_MAX_D else "mma"):
+    want = {"route": ("wgmma" if bf16 and D <= fa.WGMMA_DKV_MAX_D
+                      else "mma"),
+            "dq_route": ("wgmma" if bf16 and D <= fa.WGMMA_DQ_MAX_D
+                         else "mma")}
+    if bad or row["kernel"] != [route] or row["dq_kernel"] != [dq_route] \
+            or {key: row[key] for key in want} != want:
         raise AssertionError(f"flash_bwd kernels disagree with their plain "
-                             f"versions on {bad} or ran another kernel "
-                             f"than {route}: {row}, limit {tol}")
+                             f"versions on {bad} or ran other kernels "
+                             f"than {want}: {row}, limit {tol}")
     return row
 
 
@@ -743,15 +807,16 @@ def phase_bwd_kernels():
     for T, D in SD15_ATTN_SHAPES:
         rows.append(check_bwd_kernels(2, 8, T, T, D, torch.bfloat16, gen,
                                       timed=False))
-    # every D the route sends to the wgmma dK/dV kernel (each of its
-    # instances), with ragged T and S
-    for D in range(8, fa.WGMMA_DKV_MAX_D + 1, 8):
+    # every D the routes send to the wgmma dQ and dK/dV kernels (each of
+    # their instances), with ragged T and S
+    for D in range(8, max(fa.WGMMA_DQ_MAX_D, fa.WGMMA_DKV_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.bfloat16, gen, timed=False))
     return rows
 
 
-BWD_SUM_KEYS = ("dq_ms", "dq_device_ms", "dkv_ms", "dkv_device_ms",
+BWD_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms", "dq_prev_device_ms",
+                "dq_wrapper_ms", "dkv_ms", "dkv_device_ms",
                 "dkv_prev_ms", "dkv_prev_device_ms", "dkv_wrapper_ms",
                 "dq_plain_ms", "dkv_plain_ms", "library_ms",
                 "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
@@ -770,11 +835,12 @@ def bwd_step_sums(rows) -> dict:
     return sums
 
 
-def dkv_per_step() -> dict:
-    """flash_bwd_dkv's launches per training step by kernel: 5 at each
-    level, through the wgmma kernel where D <= WGMMA_DKV_MAX_D."""
+def bwd_per_step(max_d: int) -> dict:
+    """A backward wrapper's launches per bf16 training step by kernel: 5
+    at each level, through the wgmma kernel where D <= max_d
+    (WGMMA_DQ_MAX_D for flash_bwd_dq, WGMMA_DKV_MAX_D for flash_bwd_dkv)."""
     n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
-    wgmma = n * sum(D <= fa.WGMMA_DKV_MAX_D for _, D in SD15_ATTN_SHAPES)
+    wgmma = n * sum(D <= max_d for _, D in SD15_ATTN_SHAPES)
     return {"wgmma": wgmma, "mma": ROUTED_PER_UNET_CALL - wgmma}
 
 
@@ -1143,6 +1209,7 @@ def _zero_counts():
     fa.flash_fwd.launches = 0
     fa.flash_fwd.launches_by_kernel.update(wgmma=0, mma=0)
     fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dq.launches_by_kernel.update(wgmma=0, mma=0)
     fa.flash_bwd_dkv.launches = 0
     fa.flash_bwd_dkv.launches_by_kernel.update(wgmma=0, mma=0)
     i8.int8_matmul.launches = 0
@@ -1193,7 +1260,8 @@ def _make_step(optimizer, remat=False, dtype=torch.bfloat16):
 KERNEL_CLASSES = (
     ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma"),
     ("flash_bwd_dkv_mma", "bwd_dkv"),
-    ("flash_bwd_dq", "bwd_dq"),
+    ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma"),
+    ("flash_bwd_dq_mma", "bwd_dq"),
     ("flash_fwd", "flash_fwd"),
     ("conv", "conv|fprop|dgrad|wgrad|winograd"),
     ("gemm", "gemm|cutlass|xmma|cublas|matmul"),
@@ -1268,24 +1336,28 @@ def phase_train(smi: str):
     warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
-    dkv_want = dkv_per_step()
+    bwd_want = (bwd_per_step(fa.WGMMA_DQ_MAX_D),
+                bwd_per_step(fa.WGMMA_DKV_MAX_D))
+    bwd_fns = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
     _zero_counts()  # the counted main-path run
     for _ in range(TRAIN_STEPS):
         before = _counts()
-        dkv_before = dict(fa.flash_bwd_dkv.launches_by_kernel)
+        bwd_before = [dict(f.launches_by_kernel) for f in bwd_fns]
         t0 = time.perf_counter()
         losses.append(step(trainable, base, batch, gen))
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         per_step = tuple(a - b for a, b in zip(_counts(), before))
-        dkv_step = {r: n - dkv_before[r]
-                    for r, n in fa.flash_bwd_dkv.launches_by_kernel.items()}
-        if per_step != (ROUTED_PER_UNET_CALL,) * 3 or dkv_step != dkv_want:
+        bwd_step = tuple({r: n - was[r] for r, n in
+                          f.launches_by_kernel.items()}
+                         for f, was in zip(bwd_fns, bwd_before))
+        if per_step != (ROUTED_PER_UNET_CALL,) * 3 or bwd_step != bwd_want:
             raise AssertionError(f"a training step launched (fwd, dq, dkv) "
-                                 f"= {per_step}, not 15 each, dK/dV "
-                                 f"{dkv_step}, not {dkv_want}")
+                                 f"= {per_step}, not 15 each, (dQ, dK/dV) "
+                                 f"{bwd_step}, not {bwd_want}")
     launches = _counts()
     by_kernel = dict(fa.flash_fwd.launches_by_kernel)
+    dq_by_kernel = dict(fa.flash_bwd_dq.launches_by_kernel)
     dkv_by_kernel = dict(fa.flash_bwd_dkv.launches_by_kernel)
     if by_kernel != {"wgmma": launches[0], "mma": 0}:
         raise AssertionError(f"training launched the forward kernels "
@@ -1311,12 +1383,13 @@ def phase_train(smi: str):
         "steps_per_s": 1e3 / med, "peak_mem_gib": peak_gib,
         "launches": dict(zip(("fwd", "dq", "dkv"), launches)),
         "fwd_launches_by_kernel": by_kernel,
+        "dq_launches_by_kernel": dq_by_kernel,
         "dkv_launches_by_kernel": dkv_by_kernel,
         "up_max_abs": max(u.detach().abs().max().item() for u in ups),
         "card": smi}))
     del step, opt, trainable, base, unet, batch, lora
     torch.cuda.empty_cache()
-    return launches, by_kernel, dkv_by_kernel
+    return launches, by_kernel, dq_by_kernel, dkv_by_kernel
 
 
 def phase_grad(dt=torch.bfloat16):
@@ -1362,6 +1435,7 @@ def phase_grad(dt=torch.bfloat16):
 
     ms = []  # wall time of each single step (one sample each)
     fwd_before = dict(fa.flash_fwd.launches_by_kernel)
+    dq_before = dict(fa.flash_bwd_dq.launches_by_kernel)
     dkv_before = dict(fa.flash_bwd_dkv.launches_by_kernel)
     loss_k, g_k, n_k = loss_and_grad()
     set_use_memory_efficient_attention(False)
@@ -1378,6 +1452,8 @@ def phase_grad(dt=torch.bfloat16):
                    launches_remat=n_r)
     fwd_by_kernel = {r: n - fwd_before[r]
                      for r, n in fa.flash_fwd.launches_by_kernel.items()}
+    dq_by_kernel = {r: n - dq_before[r]
+                    for r, n in fa.flash_bwd_dq.launches_by_kernel.items()}
     dkv_by_kernel = {r: n - dkv_before[r]
                      for r, n in fa.flash_bwd_dkv.launches_by_kernel.items()}
     rel = ((g_k - g_p).norm() / g_p.norm()).item()
@@ -1386,6 +1462,7 @@ def phase_grad(dt=torch.bfloat16):
                 "grad_norm": g_k.norm().item(), "launches_kernels": n_k,
                 "launches_plain": n_p,
                 "fwd_launches_by_kernel": fwd_by_kernel,
+                "dq_launches_by_kernel": dq_by_kernel,
                 "dkv_launches_by_kernel": dkv_by_kernel,
                 "step_ms_kernels_plain_remat": ms,
                 "limits": {"grad_rel_l2": tol,
@@ -1395,16 +1472,18 @@ def phase_grad(dt=torch.bfloat16):
     # forward twice in the checkpointed one; f32: one step, all mma
     runs = 2 if bf16 else 1
     if bf16:
-        want_dkv = {r: runs * n for r, n in dkv_per_step().items()}
+        want_dq, want_dkv = ({r: runs * n for r, n in bwd_per_step(d).items()}
+                             for d in (fa.WGMMA_DQ_MAX_D, fa.WGMMA_DKV_MAX_D))
         want_fwd = {"wgmma": 45, "mma": 0}
     else:
-        want_dkv = {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL}
-        want_fwd = {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL}
+        want_dq = want_dkv = want_fwd = {"wgmma": 0,
+                                         "mma": ROUTED_PER_UNET_CALL}
     if n_k != (15, 15, 15) or n_p != (0, 0, 0) or (
             bf16 and n_r != (30, 15, 15)) or fwd_by_kernel != want_fwd or \
-            dkv_by_kernel != want_dkv:
+            dq_by_kernel != want_dq or dkv_by_kernel != want_dkv:
         raise AssertionError(f"launch counts {row}: forward "
-                             f"{fwd_by_kernel}, not {want_fwd}; dK/dV "
+                             f"{fwd_by_kernel}, not {want_fwd}; dQ "
+                             f"{dq_by_kernel}, not {want_dq}; dK/dV "
                              f"{dkv_by_kernel}, not {want_dkv}")
     if not (np.isfinite(rel) and rel <= tol):
         raise AssertionError(f"LoRA gradient through the kernels is {rel} "
@@ -1706,11 +1785,14 @@ def main_flash() -> int:
 
 def main_flash_bwd() -> int:
     """The backward kernels alone: the device line, the builds of the wgmma
-    forward (the residuals), flash_bwd.cu and flash_bwd_dkv_wgmma.cu, the
-    wgmma dK/dV kernel's first calls in a child process under a timeout,
-    phase 4 and its sums over one training step."""
+    forward (the residuals), flash_bwd.cu, flash_bwd_dkv_wgmma.cu and
+    flash_bwd_dq_wgmma.cu, the wgmma dK/dV and dQ kernels' first calls in
+    child processes under a timeout, phase 4 and its sums over one
+    training step."""
     smi = phase_device()
-    phase_build(["flash_fwd_wgmma", "flash_bwd", "flash_bwd_dkv_wgmma"])
+    phase_build(["flash_fwd_wgmma", "flash_bwd", "flash_bwd_dkv_wgmma",
+                 "flash_bwd_dq_wgmma"])
+    dq_probe()
     dkv_probe()
     bwd_step_sums(phase_bwd_kernels())
     log(smi)
@@ -1732,6 +1814,7 @@ def main_int8(tiles: bool) -> int:
 def main() -> int:
     smi = phase_device()
     phase_build()
+    dq_probe()
     dkv_probe()
     rows = phase_kernels()
     fwd_sums = flash_call_sums(rows)
@@ -1739,7 +1822,7 @@ def main() -> int:
     bwd_sums = bwd_step_sums(bwd_rows)
     with recording_flash_shapes(set()) as flash_seen:
         serve_fwd, bf16_request_s = phase_slice(smi)
-        train_launches, train_fwd, train_dkv = phase_train(smi)
+        train_launches, train_fwd, train_dq, train_dkv = phase_train(smi)
         phase_grad()
         _zero_counts()  # the counted f32 training run
         grad_f32 = phase_grad(torch.float32)
@@ -1829,30 +1912,62 @@ def main() -> int:
         "exp_floor_ms": fwd_f32["exp_floor_ms"],
     }]
     bwd_f32 = at_main_shape(bwd_rows, "float32")
-    f32_grad = {"train_f32_grad": grad_f32["launches_kernels"][1]}
     # median per launch at T = S = 4096, D = 40, bf16, B = 1, H = 8,
     # through each kernel's C entry point; device: CUDA-graph replay;
     # library: one autograd.grad of SDPA, which computes dQ, dK and dV
-    # together (compare it with the two kernels' sum; its device time is a
-    # graph of SDPA's forward and backward less one of the forward);
-    # exp_floor: the recomputed P's exponentials at 16 a clock per SM
+    # together (compare it with the two kernels' sum; its device time is
+    # the profiler's); exp_floor: the recomputed P's exponentials at 16 a
+    # clock per SM
     kernels.append({
         "name": "flash_bwd_dq",
         "route": "cuda",
-        "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd_dq_wgmma.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:178",
-        # the timed training steps (bf16); the f32 training run of phase 7
-        "launches": train_launches[1],
-        "launches_by_path": {"train": train_launches[1], **f32_grad},
-        "max_abs_err": max(r["err_dq"] for r in bf16_bwd),
+        # the timed training steps: every launch at D <= WGMMA_DQ_MAX_D
+        # (phase 6 checks it)
+        "launches": train_dq["wgmma"],
+        "launches_by_path": {"train": train_dq["wgmma"]},
+        "launches_by_kernel": train_dq,
+        # worst dQ error over the bf16 calls of phase 4 routed here
+        "max_abs_err": max(r[f"err_{e}"] for r in bf16_bwd
+                           if r["dq_route"] == "wgmma"
+                           for e in ("dq", "dq_bm64", "dq_bm128")),
+        # the kernel on Q~ formed beforehand; wrapper: flash_bwd_dq with
+        # its Q~; prev: the mma kernel (flash_bwd.cu) on the same inputs
         **timed(bwd, "dq_"),
         "device_ms": bwd["dq_device_ms"],
+        "wrapper_ms": bwd["dq_wrapper_ms"],
+        "prev_ms": bwd["dq_prev_ms"],
+        "prev_device_ms": bwd["dq_prev_device_ms"],
         "library_ms": bwd["library_ms"],
         "library_device_ms": bwd["library_device_ms"],
         "library_computes": "dq, dk, dv",
         "exp_floor_ms": bwd["exp_floor_ms"],
+        # every column summed over the 15 launches of one training step
         "per_training_step": {k: v for k, v in bwd_sums.items()
                               if not k.startswith("dkv_")},
+    })
+    kernels.append({
+        "name": "flash_bwd_dq_mma",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:178",
+        # the f32 training run of phase 7 (f32 attention), and the bf16
+        # training steps at D > WGMMA_DQ_MAX_D
+        "launches": grad_f32["dq_launches_by_kernel"]["mma"]
+        + train_dq["mma"],
+        "launches_by_path": {"train_f32_grad":
+                             grad_f32["dq_launches_by_kernel"]["mma"],
+                             "train": train_dq["mma"]},
+        "max_abs_err": max(r["err_dq"] for r in bwd_rows
+                           if r["dtype"] == "float32"),
+        # at the main training shape in f32, the bound at the f32 rate
+        # (the kernel's CUDA-core FMAs); library: SDPA's backward in f32
+        **timed(bwd_f32, "dq_"),
+        "library_ms": bwd_f32["library_ms"],
+        "library_device_ms": bwd_f32["library_device_ms"],
+        "library_computes": "dq, dk, dv",
+        "exp_floor_ms": bwd_f32["exp_floor_ms"],
     })
     kernels.append({
         "name": "flash_bwd_dkv",
@@ -1899,10 +2014,11 @@ def main() -> int:
         "max_abs_err": max(max(r["err_dk"], r["err_dv"]) for r in bwd_rows
                            if r["dtype"] == "float32"),
         # at the main training shape in f32, the bound at the f32 rate
-        # (the kernel's CUDA-core FMAs); no single PyTorch call is timed
-        # in f32
+        # (the kernel's CUDA-core FMAs); library: SDPA's backward in f32
         **timed(bwd_f32, "dkv_"),
-        "library_ms": None,
+        "library_ms": bwd_f32["library_ms"],
+        "library_device_ms": bwd_f32["library_device_ms"],
+        "library_computes": "dq, dk, dv",
         "exp_floor_ms": bwd_f32["exp_floor_ms"],
     })
     main_int8 = {r["dtype"]: r for r in int8_rows if "ms" in r

@@ -9,17 +9,25 @@ lora_tpu/ops/flash_attention.py:
                                             warpgroup wgmma
         "mma"      csrc/flash_fwd.cu        mma.sync: f32, D > 160, a
                                             stride of 0
-    flash_bwd_dq   _bwd_dq_kernel   dQ          csrc/flash_bwd.cu (mma.sync)
+    flash_bwd_dq   _bwd_dq_kernel   dQ, through
+        "wgmma"    csrc/flash_bwd_dq_wgmma.cu   bf16: TMA ring of K and V,
+                                                producer warp, warpgroup
+                                                wgmma, dS as register A
+        "mma"      csrc/flash_bwd.cu            mma.sync: f32, D > 160, a
+                                                stride of 0
     flash_bwd_dkv  _bwd_dkv_kernel  dK and dV, through
         "wgmma"    csrc/flash_bwd_dkv_wgmma.cu  bf16: TMA ring, producer
                                                 warp, warpgroup wgmma
         "mma"      csrc/flash_bwd.cu            mma.sync: f32, D > 160, a
                                                 stride of 0
 
-`_fwd_route` and `_bwd_route` pick the forward and the dK/dV kernel from
-dtype, D and layout alone; `_fwd_bm` the wgmma forward's q rows per CTA
-from T, B * H and the SM count, `_dkv_bn` the wgmma dK/dV kernel's kv rows
-per CTA from S, B * H and the SM count.
+`_fwd_route`, `_dq_route` and `_bwd_route` pick the forward, the dQ and
+the dK/dV kernel from dtype, D and layout alone; `_fwd_bm` the wgmma
+forward's q rows per CTA from T, B * H and the SM count, `_dq_bm` the
+wgmma dQ kernel's the same way, `_dkv_bn` the wgmma dK/dV kernel's kv rows
+per CTA from S, B * H and the SM count. Both wgmma backward kernels take
+Q~ = bf16(f32(q) * scale) (`_q_tilde`: TMA cannot scale on load), which
+`flash_attention_backward` forms once for the two.
 
 `flash_attention(q, k, v, scale)` is the entry point: a
 torch.autograd.Function (the JAX custom_vjp, `scale` not differentiated)
@@ -31,9 +39,8 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises: nothing reacts to a failure), and counts its
-launches in `<wrapper>.launches`; the forward and flash_bwd_dkv also per
-kernel in `<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, summing to
-`launches`).
+launches in `<wrapper>.launches` and per kernel in
+`<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, summing to `launches`).
 
 Build: the first CUDA call of a kernel compiles its own source (and no
 other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
@@ -56,6 +63,8 @@ BQ = 256  # the JAX kernel's q block: the routing rule below keeps its shapes
 # the widest head the wgmma forward kernel instantiates: MAX_DP and the
 # instance switch of csrc/flash_fwd_wgmma.cu (a CPU test holds them equal)
 WGMMA_MAX_D = 160
+# the same for the wgmma dQ kernel, csrc/flash_bwd_dq_wgmma.cu
+WGMMA_DQ_MAX_D = 160
 # the same for the wgmma dK/dV kernel, csrc/flash_bwd_dkv_wgmma.cu
 WGMMA_DKV_MAX_D = 160
 
@@ -64,14 +73,16 @@ _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma", bn for
-# "dkv_wgmma"), scale, stream
+# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma" and
+# "dq_wgmma", bn for "dkv_wgmma"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
 _ENTRY = {
     # entry: (source stem, C function, pointer arguments)
     "wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma", 5),
     "mma": ("flash_fwd", "flash_fwd", 5),
-    "dq": ("flash_bwd", "flash_bwd_dq", 7),
+    # flash_bwd_dq's two routes, "dq_" + route
+    "dq_wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma", 7),
+    "dq_mma": ("flash_bwd", "flash_bwd_dq", 7),
     # flash_bwd_dkv's two routes, "dkv_" + route
     "dkv_wgmma": ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma", 8),
     "dkv_mma": ("flash_bwd", "flash_bwd_dkv", 8),
@@ -79,8 +90,9 @@ _ENTRY = {
 
 
 def _entry(name: str):
-    """The ctypes function of one kernel ("wgmma" or "mma" forward, "dq",
-    "dkv_wgmma" or "dkv_mma"), building its source on first use."""
+    """The ctypes function of one kernel ("wgmma" or "mma" forward,
+    "dq_wgmma", "dq_mma", "dkv_wgmma" or "dkv_mma"), building its source on
+    first use."""
     with _lib_lock:
         if name not in _fns:
             stem, fn_name, n_ptrs = _ENTRY[name]
@@ -225,17 +237,23 @@ def _check_stats(q, *stats):
                              f"{t.dtype}{tuple(t.shape)}")
 
 
+def _route(max_d: int, q: torch.Tensor, *others: torch.Tensor) -> str:
+    """"wgmma" for bf16 with D <= max_d where every tensor has a layout
+    TMA's tensor maps take (_layout_ok, and no stride of 0), else "mma"."""
+    if (q.dtype == torch.bfloat16 and q.shape[3] <= max_d
+            and all(_layout_ok(t) and min(t.stride()[:3]) > 0
+                    for t in (q, *others))):
+        return "wgmma"
+    return "mma"
+
+
 def _fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The forward kernel of a call: "wgmma" (csrc/flash_fwd_wgmma.cu) for
     bf16 with D <= WGMMA_MAX_D and layouts TMA's tensor maps take
     (_layout_ok: 16-byte strides and bases; and no stride of 0), "mma"
     (csrc/flash_fwd.cu) for the rest: f32, D > WGMMA_MAX_D, a broadcast.
     A layout _layout_ok refuses never launches: _check raises first."""
-    if (q.dtype == torch.bfloat16 and q.shape[3] <= WGMMA_MAX_D
-            and all(_layout_ok(t) and min(t.stride()[:3]) > 0
-                    for t in (q, k, v))):
-        return "wgmma"
-    return "mma"
+    return _route(WGMMA_MAX_D, q, k, v)
 
 
 def _fwd_bm(T: int, bh: int, sms: int = 132) -> int:
@@ -252,11 +270,21 @@ def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (_layout_ok, and no stride of 0), "mma" (csrc/flash_bwd.cu) for the
     rest: f32, wider D, a broadcast. A layout _layout_ok refuses never
     launches: _check raises first."""
-    if (q.dtype == torch.bfloat16 and q.shape[3] <= WGMMA_DKV_MAX_D
-            and all(_layout_ok(t) and min(t.stride()[:3]) > 0
-                    for t in (q, k, v, do))):
-        return "wgmma"
-    return "mma"
+    return _route(WGMMA_DKV_MAX_D, q, k, v, do)
+
+
+def _dq_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor) -> str:
+    """The dQ kernel of a call: _bwd_route's rule with WGMMA_DQ_MAX_D,
+    "wgmma" (csrc/flash_bwd_dq_wgmma.cu) or "mma" (csrc/flash_bwd.cu)."""
+    return _route(WGMMA_DQ_MAX_D, q, k, v, do)
+
+
+def _dq_bm(T: int, bh: int, sms: int = 132) -> int:
+    """q rows per CTA of the wgmma dQ kernel for T q rows and bh = B * H
+    heads on `sms` SMs: _fwd_bm's rule (128, two consumer warpgroups,
+    unless that gives fewer CTAs than SMs)."""
+    return _fwd_bm(T, bh, sms)
 
 
 def _dkv_bn(S: int, bh: int, sms: int = 132) -> int:
@@ -273,7 +301,7 @@ def _strides(*tensors) -> ctypes.Array:
 
 def _launch(fn, name, ptrs, strides, q, k, arg, scale):
     """One C entry point on the current stream; `arg` is is_bf16 (bm for
-    the wgmma forward, bn for the wgmma dK/dV kernel)."""
+    the wgmma forward and dQ kernels, bn for the wgmma dK/dV kernel)."""
     B, H, T, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -308,19 +336,41 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
-    """dQ in q's layout and dtype, from the forward's q, k, v, L, the
-    incoming dO and delta = rowsum(dO * O)."""
+def _dq_launch(route, q, k, v, do, lse, delta, scale, bm=None
+               ) -> torch.Tensor:
+    """One dQ kernel through its C entry point (no routing, no count). The
+    wgmma kernel takes q as Q~ (_q_tilde: TMA cannot scale on load) and
+    `bm` q rows per CTA (by default _dq_bm's); the mma kernel takes q and
+    scales it itself. dQ comes back in the layout of the q given."""
+    dq = torch.empty_like(q)
+    if route == "wgmma":
+        B, H, T, _ = q.shape
+        arg = bm or _dq_bm(T, B * H, _sm_count(q.device))
+    else:
+        arg = int(q.dtype == torch.bfloat16)
+    _launch(_entry(f"dq_{route}"), f"flash_bwd_dq ({route})",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
+            _strides(q, k, v, do, dq), q, k, arg, scale)
+    return dq
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, q_tilde=None
+                 ) -> torch.Tensor:
+    """dQ in q's layout (where q is dense) and dtype, from the forward's q,
+    k, v, L, the incoming dO and delta = rowsum(dO * O). CUDA tensors
+    launch the kernel `_dq_route` picks; the wgmma kernel reads
+    `q_tilde` (_q_tilde(q, scale)) where the caller has formed it, else
+    the wrapper forms it."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    dq = torch.empty_like(q)
-    _launch(_entry("dq"), "flash_bwd_dq",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-            _strides(q, k, v, do, dq), q, k,
-            int(q.dtype == torch.bfloat16), scale)
+    route = _dq_route(q, k, v, do)
+    if route == "wgmma":
+        q = _q_tilde(q, scale) if q_tilde is None else q_tilde
+    dq = _dq_launch(route, q, k, v, do, lse, delta, scale)
+    flash_bwd_dq.launches_by_kernel[route] += 1
     flash_bwd_dq.launches += 1
     return dq
 
@@ -344,7 +394,7 @@ def _dkv_launch(route, q, k, v, do, lse, delta, scale, bn=None
     return dk, dv
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) in k's and v's layouts and dtype; inputs as flash_bwd_dq.
     CUDA tensors launch the kernel `_bwd_route` picks."""
@@ -354,7 +404,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float
     _check_stats(q, lse, delta)
     route = _bwd_route(q, k, v, do)
     if route == "wgmma":
-        q = _q_tilde(q, scale)
+        q = _q_tilde(q, scale) if q_tilde is None else q_tilde
     dk, dv = _dkv_launch(route, q, k, v, do, lse, delta, scale)
     flash_bwd_dkv.launches_by_kernel[route] += 1
     flash_bwd_dkv.launches += 1
@@ -363,7 +413,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float
 
 flash_fwd.launches_by_kernel = {"wgmma": 0, "mma": 0}
 flash_fwd.launches = 0  # the sum of launches_by_kernel
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "mma": 0}
+flash_bwd_dq.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "mma": 0}
 flash_bwd_dkv.launches = 0  # the sum of launches_by_kernel
 
@@ -371,14 +422,20 @@ flash_bwd_dkv.launches = 0  # the sum of launches_by_kernel
 def flash_attention_backward(q, k, v, o, lse, do, scale: float
                              ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) through the two backward kernels (their plain versions
-    on the CPU)."""
-    if do.device.type == "cuda" and not _layout_ok(do):
-        # dO comes with whatever strides autograd gives it (the UNet's is
-        # a transposed view the kernels take as it is); one copy otherwise
-        do = do.contiguous()
+    on the CPU). Where either routes to its wgmma kernel, Q~ is formed once
+    here and handed to both."""
+    qt = None
+    if do.device.type == "cuda":
+        if not _layout_ok(do):
+            # dO comes with whatever strides autograd gives it (the UNet's
+            # is a transposed view the kernels take as it is); one copy
+            # otherwise
+            do = do.contiguous()
+        if "wgmma" in (_dq_route(q, k, v, do), _bwd_route(q, k, v, do)):
+            qt = _q_tilde(q, scale)
     delta = _delta(o, do)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale)
-    return flash_bwd_dq(q, k, v, do, lse, delta, scale), dk, dv
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, qt)
+    return flash_bwd_dq(q, k, v, do, lse, delta, scale, qt), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

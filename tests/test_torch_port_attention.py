@@ -481,3 +481,140 @@ def test_cpu_bwd_dkv_call_launches_nothing():
     torch.testing.assert_close(dk, dk_ref, rtol=0, atol=0)
     torch.testing.assert_close(dv, dv_ref, rtol=0, atol=0)
     assert dk.dtype == dv.dtype == torch.bfloat16 and dk.shape == k.shape
+
+
+@pytest.mark.parametrize("case", [("main", *s) for s in SD15_SELF_ATTN] + [
+    ("contiguous",), ("widest",), ("f32",), ("wide_head",), ("broadcast",)],
+    ids=lambda c: "-".join(map(str, c)))
+def test_dq_route(case):
+    """The dQ kernel of a call: bf16 at every training-path shape (the
+    UNet's transposed views, dO alike) and contiguous tensors take the
+    wgmma kernel; f32, D above WGMMA_DQ_MAX_D and broadcast strides the
+    mma kernel. The route reads dtype, D and strides only."""
+    (q, k, v), want = _route_case(case)
+    if case[0] == "wide_head":
+        q = _bthd(1, 64, 2, t_fa.WGMMA_DQ_MAX_D + 8)
+        q, k, v = q, q, q
+    do = torch.zeros_like(q)
+    assert all(t_fa._layout_ok(t) for t in (q, k, v, do))
+    assert t_fa._dq_route(q, k, v, do) == want
+
+
+def test_dq_route_leaves_odd_layouts_to_check():
+    """A layout _check refuses (strides that are not multiples of 8) never
+    reaches the wgmma dQ kernel's tensor maps, in q, k, v or dO: the route
+    gives mma, and on the card _check raises before any launch."""
+    good = _bthd(1, 64, 2, 40)
+    odd = torch.zeros((1, 2, 64, 44), dtype=torch.bfloat16)[..., :40]
+    assert not t_fa._layout_ok(odd)
+    assert t_fa._dq_route(good, good, good, good) == "wgmma"
+    for i in range(4):
+        args = [good] * 4
+        args[i] = odd
+        assert t_fa._dq_route(*args) == "mma"
+
+
+def test_wgmma_dq_max_d_matches_the_kernel_instances():
+    """The route's widest wgmma dQ head is the source's MAX_DP, and the
+    source instantiates every 16-column width up to it, so each D the route
+    sends (8 to WGMMA_DQ_MAX_D, D % 8 == 0) has an instance."""
+    src = open(os.path.join(os.path.dirname(t_fa.__file__), "csrc",
+                            "flash_bwd_dq_wgmma.cu")).read()
+    max_dp = int(re.search(r"constexpr int MAX_DP = (\d+);", src).group(1))
+    cases = [int(x) for x in re.findall(r"^\s*DQ_WGMMA_CASE\((\d+)\)\s*$",
+                                        src, re.M)]
+    configs = [int(x) for x in re.findall(
+        r"^\s*DQ_WGMMA_CONFIG\((\d+)\)\s*$", src, re.M)]
+    assert max_dp == t_fa.WGMMA_DQ_MAX_D
+    assert cases == configs == list(range(16, max_dp + 1, 16))
+
+
+@pytest.mark.parametrize("B,T,D", SD15_SELF_ATTN)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_dq_bm_fills_the_card(B, T, D, sms):
+    """128 q rows per CTA where that still gives a CTA per SM, else 64.
+    At the training shapes (B = 1) that is 256 CTAs at T = 4096, 128 (of
+    64 rows) at T = 1024 and 32 at T = 256."""
+    bh = B * 8
+    bm = t_fa._dq_bm(T, bh, sms)
+    assert bm in (64, 128)
+    ctas = -(-T // bm) * bh
+    if bm == 64:
+        assert -(-T // 128) * bh < sms
+    else:
+        assert ctas >= sms
+    assert {(1, 4096): (128, 256), (1, 1024): (64, 128),
+            (1, 256): (64, 32)}.get((B, T), (bm, ctas)) == (bm, ctas)
+
+
+def test_cpu_bwd_dq_call_launches_nothing():
+    """bf16 flash_bwd_dq and flash_attention_backward calls at a wgmma
+    shape on CPU tensors take the plain versions and move no count of
+    either backward wrapper."""
+    rng = np.random.default_rng(13)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = t(1, 256, 2, 40), t(1, 128, 2, 40), t(1, 128, 2, 40), \
+        t(1, 256, 2, 40)
+    scale = 40 ** -0.5
+    o, lse = t_fa.flash_attention_reference(q, k, v, scale)
+    delta = t_fa._delta(o, do)
+    args = (q, k, v, do, lse, delta, scale)
+    wrappers = (t_fa.flash_bwd_dq, t_fa.flash_bwd_dkv)
+    before = [(dict(f.launches_by_kernel), f.launches) for f in wrappers]
+    assert t_fa._dq_route(q, k, v, do) == "wgmma"
+    dq = t_fa.flash_bwd_dq(*args)
+    dq_b, dk_b, dv_b = t_fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                     scale)
+    assert [(dict(f.launches_by_kernel), f.launches)
+            for f in wrappers] == before
+    assert all(sum(by.values()) == n for by, n in before)
+    dq_ref = t_fa.flash_bwd_dq_reference(*args)
+    dk_ref, dv_ref = t_fa.flash_bwd_dkv_reference(*args)
+    for got, want in ((dq, dq_ref), (dq_b, dq_ref), (dk_b, dk_ref),
+                      (dv_b, dv_ref)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+
+
+def test_dq_ragged_tails_add_nothing():
+    """The wgmma dQ kernel's ragged tails, on the plain version: TMA
+    zero-fills q~ and dO rows past T (L and delta are 0 there) and K and V
+    rows past S. Rows past T then get dS = 0 (S = 0, P = 1, dP = 0), and
+    kv rows past S multiply a zero K row, so the padded call, sliced to
+    T, is the unpadded one (f32; the sums run over extra exact zeros in
+    another blocking: 1e-6 of the largest value), and its padded rows are
+    0. The unpadded one matches the Pallas _bwd (interpret mode) at the
+    tolerance of test_backward_reference_matches_pallas."""
+    B, H, T, S, D = 1, 2, 256, 384, 40
+    q, k, v = _qkv(B, H, T, S, D, seed=14)
+    do = np.random.default_rng(15).standard_normal((B, H, T, D),
+                                                   dtype=np.float32)
+    scale = D ** -0.5
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    o_j, lse_j = j_fa._fwd(jq, jk, jv, scale)
+    want = j_fa._bwd(scale, (jq, jk, jv, o_j, lse_j), jnp.asarray(do))[0]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    lse = torch.from_numpy(np.array(lse_j).reshape(B, H, T))
+    delta = t_fa._delta(torch.from_numpy(np.array(o_j)), tdo)
+    got = t_fa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3,
+                               atol=5e-4)
+
+    def pad(x, rows):  # zero rows past the tensor's own, along dim 2
+        shape = list(x.shape)
+        shape[2] = rows - shape[2]
+        return torch.cat([x, x.new_zeros(shape)], dim=2)
+
+    Tp, Sp = T + 64, S + 128  # a q tile and a kv tile past the edges
+    padded = t_fa.flash_bwd_dq_reference(
+        pad(tq, Tp), pad(tk, Sp), pad(tv, Sp), pad(tdo, Tp),
+        pad(lse[..., None], Tp)[..., 0], pad(delta[..., None], Tp)[..., 0],
+        scale)
+    big = got.abs().max().item()
+    torch.testing.assert_close(padded[:, :, :T], got, rtol=0,
+                               atol=1e-6 * big)
+    assert torch.equal(padded[:, :, T:], torch.zeros_like(padded[:, :, T:]))
