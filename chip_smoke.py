@@ -11,26 +11,30 @@
                                         # in a child process under a
                                         # timeout, 3 and its sums over one
                                         # UNet call
-    python3 chip_smoke.py --flash-bwd   # phases 1, 2 (flash_fwd_wgmma.cu,
-                                        # flash_bwd.cu,
-                                        # flash_bwd_dkv_wgmma.cu and
-                                        # flash_bwd_dq_wgmma.cu only), the
-                                        # wgmma dQ and dK/dV kernels' first
-                                        # calls in child processes under a
+    python3 chip_smoke.py --flash-bwd   # phases 1, 2 (flash_fwd.cu,
+                                        # flash_fwd_wgmma.cu, flash_bwd.cu,
+                                        # flash_bwd_dkv_wgmma.cu,
+                                        # flash_bwd_dq_wgmma.cu and
+                                        # flash_bwd_dkv_tf32x3.cu only),
+                                        # the wgmma dQ, wgmma dK/dV and
+                                        # tf32x3 dK/dV kernels' first calls
+                                        # in child processes under a
                                         # timeout, 4 and its sums over one
-                                        # training step
+                                        # training step (bf16 and f32)
 
 Phases, each printing its own lines (about 5 minutes on one H100, most of
 it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu,
-     flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, int8_matmul.cu,
-     int8_matmul_wgmma.cu; one nvcc each, in parallel) for sm_90a into the
-     build directory, and prints ptxas's registers, shared memory and
-     spills of the wgmma kernels and each wgmma backward instance's tiles;
-     then the wgmma dQ kernel's first calls (that kernel alone) and the
-     wgmma dK/dV kernel's, each in a child process under a timeout.
+     flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu,
+     flash_bwd_dkv_tf32x3.cu, int8_matmul.cu, int8_matmul_wgmma.cu; one
+     nvcc each, in parallel) for sm_90a into the build directory, and
+     prints ptxas's registers, shared memory and spills of the wgmma and
+     tf32x3 kernels and each backward instance's tiles; then the wgmma dQ
+     kernel's first calls (that kernel alone), the wgmma dK/dV kernel's and
+     the tf32x3 dK/dV kernel's (f32), each in a child process under a
+     timeout.
   3. kernel: the forward kernels against their plain PyTorch version on the
      card at the SD-1.5 512px self-attention shapes, bf16 at the serving
      batch (4) and the training batch (1), each call through the wgmma
@@ -49,21 +53,26 @@ it the build of the kernels):
      call (5 launches per level). f32 also untimed at batch 1 (phase 7's
      f32 run).
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
-     the SD-1.5 training shapes (batch 1; untimed at batch 2), bf16 and
-     f32, plus the ragged call and a ragged call at every D the wgmma
-     backward kernels take (8 to 160); each flash_bwd_dq and
-     flash_bwd_dkv call must launch the kernel _dq_route / _bwd_route
-     picks (bf16: flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu, each
-     also called directly at both tile heights, and the mma kernels of
-     flash_bwd.cu on the same inputs; f32: the mma kernels). Relative
-     errors; at the training levels, median times of both dQ and both
-     dK/dV kernels through their C entry points and as device time
-     (CUDA-graph replays), the wgmma kernels' device time at their other
-     tile height, the two wrappers, the plain versions, one autograd.grad
-     of a retained SDPA graph (dQ, dK, dV together, bf16 and f32; timed
-     only, its device time from torch.profiler), the FLOP bounds and the
-     exponential floor; their sums over one training step (5 launches of
-     each kernel per level).
+     the SD-1.5 training shapes (batch 1; bf16 also untimed at batch 2),
+     bf16 and f32, plus the ragged call and a ragged call at every D the
+     wgmma backward kernels take (8 to 160) and at every D the tf32x3
+     kernel takes (f32, 8 to 96); each flash_bwd_dq and flash_bwd_dkv
+     call must launch the kernel _dq_route / _bwd_route picks (bf16:
+     flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu, each also called
+     directly at both tile heights, and the mma kernels of flash_bwd.cu on
+     the same inputs; f32: the mma dQ kernel, and dK/dV through
+     flash_bwd_dkv_tf32x3.cu at D <= 96, also called directly at its tile
+     heights, with the mma dK/dV kernel on the same inputs, else through
+     the mma kernel). Relative errors; at the training levels, median
+     times of both dQ and both dK/dV kernels through their C entry points
+     and as device time (CUDA-graph replays), the wgmma and tf32x3
+     kernels' device time at their other tile height, the tf32x3 wrapper's
+     split, the two wrappers, the plain versions, one autograd.grad of a
+     retained SDPA graph (dQ, dK, dV together, bf16 and f32; timed only,
+     its device time from torch.profiler), the FLOP bounds (tf32x3: at the
+     TF32 rate, beside its FFMA bound) and the exponential floor; their
+     sums over one training step (5 launches of each kernel per level),
+     bf16 and f32.
   5. slice: the SD-1.5 txt2img serving path at full width with random
      weights from a seed: a rank-4 LoRA + one TI embed saved to a
      .safetensors file and loaded with patch_pipe, 2 prompts, 512x512,
@@ -85,9 +94,12 @@ it the build of the kernels):
      the relative L2 distance of the two LoRA gradients; then the same with
      gradient checkpointing: the same loss, and 30 forward launches (every
      forward launch of the phase wgmma, every dQ and dK/dV launch as in
-     phase 6). Then the same in f32 (the f32 training path, counted: 15
-     launches of flash_fwd.cu and of the mma dQ and dK/dV kernels; the LoRA
-     gradients within 1e-3).
+     phase 6). Then the same in f32 (the trainer's default dtype, the
+     counted f32 path: 15 launches each of flash_fwd.cu and the mma dQ
+     kernel, and of dK/dV 10 through flash_bwd_dkv_tf32x3.cu (D = 40, 80)
+     and 5 through the mma kernel (D = 160); the LoRA gradients within
+     1e-3), and 3 warm-up and 5 timed f32 training steps (AdamW 1e-4,
+     clip 1.0), each with those launches: their median.
   8. int8 kernel: the int8-weight matmul against its plain version at
      every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
      decoder's attention), bf16 (each call must launch the wgmma kernel,
@@ -174,6 +186,7 @@ STEPS = 50
 # the 8x8 mid block (T = 64) and all cross-attention (S = 77) stay plain
 ROUTED_PER_UNET_CALL = 15
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_F32_WARMUP, TRAIN_F32_STEPS = 3, 5  # phase 7's timed f32 steps
 # relative L2 distance of the full-width LoRA gradient through the kernels
 # from the one through the plain attention path (bf16 model, f32 LoRA
 # leaves). The two paths round P, O and the attention gradients to bf16 at
@@ -210,6 +223,7 @@ INT8_MAIN_SHAPE = (16384, 320, 2560)  # the GEGLU projection at 64x64
 # the memory rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores: the f32 mma kernel's FMAs
+PEAK_TF32_FLOPS = 495e12  # dense TF32: the tf32x3 kernel's three products
 PEAK_BYTES = 3.35e12
 # exponentials per clock per SM (the SFU's ex2): the softmax's B*H*T*S
 # exponentials at the card's maximum SM clock bound the forward kernel too
@@ -257,7 +271,8 @@ def phase_build(stems=None) -> None:
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma",
-                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma"):
+                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv_tf32x3"):
         if stem in paths:
             with open(paths[stem][:-3] + ".log") as f:
                 for line in f:
@@ -266,20 +281,24 @@ def phase_build(stems=None) -> None:
                         log(f"build: {stem}: {line.strip()}")
     # each wgmma backward instance's streamed tile (q rows for dK/dV, kv
     # rows for dQ), ring depth and dynamic shared memory (ptxas reports
-    # static shared memory only)
-    for stem, tile, max_d in (
-            ("flash_bwd_dkv_wgmma", "BQ", fa.WGMMA_DKV_MAX_D),
-            ("flash_bwd_dq_wgmma", "BN", fa.WGMMA_DQ_MAX_D)):
+    # static shared memory only); the tf32x3 kernel's also its kv rows
+    for stem, keys, max_d, step in (
+            ("flash_bwd_dkv_wgmma", ("BQ", "stages", "smem_bytes"),
+             fa.WGMMA_DKV_MAX_D, 16),
+            ("flash_bwd_dq_wgmma", ("BN", "stages", "smem_bytes"),
+             fa.WGMMA_DQ_MAX_D, 16),
+            ("flash_bwd_dkv_tf32x3", ("BQ", "stages", "smem_bytes",
+                                      "BN_MAX"), fa.WGMMA_F32_DKV_MAX_D, 8)):
         if stem not in paths:
             continue
         config = getattr(kernel_build.load_library(stem), stem + "_config")
         config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        for dp in range(16, max_d + 1, 16):
-            out = (ctypes.c_int * 4)()
+        for dp in range(step, max_d + 1, step):
+            out = (ctypes.c_int * (1 + len(keys)))()
             if config(dp, out) != 0:
                 raise AssertionError(f"no {stem} instance for D = {dp}")
-            log(f"build: {stem}: " + json.dumps(dict(zip(
-                ("DP", tile, "stages", "smem_bytes"), out))))
+            log(f"build: {stem}: " + json.dumps(dict(zip(("DP", *keys),
+                                                         out))))
 
 
 def _bound(flops: float, nbytes: float,
@@ -615,6 +634,19 @@ def dkv_probe(timeout_s: float = 60.0) -> None:
         "timed=False)"), timeout_s)
 
 
+def tf32x3_probe(timeout_s: float = 60.0) -> None:
+    """The tf32x3 dK/dV kernel's first calls: the f32 ragged call and the
+    main training shape in f32, each also at the kv tile heights its
+    instance holds (the mma kernels beside it on the same inputs)."""
+    _probe("tf32x3 dK/dV", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_bwd_kernels(1, 2, *c.RAGGED, torch.float32, g, "
+        "heads_inner=False, timed=False); "
+        "c.check_bwd_kernels(1, 8, 4096, 4096, 40, torch.float32, g, "
+        "timed=False)"), timeout_s)
+
+
 def check_dq_wgmma(B, H, T, S, D, gen, heads_inner=True) -> None:
     """The wgmma dQ kernel alone, through its C entry point at both q tile
     heights, against flash_bwd_dq_reference (bf16; the forward kernel
@@ -658,14 +690,17 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
     same inputs: q, k, v, dO as the UNet passes them, O and L from the
     forward kernel, delta = rowsum(dO * O). Each wrapper must launch the
     kernel _dq_route / _bwd_route picks. bf16 also checks both mma kernels
-    on the same inputs and, where the route is wgmma, each wgmma kernel
-    called directly at both tile heights (dQ: bm 64 and 128; dK/dV: bn 64
-    and 128). Timed: each routed kernel (a wgmma one on Q~ formed
-    beforehand) and, for bf16, each mma kernel, through its C entry point
-    and as device time (CUDA-graph replays), and each wgmma kernel's
-    device time at its other tile height; both wrappers (Q~ included);
-    the plain versions; SDPA's backward; the FLOP bounds and the
-    exponential floor."""
+    on the same inputs, f32 routed to tf32x3 the mma dK/dV kernel, and,
+    where the route is wgmma or tf32x3, each such kernel called directly
+    at its tile heights (dQ: bm 64 and 128; dK/dV: bn 64 and 128, tf32x3
+    128 only where its instance holds it). Timed: each routed kernel (a
+    wgmma or tf32x3 one on Q~ formed beforehand, tf32x3 also on its split
+    operands formed beforehand, whose forming is timed apart) and each mma
+    kernel it replaced, through its C entry point and as device time
+    (CUDA-graph replays), and each wgmma or tf32x3 kernel's device time at
+    its other tile height; both wrappers (Q~ and the split included); the
+    plain versions; SDPA's backward; the FLOP bounds (tf32x3 also its
+    FFMA bound) and the exponential floor."""
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
     scale = D ** -0.5
@@ -694,15 +729,20 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
         direct_dq, direct = {}, {}
         if bf16:
             direct_dq["prev"] = lambda: fa._dq_launch("mma", *args)
+        if route != "mma":
             direct["prev"] = lambda: fa._dkv_launch("mma", *args)
         if dq_route == "wgmma":
             for bm in (64, 128):
                 direct_dq[f"bm{bm}"] = lambda bm=bm: fa._dq_launch(
                     "wgmma", qt, k, v, do, lse, delta, scale, bm)
-        if route == "wgmma":
-            for bn in (64, 128):
+        ops = (fa._tf32x3_operands(qt, do, k, v) if route == "tf32x3"
+               else None)
+        bns = (64, 128) if route == "wgmma" or (
+            route == "tf32x3" and D <= fa.TF32X3_BN128_MAX_D) else (64,)
+        if route != "mma":
+            for bn in bns:
                 direct[f"bn{bn}"] = lambda bn=bn: fa._dkv_launch(
-                    "wgmma", qt, k, v, do, lse, delta, scale, bn)
+                    route, qt, k, v, do, lse, delta, scale, bn, ops)
         for name, call in direct_dq.items():
             checks.append((f"dq_{name}", call(), ref_dq))
         for name, call in direct.items():
@@ -716,20 +756,31 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
             row[f"rel_{name}"] = err / max(b.float().abs().max().item(),
                                            1e-30)
         if timed:
-            def q_for(r):  # the wgmma kernels read Q~ formed beforehand
-                return qt if r == "wgmma" else q
+            def q_for(r):  # the wgmma and tf32x3 kernels read Q~ formed
+                return q if r == "mma" else qt  # beforehand
 
             calls = {"dq_": lambda: fa._dq_launch(
                          dq_route, q_for(dq_route), k, v, do, lse, delta,
                          scale),
                      "dkv_": lambda: fa._dkv_launch(
-                         route, q_for(route), k, v, do, lse, delta, scale)}
+                         route, q_for(route), k, v, do, lse, delta, scale,
+                         operands=ops)}
             if bf16:
                 calls["dq_prev_"] = direct_dq["prev"]
+            if route != "mma":
                 calls["dkv_prev_"] = direct["prev"]
+            if route == "tf32x3":  # the wrapper's split of the operands
+                calls["dkv_split_"] = lambda: fa._tf32x3_operands(
+                    qt, do, k, v)
             for name, call in calls.items():
                 row[name + "ms"] = _time_ms(call)
                 row[name + "device_ms"] = _graph_ms(call)
+            if route == "mma" and not bf16:
+                # f32 beyond the tf32x3 kernel: the mma kernel is both the
+                # routed and the earlier kernel, and nothing is split
+                for key in ("ms", "device_ms"):
+                    row["dkv_prev_" + key] = row["dkv_" + key]
+                    row["dkv_split_" + key] = 0.0
             row["dq_wrapper_ms"] = _time_ms(lambda: fa.flash_bwd_dq(*args))
             row["dkv_wrapper_ms"] = _time_ms(lambda: fa.flash_bwd_dkv(*args))
             sms = i8._sm_count(q.device)
@@ -739,8 +790,9 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                 row["dq_other_bm"] = other
                 row["dq_other_bm_device_ms"] = _graph_ms(
                     direct_dq[f"bm{other}"])
-            if route == "wgmma":
-                other = 192 - fa._dkv_bn(S, B * H, sms)
+            if len(bns) == 2:
+                other = 192 - (fa._dkv_bn(S, B * H, sms) if route == "wgmma"
+                               else fa._dkv_tf32x3_bn(S, B * H, D, sms))
                 row["dkv_other_bn"] = other
                 row["dkv_other_bn_device_ms"] = _graph_ms(
                     direct[f"bn{other}"])
@@ -757,6 +809,18 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                            PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
                 row[f"{name}_bound_ms"] = b["bound_ms"]
                 row[f"{name}_bound_by"] = b["bound_by"]
+            if not bf16:
+                # the f32 dK/dV on CUDA-core FMAs (the mma kernel's bound),
+                # and on the tensor cores as 3xTF32: three tf32 products
+                # for each of the four, at the dense TF32 rate
+                row["dkv_ffma_bound_ms"] = row["dkv_bound_ms"]
+                row["dkv_ffma_bound_by"] = row["dkv_bound_by"]
+                if route == "tf32x3":
+                    b = _bound(3 * 8 * B * H * T * S * D,
+                               reads + e * 2 * B * H * S * D,
+                               PEAK_TF32_FLOPS)
+                    row["dkv_bound_ms"] = b["bound_ms"]
+                    row["dkv_bound_by"] = b["bound_by"]
             # each kernel recomputes P: B*H*T*S exponentials
             row["exp_floor_ms"] = _exp_floor_ms(B, H, T, S)
     if timed:
@@ -782,7 +846,8 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
     bad = [n for n, _, _ in checks
            if not (np.isfinite(row[f"rel_{n}"]) and row[f"rel_{n}"] <= tol)]
     want = {"route": ("wgmma" if bf16 and D <= fa.WGMMA_DKV_MAX_D
-                      else "mma"),
+                      else "tf32x3" if not bf16
+                      and D <= fa.WGMMA_F32_DKV_MAX_D else "mma"),
             "dq_route": ("wgmma" if bf16 and D <= fa.WGMMA_DQ_MAX_D
                          else "mma")}
     if bad or row["kernel"] != [route] or row["dq_kernel"] != [dq_route] \
@@ -807,11 +872,14 @@ def phase_bwd_kernels():
     for T, D in SD15_ATTN_SHAPES:
         rows.append(check_bwd_kernels(2, 8, T, T, D, torch.bfloat16, gen,
                                       timed=False))
-    # every D the routes send to the wgmma dQ and dK/dV kernels (each of
-    # their instances), with ragged T and S
+    # every D the routes send to the wgmma dQ and dK/dV kernels and to the
+    # tf32x3 dK/dV kernel (each of their instances), with ragged T and S
     for D in range(8, max(fa.WGMMA_DQ_MAX_D, fa.WGMMA_DKV_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.bfloat16, gen, timed=False))
+    for D in range(8, fa.WGMMA_F32_DKV_MAX_D + 1, 8):
+        rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
+                                      torch.float32, gen, timed=False))
     return rows
 
 
@@ -821,27 +889,46 @@ BWD_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms", "dq_prev_device_ms",
                 "dq_plain_ms", "dkv_plain_ms", "library_ms",
                 "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
                 "exp_floor_ms")
+# f32: dQ runs the mma kernel only; dK/dV the tf32x3 kernel where the route
+# sends it ("prev": the mma kernel on the same inputs, which the D = 160
+# level runs anyway), with the wrapper's split and both bounds
+BWD_F32_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_wrapper_ms", "dkv_ms",
+                    "dkv_device_ms", "dkv_prev_ms", "dkv_prev_device_ms",
+                    "dkv_split_ms", "dkv_split_device_ms", "dkv_wrapper_ms",
+                    "dq_plain_ms", "dkv_plain_ms", "library_ms",
+                    "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
+                    "dkv_ffma_bound_ms", "exp_floor_ms")
 
 
 def bwd_step_sums(rows) -> dict:
     """Sums over one training step's backward launches (5 of each kernel
-    at each of the three levels, batch 1, bf16) of each timed column."""
-    level = [r for r in rows if r["dtype"] == "bfloat16" and "dq_ms" in r]
-    if len(level) != len(SD15_ATTN_SHAPES):
-        raise AssertionError(f"{len(level)} timed bf16 backward rows")
+    at each of the three levels, batch 1) of each timed column, bf16 (the
+    bench's dtype) and f32 (the trainer's default)."""
     n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
-    sums = {k: n * sum(r[k] for r in level) for k in BWD_SUM_KEYS}
-    log("bwd per training step: " + json.dumps(sums))
+    sums = {}
+    for dtype, keys in (("bfloat16", BWD_SUM_KEYS),
+                        ("float32", BWD_F32_SUM_KEYS)):
+        level = [r for r in rows if r["dtype"] == dtype and "dq_ms" in r]
+        if len(level) != len(SD15_ATTN_SHAPES):
+            raise AssertionError(f"{len(level)} timed {dtype} backward rows")
+        sums[dtype] = {k: n * sum(r[k] for r in level) for k in keys}
+    log("bwd per training step: " + json.dumps(sums["bfloat16"]))
+    log("bwd f32 per training step: " + json.dumps(sums["float32"]))
     return sums
 
 
-def bwd_per_step(max_d: int) -> dict:
-    """A backward wrapper's launches per bf16 training step by kernel: 5
-    at each level, through the wgmma kernel where D <= max_d
-    (WGMMA_DQ_MAX_D for flash_bwd_dq, WGMMA_DKV_MAX_D for flash_bwd_dkv)."""
+def bwd_per_step(max_d: int, fn, route: str = "wgmma") -> dict:
+    """A backward wrapper's launches per training step by kernel (every
+    key of fn.launches_by_kernel): 5 at each level, through `route` where
+    D <= max_d (bf16: WGMMA_DQ_MAX_D for flash_bwd_dq, WGMMA_DKV_MAX_D for
+    flash_bwd_dkv; f32: WGMMA_F32_DKV_MAX_D and "tf32x3" for
+    flash_bwd_dkv), else through the mma kernel."""
     n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
-    wgmma = n * sum(D <= max_d for _, D in SD15_ATTN_SHAPES)
-    return {"wgmma": wgmma, "mma": ROUTED_PER_UNET_CALL - wgmma}
+    fast = n * sum(D <= max_d for _, D in SD15_ATTN_SHAPES)
+    counts = dict.fromkeys(fn.launches_by_kernel, 0)
+    counts[route] += fast
+    counts["mma"] += ROUTED_PER_UNET_CALL - fast
+    return counts
 
 
 def unet_int8_calls(b: int):
@@ -1206,14 +1293,10 @@ def _counts():
 
 
 def _zero_counts():
-    fa.flash_fwd.launches = 0
-    fa.flash_fwd.launches_by_kernel.update(wgmma=0, mma=0)
-    fa.flash_bwd_dq.launches = 0
-    fa.flash_bwd_dq.launches_by_kernel.update(wgmma=0, mma=0)
-    fa.flash_bwd_dkv.launches = 0
-    fa.flash_bwd_dkv.launches_by_kernel.update(wgmma=0, mma=0)
-    i8.int8_matmul.launches = 0
-    i8.int8_matmul.launches_by_kernel.update(wgmma=0, mma=0)
+    for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+               i8.int8_matmul):
+        fn.launches = 0
+        fn.launches_by_kernel.update(dict.fromkeys(fn.launches_by_kernel, 0))
 
 
 def _train_models(gen, dt=torch.bfloat16):
@@ -1259,6 +1342,7 @@ def _make_step(optimizer, remat=False, dtype=torch.bfloat16):
 # pattern a kernel's name matches (lower case) names its class
 KERNEL_CLASSES = (
     ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma"),
+    ("flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3"),
     ("flash_bwd_dkv_mma", "bwd_dkv"),
     ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma"),
     ("flash_bwd_dq_mma", "bwd_dq"),
@@ -1336,9 +1420,9 @@ def phase_train(smi: str):
     warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
-    bwd_want = (bwd_per_step(fa.WGMMA_DQ_MAX_D),
-                bwd_per_step(fa.WGMMA_DKV_MAX_D))
     bwd_fns = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    bwd_want = (bwd_per_step(fa.WGMMA_DQ_MAX_D, fa.flash_bwd_dq),
+                bwd_per_step(fa.WGMMA_DKV_MAX_D, fa.flash_bwd_dkv))
     _zero_counts()  # the counted main-path run
     for _ in range(TRAIN_STEPS):
         before = _counts()
@@ -1394,9 +1478,12 @@ def phase_train(smi: str):
 
 def phase_grad(dt=torch.bfloat16):
     """The full-width LoRA gradient through the kernels against the one
-    through the plain attention path; in bf16 (the training dtype) also
-    with gradient checkpointing. f32 runs the f32 kernels: flash_fwd.cu
-    and flash_bwd.cu's dQ and dK/dV."""
+    through the plain attention path; in bf16 (the bench's dtype) also
+    with gradient checkpointing. f32 (the trainer's default) runs the f32
+    kernels: flash_fwd.cu, flash_bwd.cu's dQ, and dK/dV through
+    flash_bwd_dkv_tf32x3.cu at D <= WGMMA_F32_DKV_MAX_D and flash_bwd.cu
+    above it; then TRAIN_F32_WARMUP and TRAIN_F32_STEPS timed f32 training
+    steps (train_f32_steps)."""
     from lora_tpu_torch.ops.attention import set_use_memory_efficient_attention
     from lora_tpu_torch.training.optim import make_optimizer, tree_leaves
     from lora_tpu_torch.training.train_step import make_trainable
@@ -1469,15 +1556,13 @@ def phase_grad(dt=torch.bfloat16):
                            "remat_loss_rtol": REMAT_LOSS_RTOL}})
     log("grad: " + json.dumps(row))
     # bf16: two steps through the kernels (plain, checkpointed), the
-    # forward twice in the checkpointed one; f32: one step, all mma
-    runs = 2 if bf16 else 1
+    # forward twice in the checkpointed one; f32: one step, the forward and
+    # dQ all mma, dK/dV tf32x3 where D <= WGMMA_F32_DKV_MAX_D
+    want_dq, want_dkv, want_fwd = _per_step_want(dt)
     if bf16:
-        want_dq, want_dkv = ({r: runs * n for r, n in bwd_per_step(d).items()}
-                             for d in (fa.WGMMA_DQ_MAX_D, fa.WGMMA_DKV_MAX_D))
+        want_dq, want_dkv = ({r: 2 * n for r, n in w.items()}
+                             for w in (want_dq, want_dkv))
         want_fwd = {"wgmma": 45, "mma": 0}
-    else:
-        want_dq = want_dkv = want_fwd = {"wgmma": 0,
-                                         "mma": ROUTED_PER_UNET_CALL}
     if n_k != (15, 15, 15) or n_p != (0, 0, 0) or (
             bf16 and n_r != (30, 15, 15)) or fwd_by_kernel != want_fwd or \
             dq_by_kernel != want_dq or dkv_by_kernel != want_dkv:
@@ -1492,9 +1577,58 @@ def phase_grad(dt=torch.bfloat16):
                      and np.isfinite(rel_r) and rel_r <= GRAD_REL_L2_TOL):
         raise AssertionError(f"gradient checkpointing changed the step: "
                              f"{row}")
+    if not bf16:
+        row["train_f32"] = train_f32_steps(trainable, base, batch, gen)
     del unet, batch, lora, trainable, base
     torch.cuda.empty_cache()
     return row
+
+
+def _per_step_want(dt):
+    """(dQ, dK/dV, forward) launches by kernel of one training step in
+    `dt`."""
+    if dt == torch.bfloat16:
+        return (bwd_per_step(fa.WGMMA_DQ_MAX_D, fa.flash_bwd_dq),
+                bwd_per_step(fa.WGMMA_DKV_MAX_D, fa.flash_bwd_dkv),
+                {"wgmma": ROUTED_PER_UNET_CALL, "mma": 0})
+    return (bwd_per_step(0, fa.flash_bwd_dq),  # f32 dQ: mma at every D
+            bwd_per_step(fa.WGMMA_F32_DKV_MAX_D, fa.flash_bwd_dkv, "tf32x3"),
+            {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL})
+
+
+def train_f32_steps(trainable, base, batch, gen) -> dict:
+    """The f32 DreamBooth-LoRA step (the trainer's default dtype; AdamW lr
+    1e-4, clip 1.0) on phase 7's f32 model: TRAIN_F32_WARMUP warm-up and
+    TRAIN_F32_STEPS timed steps, each launching the kernels _per_step_want
+    gives; their median wall time."""
+    from lora_tpu_torch.training.optim import make_optimizer
+
+    step = _make_step(make_optimizer(trainable, {"lora_unet": 1e-4}),
+                      dtype=torch.float32)
+    fns = (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_fwd)
+    want = _per_step_want(torch.float32)
+    losses, step_ms = [], []
+    for i in range(TRAIN_F32_WARMUP + TRAIN_F32_STEPS):
+        before = [dict(f.launches_by_kernel) for f in fns]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(trainable, base, batch, gen))
+        torch.cuda.synchronize()
+        if i >= TRAIN_F32_WARMUP:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        got = tuple({r: n - was[r] for r, n in f.launches_by_kernel.items()}
+                    for f, was in zip(fns, before))
+        if got != want:
+            raise AssertionError(f"an f32 training step launched (dQ, "
+                                 f"dK/dV, forward) {got}, not {want}")
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite f32 loss: {losses.tolist()}")
+    out = {"warmup": TRAIN_F32_WARMUP, "timed_steps": TRAIN_F32_STEPS,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "dkv_launches_per_step": want[1]}
+    log("train f32: " + json.dumps(out))
+    return out
 
 
 def _param_bytes(module) -> int:
@@ -1784,16 +1918,19 @@ def main_flash() -> int:
 
 
 def main_flash_bwd() -> int:
-    """The backward kernels alone: the device line, the builds of the wgmma
-    forward (the residuals), flash_bwd.cu, flash_bwd_dkv_wgmma.cu and
-    flash_bwd_dq_wgmma.cu, the wgmma dK/dV and dQ kernels' first calls in
-    child processes under a timeout, phase 4 and its sums over one
-    training step."""
+    """The backward kernels alone: the device line, the builds of both
+    forward kernels (the residuals, bf16 and f32), flash_bwd.cu,
+    flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu and
+    flash_bwd_dkv_tf32x3.cu, the wgmma dQ, wgmma dK/dV and tf32x3 dK/dV
+    kernels' first calls in child processes under a timeout, phase 4 and
+    its sums over one training step (bf16 and f32)."""
     smi = phase_device()
-    phase_build(["flash_fwd_wgmma", "flash_bwd", "flash_bwd_dkv_wgmma",
-                 "flash_bwd_dq_wgmma"])
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_bwd",
+                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv_tf32x3"])
     dq_probe()
     dkv_probe()
+    tf32x3_probe()
     bwd_step_sums(phase_bwd_kernels())
     log(smi)
     return 0
@@ -1816,6 +1953,7 @@ def main() -> int:
     phase_build()
     dq_probe()
     dkv_probe()
+    tf32x3_probe()
     rows = phase_kernels()
     fwd_sums = flash_call_sums(rows)
     bwd_rows = phase_bwd_kernels()
@@ -1944,7 +2082,7 @@ def main() -> int:
         "library_computes": "dq, dk, dv",
         "exp_floor_ms": bwd["exp_floor_ms"],
         # every column summed over the 15 launches of one training step
-        "per_training_step": {k: v for k, v in bwd_sums.items()
+        "per_training_step": {k: v for k, v in bwd_sums["bfloat16"].items()
                               if not k.startswith("dkv_")},
     })
     kernels.append({
@@ -1996,26 +2134,73 @@ def main() -> int:
         "library_computes": "dq, dk, dv",
         "exp_floor_ms": bwd["exp_floor_ms"],
         # every column summed over the 15 launches of one training step
-        "per_training_step": {k: v for k, v in bwd_sums.items()
+        "per_training_step": {k: v for k, v in bwd_sums["bfloat16"].items()
                               if not k.startswith("dq_")},
+    })
+    f32_dkv = grad_f32["dkv_launches_by_kernel"]
+    f32_bwd = [r for r in bwd_rows if r["dtype"] == "float32"]
+    kernels.append({
+        "name": "flash_bwd_dkv_tf32x3",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd_dkv_tf32x3.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:210",
+        # the counted f32 training run of phase 7: every dK/dV launch at
+        # D <= WGMMA_F32_DKV_MAX_D (phase 7 checks it)
+        "launches": f32_dkv["tf32x3"],
+        "launches_by_path": {"train_f32_grad": f32_dkv["tf32x3"]},
+        "launches_by_kernel": f32_dkv,
+        # worst dK / dV error over the f32 calls of phase 4 routed here
+        "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
+                           if r["route"] == "tf32x3"
+                           for e in ("dk", "dv", "dk_bn64", "dv_bn64",
+                                     "dk_bn128", "dv_bn128")
+                           if f"err_{e}" in r),
+        # at the main training shape in f32: the kernel on Q~ and its split
+        # operands formed beforehand; split: forming them; wrapper:
+        # flash_bwd_dkv with its Q~ and split; prev: the mma kernel
+        # (flash_bwd.cu) on the same inputs; bound: 3xTF32 at the dense
+        # TF32 rate, ffma_bound: the same work on CUDA-core FMAs; library:
+        # SDPA's backward in f32
+        **timed(bwd_f32, "dkv_"),
+        "device_ms": bwd_f32["dkv_device_ms"],
+        "split_ms": bwd_f32["dkv_split_ms"],
+        "split_device_ms": bwd_f32["dkv_split_device_ms"],
+        "wrapper_ms": bwd_f32["dkv_wrapper_ms"],
+        "prev_ms": bwd_f32["dkv_prev_ms"],
+        "prev_device_ms": bwd_f32["dkv_prev_device_ms"],
+        "ffma_bound_ms": bwd_f32["dkv_ffma_bound_ms"],
+        "library_ms": bwd_f32["library_ms"],
+        "library_device_ms": bwd_f32["library_device_ms"],
+        "library_computes": "dq, dk, dv",
+        "exp_floor_ms": bwd_f32["exp_floor_ms"],
+        # every f32 column summed over the 15 launches of one f32 step
+        "per_training_step": {k: v for k, v in bwd_sums["float32"].items()
+                              if not k.startswith("dq_")},
+        "train_f32_step_ms_median": grad_f32["train_f32"]["step_ms_median"],
     })
     kernels.append({
         "name": "flash_bwd_dkv_mma",
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:210",
-        # the f32 training run of phase 7 (f32 attention), and the bf16
-        # training steps at D > WGMMA_DKV_MAX_D
-        "launches": grad_f32["dkv_launches_by_kernel"]["mma"]
-        + train_dkv["mma"],
-        "launches_by_path": {"train_f32_grad":
-                             grad_f32["dkv_launches_by_kernel"]["mma"],
+        # the f32 training run of phase 7 at D > WGMMA_F32_DKV_MAX_D, and
+        # the bf16 training steps at D > WGMMA_DKV_MAX_D
+        "launches": f32_dkv["mma"] + train_dkv["mma"],
+        "launches_by_path": {"train_f32_grad": f32_dkv["mma"],
                              "train": train_dkv["mma"]},
-        "max_abs_err": max(max(r["err_dk"], r["err_dv"]) for r in bwd_rows
-                           if r["dtype"] == "float32"),
-        # at the main training shape in f32, the bound at the f32 rate
-        # (the kernel's CUDA-core FMAs); library: SDPA's backward in f32
-        **timed(bwd_f32, "dkv_"),
+        # worst f32 error of phase 4: the calls routed here, and the
+        # kernel called directly beside the tf32x3 one
+        "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
+                           for e in (("dk", "dv") if r["route"] == "mma"
+                                     else ("dk_prev", "dv_prev"))),
+        # at the main training shape in f32 (called directly on the tf32x3
+        # kernel's inputs), the bound at the f32 rate (the kernel's
+        # CUDA-core FMAs); library: SDPA's backward in f32
+        "ms": bwd_f32["dkv_prev_ms"],
+        "device_ms": bwd_f32["dkv_prev_device_ms"],
+        "plain_ms": bwd_f32["dkv_plain_ms"],
+        "bound_ms": bwd_f32["dkv_ffma_bound_ms"],
+        "bound_by": bwd_f32["dkv_ffma_bound_by"],
         "library_ms": bwd_f32["library_ms"],
         "library_device_ms": bwd_f32["library_device_ms"],
         "library_computes": "dq, dk, dv",

@@ -18,16 +18,24 @@ lora_tpu/ops/flash_attention.py:
     flash_bwd_dkv  _bwd_dkv_kernel  dK and dV, through
         "wgmma"    csrc/flash_bwd_dkv_wgmma.cu  bf16: TMA ring, producer
                                                 warp, warpgroup wgmma
-        "mma"      csrc/flash_bwd.cu            mma.sync: f32, D > 160, a
-                                                stride of 0
+        "tf32x3"   csrc/flash_bwd_dkv_tf32x3.cu f32 with D <= 96: the same
+                                                pipeline, every product as
+                                                three tf32 wgmmas (hi/lo)
+        "mma"      csrc/flash_bwd.cu            mma.sync: f32 with D > 96,
+                                                bf16 with D > 160, a stride
+                                                of 0
 
 `_fwd_route`, `_dq_route` and `_bwd_route` pick the forward, the dQ and
 the dK/dV kernel from dtype, D and layout alone; `_fwd_bm` the wgmma
 forward's q rows per CTA from T, B * H and the SM count, `_dq_bm` the
 wgmma dQ kernel's the same way, `_dkv_bn` the wgmma dK/dV kernel's kv rows
-per CTA from S, B * H and the SM count. Both wgmma backward kernels take
-Q~ = bf16(f32(q) * scale) (`_q_tilde`: TMA cannot scale on load), which
-`flash_attention_backward` forms once for the two.
+per CTA from S, B * H and the SM count (`_dkv_tf32x3_bn` the tf32x3
+kernel's, capped by what its shared memory holds). The wgmma and tf32x3
+backward kernels take Q~ = f32(q) * scale rounded to q's dtype (`_q_tilde`:
+TMA cannot scale on load), which `flash_attention_backward` forms once for
+both backward wrappers. The tf32x3 kernel also takes every f32 operand split
+into tf32 hi and lo parts (`_split_tf32`) and q-innermost copies of Q~ and
+dO (`_tf32x3_transposed`), which `_tf32x3_operands` forms per call.
 
 `flash_attention(q, k, v, scale)` is the entry point: a
 torch.autograd.Function (the JAX custom_vjp, `scale` not differentiated)
@@ -40,7 +48,8 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises: nothing reacts to a failure), and counts its
 launches in `<wrapper>.launches` and per kernel in
-`<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, summing to `launches`).
+`<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, and "tf32x3" for
+flash_bwd_dkv, summing to `launches`).
 
 Build: the first CUDA call of a kernel compiles its own source (and no
 other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
@@ -67,6 +76,14 @@ WGMMA_MAX_D = 160
 WGMMA_DQ_MAX_D = 160
 # the same for the wgmma dK/dV kernel, csrc/flash_bwd_dkv_wgmma.cu
 WGMMA_DKV_MAX_D = 160
+# the widest f32 head the tf32x3 dK/dV kernel instantiates, and the widest
+# at which it holds 128 kv rows a CTA: MAX_DP and BN_MAX of
+# csrc/flash_bwd_dkv_tf32x3.cu (a CPU test holds them equal)
+WGMMA_F32_DKV_MAX_D = 96
+TF32X3_BN128_MAX_D = 64
+# the tf32x3 kernel's transposed copies: q columns rounded up to T_ALIGN of
+# the source (its largest q tile), so no TMA box lies wholly past them
+TF32X3_T_ALIGN = 32
 
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
@@ -74,7 +91,7 @@ _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma" and
-# "dq_wgmma", bn for "dkv_wgmma"), scale, stream
+# "dq_wgmma", bn for "dkv_wgmma" and "dkv_tf32x3"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
 _ENTRY = {
     # entry: (source stem, C function, pointer arguments)
@@ -85,14 +102,15 @@ _ENTRY = {
     "dq_mma": ("flash_bwd", "flash_bwd_dq", 7),
     # flash_bwd_dkv's two routes, "dkv_" + route
     "dkv_wgmma": ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma", 8),
+    "dkv_tf32x3": ("flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3", 16),
     "dkv_mma": ("flash_bwd", "flash_bwd_dkv", 8),
 }
 
 
 def _entry(name: str):
     """The ctypes function of one kernel ("wgmma" or "mma" forward,
-    "dq_wgmma", "dq_mma", "dkv_wgmma" or "dkv_mma"), building its source on
-    first use."""
+    "dq_wgmma", "dq_mma", "dkv_wgmma", "dkv_tf32x3" or "dkv_mma"), building
+    its source on first use."""
     with _lib_lock:
         if name not in _fns:
             stem, fn_name, n_ptrs = _ENTRY[name]
@@ -237,12 +255,17 @@ def _check_stats(q, *stats):
                              f"{t.dtype}{tuple(t.shape)}")
 
 
+def _tma_ok(*tensors: torch.Tensor) -> bool:
+    """Every tensor has a layout TMA's tensor maps take: _layout_ok, and no
+    stride of 0."""
+    return all(_layout_ok(t) and min(t.stride()[:3]) > 0 for t in tensors)
+
+
 def _route(max_d: int, q: torch.Tensor, *others: torch.Tensor) -> str:
     """"wgmma" for bf16 with D <= max_d where every tensor has a layout
-    TMA's tensor maps take (_layout_ok, and no stride of 0), else "mma"."""
+    TMA's tensor maps take (_tma_ok), else "mma"."""
     if (q.dtype == torch.bfloat16 and q.shape[3] <= max_d
-            and all(_layout_ok(t) and min(t.stride()[:3]) > 0
-                    for t in (q, *others))):
+            and _tma_ok(q, *others)):
         return "wgmma"
     return "mma"
 
@@ -266,10 +289,14 @@ def _fwd_bm(T: int, bh: int, sms: int = 132) -> int:
 def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                do: torch.Tensor) -> str:
     """The dK/dV kernel of a call: "wgmma" (csrc/flash_bwd_dkv_wgmma.cu)
-    for bf16 with D <= WGMMA_DKV_MAX_D and layouts TMA's tensor maps take
-    (_layout_ok, and no stride of 0), "mma" (csrc/flash_bwd.cu) for the
-    rest: f32, wider D, a broadcast. A layout _layout_ok refuses never
-    launches: _check raises first."""
+    for bf16 with D <= WGMMA_DKV_MAX_D, "tf32x3"
+    (csrc/flash_bwd_dkv_tf32x3.cu) for f32 with D <= WGMMA_F32_DKV_MAX_D,
+    each where the layouts are ones TMA's tensor maps take (_tma_ok); "mma"
+    (csrc/flash_bwd.cu) for the rest: wider D, a broadcast. A layout
+    _layout_ok refuses never launches: _check raises first."""
+    if (q.dtype == torch.float32 and q.shape[3] <= WGMMA_F32_DKV_MAX_D
+            and _tma_ok(q, k, v, do)):
+        return "tf32x3"
     return _route(WGMMA_DKV_MAX_D, q, k, v, do)
 
 
@@ -292,6 +319,53 @@ def _dkv_bn(S: int, bh: int, sms: int = 132) -> int:
     bh = B * H heads on `sms` SMs: _fwd_bm's rule over the kv rows (128,
     two consumer warpgroups, unless that gives fewer CTAs than SMs)."""
     return _fwd_bm(S, bh, sms)
+
+
+def _dkv_tf32x3_bn(S: int, bh: int, D: int, sms: int = 132) -> int:
+    """kv rows per CTA of the tf32x3 dK/dV kernel: _dkv_bn's rule where
+    the instance holds 128 rows (D <= TF32X3_BN128_MAX_D), else 64."""
+    return _dkv_bn(S, bh, sms) if D <= TF32X3_BN128_MAX_D else 64
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to tf32 (10 mantissa bits, to nearest, ties away from
+    zero: cvt.rna.tf32.f32) as f32 whose low 13 bits are zero, in x's
+    layout. |x| must stay below (2 - 2^-11) * 2^127, which rounds to inf."""
+    return ((x.view(torch.int32) + 0x1000).bitwise_and_(-0x2000)
+            ).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo), both tf32 in f32 bit patterns: hi = tf32(x),
+    lo = tf32(x - hi), so that x = hi + lo to within 2^-22 |x| (while the
+    remainder is a normal number). The operands of 3xTF32."""
+    hi = _rna_tf32(x)
+    return hi, _rna_tf32(x - hi)
+
+
+def _tf32x3_transposed(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D) -> (B, H, D, T') contiguous, T' = T rounded up to
+    TF32X3_T_ALIGN with zeros past T, q permuted within each group of 8 by
+    pi = [0, 2, 4, 6, 1, 3, 5, 7] (column 8j + p holds q row 8j + pi(p)):
+    the K-major B operand of the tf32x3 kernel's dV and dK products, whose
+    register-A fragments are then the score accumulators as they are. pi is
+    a (4, 2) -> (2, 4) transpose of each group of 8."""
+    B, H, T, D = x.shape
+    tp = -(-T // TF32X3_T_ALIGN) * TF32X3_T_ALIGN
+    y = torch.nn.functional.pad(x, (0, 0, 0, tp - T))
+    return y.view(B, H, tp // 8, 4, 2, D).permute(0, 1, 5, 2, 4, 3).reshape(
+        B, H, D, tp)
+
+
+def _tf32x3_operands(q_tilde, do, k, v) -> Tuple[torch.Tensor, ...]:
+    """The twelve operands of the tf32x3 kernel, each f32 tensor split
+    into hi and lo: Q~, dO, K, V (in their layouts), then the transposed
+    copies of Q~ and dO."""
+    qh, ql = _split_tf32(q_tilde)
+    oh, ol = _split_tf32(do)
+    return (qh, ql, oh, ol, *_split_tf32(k), *_split_tf32(v),
+            _tf32x3_transposed(qh), _tf32x3_transposed(ql),
+            _tf32x3_transposed(oh), _tf32x3_transposed(ol))
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -375,22 +449,27 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, q_tilde=None
     return dq
 
 
-def _dkv_launch(route, q, k, v, do, lse, delta, scale, bn=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _dkv_launch(route, q, k, v, do, lse, delta, scale, bn=None,
+                operands=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One dK/dV kernel through its C entry point (no routing, no count).
-    The wgmma kernel takes q as Q~ (_q_tilde: TMA cannot scale on load)
-    and `bn` kv rows per CTA (by default _dkv_bn's); the mma kernel takes
-    q and scales it itself."""
+    The wgmma and tf32x3 kernels take q as Q~ (_q_tilde: TMA cannot scale
+    on load) and `bn` kv rows per CTA (by default _dkv_bn's, or
+    _dkv_tf32x3_bn's); the tf32x3 kernel reads _tf32x3_operands(q, do, k,
+    v), formed here unless given as `operands`; the mma kernel takes q and
+    scales it itself."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if route == "wgmma":
-        B, H, _, _ = q.shape
+    B, H, _, D = q.shape
+    tensors = (q, k, v, do)
+    if route == "tf32x3":
+        tensors = operands or _tf32x3_operands(q, do, k, v)
+        arg = bn or _dkv_tf32x3_bn(k.shape[2], B * H, D, _sm_count(q.device))
+    elif route == "wgmma":
         arg = bn or _dkv_bn(k.shape[2], B * H, _sm_count(q.device))
     else:
         arg = int(q.dtype == torch.bfloat16)
     _launch(_entry(f"dkv_{route}"), f"flash_bwd_dkv ({route})",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            _strides(q, k, v, do, dk, dv), q, k, arg, scale)
+            [t.data_ptr() for t in (*tensors, lse, delta, dk, dv)],
+            _strides(*tensors, dk, dv), q, k, arg, scale)
     return dk, dv
 
 
@@ -403,7 +482,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
     route = _bwd_route(q, k, v, do)
-    if route == "wgmma":
+    if route != "mma":
         q = _q_tilde(q, scale) if q_tilde is None else q_tilde
     dk, dv = _dkv_launch(route, q, k, v, do, lse, delta, scale)
     flash_bwd_dkv.launches_by_kernel[route] += 1
@@ -415,15 +494,15 @@ flash_fwd.launches_by_kernel = {"wgmma": 0, "mma": 0}
 flash_fwd.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "mma": 0}
 flash_bwd_dq.launches = 0  # the sum of launches_by_kernel
-flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "mma": 0}
+flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
 flash_bwd_dkv.launches = 0  # the sum of launches_by_kernel
 
 
 def flash_attention_backward(q, k, v, o, lse, do, scale: float
                              ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) through the two backward kernels (their plain versions
-    on the CPU). Where either routes to its wgmma kernel, Q~ is formed once
-    here and handed to both."""
+    on the CPU). Where either routes to a kernel that reads Q~ (wgmma,
+    tf32x3), Q~ is formed once here and handed to both."""
     qt = None
     if do.device.type == "cuda":
         if not _layout_ok(do):
@@ -431,7 +510,7 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float
             # is a transposed view the kernels take as it is); one copy
             # otherwise
             do = do.contiguous()
-        if "wgmma" in (_dq_route(q, k, v, do), _bwd_route(q, k, v, do)):
+        if {_dq_route(q, k, v, do), _bwd_route(q, k, v, do)} != {"mma"}:
             qt = _q_tilde(q, scale)
     delta = _delta(o, do)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, qt)

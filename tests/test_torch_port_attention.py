@@ -369,12 +369,15 @@ def test_load_library_builds_only_its_source(tmp_path, monkeypatch):
 def test_bwd_route(case):
     """The dK/dV kernel of a call: bf16 at every training-path shape (the
     UNet's transposed views, dO alike) and contiguous tensors take the
-    wgmma kernel; f32, D above WGMMA_DKV_MAX_D and broadcast strides the
-    mma kernel. The route reads dtype, D and strides only."""
+    wgmma kernel; f32 at D <= WGMMA_F32_DKV_MAX_D the tf32x3 kernel; D
+    above WGMMA_DKV_MAX_D and broadcast strides the mma kernel. The route
+    reads dtype, D and strides only."""
     (q, k, v), want = _route_case(case)
     if case[0] == "wide_head":
         q = _bthd(1, 64, 2, t_fa.WGMMA_DKV_MAX_D + 8)
         q, k, v = q, q, q
+    if case[0] == "f32":
+        want = "tf32x3"
     do = torch.zeros_like(q)
     assert all(t_fa._layout_ok(t) for t in (q, k, v, do))
     assert t_fa._bwd_route(q, k, v, do) == want
