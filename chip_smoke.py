@@ -14,13 +14,15 @@
     python3 chip_smoke.py --flash-bwd   # phases 1, 2 (flash_fwd.cu,
                                         # flash_fwd_wgmma.cu, flash_bwd.cu,
                                         # flash_bwd_dkv_wgmma.cu,
-                                        # flash_bwd_dq_wgmma.cu and
-                                        # flash_bwd_dkv_tf32x3.cu only),
-                                        # the wgmma dQ, wgmma dK/dV and
-                                        # tf32x3 dK/dV kernels' first calls
-                                        # in child processes under a
-                                        # timeout, 4 and its sums over one
-                                        # training step (bf16 and f32)
+                                        # flash_bwd_dq_wgmma.cu,
+                                        # flash_bwd_dkv_tf32x3.cu and
+                                        # flash_bwd_dq_tf32x3.cu only),
+                                        # the wgmma dQ, wgmma dK/dV,
+                                        # tf32x3 dQ and tf32x3 dK/dV
+                                        # kernels' first calls in child
+                                        # processes under a timeout, 4 and
+                                        # its sums over one training step
+                                        # (bf16 and f32)
 
 Phases, each printing its own lines (about 5 minutes on one H100, most of
 it the build of the kernels):
@@ -28,12 +30,13 @@ it the build of the kernels):
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu,
      flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu,
-     flash_bwd_dkv_tf32x3.cu, int8_matmul.cu, int8_matmul_wgmma.cu; one
-     nvcc each, in parallel) for sm_90a into the build directory, and
-     prints ptxas's registers, shared memory and spills of the wgmma and
-     tf32x3 kernels and each backward instance's tiles; then the wgmma dQ
-     kernel's first calls (that kernel alone), the wgmma dK/dV kernel's and
-     the tf32x3 dK/dV kernel's (f32), each in a child process under a
+     flash_bwd_dkv_tf32x3.cu, flash_bwd_dq_tf32x3.cu, int8_matmul.cu,
+     int8_matmul_wgmma.cu; one nvcc each, in parallel) for sm_90a into the
+     build directory, and prints ptxas's registers, shared memory and
+     spills of the wgmma and tf32x3 kernels and each backward instance's
+     tiles; then the wgmma dQ kernel's first calls (that kernel alone), the
+     wgmma dK/dV kernel's, the tf32x3 dQ kernel's (f32, that kernel alone)
+     and the tf32x3 dK/dV kernel's (f32), each in a child process under a
      timeout.
   3. kernel: the forward kernels against their plain PyTorch version on the
      card at the SD-1.5 512px self-attention shapes, bf16 at the serving
@@ -54,25 +57,26 @@ it the build of the kernels):
      f32 run).
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
      the SD-1.5 training shapes (batch 1; bf16 also untimed at batch 2),
-     bf16 and f32, plus the ragged call and a ragged call at every D the
+     bf16 and f32, plus the ragged call, a ragged call at every D the
      wgmma backward kernels take (8 to 160) and at every D the tf32x3
-     kernel takes (f32, 8 to 96); each flash_bwd_dq and flash_bwd_dkv
-     call must launch the kernel _dq_route / _bwd_route picks (bf16:
-     flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu, each also called
-     directly at both tile heights, and the mma kernels of flash_bwd.cu on
-     the same inputs; f32: the mma dQ kernel, and dK/dV through
-     flash_bwd_dkv_tf32x3.cu at D <= 96, also called directly at its tile
-     heights, with the mma dK/dV kernel on the same inputs, else through
-     the mma kernel). Relative errors; at the training levels, median
-     times of both dQ and both dK/dV kernels through their C entry points
-     and as device time (CUDA-graph replays), the wgmma and tf32x3
-     kernels' device time at their other tile height, the tf32x3 wrapper's
-     split, the two wrappers, the plain versions, one autograd.grad of a
-     retained SDPA graph (dQ, dK, dV together, bf16 and f32; timed only,
-     its device time from torch.profiler), the FLOP bounds (tf32x3: at the
-     TF32 rate, beside its FFMA bound) and the exponential floor; their
-     sums over one training step (5 launches of each kernel per level),
-     bf16 and f32.
+     kernels take (f32, 8 to 96), and f32 at SD-2.1's 768px level
+     (H = 5, T = S = 9216, D = 64; untimed); each flash_bwd_dq and
+     flash_bwd_dkv call must launch the kernel _dq_route / _bwd_route
+     picks (bf16: flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu, each
+     also called directly at both tile heights, and the mma kernels of
+     flash_bwd.cu on the same inputs; f32 at D <= 96: flash_bwd_dq_tf32x3.cu
+     and flash_bwd_dkv_tf32x3.cu, each also called directly at its tile
+     heights, with both mma kernels on the same inputs, else the mma
+     kernels). Relative errors; at the training levels, median times of
+     both dQ and both dK/dV kernels through their C entry points and as
+     device time (CUDA-graph replays), the wgmma and tf32x3 kernels'
+     device time at their other tile height, the tf32x3 kernels' shared
+     hi/lo split (once per backward call), the two wrappers, the plain
+     versions, one autograd.grad of a retained SDPA graph (dQ, dK, dV
+     together, bf16 and f32; timed only, its device time from
+     torch.profiler), the FLOP bounds (tf32x3: at the TF32 rate, beside
+     its FFMA bound) and the exponential floor; their sums over one
+     training step (5 launches of each kernel per level), bf16 and f32.
   5. slice: the SD-1.5 txt2img serving path at full width with random
      weights from a seed: a rank-4 LoRA + one TI embed saved to a
      .safetensors file and loaded with patch_pipe, 2 prompts, 512x512,
@@ -95,11 +99,11 @@ it the build of the kernels):
      gradient checkpointing: the same loss, and 30 forward launches (every
      forward launch of the phase wgmma, every dQ and dK/dV launch as in
      phase 6). Then the same in f32 (the trainer's default dtype, the
-     counted f32 path: 15 launches each of flash_fwd.cu and the mma dQ
-     kernel, and of dK/dV 10 through flash_bwd_dkv_tf32x3.cu (D = 40, 80)
-     and 5 through the mma kernel (D = 160); the LoRA gradients within
-     1e-3), and 3 warm-up and 5 timed f32 training steps (AdamW 1e-4,
-     clip 1.0), each with those launches: their median.
+     counted f32 path: 15 launches of flash_fwd.cu, and of dQ and of dK/dV
+     10 each through flash_bwd_dq_tf32x3.cu and flash_bwd_dkv_tf32x3.cu
+     (D = 40, 80) and 5 through the mma kernels (D = 160); the LoRA
+     gradients within 1e-3), and 3 warm-up and 5 timed f32 training steps
+     (AdamW 1e-4, clip 1.0), each with those launches: their median.
   8. int8 kernel: the int8-weight matmul against its plain version at
      every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
      decoder's attention), bf16 (each call must launch the wgmma kernel,
@@ -170,6 +174,10 @@ TOL = {torch.bfloat16: {"o": 2e-2, "lse": 1e-3},
 SD15_ATTN_SHAPES = ((4096, 40), (1024, 80), (256, 160))
 RAGGED = (300, 77, 64)  # (T, S, D): masked tails in T, S and in the tiles
 FLASH_D_SWEEP = (200, 130)  # (T, S) of the sweep over the wgmma kernel's D
+# (H, T = S, D) of SD-2.1's spatial self-attention at 768px (96x96 latents,
+# 5 heads of 64 channels at the first level): the longest f32 sums the
+# tf32x3 backward kernels run on a supported model
+SD21_768_LEVEL = (5, 9216, 64)
 # max |kernel - plain| / max |plain| of dQ, dK and dV, on the same inputs.
 # bf16: the gradients are stored in bf16 (an ulp is 2^-8 = 3.9e-3 relative)
 # and P and dS are rounded to bf16 before their products in both versions,
@@ -272,7 +280,7 @@ def phase_build(stems=None) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma",
                  "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
-                 "flash_bwd_dkv_tf32x3"):
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dq_tf32x3"):
         if stem in paths:
             with open(paths[stem][:-3] + ".log") as f:
                 for line in f:
@@ -281,14 +289,17 @@ def phase_build(stems=None) -> None:
                         log(f"build: {stem}: {line.strip()}")
     # each wgmma backward instance's streamed tile (q rows for dK/dV, kv
     # rows for dQ), ring depth and dynamic shared memory (ptxas reports
-    # static shared memory only); the tf32x3 kernel's also its kv rows
+    # static shared memory only); the tf32x3 kernels' also the rows a CTA
+    # holds (kv rows for dK/dV, q rows for dQ)
     for stem, keys, max_d, step in (
             ("flash_bwd_dkv_wgmma", ("BQ", "stages", "smem_bytes"),
              fa.WGMMA_DKV_MAX_D, 16),
             ("flash_bwd_dq_wgmma", ("BN", "stages", "smem_bytes"),
              fa.WGMMA_DQ_MAX_D, 16),
             ("flash_bwd_dkv_tf32x3", ("BQ", "stages", "smem_bytes",
-                                      "BN_MAX"), fa.WGMMA_F32_DKV_MAX_D, 8)):
+                                      "BN_MAX"), fa.WGMMA_F32_DKV_MAX_D, 8),
+            ("flash_bwd_dq_tf32x3", ("BN", "stages", "smem_bytes",
+                                     "BM_MAX"), fa.WGMMA_F32_DQ_MAX_D, 8)):
         if stem not in paths:
             continue
         config = getattr(kernel_build.load_library(stem), stem + "_config")
@@ -637,7 +648,8 @@ def dkv_probe(timeout_s: float = 60.0) -> None:
 def tf32x3_probe(timeout_s: float = 60.0) -> None:
     """The tf32x3 dK/dV kernel's first calls: the f32 ragged call and the
     main training shape in f32, each also at the kv tile heights its
-    instance holds (the mma kernels beside it on the same inputs)."""
+    instance holds (the tf32x3 dQ kernel, which tf32x3_dq_probe tried
+    first, and the mma kernels beside it on the same inputs)."""
     _probe("tf32x3 dK/dV", (
         "import torch, chip_smoke as c; "
         "g = torch.Generator('cuda').manual_seed(c.SEED); "
@@ -647,13 +659,17 @@ def tf32x3_probe(timeout_s: float = 60.0) -> None:
         "timed=False)"), timeout_s)
 
 
-def check_dq_wgmma(B, H, T, S, D, gen, heads_inner=True) -> None:
-    """The wgmma dQ kernel alone, through its C entry point at both q tile
-    heights, against flash_bwd_dq_reference (bf16; the forward kernel
-    makes O and L): the calls of dq_probe."""
-    dt = torch.bfloat16
-    q, k, v = _qkv(B, H, T, S, D, dt, gen, heads_inner)
-    do = _qkv(B, H, T, T, D, dt, gen, heads_inner)[0]
+def check_dq_direct(B, H, T, S, D, gen, heads_inner=True,
+                    dtype=torch.bfloat16) -> None:
+    """One dQ kernel alone, through its C entry point at each q tile
+    height its instance holds, against flash_bwd_dq_reference (the
+    forward kernel makes O and L): bf16 the wgmma kernel (64 and 128),
+    f32 the tf32x3 kernel on its split operands (128 only where
+    D <= TF32X3_DQ_BM128_MAX_D). The calls of dq_probe and
+    tf32x3_dq_probe."""
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
+    do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
     scale = D ** -0.5
     with torch.inference_mode():
         o, lse = fa.flash_fwd(q, k, v, scale)
@@ -661,16 +677,22 @@ def check_dq_wgmma(B, H, T, S, D, gen, heads_inner=True) -> None:
         want = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
                                          scale).float()
         qt = fa._q_tilde(q, scale)
+        ops = (fa._tf32x3_operands(qt, do, k, v, ("dq",))["dq"]
+               if route == "tf32x3" else None)
+        bms = (64, 128) if route == "wgmma" or (
+            D <= fa.TF32X3_DQ_BM128_MAX_D) else (64,)
         rel = {}
-        for bm in (64, 128):
-            got = fa._dq_launch("wgmma", qt, k, v, do, lse, delta, scale, bm)
+        for bm in bms:
+            got = fa._dq_launch(route, qt, k, v, do, lse, delta, scale, bm,
+                                ops)
             rel[bm] = ((got.float() - want).abs().max()
                        / want.abs().max()).item()
-    log(f"dq probe: (B, H, T, S, D) = {(B, H, T, S, D)}, relative error "
-        f"by q tile height {rel}")
-    if not all(np.isfinite(r) and r <= BWD_REL_TOL[dt] for r in rel.values()):
-        raise AssertionError(f"the wgmma dQ kernel is {rel} from its plain "
-                             f"version, limit {BWD_REL_TOL[dt]}")
+    log(f"dq probe: {route} (B, H, T, S, D) = {(B, H, T, S, D)}, relative "
+        f"error by q tile height {rel}")
+    if not all(np.isfinite(r) and r <= BWD_REL_TOL[dtype]
+               for r in rel.values()):
+        raise AssertionError(f"the {route} dQ kernel is {rel} from its "
+                             f"plain version, limit {BWD_REL_TOL[dtype]}")
 
 
 def dq_probe(timeout_s: float = 60.0) -> None:
@@ -680,8 +702,22 @@ def dq_probe(timeout_s: float = 60.0) -> None:
     _probe("wgmma dQ", (
         "import torch, chip_smoke as c; "
         "g = torch.Generator('cuda').manual_seed(c.SEED); "
-        "c.check_dq_wgmma(1, 2, *c.RAGGED, g, heads_inner=False); "
-        "c.check_dq_wgmma(1, 8, 4096, 4096, 40, g)"), timeout_s)
+        "c.check_dq_direct(1, 2, *c.RAGGED, g, heads_inner=False); "
+        "c.check_dq_direct(1, 8, 4096, 4096, 40, g)"), timeout_s)
+
+
+def tf32x3_dq_probe(timeout_s: float = 60.0) -> None:
+    """The tf32x3 dQ kernel's first calls: the f32 ragged call and the
+    main training shape in f32, each at the q tile heights its instance
+    holds, before anything else launches it (tf32x3_probe's calls go
+    through it too)."""
+    _probe("tf32x3 dQ", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_dq_direct(1, 2, *c.RAGGED, g, heads_inner=False, "
+        "dtype=torch.float32); "
+        "c.check_dq_direct(1, 8, 4096, 4096, 40, g, dtype=torch.float32)"),
+        timeout_s)
 
 
 def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
@@ -689,18 +725,18 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
     """flash_bwd_dq and flash_bwd_dkv against their plain versions on the
     same inputs: q, k, v, dO as the UNet passes them, O and L from the
     forward kernel, delta = rowsum(dO * O). Each wrapper must launch the
-    kernel _dq_route / _bwd_route picks. bf16 also checks both mma kernels
-    on the same inputs, f32 routed to tf32x3 the mma dK/dV kernel, and,
-    where the route is wgmma or tf32x3, each such kernel called directly
-    at its tile heights (dQ: bm 64 and 128; dK/dV: bn 64 and 128, tf32x3
-    128 only where its instance holds it). Timed: each routed kernel (a
-    wgmma or tf32x3 one on Q~ formed beforehand, tf32x3 also on its split
-    operands formed beforehand, whose forming is timed apart) and each mma
-    kernel it replaced, through its C entry point and as device time
-    (CUDA-graph replays), and each wgmma or tf32x3 kernel's device time at
-    its other tile height; both wrappers (Q~ and the split included); the
-    plain versions; SDPA's backward; the FLOP bounds (tf32x3 also its
-    FFMA bound) and the exponential floor."""
+    kernel _dq_route / _bwd_route picks. Where a route is wgmma or tf32x3
+    it also checks the mma kernel of that wrapper on the same inputs, and
+    the routed kernel called directly at its tile heights (dQ: bm 64 and
+    128, tf32x3 128 only where its instance holds it; dK/dV: bn 64 and
+    128, the same). Timed: each routed kernel (a wgmma or tf32x3 one on Q~
+    formed beforehand, tf32x3 also on the split operands formed
+    beforehand, once for both kernels, whose forming is timed apart) and
+    each mma kernel it replaced, through its C entry point and as device
+    time (CUDA-graph replays), and each wgmma or tf32x3 kernel's device
+    time at its other tile height; both wrappers (Q~ and the split
+    included); the plain versions; SDPA's backward; the FLOP bounds
+    (tf32x3 also its FFMA bound) and the exponential floor."""
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
     scale = D ** -0.5
@@ -727,22 +763,28 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
         ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*args)
         checks = [("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)]
         direct_dq, direct = {}, {}
-        if bf16:
+        if dq_route != "mma":
             direct_dq["prev"] = lambda: fa._dq_launch("mma", *args)
         if route != "mma":
             direct["prev"] = lambda: fa._dkv_launch("mma", *args)
-        if dq_route == "wgmma":
-            for bm in (64, 128):
+        # the split both tf32x3 kernels read, formed once
+        tf32x3 = [n for n, r in (("dq", dq_route), ("dkv", route))
+                  if r == "tf32x3"]
+        ops = fa._tf32x3_operands(qt, do, k, v, tf32x3) if tf32x3 else {}
+        bms = (64, 128) if dq_route == "wgmma" or (
+            dq_route == "tf32x3" and D <= fa.TF32X3_DQ_BM128_MAX_D) else (64,)
+        if dq_route != "mma":
+            for bm in bms:
                 direct_dq[f"bm{bm}"] = lambda bm=bm: fa._dq_launch(
-                    "wgmma", qt, k, v, do, lse, delta, scale, bm)
-        ops = (fa._tf32x3_operands(qt, do, k, v) if route == "tf32x3"
-               else None)
+                    dq_route, qt, k, v, do, lse, delta, scale, bm,
+                    ops.get("dq"))
         bns = (64, 128) if route == "wgmma" or (
             route == "tf32x3" and D <= fa.TF32X3_BN128_MAX_D) else (64,)
         if route != "mma":
             for bn in bns:
                 direct[f"bn{bn}"] = lambda bn=bn: fa._dkv_launch(
-                    route, qt, k, v, do, lse, delta, scale, bn, ops)
+                    route, qt, k, v, do, lse, delta, scale, bn,
+                    ops.get("dkv"))
         for name, call in direct_dq.items():
             checks.append((f"dq_{name}", call(), ref_dq))
         for name, call in direct.items():
@@ -761,32 +803,36 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
 
             calls = {"dq_": lambda: fa._dq_launch(
                          dq_route, q_for(dq_route), k, v, do, lse, delta,
-                         scale),
+                         scale, operands=ops.get("dq")),
                      "dkv_": lambda: fa._dkv_launch(
                          route, q_for(route), k, v, do, lse, delta, scale,
-                         operands=ops)}
-            if bf16:
+                         operands=ops.get("dkv"))}
+            if dq_route != "mma":
                 calls["dq_prev_"] = direct_dq["prev"]
             if route != "mma":
                 calls["dkv_prev_"] = direct["prev"]
-            if route == "tf32x3":  # the wrapper's split of the operands
-                calls["dkv_split_"] = lambda: fa._tf32x3_operands(
-                    qt, do, k, v)
+            if tf32x3:  # the split both tf32x3 kernels read, once per call
+                calls["split_"] = lambda: fa._tf32x3_operands(
+                    qt, do, k, v, tf32x3)
             for name, call in calls.items():
                 row[name + "ms"] = _time_ms(call)
                 row[name + "device_ms"] = _graph_ms(call)
-            if route == "mma" and not bf16:
-                # f32 beyond the tf32x3 kernel: the mma kernel is both the
+            if not bf16:
+                # f32 beyond the tf32x3 kernels: the mma kernel is both the
                 # routed and the earlier kernel, and nothing is split
                 for key in ("ms", "device_ms"):
-                    row["dkv_prev_" + key] = row["dkv_" + key]
-                    row["dkv_split_" + key] = 0.0
+                    for name, r in (("dq_", dq_route), ("dkv_", route)):
+                        if r == "mma":
+                            row[name + "prev_" + key] = row[name + key]
+                    if not tf32x3:
+                        row["split_" + key] = 0.0
             row["dq_wrapper_ms"] = _time_ms(lambda: fa.flash_bwd_dq(*args))
             row["dkv_wrapper_ms"] = _time_ms(lambda: fa.flash_bwd_dkv(*args))
             sms = i8._sm_count(q.device)
             # the tile height _dq_bm / _dkv_bn did not pick
-            if dq_route == "wgmma":
-                other = 192 - fa._dq_bm(T, B * H, sms)
+            if len(bms) == 2:
+                other = 192 - (fa._dq_bm(T, B * H, sms) if dq_route == "wgmma"
+                               else fa._dq_tf32x3_bm(T, B * H, D, sms))
                 row["dq_other_bm"] = other
                 row["dq_other_bm_device_ms"] = _graph_ms(
                     direct_dq[f"bm{other}"])
@@ -810,17 +856,19 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                 row[f"{name}_bound_ms"] = b["bound_ms"]
                 row[f"{name}_bound_by"] = b["bound_by"]
             if not bf16:
-                # the f32 dK/dV on CUDA-core FMAs (the mma kernel's bound),
-                # and on the tensor cores as 3xTF32: three tf32 products
-                # for each of the four, at the dense TF32 rate
-                row["dkv_ffma_bound_ms"] = row["dkv_bound_ms"]
-                row["dkv_ffma_bound_by"] = row["dkv_bound_by"]
-                if route == "tf32x3":
-                    b = _bound(3 * 8 * B * H * T * S * D,
-                               reads + e * 2 * B * H * S * D,
-                               PEAK_TF32_FLOPS)
-                    row["dkv_bound_ms"] = b["bound_ms"]
-                    row["dkv_bound_by"] = b["bound_by"]
+                # the f32 dQ and dK/dV on CUDA-core FMAs (the mma kernels'
+                # bounds), and on the tensor cores as 3xTF32: three tf32
+                # products for each of their three or four, at the dense
+                # TF32 rate
+                for name, f, out, r in (("dq", 6, B * H * T * D, dq_route),
+                                        ("dkv", 8, 2 * B * H * S * D, route)):
+                    row[f"{name}_ffma_bound_ms"] = row[f"{name}_bound_ms"]
+                    row[f"{name}_ffma_bound_by"] = row[f"{name}_bound_by"]
+                    if r == "tf32x3":
+                        b = _bound(3 * f * B * H * T * S * D, reads + e * out,
+                                   PEAK_TF32_FLOPS)
+                        row[f"{name}_bound_ms"] = b["bound_ms"]
+                        row[f"{name}_bound_by"] = b["bound_by"]
             # each kernel recomputes P: B*H*T*S exponentials
             row["exp_floor_ms"] = _exp_floor_ms(B, H, T, S)
     if timed:
@@ -849,7 +897,8 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                       else "tf32x3" if not bf16
                       and D <= fa.WGMMA_F32_DKV_MAX_D else "mma"),
             "dq_route": ("wgmma" if bf16 and D <= fa.WGMMA_DQ_MAX_D
-                         else "mma")}
+                         else "tf32x3" if not bf16
+                         and D <= fa.WGMMA_F32_DQ_MAX_D else "mma")}
     if bad or row["kernel"] != [route] or row["dq_kernel"] != [dq_route] \
             or {key: row[key] for key in want} != want:
         raise AssertionError(f"flash_bwd kernels disagree with their plain "
@@ -873,13 +922,20 @@ def phase_bwd_kernels():
         rows.append(check_bwd_kernels(2, 8, T, T, D, torch.bfloat16, gen,
                                       timed=False))
     # every D the routes send to the wgmma dQ and dK/dV kernels and to the
-    # tf32x3 dK/dV kernel (each of their instances), with ragged T and S
+    # tf32x3 dQ and dK/dV kernels (each of their instances), with ragged T
+    # and S
     for D in range(8, max(fa.WGMMA_DQ_MAX_D, fa.WGMMA_DKV_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.bfloat16, gen, timed=False))
-    for D in range(8, fa.WGMMA_F32_DKV_MAX_D + 1, 8):
+    for D in range(8, max(fa.WGMMA_F32_DQ_MAX_D,
+                          fa.WGMMA_F32_DKV_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.float32, gen, timed=False))
+    # f32 at SD-2.1's 768px level: the tf32x3 kernels' per-tile sums over
+    # 9216 q and kv rows
+    H, T, D = SD21_768_LEVEL
+    rows.append(check_bwd_kernels(1, H, T, T, D, torch.float32, gen,
+                                  timed=False))
     return rows
 
 
@@ -889,15 +945,17 @@ BWD_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms", "dq_prev_device_ms",
                 "dq_plain_ms", "dkv_plain_ms", "library_ms",
                 "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
                 "exp_floor_ms")
-# f32: dQ runs the mma kernel only; dK/dV the tf32x3 kernel where the route
-# sends it ("prev": the mma kernel on the same inputs, which the D = 160
-# level runs anyway), with the wrapper's split and both bounds
-BWD_F32_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_wrapper_ms", "dkv_ms",
+# f32: dQ and dK/dV run the tf32x3 kernels where the routes send them
+# ("prev": the mma kernels on the same inputs, which the D = 160 level runs
+# anyway), with the split both read (formed once per backward call) and
+# both bounds
+BWD_F32_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms",
+                    "dq_prev_device_ms", "dq_wrapper_ms", "dkv_ms",
                     "dkv_device_ms", "dkv_prev_ms", "dkv_prev_device_ms",
-                    "dkv_split_ms", "dkv_split_device_ms", "dkv_wrapper_ms",
+                    "split_ms", "split_device_ms", "dkv_wrapper_ms",
                     "dq_plain_ms", "dkv_plain_ms", "library_ms",
                     "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
-                    "dkv_ffma_bound_ms", "exp_floor_ms")
+                    "dq_ffma_bound_ms", "dkv_ffma_bound_ms", "exp_floor_ms")
 
 
 def bwd_step_sums(rows) -> dict:
@@ -921,8 +979,8 @@ def bwd_per_step(max_d: int, fn, route: str = "wgmma") -> dict:
     """A backward wrapper's launches per training step by kernel (every
     key of fn.launches_by_kernel): 5 at each level, through `route` where
     D <= max_d (bf16: WGMMA_DQ_MAX_D for flash_bwd_dq, WGMMA_DKV_MAX_D for
-    flash_bwd_dkv; f32: WGMMA_F32_DKV_MAX_D and "tf32x3" for
-    flash_bwd_dkv), else through the mma kernel."""
+    flash_bwd_dkv; f32: "tf32x3" with WGMMA_F32_DQ_MAX_D and
+    WGMMA_F32_DKV_MAX_D), else through the mma kernel."""
     n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
     fast = n * sum(D <= max_d for _, D in SD15_ATTN_SHAPES)
     counts = dict.fromkeys(fn.launches_by_kernel, 0)
@@ -1480,10 +1538,10 @@ def phase_grad(dt=torch.bfloat16):
     """The full-width LoRA gradient through the kernels against the one
     through the plain attention path; in bf16 (the bench's dtype) also
     with gradient checkpointing. f32 (the trainer's default) runs the f32
-    kernels: flash_fwd.cu, flash_bwd.cu's dQ, and dK/dV through
-    flash_bwd_dkv_tf32x3.cu at D <= WGMMA_F32_DKV_MAX_D and flash_bwd.cu
-    above it; then TRAIN_F32_WARMUP and TRAIN_F32_STEPS timed f32 training
-    steps (train_f32_steps)."""
+    kernels: flash_fwd.cu, and dQ and dK/dV through flash_bwd_dq_tf32x3.cu
+    and flash_bwd_dkv_tf32x3.cu at D <= WGMMA_F32_DQ_MAX_D and
+    WGMMA_F32_DKV_MAX_D, flash_bwd.cu above them; then TRAIN_F32_WARMUP
+    and TRAIN_F32_STEPS timed f32 training steps (train_f32_steps)."""
     from lora_tpu_torch.ops.attention import set_use_memory_efficient_attention
     from lora_tpu_torch.training.optim import make_optimizer, tree_leaves
     from lora_tpu_torch.training.train_step import make_trainable
@@ -1556,8 +1614,9 @@ def phase_grad(dt=torch.bfloat16):
                            "remat_loss_rtol": REMAT_LOSS_RTOL}})
     log("grad: " + json.dumps(row))
     # bf16: two steps through the kernels (plain, checkpointed), the
-    # forward twice in the checkpointed one; f32: one step, the forward and
-    # dQ all mma, dK/dV tf32x3 where D <= WGMMA_F32_DKV_MAX_D
+    # forward twice in the checkpointed one; f32: one step, the forward all
+    # mma, dQ and dK/dV tf32x3 where D <= WGMMA_F32_DQ_MAX_D and
+    # WGMMA_F32_DKV_MAX_D
     want_dq, want_dkv, want_fwd = _per_step_want(dt)
     if bf16:
         want_dq, want_dkv = ({r: 2 * n for r, n in w.items()}
@@ -1591,7 +1650,7 @@ def _per_step_want(dt):
         return (bwd_per_step(fa.WGMMA_DQ_MAX_D, fa.flash_bwd_dq),
                 bwd_per_step(fa.WGMMA_DKV_MAX_D, fa.flash_bwd_dkv),
                 {"wgmma": ROUTED_PER_UNET_CALL, "mma": 0})
-    return (bwd_per_step(0, fa.flash_bwd_dq),  # f32 dQ: mma at every D
+    return (bwd_per_step(fa.WGMMA_F32_DQ_MAX_D, fa.flash_bwd_dq, "tf32x3"),
             bwd_per_step(fa.WGMMA_F32_DKV_MAX_D, fa.flash_bwd_dkv, "tf32x3"),
             {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL})
 
@@ -1626,7 +1685,7 @@ def train_f32_steps(trainable, base, batch, gen) -> dict:
         raise AssertionError(f"non-finite f32 loss: {losses.tolist()}")
     out = {"warmup": TRAIN_F32_WARMUP, "timed_steps": TRAIN_F32_STEPS,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
-           "dkv_launches_per_step": want[1]}
+           "dq_launches_per_step": want[0], "dkv_launches_per_step": want[1]}
     log("train f32: " + json.dumps(out))
     return out
 
@@ -1920,16 +1979,17 @@ def main_flash() -> int:
 def main_flash_bwd() -> int:
     """The backward kernels alone: the device line, the builds of both
     forward kernels (the residuals, bf16 and f32), flash_bwd.cu,
-    flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu and
-    flash_bwd_dkv_tf32x3.cu, the wgmma dQ, wgmma dK/dV and tf32x3 dK/dV
-    kernels' first calls in child processes under a timeout, phase 4 and
-    its sums over one training step (bf16 and f32)."""
+    flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu
+    and flash_bwd_dq_tf32x3.cu, the wgmma dQ, wgmma dK/dV, tf32x3 dQ and
+    tf32x3 dK/dV kernels' first calls in child processes under a timeout,
+    phase 4 and its sums over one training step (bf16 and f32)."""
     smi = phase_device()
     phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_bwd",
                  "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
-                 "flash_bwd_dkv_tf32x3"])
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dq_tf32x3"])
     dq_probe()
     dkv_probe()
+    tf32x3_dq_probe()
     tf32x3_probe()
     bwd_step_sums(phase_bwd_kernels())
     log(smi)
@@ -1953,6 +2013,7 @@ def main() -> int:
     phase_build()
     dq_probe()
     dkv_probe()
+    tf32x3_dq_probe()
     tf32x3_probe()
     rows = phase_kernels()
     fwd_sums = flash_call_sums(rows)
@@ -2085,23 +2146,74 @@ def main() -> int:
         "per_training_step": {k: v for k, v in bwd_sums["bfloat16"].items()
                               if not k.startswith("dkv_")},
     })
+    f32_dq = grad_f32["dq_launches_by_kernel"]
+    f32_bwd = [r for r in bwd_rows if r["dtype"] == "float32"]
+    sd21 = next(r for r in f32_bwd if (r["H"], r["T"], r["D"])
+                == SD21_768_LEVEL)
+    kernels.append({
+        "name": "flash_bwd_dq_tf32x3",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd_dq_tf32x3.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:178",
+        # the counted f32 training run of phase 7: every dQ launch at
+        # D <= WGMMA_F32_DQ_MAX_D (phase 7 checks it)
+        "launches": f32_dq["tf32x3"],
+        "launches_by_path": {"train_f32_grad": f32_dq["tf32x3"]},
+        "launches_by_kernel": f32_dq,
+        # worst dQ error over the f32 calls of phase 4 routed here
+        "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
+                           if r["dq_route"] == "tf32x3"
+                           for e in ("dq", "dq_bm64", "dq_bm128")
+                           if f"err_{e}" in r),
+        # dQ, dK and dV at SD-2.1's 768px level (H = 5, T = S = 9216,
+        # D = 64), relative to the plain versions' largest values
+        "sd21_768_rel_err": {n: sd21[f"rel_{n}"] for n in ("dq", "dk", "dv")},
+        # at the main training shape in f32: the kernel on Q~ and its split
+        # operands formed beforehand; split: forming the split both tf32x3
+        # kernels read, once per backward call; wrapper: flash_bwd_dq with
+        # its Q~ and split; prev: the mma kernel (flash_bwd.cu) on the same
+        # inputs; bound: 3xTF32 at the dense TF32 rate, ffma_bound: the
+        # same work on CUDA-core FMAs; library: SDPA's backward in f32
+        **timed(bwd_f32, "dq_"),
+        "device_ms": bwd_f32["dq_device_ms"],
+        "split_ms": bwd_f32["split_ms"],
+        "split_device_ms": bwd_f32["split_device_ms"],
+        "wrapper_ms": bwd_f32["dq_wrapper_ms"],
+        "prev_ms": bwd_f32["dq_prev_ms"],
+        "prev_device_ms": bwd_f32["dq_prev_device_ms"],
+        "ffma_bound_ms": bwd_f32["dq_ffma_bound_ms"],
+        "library_ms": bwd_f32["library_ms"],
+        "library_device_ms": bwd_f32["library_device_ms"],
+        "library_computes": "dq, dk, dv",
+        "exp_floor_ms": bwd_f32["exp_floor_ms"],
+        # every f32 column summed over the 15 launches of one f32 step
+        "per_training_step": {k: v for k, v in bwd_sums["float32"].items()
+                              if not k.startswith("dkv_")},
+        "train_f32_step_ms_median": grad_f32["train_f32"]["step_ms_median"],
+    })
     kernels.append({
         "name": "flash_bwd_dq_mma",
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:178",
-        # the f32 training run of phase 7 (f32 attention), and the bf16
-        # training steps at D > WGMMA_DQ_MAX_D
-        "launches": grad_f32["dq_launches_by_kernel"]["mma"]
-        + train_dq["mma"],
-        "launches_by_path": {"train_f32_grad":
-                             grad_f32["dq_launches_by_kernel"]["mma"],
+        # the f32 training run of phase 7 at D > WGMMA_F32_DQ_MAX_D, and
+        # the bf16 training steps at D > WGMMA_DQ_MAX_D
+        "launches": f32_dq["mma"] + train_dq["mma"],
+        "launches_by_path": {"train_f32_grad": f32_dq["mma"],
                              "train": train_dq["mma"]},
-        "max_abs_err": max(r["err_dq"] for r in bwd_rows
-                           if r["dtype"] == "float32"),
-        # at the main training shape in f32, the bound at the f32 rate
-        # (the kernel's CUDA-core FMAs); library: SDPA's backward in f32
-        **timed(bwd_f32, "dq_"),
+        # worst f32 error of phase 4: the calls routed here, and the
+        # kernel called directly beside the tf32x3 one
+        "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
+                           for e in (("dq",) if r["dq_route"] == "mma"
+                                     else ("dq_prev",))),
+        # at the main training shape in f32 (called directly on the tf32x3
+        # kernel's inputs), the bound at the f32 rate (the kernel's
+        # CUDA-core FMAs); library: SDPA's backward in f32
+        "ms": bwd_f32["dq_prev_ms"],
+        "device_ms": bwd_f32["dq_prev_device_ms"],
+        "plain_ms": bwd_f32["dq_plain_ms"],
+        "bound_ms": bwd_f32["dq_ffma_bound_ms"],
+        "bound_by": bwd_f32["dq_ffma_bound_by"],
         "library_ms": bwd_f32["library_ms"],
         "library_device_ms": bwd_f32["library_device_ms"],
         "library_computes": "dq, dk, dv",
@@ -2138,7 +2250,6 @@ def main() -> int:
                               if not k.startswith("dq_")},
     })
     f32_dkv = grad_f32["dkv_launches_by_kernel"]
-    f32_bwd = [r for r in bwd_rows if r["dtype"] == "float32"]
     kernels.append({
         "name": "flash_bwd_dkv_tf32x3",
         "route": "cuda",
@@ -2156,15 +2267,16 @@ def main() -> int:
                                      "dk_bn128", "dv_bn128")
                            if f"err_{e}" in r),
         # at the main training shape in f32: the kernel on Q~ and its split
-        # operands formed beforehand; split: forming them; wrapper:
-        # flash_bwd_dkv with its Q~ and split; prev: the mma kernel
+        # operands formed beforehand; split: forming the split both tf32x3
+        # kernels read; wrapper: flash_bwd_dkv with its Q~ and split (its
+        # own part only); prev: the mma kernel
         # (flash_bwd.cu) on the same inputs; bound: 3xTF32 at the dense
         # TF32 rate, ffma_bound: the same work on CUDA-core FMAs; library:
         # SDPA's backward in f32
         **timed(bwd_f32, "dkv_"),
         "device_ms": bwd_f32["dkv_device_ms"],
-        "split_ms": bwd_f32["dkv_split_ms"],
-        "split_device_ms": bwd_f32["dkv_split_device_ms"],
+        "split_ms": bwd_f32["split_ms"],
+        "split_device_ms": bwd_f32["split_device_ms"],
         "wrapper_ms": bwd_f32["dkv_wrapper_ms"],
         "prev_ms": bwd_f32["dkv_prev_ms"],
         "prev_device_ms": bwd_f32["dkv_prev_device_ms"],

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
 // directory (int8_matmul_wgmma.cu, flash_fwd_wgmma.cu,
-// flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu):
+// flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu,
+// flash_bwd_dq_tf32x3.cu):
 // mbarriers, TMA loads and stores, wgmma shared-memory descriptors, the
 // wgmma instructions (bf16 and tf32) and their fence / commit / wait, the
 // 3xTF32 split, and the host-side encoding of TMA tensor maps through
@@ -430,7 +431,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
 // registers, per warp rows (g, g + 8) and columns (t, t + 4) as a0 = (g, t),
 // a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4) (g = lane / 4,
 // t = lane % 4), N = 8 to 96; wgmma_ss_tf32: A and B from shared memory,
-// N = 16 and 32.
+// N = 16, 32 and 64.
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[4], const uint32_t* a, uint64_t b,
                                               int scale_d) {
   asm volatile(
@@ -625,6 +626,21 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t a, uint64
       "}, %16, %17, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -13,8 +13,12 @@ lora_tpu/ops/flash_attention.py:
         "wgmma"    csrc/flash_bwd_dq_wgmma.cu   bf16: TMA ring of K and V,
                                                 producer warp, warpgroup
                                                 wgmma, dS as register A
-        "mma"      csrc/flash_bwd.cu            mma.sync: f32, D > 160, a
-                                                stride of 0
+        "tf32x3"   csrc/flash_bwd_dq_tf32x3.cu  f32 with D <= 96: the same
+                                                pipeline, every product as
+                                                three tf32 wgmmas (hi/lo)
+        "mma"      csrc/flash_bwd.cu            mma.sync: f32 with D > 96,
+                                                bf16 with D > 160, a stride
+                                                of 0
     flash_bwd_dkv  _bwd_dkv_kernel  dK and dV, through
         "wgmma"    csrc/flash_bwd_dkv_wgmma.cu  bf16: TMA ring, producer
                                                 warp, warpgroup wgmma
@@ -28,14 +32,17 @@ lora_tpu/ops/flash_attention.py:
 `_fwd_route`, `_dq_route` and `_bwd_route` pick the forward, the dQ and
 the dK/dV kernel from dtype, D and layout alone; `_fwd_bm` the wgmma
 forward's q rows per CTA from T, B * H and the SM count, `_dq_bm` the
-wgmma dQ kernel's the same way, `_dkv_bn` the wgmma dK/dV kernel's kv rows
-per CTA from S, B * H and the SM count (`_dkv_tf32x3_bn` the tf32x3
-kernel's, capped by what its shared memory holds). The wgmma and tf32x3
-backward kernels take Q~ = f32(q) * scale rounded to q's dtype (`_q_tilde`:
-TMA cannot scale on load), which `flash_attention_backward` forms once for
-both backward wrappers. The tf32x3 kernel also takes every f32 operand split
-into tf32 hi and lo parts (`_split_tf32`) and q-innermost copies of Q~ and
-dO (`_tf32x3_transposed`), which `_tf32x3_operands` forms per call.
+wgmma dQ kernel's the same way (`_dq_tf32x3_bm` the tf32x3 dQ kernel's,
+capped by what its shared memory holds), `_dkv_bn` the wgmma dK/dV kernel's
+kv rows per CTA from S, B * H and the SM count (`_dkv_tf32x3_bn` the tf32x3
+kernel's, capped the same way). The wgmma and tf32x3 backward kernels take
+Q~ = f32(q) * scale rounded to q's dtype (`_q_tilde`: TMA cannot scale on
+load). The two tf32x3 kernels also take every f32 operand split into tf32
+hi and lo parts (`_split_tf32`), dK/dV q-innermost copies of Q~ and dO, dQ
+a kv-innermost copy of K (`_tf32x3_transposed`), all formed by
+`_tf32x3_operands` from one split of Q~, dO, K and V.
+`flash_attention_backward` forms Q~ and that split once for both backward
+wrappers (each wrapper forms its own part when called alone).
 
 `flash_attention(q, k, v, scale)` is the entry point: a
 torch.autograd.Function (the JAX custom_vjp, `scale` not differentiated)
@@ -48,8 +55,8 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises: nothing reacts to a failure), and counts its
 launches in `<wrapper>.launches` and per kernel in
-`<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, and "tf32x3" for
-flash_bwd_dkv, summing to `launches`).
+`<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, and "tf32x3" for the two
+backward wrappers, summing to `launches`).
 
 Build: the first CUDA call of a kernel compiles its own source (and no
 other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
@@ -81,26 +88,34 @@ WGMMA_DKV_MAX_D = 160
 # csrc/flash_bwd_dkv_tf32x3.cu (a CPU test holds them equal)
 WGMMA_F32_DKV_MAX_D = 96
 TF32X3_BN128_MAX_D = 64
-# the tf32x3 kernel's transposed copies: q columns rounded up to T_ALIGN of
-# the source (its largest q tile), so no TMA box lies wholly past them
+# the same for the tf32x3 dQ kernel, csrc/flash_bwd_dq_tf32x3.cu: MAX_DP,
+# and the widest head at which BM_MAX is 128 q rows a CTA
+WGMMA_F32_DQ_MAX_D = 96
+TF32X3_DQ_BM128_MAX_D = 64
+# the tf32x3 kernels' transposed copies, rounded up with zeros so no TMA
+# box lies wholly past them: the q columns of Q~ and dO to T_ALIGN of the
+# dK/dV source (its largest q tile), the kv columns of K to S_ALIGN of the
+# dQ source (its largest kv tile)
 TF32X3_T_ALIGN = 32
+TF32X3_S_ALIGN = 64
 
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma" and
-# "dq_wgmma", bn for "dkv_wgmma" and "dkv_tf32x3"), scale, stream
+# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma", "dq_wgmma"
+# and "dq_tf32x3", bn for "dkv_wgmma" and "dkv_tf32x3"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
 _ENTRY = {
     # entry: (source stem, C function, pointer arguments)
     "wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma", 5),
     "mma": ("flash_fwd", "flash_fwd", 5),
-    # flash_bwd_dq's two routes, "dq_" + route
+    # flash_bwd_dq's three routes, "dq_" + route
     "dq_wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma", 7),
+    "dq_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3", 13),
     "dq_mma": ("flash_bwd", "flash_bwd_dq", 7),
-    # flash_bwd_dkv's two routes, "dkv_" + route
+    # flash_bwd_dkv's three routes, "dkv_" + route
     "dkv_wgmma": ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma", 8),
     "dkv_tf32x3": ("flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3", 16),
     "dkv_mma": ("flash_bwd", "flash_bwd_dkv", 8),
@@ -109,8 +124,8 @@ _ENTRY = {
 
 def _entry(name: str):
     """The ctypes function of one kernel ("wgmma" or "mma" forward,
-    "dq_wgmma", "dq_mma", "dkv_wgmma", "dkv_tf32x3" or "dkv_mma"), building
-    its source on first use."""
+    "dq_" or "dkv_" + a backward route), building its source on first
+    use."""
     with _lib_lock:
         if name not in _fns:
             stem, fn_name, n_ptrs = _ENTRY[name]
@@ -286,6 +301,16 @@ def _fwd_bm(T: int, bh: int, sms: int = 132) -> int:
     return 128 if -(-T // 128) * bh >= sms else 64
 
 
+def _bwd_kernel_route(max_d: int, f32_max_d: int, q: torch.Tensor,
+                      *others: torch.Tensor) -> str:
+    """"tf32x3" for f32 with D <= f32_max_d where every tensor has a
+    layout TMA's tensor maps take (_tma_ok), else _route's rule."""
+    if (q.dtype == torch.float32 and q.shape[3] <= f32_max_d
+            and _tma_ok(q, *others)):
+        return "tf32x3"
+    return _route(max_d, q, *others)
+
+
 def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                do: torch.Tensor) -> str:
     """The dK/dV kernel of a call: "wgmma" (csrc/flash_bwd_dkv_wgmma.cu)
@@ -294,17 +319,16 @@ def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     each where the layouts are ones TMA's tensor maps take (_tma_ok); "mma"
     (csrc/flash_bwd.cu) for the rest: wider D, a broadcast. A layout
     _layout_ok refuses never launches: _check raises first."""
-    if (q.dtype == torch.float32 and q.shape[3] <= WGMMA_F32_DKV_MAX_D
-            and _tma_ok(q, k, v, do)):
-        return "tf32x3"
-    return _route(WGMMA_DKV_MAX_D, q, k, v, do)
+    return _bwd_kernel_route(WGMMA_DKV_MAX_D, WGMMA_F32_DKV_MAX_D, q, k, v,
+                             do)
 
 
 def _dq_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do: torch.Tensor) -> str:
-    """The dQ kernel of a call: _bwd_route's rule with WGMMA_DQ_MAX_D,
-    "wgmma" (csrc/flash_bwd_dq_wgmma.cu) or "mma" (csrc/flash_bwd.cu)."""
-    return _route(WGMMA_DQ_MAX_D, q, k, v, do)
+    """The dQ kernel of a call: _bwd_route's rule with WGMMA_DQ_MAX_D and
+    WGMMA_F32_DQ_MAX_D, "wgmma" (csrc/flash_bwd_dq_wgmma.cu), "tf32x3"
+    (csrc/flash_bwd_dq_tf32x3.cu) or "mma" (csrc/flash_bwd.cu)."""
+    return _bwd_kernel_route(WGMMA_DQ_MAX_D, WGMMA_F32_DQ_MAX_D, q, k, v, do)
 
 
 def _dq_bm(T: int, bh: int, sms: int = 132) -> int:
@@ -312,6 +336,12 @@ def _dq_bm(T: int, bh: int, sms: int = 132) -> int:
     heads on `sms` SMs: _fwd_bm's rule (128, two consumer warpgroups,
     unless that gives fewer CTAs than SMs)."""
     return _fwd_bm(T, bh, sms)
+
+
+def _dq_tf32x3_bm(T: int, bh: int, D: int, sms: int = 132) -> int:
+    """q rows per CTA of the tf32x3 dQ kernel: _dq_bm's rule where the
+    instance holds 128 rows (D <= TF32X3_DQ_BM128_MAX_D), else 64."""
+    return _dq_bm(T, bh, sms) if D <= TF32X3_DQ_BM128_MAX_D else 64
 
 
 def _dkv_bn(S: int, bh: int, sms: int = 132) -> int:
@@ -343,29 +373,40 @@ def _split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, _rna_tf32(x - hi)
 
 
-def _tf32x3_transposed(x: torch.Tensor) -> torch.Tensor:
+def _tf32x3_transposed(x: torch.Tensor,
+                       align: int = TF32X3_T_ALIGN) -> torch.Tensor:
     """(B, H, T, D) -> (B, H, D, T') contiguous, T' = T rounded up to
-    TF32X3_T_ALIGN with zeros past T, q permuted within each group of 8 by
-    pi = [0, 2, 4, 6, 1, 3, 5, 7] (column 8j + p holds q row 8j + pi(p)):
-    the K-major B operand of the tf32x3 kernel's dV and dK products, whose
-    register-A fragments are then the score accumulators as they are. pi is
-    a (4, 2) -> (2, 4) transpose of each group of 8."""
+    `align` with zeros past T, rows permuted within each group of 8 by
+    pi = [0, 2, 4, 6, 1, 3, 5, 7] (column 8j + p holds row 8j + pi(p)):
+    the K-major B operand of a tf32x3 kernel's products over the row axis
+    (dV and dK over q, dQ over kv), whose register-A fragments are then the
+    score accumulators as they are. pi is a (4, 2) -> (2, 4) transpose of
+    each group of 8."""
     B, H, T, D = x.shape
-    tp = -(-T // TF32X3_T_ALIGN) * TF32X3_T_ALIGN
+    tp = -(-T // align) * align
     y = torch.nn.functional.pad(x, (0, 0, 0, tp - T))
     return y.view(B, H, tp // 8, 4, 2, D).permute(0, 1, 5, 2, 4, 3).reshape(
         B, H, D, tp)
 
 
-def _tf32x3_operands(q_tilde, do, k, v) -> Tuple[torch.Tensor, ...]:
-    """The twelve operands of the tf32x3 kernel, each f32 tensor split
-    into hi and lo: Q~, dO, K, V (in their layouts), then the transposed
-    copies of Q~ and dO."""
+def _tf32x3_operands(q_tilde, do, k, v, kernels=("dq", "dkv")
+                     ) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """{kernel: operands} of the tf32x3 kernels named in `kernels` ("dq",
+    "dkv"), from one split of each f32 tensor into hi and lo. Both read Q~,
+    dO, K, V hi and lo (in their layouts); then "dkv" the transposed copies
+    of Q~ and dO (twelve tensors), "dq" that of K (ten)."""
     qh, ql = _split_tf32(q_tilde)
     oh, ol = _split_tf32(do)
-    return (qh, ql, oh, ol, *_split_tf32(k), *_split_tf32(v),
-            _tf32x3_transposed(qh), _tf32x3_transposed(ql),
-            _tf32x3_transposed(oh), _tf32x3_transposed(ol))
+    kh, kl = _split_tf32(k)
+    split = (qh, ql, oh, ol, kh, kl, *_split_tf32(v))
+    ops = {}
+    if "dkv" in kernels:
+        ops["dkv"] = split + tuple(_tf32x3_transposed(x)
+                                   for x in (qh, ql, oh, ol))
+    if "dq" in kernels:
+        ops["dq"] = split + tuple(_tf32x3_transposed(x, TF32X3_S_ALIGN)
+                                  for x in (kh, kl))
+    return ops
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -375,7 +416,8 @@ def _strides(*tensors) -> ctypes.Array:
 
 def _launch(fn, name, ptrs, strides, q, k, arg, scale):
     """One C entry point on the current stream; `arg` is is_bf16 (bm for
-    the wgmma forward and dQ kernels, bn for the wgmma dK/dV kernel)."""
+    the wgmma forward and the wgmma and tf32x3 dQ kernels, bn for the
+    wgmma and tf32x3 dK/dV kernels)."""
     B, H, T, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -410,40 +452,47 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def _dq_launch(route, q, k, v, do, lse, delta, scale, bm=None
-               ) -> torch.Tensor:
+def _dq_launch(route, q, k, v, do, lse, delta, scale, bm=None,
+               operands=None) -> torch.Tensor:
     """One dQ kernel through its C entry point (no routing, no count). The
-    wgmma kernel takes q as Q~ (_q_tilde: TMA cannot scale on load) and
-    `bm` q rows per CTA (by default _dq_bm's); the mma kernel takes q and
-    scales it itself. dQ comes back in the layout of the q given."""
+    wgmma and tf32x3 kernels take q as Q~ (_q_tilde: TMA cannot scale on
+    load) and `bm` q rows per CTA (by default _dq_bm's, or
+    _dq_tf32x3_bm's); the tf32x3 kernel reads _tf32x3_operands(q, do, k,
+    v)["dq"], formed here unless given as `operands`; the mma kernel takes
+    q and scales it itself. dQ comes back in the layout of the q given."""
     dq = torch.empty_like(q)
-    if route == "wgmma":
-        B, H, T, _ = q.shape
+    B, H, T, D = q.shape
+    tensors = (q, k, v, do)
+    if route == "tf32x3":
+        tensors = operands or _tf32x3_operands(q, do, k, v, ("dq",))["dq"]
+        arg = bm or _dq_tf32x3_bm(T, B * H, D, _sm_count(q.device))
+    elif route == "wgmma":
         arg = bm or _dq_bm(T, B * H, _sm_count(q.device))
     else:
         arg = int(q.dtype == torch.bfloat16)
     _launch(_entry(f"dq_{route}"), f"flash_bwd_dq ({route})",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-            _strides(q, k, v, do, dq), q, k, arg, scale)
+            [t.data_ptr() for t in (*tensors, lse, delta, dq)],
+            _strides(*tensors, dq), q, k, arg, scale)
     return dq
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, q_tilde=None
-                 ) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, q_tilde=None,
+                 operands=None) -> torch.Tensor:
     """dQ in q's layout (where q is dense) and dtype, from the forward's q,
     k, v, L, the incoming dO and delta = rowsum(dO * O). CUDA tensors
-    launch the kernel `_dq_route` picks; the wgmma kernel reads
-    `q_tilde` (_q_tilde(q, scale)) where the caller has formed it, else
-    the wrapper forms it."""
+    launch the kernel `_dq_route` picks; the wgmma and tf32x3 kernels read
+    `q_tilde` (_q_tilde(q, scale)) and the tf32x3 kernel `operands`
+    (_tf32x3_operands(q_tilde, do, k, v)["dq"]) where the caller has
+    formed them, else the wrapper forms them."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
     route = _dq_route(q, k, v, do)
-    if route == "wgmma":
+    if route != "mma":
         q = _q_tilde(q, scale) if q_tilde is None else q_tilde
-    dq = _dq_launch(route, q, k, v, do, lse, delta, scale)
+    dq = _dq_launch(route, q, k, v, do, lse, delta, scale,
+                    operands=operands)
     flash_bwd_dq.launches_by_kernel[route] += 1
     flash_bwd_dq.launches += 1
     return dq
@@ -455,13 +504,13 @@ def _dkv_launch(route, q, k, v, do, lse, delta, scale, bn=None,
     The wgmma and tf32x3 kernels take q as Q~ (_q_tilde: TMA cannot scale
     on load) and `bn` kv rows per CTA (by default _dkv_bn's, or
     _dkv_tf32x3_bn's); the tf32x3 kernel reads _tf32x3_operands(q, do, k,
-    v), formed here unless given as `operands`; the mma kernel takes q and
-    scales it itself."""
+    v)["dkv"], formed here unless given as `operands`; the mma kernel takes
+    q and scales it itself."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     B, H, _, D = q.shape
     tensors = (q, k, v, do)
     if route == "tf32x3":
-        tensors = operands or _tf32x3_operands(q, do, k, v)
+        tensors = operands or _tf32x3_operands(q, do, k, v, ("dkv",))["dkv"]
         arg = bn or _dkv_tf32x3_bn(k.shape[2], B * H, D, _sm_count(q.device))
     elif route == "wgmma":
         arg = bn or _dkv_bn(k.shape[2], B * H, _sm_count(q.device))
@@ -473,10 +522,11 @@ def _dkv_launch(route, q, k, v, do, lse, delta, scale, bn=None,
     return dk, dv
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) in k's and v's layouts and dtype; inputs as flash_bwd_dq.
-    CUDA tensors launch the kernel `_bwd_route` picks."""
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None,
+                  operands=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) in k's and v's layouts and dtype; inputs as flash_bwd_dq
+    (`operands`: _tf32x3_operands(q_tilde, do, k, v)["dkv"]). CUDA tensors
+    launch the kernel `_bwd_route` picks."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
     _check(q, k, v, do)
@@ -484,7 +534,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None
     route = _bwd_route(q, k, v, do)
     if route != "mma":
         q = _q_tilde(q, scale) if q_tilde is None else q_tilde
-    dk, dv = _dkv_launch(route, q, k, v, do, lse, delta, scale)
+    dk, dv = _dkv_launch(route, q, k, v, do, lse, delta, scale,
+                         operands=operands)
     flash_bwd_dkv.launches_by_kernel[route] += 1
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -492,7 +543,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None
 
 flash_fwd.launches_by_kernel = {"wgmma": 0, "mma": 0}
 flash_fwd.launches = 0  # the sum of launches_by_kernel
-flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "mma": 0}
+flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
 flash_bwd_dq.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
 flash_bwd_dkv.launches = 0  # the sum of launches_by_kernel
@@ -502,19 +553,28 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float
                              ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) through the two backward kernels (their plain versions
     on the CPU). Where either routes to a kernel that reads Q~ (wgmma,
-    tf32x3), Q~ is formed once here and handed to both."""
-    qt = None
+    tf32x3), Q~ is formed once here and handed to both, and where either
+    routes to tf32x3, so is the split of Q~, dO, K and V
+    (_tf32x3_operands, each kernel's part)."""
+    qt, ops = None, {}
     if do.device.type == "cuda":
         if not _layout_ok(do):
             # dO comes with whatever strides autograd gives it (the UNet's
             # is a transposed view the kernels take as it is); one copy
             # otherwise
             do = do.contiguous()
-        if {_dq_route(q, k, v, do), _bwd_route(q, k, v, do)} != {"mma"}:
+        routes = {"dq": _dq_route(q, k, v, do),
+                  "dkv": _bwd_route(q, k, v, do)}
+        if set(routes.values()) != {"mma"}:
             qt = _q_tilde(q, scale)
+        tf32x3 = [n for n, r in routes.items() if r == "tf32x3"]
+        if tf32x3:
+            ops = _tf32x3_operands(qt, do, k, v, tf32x3)
     delta = _delta(o, do)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, qt)
-    return flash_bwd_dq(q, k, v, do, lse, delta, scale, qt), dk, dv
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, qt,
+                           ops.get("dkv"))
+    return flash_bwd_dq(q, k, v, do, lse, delta, scale, qt,
+                        ops.get("dq")), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -492,12 +492,15 @@ def test_cpu_bwd_dkv_call_launches_nothing():
 def test_dq_route(case):
     """The dQ kernel of a call: bf16 at every training-path shape (the
     UNet's transposed views, dO alike) and contiguous tensors take the
-    wgmma kernel; f32, D above WGMMA_DQ_MAX_D and broadcast strides the
-    mma kernel. The route reads dtype, D and strides only."""
+    wgmma kernel; f32 at D <= WGMMA_F32_DQ_MAX_D the tf32x3 kernel; D
+    above WGMMA_DQ_MAX_D and broadcast strides the mma kernel. The route
+    reads dtype, D and strides only."""
     (q, k, v), want = _route_case(case)
     if case[0] == "wide_head":
         q = _bthd(1, 64, 2, t_fa.WGMMA_DQ_MAX_D + 8)
         q, k, v = q, q, q
+    if case[0] == "f32":
+        want = "tf32x3"
     do = torch.zeros_like(q)
     assert all(t_fa._layout_ok(t) for t in (q, k, v, do))
     assert t_fa._dq_route(q, k, v, do) == want

@@ -121,7 +121,7 @@ def _emulate(q, k, v, do, lse, delta, scale, terms=3):
     copies, with P^T and dS^T read in the order the register fragments
     give them (k position p of a group of 8 is q column pi(p))."""
     qt = t_fa._q_tilde(q, scale)
-    ops = t_fa._tf32x3_operands(qt, do, k, v)
+    ops = t_fa._tf32x3_operands(qt, do, k, v, ("dkv",))["dkv"]
     (qh, ql, oh, ol, kh, kl, vh, vl, qth, qtl, oth, otl) = ops
     T = q.shape[2]
     tp = qth.shape[-1]
@@ -248,22 +248,30 @@ def _a_map(g, t):
     return [(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)]
 
 
+@pytest.mark.parametrize("copy", ["dkv_dO", "dq_K"])
 @pytest.mark.parametrize("order,permuted,exact", [
     ((0, 2, 1, 3), True, True),     # the kernel's choice
     ((0, 1, 2, 3), True, False),    # the registers as they come: wrong
     ((0, 2, 1, 3), False, False),   # without pi in the transposed copies
 ])
-def test_accumulator_feeds_register_a_through_pi(order, permuted, exact):
-    """A warp's 16 rows of P^T (an S^T accumulator, BQ = 32 columns) read
-    back as register-A fragments (a_r = d_order[r] of n8 block i for k8
-    step i) and multiplied with the transposed copy of dO give P^T dO
+def test_accumulator_feeds_register_a_through_pi(order, permuted, exact,
+                                                 copy):
+    """A warp's 16 rows of a score accumulator (32 columns: P^T over q in
+    the dK/dV kernel, dS over kv in the dQ kernel) read back as register-A
+    fragments (a_r = d_order[r] of n8 block i for k8 step i) and multiplied
+    with the transposed copy the kernel reads (dO^T, padded to
+    TF32X3_T_ALIGN, or K^T, padded to TF32X3_S_ALIGN) give the product
     exactly when the registers go (d0, d2, d1, d3) and the copy is
     pi-permuted; any other choice gives another product."""
     rng = np.random.default_rng(61)
     BQ, D = 32, 24
     pt = rng.standard_normal((16, BQ))
     do = rng.standard_normal((BQ, D))
-    dot = t_fa._tf32x3_transposed(torch.from_numpy(do)[None, None])[0, 0]
+    align = {"dkv_dO": t_fa.TF32X3_T_ALIGN,
+             "dq_K": t_fa.TF32X3_S_ALIGN}[copy]
+    dot = t_fa._tf32x3_transposed(torch.from_numpy(do)[None, None],
+                                  align)[0, 0]
+    assert dot.shape == (D, -(-BQ // align) * align)
     if not permuted:
         dot = torch.from_numpy(np.ascontiguousarray(do.T))
     dot = dot.numpy()[:, :BQ]
