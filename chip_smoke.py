@@ -15,14 +15,15 @@
                                         # flash_fwd_wgmma.cu, flash_bwd.cu,
                                         # flash_bwd_dkv_wgmma.cu,
                                         # flash_bwd_dq_wgmma.cu,
-                                        # flash_bwd_dkv_tf32x3.cu and
+                                        # flash_bwd_dkv_tf32x3.cu,
+                                        # flash_bwd_dkv_tf32x3_wide.cu and
                                         # flash_bwd_dq_tf32x3.cu only),
                                         # the wgmma dQ, wgmma dK/dV,
-                                        # tf32x3 dQ and tf32x3 dK/dV
-                                        # kernels' first calls in child
-                                        # processes under a timeout, 4 and
-                                        # its sums over one training step
-                                        # (bf16 and f32)
+                                        # tf32x3 dQ, tf32x3 dK/dV and
+                                        # tf32x3_wide dK/dV kernels' first
+                                        # calls in child processes under a
+                                        # timeout, 4 and its sums over one
+                                        # training step (bf16 and f32)
 
 Phases, each printing its own lines (about 5 minutes on one H100, most of
 it the build of the kernels):
@@ -30,14 +31,15 @@ it the build of the kernels):
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu,
      flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu,
-     flash_bwd_dkv_tf32x3.cu, flash_bwd_dq_tf32x3.cu, int8_matmul.cu,
-     int8_matmul_wgmma.cu; one nvcc each, in parallel) for sm_90a into the
-     build directory, and prints ptxas's registers, shared memory and
-     spills of the wgmma and tf32x3 kernels and each backward instance's
-     tiles; then the wgmma dQ kernel's first calls (that kernel alone), the
-     wgmma dK/dV kernel's, the tf32x3 dQ kernel's (f32, that kernel alone)
-     and the tf32x3 dK/dV kernel's (f32), each in a child process under a
-     timeout.
+     flash_bwd_dkv_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu,
+     flash_bwd_dq_tf32x3.cu, int8_matmul.cu, int8_matmul_wgmma.cu; one
+     nvcc each, in parallel) for sm_90a into the build directory, and
+     prints ptxas's registers, shared memory and spills of the wgmma and
+     tf32x3 kernels and each backward instance's tiles; then the wgmma dQ
+     kernel's first calls (that kernel alone), the wgmma dK/dV kernel's,
+     the tf32x3 dQ kernel's (f32, that kernel alone), the tf32x3 dK/dV
+     kernel's (f32) and the tf32x3_wide dK/dV kernel's (f32, D = 160: its
+     cluster pair), each in a child process under a timeout.
   3. kernel: the forward kernels against their plain PyTorch version on the
      card at the SD-1.5 512px self-attention shapes, bf16 at the serving
      batch (4) and the training batch (1), each call through the wgmma
@@ -58,25 +60,30 @@ it the build of the kernels):
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
      the SD-1.5 training shapes (batch 1; bf16 also untimed at batch 2),
      bf16 and f32, plus the ragged call, a ragged call at every D the
-     wgmma backward kernels take (8 to 160) and at every D the tf32x3
-     kernels take (f32, 8 to 96), and f32 at SD-2.1's 768px level
-     (H = 5, T = S = 9216, D = 64; untimed); each flash_bwd_dq and
-     flash_bwd_dkv call must launch the kernel _dq_route / _bwd_route
-     picks (bf16: flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu, each
-     also called directly at both tile heights, and the mma kernels of
-     flash_bwd.cu on the same inputs; f32 at D <= 96: flash_bwd_dq_tf32x3.cu
-     and flash_bwd_dkv_tf32x3.cu, each also called directly at its tile
-     heights, with both mma kernels on the same inputs, else the mma
-     kernels). Relative errors; at the training levels, median times of
-     both dQ and both dK/dV kernels through their C entry points and as
+     wgmma backward kernels take (8 to 160) and at every f32 D the tf32x3
+     and tf32x3_wide kernels take (8 to 160), f32 at SD-2.1's 768px level
+     (H = 5, T = S = 9216, D = 64; untimed) and at SD-1.5's widest heads
+     over 4096 rows (H = 8, T = S = 4096, D = 160; untimed); each
+     flash_bwd_dq and flash_bwd_dkv call must launch the kernel
+     _dq_route / _bwd_route picks (bf16: flash_bwd_dq_wgmma.cu and
+     flash_bwd_dkv_wgmma.cu, each also called directly at both tile
+     heights, and the mma kernels of flash_bwd.cu on the same inputs; f32
+     at D <= 96: flash_bwd_dq_tf32x3.cu and flash_bwd_dkv_tf32x3.cu, each
+     also called directly at its tile heights, with both mma kernels on
+     the same inputs; f32 at 96 < D <= 160: dK/dV through
+     flash_bwd_dkv_tf32x3_wide.cu, also called directly, with the mma
+     kernel on the same inputs, and dQ through the mma kernel; else the
+     mma kernels). Relative errors; at the training levels, median times
+     of both dQ and both dK/dV kernels through their C entry points and as
      device time (CUDA-graph replays), the wgmma and tf32x3 kernels'
      device time at their other tile height, the tf32x3 kernels' shared
      hi/lo split (once per backward call), the two wrappers, the plain
      versions, one autograd.grad of a retained SDPA graph (dQ, dK, dV
      together, bf16 and f32; timed only, its device time from
-     torch.profiler), the FLOP bounds (tf32x3: at the TF32 rate, beside
-     its FFMA bound) and the exponential floor; their sums over one
-     training step (5 launches of each kernel per level), bf16 and f32.
+     torch.profiler), the FLOP bounds (tf32x3 and tf32x3_wide: at the TF32
+     rate, beside their FFMA bound) and the exponential floor; their sums
+     over one training step (5 launches of each kernel per level), bf16
+     and f32.
   5. slice: the SD-1.5 txt2img serving path at full width with random
      weights from a seed: a rank-4 LoRA + one TI embed saved to a
      .safetensors file and loaded with patch_pipe, 2 prompts, 512x512,
@@ -99,11 +106,13 @@ it the build of the kernels):
      gradient checkpointing: the same loss, and 30 forward launches (every
      forward launch of the phase wgmma, every dQ and dK/dV launch as in
      phase 6). Then the same in f32 (the trainer's default dtype, the
-     counted f32 path: 15 launches of flash_fwd.cu, and of dQ and of dK/dV
-     10 each through flash_bwd_dq_tf32x3.cu and flash_bwd_dkv_tf32x3.cu
-     (D = 40, 80) and 5 through the mma kernels (D = 160); the LoRA
-     gradients within 1e-3), and 3 warm-up and 5 timed f32 training steps
-     (AdamW 1e-4, clip 1.0), each with those launches: their median.
+     counted f32 path: 15 launches of flash_fwd.cu; of dQ 10 through
+     flash_bwd_dq_tf32x3.cu (D = 40, 80) and 5 through the mma kernel
+     (D = 160); of dK/dV 10 through flash_bwd_dkv_tf32x3.cu and 5 through
+     flash_bwd_dkv_tf32x3_wide.cu (D = 160), none through the mma kernel;
+     the LoRA gradients within 1e-3), and 3 warm-up and 5 timed f32
+     training steps (AdamW 1e-4, clip 1.0), each with those launches:
+     their median.
   8. int8 kernel: the int8-weight matmul against its plain version at
      every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
      decoder's attention), bf16 (each call must launch the wgmma kernel,
@@ -178,6 +187,10 @@ FLASH_D_SWEEP = (200, 130)  # (T, S) of the sweep over the wgmma kernel's D
 # 5 heads of 64 channels at the first level): the longest f32 sums the
 # tf32x3 backward kernels run on a supported model
 SD21_768_LEVEL = (5, 9216, 64)
+# (H, T = S, D) of a long f32 call at SD-1.5's widest heads (its D = 160
+# level, 256 tokens at 512px and 1024 at 1024px, here at 4096): the
+# tf32x3_wide kernel's per-tile sums over 4096 q rows
+WIDE_LONG_LEVEL = (8, 4096, 160)
 # max |kernel - plain| / max |plain| of dQ, dK and dV, on the same inputs.
 # bf16: the gradients are stored in bf16 (an ulp is 2^-8 = 3.9e-3 relative)
 # and P and dS are rounded to bf16 before their products in both versions,
@@ -280,7 +293,8 @@ def phase_build(stems=None) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma",
                  "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
-                 "flash_bwd_dkv_tf32x3", "flash_bwd_dq_tf32x3"):
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
+                 "flash_bwd_dq_tf32x3"):
         if stem in paths:
             with open(paths[stem][:-3] + ".log") as f:
                 for line in f:
@@ -290,21 +304,26 @@ def phase_build(stems=None) -> None:
     # each wgmma backward instance's streamed tile (q rows for dK/dV, kv
     # rows for dQ), ring depth and dynamic shared memory (ptxas reports
     # static shared memory only); the tf32x3 kernels' also the rows a CTA
-    # holds (kv rows for dK/dV, q rows for dQ)
-    for stem, keys, max_d, step in (
-            ("flash_bwd_dkv_wgmma", ("BQ", "stages", "smem_bytes"),
+    # holds (kv rows for dK/dV, q rows for dQ; the tf32x3_wide kernel's kv
+    # rows per cluster pair)
+    for stem, keys, min_d, max_d, step in (
+            ("flash_bwd_dkv_wgmma", ("BQ", "stages", "smem_bytes"), 16,
              fa.WGMMA_DKV_MAX_D, 16),
-            ("flash_bwd_dq_wgmma", ("BN", "stages", "smem_bytes"),
+            ("flash_bwd_dq_wgmma", ("BN", "stages", "smem_bytes"), 16,
              fa.WGMMA_DQ_MAX_D, 16),
             ("flash_bwd_dkv_tf32x3", ("BQ", "stages", "smem_bytes",
-                                      "BN_MAX"), fa.WGMMA_F32_DKV_MAX_D, 8),
+                                      "BN_MAX"), 8, fa.WGMMA_F32_DKV_MAX_D,
+             8),
+            ("flash_bwd_dkv_tf32x3_wide", ("BQ", "stages", "smem_bytes",
+                                           "BN"),
+             fa.WGMMA_F32_DKV_MAX_D + 8, fa.WGMMA_F32_DKV_WIDE_MAX_D, 8),
             ("flash_bwd_dq_tf32x3", ("BN", "stages", "smem_bytes",
-                                     "BM_MAX"), fa.WGMMA_F32_DQ_MAX_D, 8)):
+                                     "BM_MAX"), 8, fa.WGMMA_F32_DQ_MAX_D, 8)):
         if stem not in paths:
             continue
         config = getattr(kernel_build.load_library(stem), stem + "_config")
         config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        for dp in range(step, max_d + 1, step):
+        for dp in range(min_d, max_d + 1, step):
             out = (ctypes.c_int * (1 + len(keys)))()
             if config(dp, out) != 0:
                 raise AssertionError(f"no {stem} instance for D = {dp}")
@@ -659,6 +678,20 @@ def tf32x3_probe(timeout_s: float = 60.0) -> None:
         "timed=False)"), timeout_s)
 
 
+def tf32x3_wide_probe(timeout_s: float = 60.0) -> None:
+    """The tf32x3_wide dK/dV kernel's first calls (a cluster of two CTAs
+    with mbarriers across them): an f32 ragged call at D = 160 and the
+    16x16 training level (T = S = 256, D = 160) in f32 (the mma kernels
+    beside it on the same inputs, dQ through its mma kernel)."""
+    _probe("tf32x3_wide dK/dV", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_bwd_kernels(1, 2, *c.RAGGED[:2], 160, torch.float32, g, "
+        "heads_inner=False, timed=False); "
+        "c.check_bwd_kernels(1, 8, 256, 256, 160, torch.float32, g, "
+        "timed=False)"), timeout_s)
+
+
 def check_dq_direct(B, H, T, S, D, gen, heads_inner=True,
                     dtype=torch.bfloat16) -> None:
     """One dQ kernel alone, through its C entry point at each q tile
@@ -725,18 +758,19 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
     """flash_bwd_dq and flash_bwd_dkv against their plain versions on the
     same inputs: q, k, v, dO as the UNet passes them, O and L from the
     forward kernel, delta = rowsum(dO * O). Each wrapper must launch the
-    kernel _dq_route / _bwd_route picks. Where a route is wgmma or tf32x3
-    it also checks the mma kernel of that wrapper on the same inputs, and
-    the routed kernel called directly at its tile heights (dQ: bm 64 and
-    128, tf32x3 128 only where its instance holds it; dK/dV: bn 64 and
-    128, the same). Timed: each routed kernel (a wgmma or tf32x3 one on Q~
-    formed beforehand, tf32x3 also on the split operands formed
-    beforehand, once for both kernels, whose forming is timed apart) and
-    each mma kernel it replaced, through its C entry point and as device
-    time (CUDA-graph replays), and each wgmma or tf32x3 kernel's device
-    time at its other tile height; both wrappers (Q~ and the split
-    included); the plain versions; SDPA's backward; the FLOP bounds
-    (tf32x3 also its FFMA bound) and the exponential floor."""
+    kernel _dq_route / _bwd_route picks. Where a route is wgmma, tf32x3
+    or tf32x3_wide it also checks the mma kernel of that wrapper on the
+    same inputs, and the routed kernel called directly at its tile heights
+    (dQ: bm 64 and 128, tf32x3 128 only where its instance holds it;
+    dK/dV: bn 64 and 128, the same; tf32x3_wide 64 only). Timed: each
+    routed kernel (a wgmma or tf32x3 one on Q~ formed beforehand, the
+    tf32x3 ones also on the split operands formed beforehand, once for
+    both kernels, whose forming is timed apart) and each mma kernel it
+    replaced, through its C entry point and as device time (CUDA-graph
+    replays), and each wgmma or tf32x3 kernel's device time at its other
+    tile height; both wrappers (Q~ and the split included); the plain
+    versions; SDPA's backward; the FLOP bounds (the tf32x3 routes also
+    their FFMA bound) and the exponential floor."""
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
     scale = D ** -0.5
@@ -767,9 +801,9 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
             direct_dq["prev"] = lambda: fa._dq_launch("mma", *args)
         if route != "mma":
             direct["prev"] = lambda: fa._dkv_launch("mma", *args)
-        # the split both tf32x3 kernels read, formed once
+        # the split the tf32x3 kernels read, formed once
         tf32x3 = [n for n, r in (("dq", dq_route), ("dkv", route))
-                  if r == "tf32x3"]
+                  if r in fa.TF32X3_ROUTES]
         ops = fa._tf32x3_operands(qt, do, k, v, tf32x3) if tf32x3 else {}
         bms = (64, 128) if dq_route == "wgmma" or (
             dq_route == "tf32x3" and D <= fa.TF32X3_DQ_BM128_MAX_D) else (64,)
@@ -811,7 +845,7 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                 calls["dq_prev_"] = direct_dq["prev"]
             if route != "mma":
                 calls["dkv_prev_"] = direct["prev"]
-            if tf32x3:  # the split both tf32x3 kernels read, once per call
+            if tf32x3:  # the split the tf32x3 kernels read, once per call
                 calls["split_"] = lambda: fa._tf32x3_operands(
                     qt, do, k, v, tf32x3)
             for name, call in calls.items():
@@ -864,7 +898,7 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                                         ("dkv", 8, 2 * B * H * S * D, route)):
                     row[f"{name}_ffma_bound_ms"] = row[f"{name}_bound_ms"]
                     row[f"{name}_ffma_bound_by"] = row[f"{name}_bound_by"]
-                    if r == "tf32x3":
+                    if r in fa.TF32X3_ROUTES:
                         b = _bound(3 * f * B * H * T * S * D, reads + e * out,
                                    PEAK_TF32_FLOPS)
                         row[f"{name}_bound_ms"] = b["bound_ms"]
@@ -895,7 +929,9 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
            if not (np.isfinite(row[f"rel_{n}"]) and row[f"rel_{n}"] <= tol)]
     want = {"route": ("wgmma" if bf16 and D <= fa.WGMMA_DKV_MAX_D
                       else "tf32x3" if not bf16
-                      and D <= fa.WGMMA_F32_DKV_MAX_D else "mma"),
+                      and D <= fa.WGMMA_F32_DKV_MAX_D
+                      else "tf32x3_wide" if not bf16
+                      and D <= fa.WGMMA_F32_DKV_WIDE_MAX_D else "mma"),
             "dq_route": ("wgmma" if bf16 and D <= fa.WGMMA_DQ_MAX_D
                          else "tf32x3" if not bf16
                          and D <= fa.WGMMA_F32_DQ_MAX_D else "mma")}
@@ -922,18 +958,22 @@ def phase_bwd_kernels():
         rows.append(check_bwd_kernels(2, 8, T, T, D, torch.bfloat16, gen,
                                       timed=False))
     # every D the routes send to the wgmma dQ and dK/dV kernels and to the
-    # tf32x3 dQ and dK/dV kernels (each of their instances), with ragged T
-    # and S
+    # tf32x3 dQ and the tf32x3 and tf32x3_wide dK/dV kernels (each of their
+    # instances), with ragged T and S
     for D in range(8, max(fa.WGMMA_DQ_MAX_D, fa.WGMMA_DKV_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.bfloat16, gen, timed=False))
     for D in range(8, max(fa.WGMMA_F32_DQ_MAX_D,
-                          fa.WGMMA_F32_DKV_MAX_D) + 1, 8):
+                          fa.WGMMA_F32_DKV_WIDE_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.float32, gen, timed=False))
     # f32 at SD-2.1's 768px level: the tf32x3 kernels' per-tile sums over
     # 9216 q and kv rows
     H, T, D = SD21_768_LEVEL
+    rows.append(check_bwd_kernels(1, H, T, T, D, torch.float32, gen,
+                                  timed=False))
+    # and the tf32x3_wide kernel's over 4096 q rows at D = 160
+    H, T, D = WIDE_LONG_LEVEL
     rows.append(check_bwd_kernels(1, H, T, T, D, torch.float32, gen,
                                   timed=False))
     return rows
@@ -945,10 +985,10 @@ BWD_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms", "dq_prev_device_ms",
                 "dq_plain_ms", "dkv_plain_ms", "library_ms",
                 "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
                 "exp_floor_ms")
-# f32: dQ and dK/dV run the tf32x3 kernels where the routes send them
-# ("prev": the mma kernels on the same inputs, which the D = 160 level runs
-# anyway), with the split both read (formed once per backward call) and
-# both bounds
+# f32: dQ and dK/dV run the tf32x3 and tf32x3_wide kernels where the
+# routes send them ("prev": the mma kernels on the same inputs; dQ's D = 160
+# level runs its mma kernel anyway), with the split they read (formed once
+# per backward call) and both bounds
 BWD_F32_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms",
                     "dq_prev_device_ms", "dq_wrapper_ms", "dkv_ms",
                     "dkv_device_ms", "dkv_prev_ms", "dkv_prev_device_ms",
@@ -975,17 +1015,18 @@ def bwd_step_sums(rows) -> dict:
     return sums
 
 
-def bwd_per_step(max_d: int, fn, route: str = "wgmma") -> dict:
+def bwd_per_step(fn, tiers) -> dict:
     """A backward wrapper's launches per training step by kernel (every
-    key of fn.launches_by_kernel): 5 at each level, through `route` where
-    D <= max_d (bf16: WGMMA_DQ_MAX_D for flash_bwd_dq, WGMMA_DKV_MAX_D for
-    flash_bwd_dkv; f32: "tf32x3" with WGMMA_F32_DQ_MAX_D and
-    WGMMA_F32_DKV_MAX_D), else through the mma kernel."""
+    key of fn.launches_by_kernel): 5 at each level, through the route of
+    the first (max_d, route) of `tiers` (widest last) with D <= max_d
+    (bf16: "wgmma" to WGMMA_DQ_MAX_D for flash_bwd_dq, to WGMMA_DKV_MAX_D
+    for flash_bwd_dkv; f32: "tf32x3" to WGMMA_F32_DQ_MAX_D, and to
+    WGMMA_F32_DKV_MAX_D then "tf32x3_wide" to WGMMA_F32_DKV_WIDE_MAX_D),
+    else through the mma kernel."""
     n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
-    fast = n * sum(D <= max_d for _, D in SD15_ATTN_SHAPES)
     counts = dict.fromkeys(fn.launches_by_kernel, 0)
-    counts[route] += fast
-    counts["mma"] += ROUTED_PER_UNET_CALL - fast
+    for _, D in SD15_ATTN_SHAPES:
+        counts[next((r for max_d, r in tiers if D <= max_d), "mma")] += n
     return counts
 
 
@@ -1400,6 +1441,7 @@ def _make_step(optimizer, remat=False, dtype=torch.bfloat16):
 # pattern a kernel's name matches (lower case) names its class
 KERNEL_CLASSES = (
     ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma"),
+    ("flash_bwd_dkv_tf32x3_wide", "flash_bwd_dkv_tf32x3_wide"),
     ("flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3"),
     ("flash_bwd_dkv_mma", "bwd_dkv"),
     ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma"),
@@ -1479,8 +1521,7 @@ def phase_train(smi: str):
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     bwd_fns = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    bwd_want = (bwd_per_step(fa.WGMMA_DQ_MAX_D, fa.flash_bwd_dq),
-                bwd_per_step(fa.WGMMA_DKV_MAX_D, fa.flash_bwd_dkv))
+    bwd_want = _per_step_want(torch.bfloat16)[:2]
     _zero_counts()  # the counted main-path run
     for _ in range(TRAIN_STEPS):
         before = _counts()
@@ -1538,10 +1579,12 @@ def phase_grad(dt=torch.bfloat16):
     """The full-width LoRA gradient through the kernels against the one
     through the plain attention path; in bf16 (the bench's dtype) also
     with gradient checkpointing. f32 (the trainer's default) runs the f32
-    kernels: flash_fwd.cu, and dQ and dK/dV through flash_bwd_dq_tf32x3.cu
-    and flash_bwd_dkv_tf32x3.cu at D <= WGMMA_F32_DQ_MAX_D and
-    WGMMA_F32_DKV_MAX_D, flash_bwd.cu above them; then TRAIN_F32_WARMUP
-    and TRAIN_F32_STEPS timed f32 training steps (train_f32_steps)."""
+    kernels: flash_fwd.cu, dQ through flash_bwd_dq_tf32x3.cu at
+    D <= WGMMA_F32_DQ_MAX_D and flash_bwd.cu above it, dK/dV through
+    flash_bwd_dkv_tf32x3.cu at D <= WGMMA_F32_DKV_MAX_D and
+    flash_bwd_dkv_tf32x3_wide.cu above it to WGMMA_F32_DKV_WIDE_MAX_D; then
+    TRAIN_F32_WARMUP and TRAIN_F32_STEPS timed f32 training steps
+    (train_f32_steps)."""
     from lora_tpu_torch.ops.attention import set_use_memory_efficient_attention
     from lora_tpu_torch.training.optim import make_optimizer, tree_leaves
     from lora_tpu_torch.training.train_step import make_trainable
@@ -1615,8 +1658,8 @@ def phase_grad(dt=torch.bfloat16):
     log("grad: " + json.dumps(row))
     # bf16: two steps through the kernels (plain, checkpointed), the
     # forward twice in the checkpointed one; f32: one step, the forward all
-    # mma, dQ and dK/dV tf32x3 where D <= WGMMA_F32_DQ_MAX_D and
-    # WGMMA_F32_DKV_MAX_D
+    # mma, dQ tf32x3 where D <= WGMMA_F32_DQ_MAX_D, dK/dV tf32x3 and
+    # tf32x3_wide (_per_step_want)
     want_dq, want_dkv, want_fwd = _per_step_want(dt)
     if bf16:
         want_dq, want_dkv = ({r: 2 * n for r, n in w.items()}
@@ -1647,11 +1690,15 @@ def _per_step_want(dt):
     """(dQ, dK/dV, forward) launches by kernel of one training step in
     `dt`."""
     if dt == torch.bfloat16:
-        return (bwd_per_step(fa.WGMMA_DQ_MAX_D, fa.flash_bwd_dq),
-                bwd_per_step(fa.WGMMA_DKV_MAX_D, fa.flash_bwd_dkv),
+        return (bwd_per_step(fa.flash_bwd_dq, ((fa.WGMMA_DQ_MAX_D, "wgmma"),)),
+                bwd_per_step(fa.flash_bwd_dkv,
+                             ((fa.WGMMA_DKV_MAX_D, "wgmma"),)),
                 {"wgmma": ROUTED_PER_UNET_CALL, "mma": 0})
-    return (bwd_per_step(fa.WGMMA_F32_DQ_MAX_D, fa.flash_bwd_dq, "tf32x3"),
-            bwd_per_step(fa.WGMMA_F32_DKV_MAX_D, fa.flash_bwd_dkv, "tf32x3"),
+    return (bwd_per_step(fa.flash_bwd_dq,
+                         ((fa.WGMMA_F32_DQ_MAX_D, "tf32x3"),)),
+            bwd_per_step(fa.flash_bwd_dkv,
+                         ((fa.WGMMA_F32_DKV_MAX_D, "tf32x3"),
+                          (fa.WGMMA_F32_DKV_WIDE_MAX_D, "tf32x3_wide"))),
             {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL})
 
 
@@ -1979,18 +2026,21 @@ def main_flash() -> int:
 def main_flash_bwd() -> int:
     """The backward kernels alone: the device line, the builds of both
     forward kernels (the residuals, bf16 and f32), flash_bwd.cu,
-    flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu
-    and flash_bwd_dq_tf32x3.cu, the wgmma dQ, wgmma dK/dV, tf32x3 dQ and
-    tf32x3 dK/dV kernels' first calls in child processes under a timeout,
-    phase 4 and its sums over one training step (bf16 and f32)."""
+    flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu,
+    flash_bwd_dkv_tf32x3_wide.cu and flash_bwd_dq_tf32x3.cu, the wgmma dQ,
+    wgmma dK/dV, tf32x3 dQ, tf32x3 dK/dV and tf32x3_wide dK/dV kernels'
+    first calls in child processes under a timeout, phase 4 and its sums
+    over one training step (bf16 and f32)."""
     smi = phase_device()
     phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_bwd",
                  "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
-                 "flash_bwd_dkv_tf32x3", "flash_bwd_dq_tf32x3"])
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
+                 "flash_bwd_dq_tf32x3"])
     dq_probe()
     dkv_probe()
     tf32x3_dq_probe()
     tf32x3_probe()
+    tf32x3_wide_probe()
     bwd_step_sums(phase_bwd_kernels())
     log(smi)
     return 0
@@ -2015,6 +2065,7 @@ def main() -> int:
     dkv_probe()
     tf32x3_dq_probe()
     tf32x3_probe()
+    tf32x3_wide_probe()
     rows = phase_kernels()
     fwd_sums = flash_call_sums(rows)
     bwd_rows = phase_bwd_kernels()
@@ -2286,22 +2337,68 @@ def main() -> int:
         "library_computes": "dq, dk, dv",
         "exp_floor_ms": bwd_f32["exp_floor_ms"],
         # every f32 column summed over the 15 launches of one f32 step
+        # (the D = 160 level's through the tf32x3_wide kernel)
         "per_training_step": {k: v for k, v in bwd_sums["float32"].items()
                               if not k.startswith("dq_")},
         "train_f32_step_ms_median": grad_f32["train_f32"]["step_ms_median"],
+    })
+    wide = next(r for r in f32_bwd if "dkv_ms" in r
+                and (r["T"], r["D"]) == SD15_ATTN_SHAPES[-1])
+    wide_long = next(r for r in f32_bwd if (r["H"], r["T"], r["D"])
+                     == WIDE_LONG_LEVEL)
+    wide_rows = [r for r in f32_bwd if r["route"] == "tf32x3_wide"]
+    kernels.append({
+        "name": "flash_bwd_dkv_tf32x3_wide",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd_dkv_tf32x3_wide.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:210",
+        # the counted f32 training run of phase 7: every dK/dV launch at
+        # WGMMA_F32_DKV_MAX_D < D <= WGMMA_F32_DKV_WIDE_MAX_D (phase 7
+        # checks it)
+        "launches": f32_dkv["tf32x3_wide"],
+        "launches_by_path": {"train_f32_grad": f32_dkv["tf32x3_wide"]},
+        "launches_by_kernel": f32_dkv,
+        # worst dK / dV error over the f32 calls of phase 4 routed here
+        # (the 16x16 level, the ragged sweep of D from 104 to 160 and
+        # T = S = 4096), absolute and relative to the plain version's
+        # largest value
+        "max_abs_err": max(r[f"err_{e}"] for r in wide_rows
+                           for e in ("dk", "dv", "dk_bn64", "dv_bn64")),
+        "max_rel_err": max(r[f"rel_{e}"] for r in wide_rows
+                           for e in ("dk", "dv", "dk_bn64", "dv_bn64")),
+        "long_t_rel_err": {n: wide_long[f"rel_{n}"] for n in ("dk", "dv")},
+        # at the 16x16 training level in f32 (T = S = 256, D = 160, B = 1,
+        # H = 8): the kernel on Q~ and its split operands formed
+        # beforehand; split: forming them; wrapper: flash_bwd_dkv with its
+        # Q~ and split; prev: the mma kernel (flash_bwd.cu) on the same
+        # inputs; bound: 3xTF32 at the dense TF32 rate, ffma_bound: the
+        # same work on CUDA-core FMAs; library: SDPA's backward in f32
+        **timed(wide, "dkv_"),
+        "device_ms": wide["dkv_device_ms"],
+        "split_ms": wide["split_ms"],
+        "split_device_ms": wide["split_device_ms"],
+        "wrapper_ms": wide["dkv_wrapper_ms"],
+        "prev_ms": wide["dkv_prev_ms"],
+        "prev_device_ms": wide["dkv_prev_device_ms"],
+        "ffma_bound_ms": wide["dkv_ffma_bound_ms"],
+        "library_ms": wide["library_ms"],
+        "library_device_ms": wide["library_device_ms"],
+        "library_computes": "dq, dk, dv",
+        "exp_floor_ms": wide["exp_floor_ms"],
     })
     kernels.append({
         "name": "flash_bwd_dkv_mma",
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:210",
-        # the f32 training run of phase 7 at D > WGMMA_F32_DKV_MAX_D, and
-        # the bf16 training steps at D > WGMMA_DKV_MAX_D
+        # the f32 training run of phase 7 at D > WGMMA_F32_DKV_WIDE_MAX_D,
+        # and the bf16 training steps at D > WGMMA_DKV_MAX_D: none at
+        # SD-1.5's levels
         "launches": f32_dkv["mma"] + train_dkv["mma"],
         "launches_by_path": {"train_f32_grad": f32_dkv["mma"],
                              "train": train_dkv["mma"]},
         # worst f32 error of phase 4: the calls routed here, and the
-        # kernel called directly beside the tf32x3 one
+        # kernel called directly beside the tf32x3 and tf32x3_wide ones
         "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
                            for e in (("dk", "dv") if r["route"] == "mma"
                                      else ("dk_prev", "dv_prev"))),

@@ -25,7 +25,13 @@ lora_tpu/ops/flash_attention.py:
         "tf32x3"   csrc/flash_bwd_dkv_tf32x3.cu f32 with D <= 96: the same
                                                 pipeline, every product as
                                                 three tf32 wgmmas (hi/lo)
-        "mma"      csrc/flash_bwd.cu            mma.sync: f32 with D > 96,
+        "tf32x3_wide"  csrc/flash_bwd_dkv_tf32x3_wide.cu  f32 with
+                                                96 < D <= 160: 3xTF32 on a
+                                                cluster of two CTAs (S^T,
+                                                P^T, dV and dP^T, dS^T, dK),
+                                                P^T passed through
+                                                distributed shared memory
+        "mma"      csrc/flash_bwd.cu            mma.sync: f32 with D > 160,
                                                 bf16 with D > 160, a stride
                                                 of 0
 
@@ -35,12 +41,14 @@ forward's q rows per CTA from T, B * H and the SM count, `_dq_bm` the
 wgmma dQ kernel's the same way (`_dq_tf32x3_bm` the tf32x3 dQ kernel's,
 capped by what its shared memory holds), `_dkv_bn` the wgmma dK/dV kernel's
 kv rows per CTA from S, B * H and the SM count (`_dkv_tf32x3_bn` the tf32x3
-kernel's, capped the same way). The wgmma and tf32x3 backward kernels take
-Q~ = f32(q) * scale rounded to q's dtype (`_q_tilde`: TMA cannot scale on
-load). The two tf32x3 kernels also take every f32 operand split into tf32
-hi and lo parts (`_split_tf32`), dK/dV q-innermost copies of Q~ and dO, dQ
-a kv-innermost copy of K (`_tf32x3_transposed`), all formed by
-`_tf32x3_operands` from one split of Q~, dO, K and V.
+kernel's, capped the same way; the tf32x3_wide kernel always takes
+TF32X3_WIDE_BN kv rows per cluster pair). The wgmma and tf32x3 backward
+kernels take Q~ = f32(q) * scale rounded to q's dtype (`_q_tilde`: TMA
+cannot scale on load). The three tf32x3 kernels also take every f32 operand
+split into tf32 hi and lo parts (`_split_tf32`), dK/dV (both of its
+kernels) q-innermost copies of Q~ and dO, dQ a kv-innermost copy of K
+(`_tf32x3_transposed`), all formed by `_tf32x3_operands` from one split of
+Q~, dO, K and V.
 `flash_attention_backward` forms Q~ and that split once for both backward
 wrappers (each wrapper forms its own part when called alone).
 
@@ -56,7 +64,8 @@ Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises: nothing reacts to a failure), and counts its
 launches in `<wrapper>.launches` and per kernel in
 `<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, and "tf32x3" for the two
-backward wrappers, summing to `launches`).
+backward wrappers and "tf32x3_wide" for flash_bwd_dkv, summing to
+`launches`).
 
 Build: the first CUDA call of a kernel compiles its own source (and no
 other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
@@ -88,16 +97,23 @@ WGMMA_DKV_MAX_D = 160
 # csrc/flash_bwd_dkv_tf32x3.cu (a CPU test holds them equal)
 WGMMA_F32_DKV_MAX_D = 96
 TF32X3_BN128_MAX_D = 64
+# the widest f32 head the tf32x3_wide dK/dV kernel instantiates (it takes
+# WGMMA_F32_DKV_MAX_D < D <= this), and its kv rows per cluster pair:
+# MAX_DP and BN of csrc/flash_bwd_dkv_tf32x3_wide.cu
+WGMMA_F32_DKV_WIDE_MAX_D = 160
+TF32X3_WIDE_BN = 64
 # the same for the tf32x3 dQ kernel, csrc/flash_bwd_dq_tf32x3.cu: MAX_DP,
 # and the widest head at which BM_MAX is 128 q rows a CTA
 WGMMA_F32_DQ_MAX_D = 96
 TF32X3_DQ_BM128_MAX_D = 64
 # the tf32x3 kernels' transposed copies, rounded up with zeros so no TMA
 # box lies wholly past them: the q columns of Q~ and dO to T_ALIGN of the
-# dK/dV source (its largest q tile), the kv columns of K to S_ALIGN of the
-# dQ source (its largest kv tile)
+# two dK/dV sources (their largest q tile), the kv columns of K to S_ALIGN
+# of the dQ source (its largest kv tile)
 TF32X3_T_ALIGN = 32
 TF32X3_S_ALIGN = 64
+# the routes whose kernels read the split operands of _tf32x3_operands
+TF32X3_ROUTES = ("tf32x3", "tf32x3_wide")
 
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
@@ -105,7 +121,8 @@ _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma", "dq_wgmma"
-# and "dq_tf32x3", bn for "dkv_wgmma" and "dkv_tf32x3"), scale, stream
+# and "dq_tf32x3", bn for "dkv_wgmma", "dkv_tf32x3" and
+# "dkv_tf32x3_wide"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
 _ENTRY = {
     # entry: (source stem, C function, pointer arguments)
@@ -115,9 +132,11 @@ _ENTRY = {
     "dq_wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma", 7),
     "dq_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3", 13),
     "dq_mma": ("flash_bwd", "flash_bwd_dq", 7),
-    # flash_bwd_dkv's three routes, "dkv_" + route
+    # flash_bwd_dkv's four routes, "dkv_" + route
     "dkv_wgmma": ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma", 8),
     "dkv_tf32x3": ("flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3", 16),
+    "dkv_tf32x3_wide": ("flash_bwd_dkv_tf32x3_wide",
+                        "flash_bwd_dkv_tf32x3_wide", 16),
     "dkv_mma": ("flash_bwd", "flash_bwd_dkv", 8),
 }
 
@@ -316,9 +335,16 @@ def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The dK/dV kernel of a call: "wgmma" (csrc/flash_bwd_dkv_wgmma.cu)
     for bf16 with D <= WGMMA_DKV_MAX_D, "tf32x3"
     (csrc/flash_bwd_dkv_tf32x3.cu) for f32 with D <= WGMMA_F32_DKV_MAX_D,
-    each where the layouts are ones TMA's tensor maps take (_tma_ok); "mma"
+    "tf32x3_wide" (csrc/flash_bwd_dkv_tf32x3_wide.cu) for f32 with
+    WGMMA_F32_DKV_MAX_D < D <= WGMMA_F32_DKV_WIDE_MAX_D, each where the
+    layouts are ones TMA's tensor maps take (_tma_ok); "mma"
     (csrc/flash_bwd.cu) for the rest: wider D, a broadcast. A layout
-    _layout_ok refuses never launches: _check raises first."""
+    _layout_ok refuses never launches: _check raises first. (dQ has no
+    wide f32 kernel: _dq_route keeps the shared rule.)"""
+    if (q.dtype == torch.float32
+            and WGMMA_F32_DKV_MAX_D < q.shape[3] <= WGMMA_F32_DKV_WIDE_MAX_D
+            and _tma_ok(q, k, v, do)):
+        return "tf32x3_wide"
     return _bwd_kernel_route(WGMMA_DKV_MAX_D, WGMMA_F32_DKV_MAX_D, q, k, v,
                              do)
 
@@ -503,15 +529,17 @@ def _dkv_launch(route, q, k, v, do, lse, delta, scale, bn=None,
     """One dK/dV kernel through its C entry point (no routing, no count).
     The wgmma and tf32x3 kernels take q as Q~ (_q_tilde: TMA cannot scale
     on load) and `bn` kv rows per CTA (by default _dkv_bn's, or
-    _dkv_tf32x3_bn's); the tf32x3 kernel reads _tf32x3_operands(q, do, k,
-    v)["dkv"], formed here unless given as `operands`; the mma kernel takes
-    q and scales it itself."""
+    _dkv_tf32x3_bn's; tf32x3_wide: TF32X3_WIDE_BN per cluster pair, the
+    only height it takes); the tf32x3 and tf32x3_wide kernels read
+    _tf32x3_operands(q, do, k, v)["dkv"], formed here unless given as
+    `operands`; the mma kernel takes q and scales it itself."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     B, H, _, D = q.shape
     tensors = (q, k, v, do)
-    if route == "tf32x3":
+    if route in TF32X3_ROUTES:
         tensors = operands or _tf32x3_operands(q, do, k, v, ("dkv",))["dkv"]
-        arg = bn or _dkv_tf32x3_bn(k.shape[2], B * H, D, _sm_count(q.device))
+        arg = bn or (TF32X3_WIDE_BN if route == "tf32x3_wide" else
+                     _dkv_tf32x3_bn(k.shape[2], B * H, D, _sm_count(q.device)))
     elif route == "wgmma":
         arg = bn or _dkv_bn(k.shape[2], B * H, _sm_count(q.device))
     else:
@@ -545,7 +573,8 @@ flash_fwd.launches_by_kernel = {"wgmma": 0, "mma": 0}
 flash_fwd.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
 flash_bwd_dq.launches = 0  # the sum of launches_by_kernel
-flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
+flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "tf32x3": 0,
+                                    "tf32x3_wide": 0, "mma": 0}
 flash_bwd_dkv.launches = 0  # the sum of launches_by_kernel
 
 
@@ -553,9 +582,9 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float
                              ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) through the two backward kernels (their plain versions
     on the CPU). Where either routes to a kernel that reads Q~ (wgmma,
-    tf32x3), Q~ is formed once here and handed to both, and where either
-    routes to tf32x3, so is the split of Q~, dO, K and V
-    (_tf32x3_operands, each kernel's part)."""
+    tf32x3, tf32x3_wide), Q~ is formed once here and handed to both, and
+    where either routes to a kernel of TF32X3_ROUTES, so is the split of
+    Q~, dO, K and V (_tf32x3_operands, each kernel's part)."""
     qt, ops = None, {}
     if do.device.type == "cuda":
         if not _layout_ok(do):
@@ -567,7 +596,7 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float
                   "dkv": _bwd_route(q, k, v, do)}
         if set(routes.values()) != {"mma"}:
             qt = _q_tilde(q, scale)
-        tf32x3 = [n for n, r in routes.items() if r == "tf32x3"]
+        tf32x3 = [n for n, r in routes.items() if r in TF32X3_ROUTES]
         if tf32x3:
             ops = _tf32x3_operands(qt, do, k, v, tf32x3)
     delta = _delta(o, do)
