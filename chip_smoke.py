@@ -6,21 +6,25 @@
     python3 chip_smoke.py --int8-tiles  # the same, then every wgmma tile
                                         # instance at every phase 8 shape
                                         # (the data of int8_matmul._TILE_US)
-    python3 chip_smoke.py --flash       # phases 1, 2 (the two forward
-                                        # sources only), a first wgmma call
-                                        # in a child process under a
+    python3 chip_smoke.py --flash       # phases 1, 2 (the three forward
+                                        # sources only), the wgmma and
+                                        # tf32x3 forward kernels' first
+                                        # calls in child processes under a
                                         # timeout, 3 and its sums over one
-                                        # UNet call
+                                        # UNet call (bf16 and f32) and one
+                                        # f32 training step
     python3 chip_smoke.py --flash-bwd   # phases 1, 2 (flash_fwd.cu,
-                                        # flash_fwd_wgmma.cu, flash_bwd.cu,
+                                        # flash_fwd_wgmma.cu,
+                                        # flash_fwd_tf32x3.cu, flash_bwd.cu,
                                         # flash_bwd_dkv_wgmma.cu,
                                         # flash_bwd_dq_wgmma.cu,
                                         # flash_bwd_dkv_tf32x3.cu,
                                         # flash_bwd_dkv_tf32x3_wide.cu and
                                         # flash_bwd_dq_tf32x3.cu only),
-                                        # the wgmma dQ, wgmma dK/dV,
-                                        # tf32x3 dQ, tf32x3 dK/dV and
-                                        # tf32x3_wide dK/dV kernels' first
+                                        # the tf32x3 forward, wgmma dQ,
+                                        # wgmma dK/dV, tf32x3 dQ, tf32x3
+                                        # dK/dV and tf32x3_wide dK/dV
+                                        # kernels' first
                                         # calls in child processes under a
                                         # timeout, 4 and its sums over one
                                         # training step (bf16 and f32)
@@ -29,14 +33,16 @@ Phases, each printing its own lines (about 5 minutes on one H100, most of
 it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
-     (flash_fwd.cu, flash_fwd_wgmma.cu, flash_bwd.cu,
+     (flash_fwd.cu, flash_fwd_wgmma.cu, flash_fwd_tf32x3.cu, flash_bwd.cu,
      flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu,
      flash_bwd_dkv_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu,
      flash_bwd_dq_tf32x3.cu, int8_matmul.cu, int8_matmul_wgmma.cu; one
      nvcc each, in parallel) for sm_90a into the build directory, and
      prints ptxas's registers, shared memory and spills of the wgmma and
-     tf32x3 kernels and each backward instance's tiles; then the wgmma dQ
-     kernel's first calls (that kernel alone), the wgmma dK/dV kernel's,
+     tf32x3 kernels and each tf32x3 forward and backward instance's tiles;
+     then the tf32x3 forward kernel's first calls (f32: the ragged call,
+     the main serving shape and D = 160), the wgmma dQ kernel's first
+     calls (that kernel alone), the wgmma dK/dV kernel's,
      the tf32x3 dQ kernel's (f32, that kernel alone), the tf32x3 dK/dV
      kernel's (f32) and the tf32x3_wide dK/dV kernel's (f32, D = 160: its
      cluster pair), each in a child process under a timeout.
@@ -47,16 +53,19 @@ it the build of the kernels):
      height, and the mma kernel flash_fwd.cu on the same inputs), the same
      untimed at the other UNet batches of the main paths (8 and 2), plus
      the ragged call, one contiguous (B, H, T, D) call and a ragged call at
-     every D the wgmma kernel takes (8 to 160); f32 at the serving
-     shapes and the ragged call through the mma kernel. Every flash
-     forward call of phases 5 to 9 is recorded (shapes, dtype, strides),
-     and one that phase 3 did not check fails the run. Max abs errors;
-     median times of the routed kernel through its C entry point (and its
-     device time from CUDA-graph replays), the wrapper, the mma kernel on
-     the same bf16 inputs, torch's SDPA (timed only), the plain version,
-     the FLOP bound and the exponential floor; their sums over one UNet
-     call (5 launches per level). f32 also untimed at batch 1 (phase 7's
-     f32 run).
+     every D the wgmma kernel takes (8 to 160); f32 the same way through
+     the tf32x3 kernel (flash_fwd_tf32x3.cu: at the three levels at batch
+     4 and 1, the ragged call, a ragged call at every D it takes, 8 to 160,
+     and untimed long calls at SD-2.1's 768px level and at D = 160 over
+     T = S = 4096). Every flash forward call of phases 5 to 9 is recorded
+     (shapes, dtype, strides), and one that phase 3 did not check fails
+     the run. Max abs errors; median times of the routed kernel through its
+     C entry point (and its device time from CUDA-graph replays), the
+     wrapper, the mma kernel on the same inputs, torch's SDPA (timed only),
+     the plain version, the FLOP bound (f32: 3xTF32 at the TF32 rate, and
+     the FFMA bound) and the exponential floor; their sums over one UNet
+     call (5 launches per level), bf16 and f32 (at batch 1: the forward of
+     one f32 training step).
   4. bwd kernel: the dQ and dK/dV kernels against their plain versions at
      the SD-1.5 training shapes (batch 1; bf16 also untimed at batch 2),
      bf16 and f32, plus the ragged call, a ragged call at every D the
@@ -106,7 +115,8 @@ it the build of the kernels):
      gradient checkpointing: the same loss, and 30 forward launches (every
      forward launch of the phase wgmma, every dQ and dK/dV launch as in
      phase 6). Then the same in f32 (the trainer's default dtype, the
-     counted f32 path: 15 launches of flash_fwd.cu; of dQ 10 through
+     counted f32 path: 15 forward launches through flash_fwd_tf32x3.cu;
+     of dQ 10 through
      flash_bwd_dq_tf32x3.cu (D = 40, 80) and 5 through the mma kernel
      (D = 160); of dK/dV 10 through flash_bwd_dkv_tf32x3.cu and 5 through
      flash_bwd_dkv_tf32x3_wide.cu (D = 160), none through the mma kernel;
@@ -127,7 +137,7 @@ it the build of the kernels):
   9a. serve_int8 f32: the SD-1.5 UNet in f32, quantized: one call at
      batch 4, within relative L2 5e-2 of the f32 UNet, 182 launches, all
      of the mma kernel (f32 x), and 15 flash forward launches, all of the
-     mma kernel (flash_fwd.cu: f32).
+     tf32x3 kernel (flash_fwd_tf32x3.cu: f32).
   9. serve_int8: quantized serving at full SD-1.5 width through HTTP. The
      slice's bf16 pipeline with the LoRA + TI at scale 0.8, then
      quantize_base(): param bytes before and after (UNet <= 0.55x), one
@@ -292,7 +302,8 @@ def phase_build(stems=None) -> None:
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma",
-                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
+                 "flash_fwd_tf32x3", "flash_bwd_dkv_wgmma",
+                 "flash_bwd_dq_wgmma",
                  "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
                  "flash_bwd_dq_tf32x3"):
         if stem in paths:
@@ -304,9 +315,12 @@ def phase_build(stems=None) -> None:
     # each wgmma backward instance's streamed tile (q rows for dK/dV, kv
     # rows for dQ), ring depth and dynamic shared memory (ptxas reports
     # static shared memory only); the tf32x3 kernels' also the rows a CTA
-    # holds (kv rows for dK/dV, q rows for dQ; the tf32x3_wide kernel's kv
-    # rows per cluster pair)
+    # holds (kv rows for dK/dV, q rows for dQ and the forward; the
+    # tf32x3_wide kernel's kv rows per cluster pair); the tf32x3 forward's
+    # kv rows per stage and its split ring's depth
     for stem, keys, min_d, max_d, step in (
+            ("flash_fwd_tf32x3", ("BN", "stages", "smem_bytes", "BM_MAX"), 8,
+             fa.WGMMA_F32_FWD_MAX_D, 8),
             ("flash_bwd_dkv_wgmma", ("BQ", "stages", "smem_bytes"), 16,
              fa.WGMMA_DKV_MAX_D, 16),
             ("flash_bwd_dq_wgmma", ("BN", "stages", "smem_bytes"), 16,
@@ -444,21 +458,10 @@ def _exp_floor_ms(B, H, T, S) -> float:
     return 1e3 * B * H * T * S / (sms * EXP_PER_CLOCK_PER_SM * _clock_hz)
 
 
-def _fwd_direct(route, q, k, v, scale, bm=None):
-    """One forward kernel's C entry point called directly (no routing, no
-    count): the mma kernel on bf16 inputs for its time beside the wgmma
-    kernel's, or the wgmma kernel at a given q-tile height."""
-    B, H, T, _ = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    if route == "wgmma":
-        arg = bm or fa._fwd_bm(T, B * H, i8._sm_count(q.device))
-    else:
-        arg = int(q.dtype == torch.bfloat16)
-    fa._launch(fa._entry(route), f"flash_fwd {route} entry",
-               (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr()), fa._strides(q, k, v, out), q, k, arg, scale)
-    return out, lse
+def _only(route: str, n: int) -> dict:
+    """flash_fwd.launches_by_kernel as a run that launched `route` n times
+    and no other forward kernel leaves it (from zero)."""
+    return {**dict.fromkeys(fa.flash_fwd.launches_by_kernel, 0), route: n}
 
 
 def _flash_key(q, k, v):
@@ -499,18 +502,29 @@ def _errs(got, want):
             (lse - lse_ref).abs().max().item())
 
 
+def _fwd_want(dtype, D: int) -> str:
+    """The forward kernel a call with TMA-able layouts takes: bf16 the wgmma
+    kernel to WGMMA_MAX_D, f32 the tf32x3 kernel to WGMMA_F32_FWD_MAX_D,
+    else the mma kernel (flash_fwd.cu)."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if D <= fa.WGMMA_MAX_D else "mma"
+    return "tf32x3" if D <= fa.WGMMA_F32_FWD_MAX_D else "mma"
+
+
 def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
-    """flash_fwd against its plain version: the call must launch the wgmma
-    kernel for bf16 and the mma kernel for f32. bf16 also checks the wgmma
-    kernel at the other q-tile height and the mma kernel on the same
+    """flash_fwd against its plain version: the call must launch the kernel
+    _fwd_want names (bf16 wgmma, f32 tf32x3). Where that is the wgmma or the
+    tf32x3 kernel it also checks it at the other q-tile height (where the
+    instance holds 128 rows) and the mma kernel (flash_fwd.cu) on the same
     inputs. Timed: the routed kernel through its C entry point (and its
-    device time from CUDA-graph replays), the wrapper, the mma kernel on
-    the bf16 inputs, SDPA, the plain version, the FLOP bound and the
+    device time from CUDA-graph replays), the wrapper, the mma kernel on the
+    same inputs, SDPA, the plain version, the FLOP bound (f32: 3xTF32 at the
+    dense TF32 rate, beside the FFMA bound at the f32 rate) and the
     exponential floor."""
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     scale = D ** -0.5
     bf16 = dtype == torch.bfloat16
-    route = "wgmma" if bf16 else "mma"
+    route = _fwd_want(dtype, D)
     with torch.inference_mode():
         before = dict(fa.flash_fwd.launches_by_kernel)
         got = fa.flash_fwd(q, k, v, scale)
@@ -524,23 +538,27 @@ def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
                "strides": [list(t.stride()) for t in (q, k, v)],
                "kernel": ran, "err_o": err_o, "err_lse": err_l}
         checked = [(err_o, err_l)]
-        if bf16:
-            bm = fa._fwd_bm(T, B * H, i8._sm_count(q.device))
+        direct = {}
+        if route != "mma":
+            sms = i8._sm_count(q.device)
+            bm = (fa._fwd_bm(T, B * H, sms) if bf16
+                  else fa._fwd_tf32x3_bm(T, B * H, D, sms))
             row["bm"] = bm
-            for name, call in (
-                    ("other_bm", lambda: _fwd_direct("wgmma", q, k, v, scale,
-                                                     192 - bm)),
-                    ("prev", lambda: _fwd_direct("mma", q, k, v, scale))):
-                e = _errs(call(), want)
-                row[f"err_o_{name}"], row[f"err_lse_{name}"] = e
-                checked.append(e)
+            if bf16 or D <= fa.TF32X3_FWD_BM128_MAX_D:
+                direct["other_bm"] = lambda: fa._fwd_launch(
+                    route, q, k, v, scale, 192 - bm)
+            direct["prev"] = lambda: fa._fwd_launch("mma", q, k, v, scale)
+        for name, call in direct.items():
+            e = _errs(call(), want)
+            row[f"err_o_{name}"], row[f"err_lse_{name}"] = e
+            checked.append(e)
         if timed:
-            direct = {"": lambda: _fwd_direct(route, q, k, v, scale),
-                      "library_": lambda: torch.nn.functional.
-                      scaled_dot_product_attention(q, k, v, scale=scale)}
-            if bf16:
-                direct["prev_"] = lambda: _fwd_direct("mma", q, k, v, scale)
-            for name, call in direct.items():
+            calls = {"": lambda: fa._fwd_launch(route, q, k, v, scale),
+                     "library_": lambda: torch.nn.functional.
+                     scaled_dot_product_attention(q, k, v, scale=scale)}
+            if route != "mma":
+                calls["prev_"] = direct["prev"]
+            for name, call in calls.items():
                 row[name + "ms"] = _time_ms(call)
                 row[name + "device_ms"] = _graph_ms(call)
             row["wrapper_ms"] = _time_ms(lambda: fa.flash_fwd(q, k, v, scale))
@@ -548,9 +566,18 @@ def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
                 lambda: fa.flash_attention_reference(q, k, v, scale))
             e = q.element_size()
             # Q K^T and P V; q, k, v read, O and the f32 L written
-            row.update(_bound(4 * B * H * T * S * D,
-                              e * B * H * (2 * T + 2 * S) * D + 4 * B * H * T,
-                              PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS))
+            flops = 4 * B * H * T * S * D
+            nbytes = e * B * H * (2 * T + 2 * S) * D + 4 * B * H * T
+            if bf16:
+                row.update(_bound(flops, nbytes))
+            else:
+                # on CUDA-core FMAs (the mma kernel's bound), and as 3xTF32
+                # (three tf32 products for each) at the dense TF32 rate
+                ffma = _bound(flops, nbytes, PEAK_F32_FLOPS)
+                row["ffma_bound_ms"] = ffma["bound_ms"]
+                row["ffma_bound_by"] = ffma["bound_by"]
+                row.update(_bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+                           if route == "tf32x3" else ffma)
             row["exp_floor_ms"] = _exp_floor_ms(B, H, T, S)
     tol = TOL[dtype]
     log("kernel: " + json.dumps(row))
@@ -588,11 +615,20 @@ def phase_kernels():
     for D in range(8, fa.WGMMA_MAX_D + 1, 8):
         rows.append(check_kernel(1, 2, *FLASH_D_SWEEP, D, torch.bfloat16,
                                  gen, timed=False))
-    for T, D in SD15_ATTN_SHAPES:
-        rows.append(check_kernel(4, 8, T, T, D, torch.float32, gen))
-    # f32 at the training batch: phase 7's f32 training run
-    for T, D in SD15_ATTN_SHAPES:
-        rows.append(check_kernel(1, 8, T, T, D, torch.float32, gen,
+    # f32 (the trainer's default) at the serving batch (phase 9a's f32 UNet
+    # call) and the training batch (phase 7's f32 training run)
+    for B in (4, 1):
+        for T, D in SD15_ATTN_SHAPES:
+            rows.append(check_kernel(B, 8, T, T, D, torch.float32, gen))
+    # every f32 D the route sends to the tf32x3 kernel (each of its
+    # instances), with ragged T and S
+    for D in range(8, fa.WGMMA_F32_FWD_MAX_D + 1, 8):
+        rows.append(check_kernel(1, 2, *FLASH_D_SWEEP, D, torch.float32,
+                                 gen, timed=False))
+    # the tf32x3 kernel's per-tile sums over long rows: SD-2.1's 768px level
+    # (9216 kv rows) and SD-1.5's widest heads over 4096
+    for H, T, D in (SD21_768_LEVEL, WIDE_LONG_LEVEL):
+        rows.append(check_kernel(1, H, T, T, D, torch.float32, gen,
                                  timed=False))
     return rows
 
@@ -600,22 +636,33 @@ def phase_kernels():
 FLASH_SUM_KEYS = ("ms", "device_ms", "wrapper_ms", "prev_ms",
                   "prev_device_ms", "library_ms", "library_device_ms",
                   "plain_ms", "bound_ms", "exp_floor_ms")
+# f32: the tf32x3 kernel ("prev": flash_fwd.cu on the same inputs), its
+# 3xTF32 bound and the FFMA bound beside it
+FLASH_F32_SUM_KEYS = FLASH_SUM_KEYS + ("ffma_bound_ms",)
 
 
 def flash_call_sums(rows) -> dict:
     """Sums over the 15 forward launches of one UNet call (5 at each of
-    the three levels) of each timed bf16 column, at the serving batch (4)
-    and the training batch (1)."""
+    the three levels) of each timed column, at the serving batch (4) and
+    the training batch (1): bf16 ("B4", "B1") and f32 ("f32_B4": one f32
+    UNet call, "f32_B1": the forward of one f32 training step)."""
     sums = {}
-    for B in (4, 1):
-        level = [r for r in rows if r["dtype"] == "bfloat16" and r["B"] == B
-                 and "ms" in r]
-        if len(level) != len(SD15_ATTN_SHAPES):
-            raise AssertionError(f"{len(level)} timed bf16 rows at B = {B}")
-        n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
-        sums[f"B{B}"] = {k: n * sum(r[k] for r in level)
-                         for k in FLASH_SUM_KEYS}
-    log("flash per UNet call: " + json.dumps(sums))
+    n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
+    for dtype, prefix, keys in (("bfloat16", "", FLASH_SUM_KEYS),
+                                ("float32", "f32_", FLASH_F32_SUM_KEYS)):
+        for B in (4, 1):
+            level = [r for r in rows if r["dtype"] == dtype and r["B"] == B
+                     and "ms" in r]
+            if len(level) != len(SD15_ATTN_SHAPES):
+                raise AssertionError(f"{len(level)} timed {dtype} rows at "
+                                     f"B = {B}")
+            sums[f"{prefix}B{B}"] = {k: n * sum(r[k] for r in level)
+                                     for k in keys}
+    log("flash per UNet call: " + json.dumps(
+        {k: v for k, v in sums.items() if not k.startswith("f32_")}))
+    log("flash f32 per UNet call (f32_B4) and per f32 training step "
+        "(f32_B1): " + json.dumps(
+            {k: v for k, v in sums.items() if k.startswith("f32_")}))
     return sums
 
 
@@ -649,6 +696,24 @@ def flash_probe(timeout_s: float = 60.0) -> None:
         "c.check_kernel(1, 2, *c.RAGGED, torch.bfloat16, g, "
         "heads_inner=False, timed=False); "
         "c.check_kernel(4, 8, 4096, 4096, 40, torch.bfloat16, g, "
+        "timed=False)"), timeout_s)
+
+
+def tf32x3_fwd_probe(timeout_s: float = 60.0) -> None:
+    """The tf32x3 forward kernel's first calls (its TMA thread, splitters
+    and consumers hand tiles on through mbarriers): the f32 ragged call, the
+    main serving shape in f32 and the 16x16 level at D = 160, each also at
+    the other q-tile height where the instance holds it, with flash_fwd.cu
+    on the same inputs; before anything else launches it (the f32 backward
+    probes take their O and L from it)."""
+    _probe("tf32x3 forward", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_kernel(1, 2, *c.RAGGED, torch.float32, g, "
+        "heads_inner=False, timed=False); "
+        "c.check_kernel(4, 8, 4096, 4096, 40, torch.float32, g, "
+        "timed=False); "
+        "c.check_kernel(1, 8, 256, 256, 160, torch.float32, g, "
         "timed=False)"), timeout_s)
 
 
@@ -1015,14 +1080,16 @@ def bwd_step_sums(rows) -> dict:
     return sums
 
 
-def bwd_per_step(fn, tiers) -> dict:
-    """A backward wrapper's launches per training step by kernel (every
-    key of fn.launches_by_kernel): 5 at each level, through the route of
-    the first (max_d, route) of `tiers` (widest last) with D <= max_d
-    (bf16: "wgmma" to WGMMA_DQ_MAX_D for flash_bwd_dq, to WGMMA_DKV_MAX_D
-    for flash_bwd_dkv; f32: "tf32x3" to WGMMA_F32_DQ_MAX_D, and to
-    WGMMA_F32_DKV_MAX_D then "tf32x3_wide" to WGMMA_F32_DKV_WIDE_MAX_D),
-    else through the mma kernel."""
+def per_call_launches(fn, tiers) -> dict:
+    """A flash wrapper's launches per UNet call (the forward) or per
+    training step (the backward pair) by kernel (every key of
+    fn.launches_by_kernel): 5 at each level, through the route of the first
+    (max_d, route) of `tiers` (widest last) with D <= max_d (bf16: "wgmma"
+    to WGMMA_MAX_D for flash_fwd, to WGMMA_DQ_MAX_D for flash_bwd_dq, to
+    WGMMA_DKV_MAX_D for flash_bwd_dkv; f32: "tf32x3" to
+    WGMMA_F32_FWD_MAX_D, to WGMMA_F32_DQ_MAX_D, and to WGMMA_F32_DKV_MAX_D
+    then "tf32x3_wide" to WGMMA_F32_DKV_WIDE_MAX_D), else through the mma
+    kernel."""
     n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
     counts = dict.fromkeys(fn.launches_by_kernel, 0)
     for _, D in SD15_ATTN_SHAPES:
@@ -1350,7 +1417,7 @@ def phase_slice(smi: str):
         raise AssertionError(f"serving launched backward kernels: "
                              f"{bwd_launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if launches != want or by_kernel != {"wgmma": want, "mma": 0}:
+    if launches != want or by_kernel != _only("wgmma", want):
         raise AssertionError(f"main path launched the forward kernels "
                              f"{by_kernel} times, not {want} wgmma")
     if images.shape != (len(PROMPTS), 512, 512, 3):
@@ -1542,7 +1609,7 @@ def phase_train(smi: str):
     by_kernel = dict(fa.flash_fwd.launches_by_kernel)
     dq_by_kernel = dict(fa.flash_bwd_dq.launches_by_kernel)
     dkv_by_kernel = dict(fa.flash_bwd_dkv.launches_by_kernel)
-    if by_kernel != {"wgmma": launches[0], "mma": 0}:
+    if by_kernel != _only("wgmma", launches[0]):
         raise AssertionError(f"training launched the forward kernels "
                              f"{by_kernel} times")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1658,13 +1725,13 @@ def phase_grad(dt=torch.bfloat16):
     log("grad: " + json.dumps(row))
     # bf16: two steps through the kernels (plain, checkpointed), the
     # forward twice in the checkpointed one; f32: one step, the forward all
-    # mma, dQ tf32x3 where D <= WGMMA_F32_DQ_MAX_D, dK/dV tf32x3 and
+    # tf32x3, dQ tf32x3 where D <= WGMMA_F32_DQ_MAX_D, dK/dV tf32x3 and
     # tf32x3_wide (_per_step_want)
     want_dq, want_dkv, want_fwd = _per_step_want(dt)
     if bf16:
         want_dq, want_dkv = ({r: 2 * n for r, n in w.items()}
                              for w in (want_dq, want_dkv))
-        want_fwd = {"wgmma": 45, "mma": 0}
+        want_fwd = _only("wgmma", 45)
     if n_k != (15, 15, 15) or n_p != (0, 0, 0) or (
             bf16 and n_r != (30, 15, 15)) or fwd_by_kernel != want_fwd or \
             dq_by_kernel != want_dq or dkv_by_kernel != want_dkv:
@@ -1690,16 +1757,18 @@ def _per_step_want(dt):
     """(dQ, dK/dV, forward) launches by kernel of one training step in
     `dt`."""
     if dt == torch.bfloat16:
-        return (bwd_per_step(fa.flash_bwd_dq, ((fa.WGMMA_DQ_MAX_D, "wgmma"),)),
-                bwd_per_step(fa.flash_bwd_dkv,
-                             ((fa.WGMMA_DKV_MAX_D, "wgmma"),)),
-                {"wgmma": ROUTED_PER_UNET_CALL, "mma": 0})
-    return (bwd_per_step(fa.flash_bwd_dq,
-                         ((fa.WGMMA_F32_DQ_MAX_D, "tf32x3"),)),
-            bwd_per_step(fa.flash_bwd_dkv,
-                         ((fa.WGMMA_F32_DKV_MAX_D, "tf32x3"),
-                          (fa.WGMMA_F32_DKV_WIDE_MAX_D, "tf32x3_wide"))),
-            {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL})
+        return (per_call_launches(fa.flash_bwd_dq,
+                                  ((fa.WGMMA_DQ_MAX_D, "wgmma"),)),
+                per_call_launches(fa.flash_bwd_dkv,
+                                  ((fa.WGMMA_DKV_MAX_D, "wgmma"),)),
+                per_call_launches(fa.flash_fwd, ((fa.WGMMA_MAX_D, "wgmma"),)))
+    return (per_call_launches(fa.flash_bwd_dq,
+                              ((fa.WGMMA_F32_DQ_MAX_D, "tf32x3"),)),
+            per_call_launches(fa.flash_bwd_dkv,
+                              ((fa.WGMMA_F32_DKV_MAX_D, "tf32x3"),
+                               (fa.WGMMA_F32_DKV_WIDE_MAX_D, "tf32x3_wide"))),
+            per_call_launches(fa.flash_fwd,
+                              ((fa.WGMMA_F32_FWD_MAX_D, "tf32x3"),)))
 
 
 def train_f32_steps(trainable, base, batch, gen) -> dict:
@@ -1862,7 +1931,7 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         if launches_a != want(encodes_a) or \
                 by_kernel_a != {"wgmma": launches_a, "mma": 0} or \
                 fwd_a != ROUTED_PER_UNET_CALL * STEPS or \
-                fwd_by_kernel_a != {"wgmma": fwd_a, "mma": 0}:
+                fwd_by_kernel_a != _only("wgmma", fwd_a):
             raise AssertionError(
                 f"request A launched int8_matmul {by_kernel_a} times (want "
                 f"{want(encodes_a)}, {encodes_a} CLIP encodes) and flash_fwd "
@@ -1924,7 +1993,7 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         if launches_b != want(encodes_b) or \
                 by_kernel_b != {"wgmma": launches_b, "mma": 0} or \
                 fwd_b != ROUTED_PER_UNET_CALL * STEPS or \
-                fwd_by_kernel_b != {"wgmma": fwd_b, "mma": 0}:
+                fwd_by_kernel_b != _only("wgmma", fwd_b):
             raise AssertionError(f"request B launched int8_matmul "
                                  f"{by_kernel_b} times (want "
                                  f"{want(encodes_b)}) and flash_fwd "
@@ -1967,9 +2036,10 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
 def phase_serve_int8_f32(smi: str):
     """The SD-1.5 UNet served in f32 with int8 weights: one call at batch 4
     (random weights and inputs from the seed) through the int8 mma kernel
-    (the wgmma kernel takes bf16 x only) and the flash mma kernel (the
-    wgmma one takes bf16 only), within QUANT_UNET_REL_L2_TOL of the same
-    UNet unquantized. Returns the two kernels' launch counts."""
+    (the wgmma kernel takes bf16 x only) and the tf32x3 flash forward
+    kernel (f32 at every level), within QUANT_UNET_REL_L2_TOL of the same
+    UNet unquantized. Returns the int8 mma kernel's launches and the flash
+    forward's by kernel."""
     from lora_tpu_torch.core.quantize import quantize_params_int8
     from lora_tpu_torch.models.config import SD15_UNET
     from lora_tpu_torch.models.unet import UNet
@@ -1998,7 +2068,7 @@ def phase_serve_int8_f32(smi: str):
         "flash_fwd_launches": fwd_by_kernel,
         "limit": QUANT_UNET_REL_L2_TOL, "card": smi}))
     if by_kernel != {"wgmma": 0, "mma": INT8_PER_CALL["unet"]} or \
-            fwd_by_kernel != {"wgmma": 0, "mma": ROUTED_PER_UNET_CALL}:
+            fwd_by_kernel != _per_step_want(torch.float32)[2]:
         raise AssertionError(f"the f32 quantized UNet call launched "
                              f"{by_kernel} int8 and {fwd_by_kernel} flash "
                              f"forward kernels")
@@ -2012,30 +2082,33 @@ def phase_serve_int8_f32(smi: str):
 
 
 def main_flash() -> int:
-    """The two forward kernels alone: the device line, their builds, the
-    wgmma kernel's first calls in a child process under a timeout, phase 3
-    and its per-call sums."""
+    """The three forward kernels alone: the device line, their builds, the
+    wgmma and tf32x3 kernels' first calls in child processes under a
+    timeout, phase 3 and its per-call sums."""
     smi = phase_device()
-    phase_build(["flash_fwd", "flash_fwd_wgmma"])
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3"])
     flash_probe()
+    tf32x3_fwd_probe()
     flash_call_sums(phase_kernels())
     log(smi)
     return 0
 
 
 def main_flash_bwd() -> int:
-    """The backward kernels alone: the device line, the builds of both
+    """The backward kernels alone: the device line, the builds of the three
     forward kernels (the residuals, bf16 and f32), flash_bwd.cu,
     flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu,
-    flash_bwd_dkv_tf32x3_wide.cu and flash_bwd_dq_tf32x3.cu, the wgmma dQ,
-    wgmma dK/dV, tf32x3 dQ, tf32x3 dK/dV and tf32x3_wide dK/dV kernels'
-    first calls in child processes under a timeout, phase 4 and its sums
-    over one training step (bf16 and f32)."""
+    flash_bwd_dkv_tf32x3_wide.cu and flash_bwd_dq_tf32x3.cu, the tf32x3
+    forward's, wgmma dQ, wgmma dK/dV, tf32x3 dQ, tf32x3 dK/dV and
+    tf32x3_wide dK/dV kernels' first calls in child processes under a
+    timeout, phase 4 and its sums over one training step (bf16 and f32)."""
     smi = phase_device()
-    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_bwd",
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
+                 "flash_bwd",
                  "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
                  "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
                  "flash_bwd_dq_tf32x3"])
+    tf32x3_fwd_probe()
     dq_probe()
     dkv_probe()
     tf32x3_dq_probe()
@@ -2061,6 +2134,7 @@ def main_int8(tiles: bool) -> int:
 def main() -> int:
     smi = phase_device()
     phase_build()
+    tf32x3_fwd_probe()
     dq_probe()
     dkv_probe()
     tf32x3_dq_probe()
@@ -2111,7 +2185,7 @@ def main() -> int:
     by_path = {"txt2img": serve_fwd, "train": train_fwd,
                "serve_int8": serve_int8_fwd}
     fwd_by_kernel = {r: sum(c[r] for c in by_path.values())
-                     for r in ("wgmma", "mma")}
+                     for r in fa.flash_fwd.launches_by_kernel}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -2138,26 +2212,82 @@ def main() -> int:
         "library_ms": fwd["library_ms"],
         "exp_floor_ms": fwd["exp_floor_ms"],
         # every column summed over the 15 launches of one UNet call
-        "per_unet_call": fwd_sums,
+        "per_unet_call": {k: v for k, v in fwd_sums.items()
+                          if not k.startswith("f32_")},
+    }]
+    # the f32 forward: the f32 quantized UNet call of phase 9a and the
+    # counted f32 training run of phase 7 (f32 attention)
+    f32_by_path = {"serve_int8_f32": f32_fwd,
+                   "train_f32_grad": grad_f32["fwd_launches_by_kernel"]}
+    f32_fwd_by_kernel = {r: sum(c[r] for c in f32_by_path.values())
+                         for r in fa.flash_fwd.launches_by_kernel}
+    f32_rows = [r for r in rows if r["dtype"] == "float32"]
+    tf32x3_rows = [r for r in f32_rows if r["kernel"] == ["tf32x3"]]
+    long_rows = {name: next(r for r in f32_rows
+                            if (r["H"], r["T"], r["D"]) == level)
+                 for name, level in (("sd21_768", SD21_768_LEVEL),
+                                     ("wide_long", WIDE_LONG_LEVEL))}
+    kernels += [{
+        "name": "flash_fwd_tf32x3",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_fwd_tf32x3.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:104",
+        # every f32 forward launch of both counted f32 paths at
+        # D <= WGMMA_F32_FWD_MAX_D (phases 7 and 9a check it)
+        "launches": f32_fwd_by_kernel["tf32x3"],
+        "launches_by_path": {p: c["tf32x3"] for p, c in f32_by_path.items()},
+        "launches_by_kernel": f32_fwd_by_kernel,
+        # worst O and L errors over the f32 calls of phase 3 routed here
+        # (the SD-1.5 levels at batch 4 and 1, the ragged calls at every D,
+        # the long calls), both q-tile heights
+        "max_abs_err": max(r[k] for r in tf32x3_rows
+                           for k in ("err_o", "err_o_other_bm")
+                           if k in r),
+        "max_abs_err_lse": max(r[k] for r in tf32x3_rows
+                               for k in ("err_lse", "err_lse_other_bm")
+                               if k in r),
+        "long_t_abs_err": {n: {"o": r["err_o"], "lse": r["err_lse"]}
+                           for n, r in long_rows.items()},
+        # at the largest main-path shape in f32 (batch 4), through the C
+        # entry point; device: CUDA-graph replay; wrapper: flash_fwd;
+        # prev: flash_fwd.cu on the same inputs; bound: 3xTF32 at the dense
+        # TF32 rate, ffma_bound: the same work on CUDA-core FMAs; library:
+        # SDPA in f32
+        **timed(fwd_f32),
+        "device_ms": fwd_f32["device_ms"],
+        "wrapper_ms": fwd_f32["wrapper_ms"],
+        "prev_ms": fwd_f32["prev_ms"],
+        "prev_device_ms": fwd_f32["prev_device_ms"],
+        "ffma_bound_ms": fwd_f32["ffma_bound_ms"],
+        "library_ms": fwd_f32["library_ms"],
+        "library_device_ms": fwd_f32["library_device_ms"],
+        "exp_floor_ms": fwd_f32["exp_floor_ms"],
+        # every column summed over the 15 launches of one f32 UNet call
+        # (batch 4) and of one f32 training step (batch 1)
+        "per_f32_unet_call": fwd_sums["f32_B4"],
+        "per_f32_training_step": fwd_sums["f32_B1"],
     }, {
         "name": "flash_fwd_mma",
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:104",
-        # the f32 quantized UNet call of phase 9a and the f32 training run
-        # of phase 7 (f32 attention)
-        "launches": f32_fwd["mma"] + grad_f32["fwd_launches_by_kernel"]["mma"],
-        "launches_by_path": {
-            "serve_int8_f32": f32_fwd["mma"],
-            "train_f32_grad": grad_f32["fwd_launches_by_kernel"]["mma"]},
-        "launches_by_kernel": {
-            r: f32_fwd[r] + grad_f32["fwd_launches_by_kernel"][r]
-            for r in f32_fwd},
-        "max_abs_err": max(r["err_o"] for r in rows
-                           if r["dtype"] == "float32"),
-        # at the largest main-path shape in f32 (batch 4); the bound at the
-        # f32 rate (the kernel's CUDA-core FMAs); library: SDPA in f32
-        **timed(fwd_f32),
+        # f32 beyond WGMMA_F32_FWD_MAX_D and broadcast strides: none of the
+        # counted paths' calls
+        "launches": f32_fwd_by_kernel["mma"] + fwd_by_kernel["mma"],
+        "launches_by_path": {**{p: c["mma"] for p, c in f32_by_path.items()},
+                             **{p: c["mma"] for p, c in by_path.items()}},
+        # worst f32 O error of phase 3: the kernel called directly beside
+        # the tf32x3 one on the same inputs
+        "max_abs_err": max(r["err_o_prev"] for r in f32_rows
+                           if "err_o_prev" in r),
+        # at the largest main-path shape in f32 (batch 4), called directly
+        # on the tf32x3 kernel's inputs; the bound at the f32 rate (the
+        # kernel's CUDA-core FMAs); library: SDPA in f32
+        "ms": fwd_f32["prev_ms"],
+        "device_ms": fwd_f32["prev_device_ms"],
+        "plain_ms": fwd_f32["plain_ms"],
+        "bound_ms": fwd_f32["ffma_bound_ms"],
+        "bound_by": fwd_f32["ffma_bound_by"],
         "library_ms": fwd_f32["library_ms"],
         "exp_floor_ms": fwd_f32["exp_floor_ms"],
     }]

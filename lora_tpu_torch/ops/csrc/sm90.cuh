@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
 // directory (int8_matmul_wgmma.cu, flash_fwd_wgmma.cu,
 // flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu,
-// flash_bwd_dq_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu):
-// mbarriers, the cluster barrier and distributed shared memory (mapa,
-// remote stores and mbarrier arrivals), TMA loads and stores, wgmma
+// flash_bwd_dq_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu,
+// flash_fwd_tf32x3.cu): mbarriers, the generic-to-async proxy fence, the
+// cluster barrier and distributed shared memory (mapa, remote stores and
+// mbarrier arrivals), TMA loads and stores, wgmma
 // shared-memory descriptors, the wgmma instructions (bf16 and tf32) and
 // their fence / commit / wait, the 3xTF32 split, and the host-side encoding
 // of TMA tensor maps through cudaGetDriverEntryPoint (so nothing links
@@ -57,6 +58,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                    smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// Orders this thread's earlier ordinary (generic-proxy) writes to shared
+// memory before later reads of it by the async proxy (a wgmma's
+// shared-memory operands, a TMA store). A thread that hands such data to
+// other threads fences, then arrives on the barrier they wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- thread block clusters: distributed shared memory between the CTAs

@@ -7,8 +7,12 @@ lora_tpu/ops/flash_attention.py:
     flash_fwd      _fwd_kernel      O and the f32 logsumexp L, through
         "wgmma"    csrc/flash_fwd_wgmma.cu  bf16: TMA ring, producer warp,
                                             warpgroup wgmma
-        "mma"      csrc/flash_fwd.cu        mma.sync: f32, D > 160, a
-                                            stride of 0
+        "tf32x3"   csrc/flash_fwd_tf32x3.cu f32 with D <= 160: the same
+                                            pipeline, every product as
+                                            three tf32 wgmmas (hi/lo), the
+                                            split made in the kernel
+        "mma"      csrc/flash_fwd.cu        mma.sync: D > 160, a stride
+                                            of 0
     flash_bwd_dq   _bwd_dq_kernel   dQ, through
         "wgmma"    csrc/flash_bwd_dq_wgmma.cu   bf16: TMA ring of K and V,
                                                 producer warp, warpgroup
@@ -37,18 +41,21 @@ lora_tpu/ops/flash_attention.py:
 
 `_fwd_route`, `_dq_route` and `_bwd_route` pick the forward, the dQ and
 the dK/dV kernel from dtype, D and layout alone; `_fwd_bm` the wgmma
-forward's q rows per CTA from T, B * H and the SM count, `_dq_bm` the
+forward's q rows per CTA from T, B * H and the SM count (`_fwd_tf32x3_bm`
+the tf32x3 forward's, capped by what its shared memory holds), `_dq_bm` the
 wgmma dQ kernel's the same way (`_dq_tf32x3_bm` the tf32x3 dQ kernel's,
 capped by what its shared memory holds), `_dkv_bn` the wgmma dK/dV kernel's
 kv rows per CTA from S, B * H and the SM count (`_dkv_tf32x3_bn` the tf32x3
 kernel's, capped the same way; the tf32x3_wide kernel always takes
 TF32X3_WIDE_BN kv rows per cluster pair). The wgmma and tf32x3 backward
 kernels take Q~ = f32(q) * scale rounded to q's dtype (`_q_tilde`: TMA
-cannot scale on load). The three tf32x3 kernels also take every f32 operand
-split into tf32 hi and lo parts (`_split_tf32`), dK/dV (both of its
-kernels) q-innermost copies of Q~ and dO, dQ a kv-innermost copy of K
+cannot scale on load). The three tf32x3 backward kernels also take every
+f32 operand split into tf32 hi and lo parts (`_split_tf32`), dK/dV (both of
+its kernels) q-innermost copies of Q~ and dO, dQ a kv-innermost copy of K
 (`_tf32x3_transposed`), all formed by `_tf32x3_operands` from one split of
-Q~, dO, K and V.
+Q~, dO, K and V. The tf32x3 forward takes q, k and v as they are and makes
+Q~, its split and those of K and V (V as its pi-permuted transposed copy)
+in shared memory after each tile lands.
 `flash_attention_backward` forms Q~ and that split once for both backward
 wrappers (each wrapper forms its own part when called alone).
 
@@ -63,9 +70,8 @@ the UNet's spatial self-attention (ops/attention.py routes the shapes that
 Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises: nothing reacts to a failure), and counts its
 launches in `<wrapper>.launches` and per kernel in
-`<wrapper>.launches_by_kernel` ({"wgmma", "mma"}, and "tf32x3" for the two
-backward wrappers and "tf32x3_wide" for flash_bwd_dkv, summing to
-`launches`).
+`<wrapper>.launches_by_kernel` ({"wgmma", "tf32x3", "mma"}, and
+"tf32x3_wide" for flash_bwd_dkv, summing to `launches`).
 
 Build: the first CUDA call of a kernel compiles its own source (and no
 other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
@@ -88,6 +94,11 @@ BQ = 256  # the JAX kernel's q block: the routing rule below keeps its shapes
 # the widest head the wgmma forward kernel instantiates: MAX_DP and the
 # instance switch of csrc/flash_fwd_wgmma.cu (a CPU test holds them equal)
 WGMMA_MAX_D = 160
+# the widest f32 head the tf32x3 forward kernel instantiates, and the
+# widest at which it holds 128 q rows a CTA: MAX_DP and BM_MAX of
+# csrc/flash_fwd_tf32x3.cu (a CPU test holds them equal)
+WGMMA_F32_FWD_MAX_D = 160
+TF32X3_FWD_BM128_MAX_D = 128
 # the same for the wgmma dQ kernel, csrc/flash_bwd_dq_wgmma.cu
 WGMMA_DQ_MAX_D = 160
 # the same for the wgmma dK/dV kernel, csrc/flash_bwd_dkv_wgmma.cu
@@ -112,7 +123,8 @@ TF32X3_DQ_BM128_MAX_D = 64
 # of the dQ source (its largest kv tile)
 TF32X3_T_ALIGN = 32
 TF32X3_S_ALIGN = 64
-# the routes whose kernels read the split operands of _tf32x3_operands
+# the backward routes whose kernels read the split operands of
+# _tf32x3_operands
 TF32X3_ROUTES = ("tf32x3", "tf32x3_wide")
 
 _lib_lock = threading.Lock()
@@ -120,13 +132,14 @@ _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma", "dq_wgmma"
-# and "dq_tf32x3", bn for "dkv_wgmma", "dkv_tf32x3" and
+# pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma", "tf32x3",
+# "dq_wgmma" and "dq_tf32x3", bn for "dkv_wgmma", "dkv_tf32x3" and
 # "dkv_tf32x3_wide"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
 _ENTRY = {
     # entry: (source stem, C function, pointer arguments)
     "wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma", 5),
+    "tf32x3": ("flash_fwd_tf32x3", "flash_fwd_tf32x3", 5),
     "mma": ("flash_fwd", "flash_fwd", 5),
     # flash_bwd_dq's three routes, "dq_" + route
     "dq_wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma", 7),
@@ -142,7 +155,7 @@ _ENTRY = {
 
 
 def _entry(name: str):
-    """The ctypes function of one kernel ("wgmma" or "mma" forward,
+    """The ctypes function of one kernel ("wgmma", "tf32x3" or "mma" forward,
     "dq_" or "dkv_" + a backward route), building its source on first
     use."""
     with _lib_lock:
@@ -306,11 +319,13 @@ def _route(max_d: int, q: torch.Tensor, *others: torch.Tensor) -> str:
 
 def _fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The forward kernel of a call: "wgmma" (csrc/flash_fwd_wgmma.cu) for
-    bf16 with D <= WGMMA_MAX_D and layouts TMA's tensor maps take
-    (_layout_ok: 16-byte strides and bases; and no stride of 0), "mma"
-    (csrc/flash_fwd.cu) for the rest: f32, D > WGMMA_MAX_D, a broadcast.
-    A layout _layout_ok refuses never launches: _check raises first."""
-    return _route(WGMMA_MAX_D, q, k, v)
+    bf16 with D <= WGMMA_MAX_D, "tf32x3" (csrc/flash_fwd_tf32x3.cu) for
+    f32 with D <= WGMMA_F32_FWD_MAX_D, each where the layouts are ones
+    TMA's tensor maps take (_layout_ok: 16-byte strides and bases; and no
+    stride of 0); "mma" (csrc/flash_fwd.cu) for the rest: wider D, a
+    broadcast. A layout _layout_ok refuses never launches: _check raises
+    first."""
+    return _kernel_route(WGMMA_MAX_D, WGMMA_F32_FWD_MAX_D, q, k, v)
 
 
 def _fwd_bm(T: int, bh: int, sms: int = 132) -> int:
@@ -320,8 +335,14 @@ def _fwd_bm(T: int, bh: int, sms: int = 132) -> int:
     return 128 if -(-T // 128) * bh >= sms else 64
 
 
-def _bwd_kernel_route(max_d: int, f32_max_d: int, q: torch.Tensor,
-                      *others: torch.Tensor) -> str:
+def _fwd_tf32x3_bm(T: int, bh: int, D: int, sms: int = 132) -> int:
+    """q rows per CTA of the tf32x3 forward kernel: _fwd_bm's rule where
+    the instance holds 128 rows (D <= TF32X3_FWD_BM128_MAX_D), else 64."""
+    return _fwd_bm(T, bh, sms) if D <= TF32X3_FWD_BM128_MAX_D else 64
+
+
+def _kernel_route(max_d: int, f32_max_d: int, q: torch.Tensor,
+                  *others: torch.Tensor) -> str:
     """"tf32x3" for f32 with D <= f32_max_d where every tensor has a
     layout TMA's tensor maps take (_tma_ok), else _route's rule."""
     if (q.dtype == torch.float32 and q.shape[3] <= f32_max_d
@@ -345,8 +366,7 @@ def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and WGMMA_F32_DKV_MAX_D < q.shape[3] <= WGMMA_F32_DKV_WIDE_MAX_D
             and _tma_ok(q, k, v, do)):
         return "tf32x3_wide"
-    return _bwd_kernel_route(WGMMA_DKV_MAX_D, WGMMA_F32_DKV_MAX_D, q, k, v,
-                             do)
+    return _kernel_route(WGMMA_DKV_MAX_D, WGMMA_F32_DKV_MAX_D, q, k, v, do)
 
 
 def _dq_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -354,7 +374,7 @@ def _dq_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The dQ kernel of a call: _bwd_route's rule with WGMMA_DQ_MAX_D and
     WGMMA_F32_DQ_MAX_D, "wgmma" (csrc/flash_bwd_dq_wgmma.cu), "tf32x3"
     (csrc/flash_bwd_dq_tf32x3.cu) or "mma" (csrc/flash_bwd.cu)."""
-    return _bwd_kernel_route(WGMMA_DQ_MAX_D, WGMMA_F32_DQ_MAX_D, q, k, v, do)
+    return _kernel_route(WGMMA_DQ_MAX_D, WGMMA_F32_DQ_MAX_D, q, k, v, do)
 
 
 def _dq_bm(T: int, bh: int, sms: int = 132) -> int:
@@ -442,7 +462,8 @@ def _strides(*tensors) -> ctypes.Array:
 
 def _launch(fn, name, ptrs, strides, q, k, arg, scale):
     """One C entry point on the current stream; `arg` is is_bf16 (bm for
-    the wgmma forward and the wgmma and tf32x3 dQ kernels, bn for the
+    the wgmma and tf32x3 forward and the wgmma and tf32x3 dQ kernels, bn
+    for the
     wgmma and tf32x3 dK/dV kernels)."""
     B, H, T, D = q.shape
     with torch.cuda.device(q.device):
@@ -454,6 +475,28 @@ def _launch(fn, name, ptrs, strides, q, k, arg, scale):
                            f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
 
 
+def _fwd_launch(route, q, k, v, scale, bm=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One forward kernel through its C entry point (no routing, no count):
+    the wgmma and tf32x3 kernels at `bm` q rows per CTA (by default
+    _fwd_bm's, or _fwd_tf32x3_bm's), the mma kernel at its own tile."""
+    B, H, T, D = q.shape
+    # O in q's layout when q is dense (the UNet's transposed views), else
+    # contiguous; either way strides the kernels take (checked for q)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if route == "tf32x3":
+        arg = bm or _fwd_tf32x3_bm(T, B * H, D, _sm_count(q.device))
+    elif route == "wgmma":
+        arg = bm or _fwd_bm(T, B * H, _sm_count(q.device))
+    else:
+        arg = int(q.dtype == torch.bfloat16)
+    _launch(_entry(route), f"flash_fwd ({route})",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr()), _strides(q, k, v, out), q, k, arg, scale)
+    return out, lse
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, T, D) non-causal attention forward -> (O, L), O in q's layout
@@ -462,17 +505,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     _check(q, k, v)
-    B, H, T, _ = q.shape
-    # O in q's layout when q is dense (the UNet's transposed views), else
-    # contiguous; either way strides the kernels take (checked for q above)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     route = _fwd_route(q, k, v)
-    arg = (_fwd_bm(T, B * H, _sm_count(q.device)) if route == "wgmma"
-           else int(q.dtype == torch.bfloat16))
-    _launch(_entry(route), f"flash_fwd ({route})",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr()), _strides(q, k, v, out), q, k, arg, scale)
+    out, lse = _fwd_launch(route, q, k, v, scale)
     flash_fwd.launches_by_kernel[route] += 1
     flash_fwd.launches += 1
     return out, lse
@@ -569,7 +603,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None,
     return dk, dv
 
 
-flash_fwd.launches_by_kernel = {"wgmma": 0, "mma": 0}
+flash_fwd.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
 flash_fwd.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
 flash_bwd_dq.launches = 0  # the sum of launches_by_kernel

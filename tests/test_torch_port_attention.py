@@ -207,7 +207,7 @@ def _route_case(case):
         return (q, q, q), "wgmma"
     if name == "f32":
         q = _bthd(1, 64, 2, 40, torch.float32)
-        return (q, q, q), "mma"
+        return (q, q, q), "tf32x3"
     if name == "wide_head":  # D > 160: the mma kernel takes up to 256
         q = _bthd(1, 64, 2, 168)
         return (q, q, q), "mma"
@@ -224,8 +224,9 @@ def _route_case(case):
     ids=lambda c: "-".join(map(str, c)))
 def test_fwd_route(case):
     """bf16 at every main-path shape (the UNet's transposed views) and
-    contiguous tensors take the wgmma kernel; f32, D > 160 and broadcast
-    strides the mma kernel. The route reads dtype, D and strides only."""
+    contiguous tensors take the wgmma kernel; f32 the tf32x3 kernel; D > 160
+    and broadcast strides the mma kernel. The route reads dtype, D and
+    strides only."""
     (q, k, v), want = _route_case(case)
     assert all(t_fa._layout_ok(t) for t in (q, k, v))
     assert t_fa._fwd_route(q, k, v) == want
