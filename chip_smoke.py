@@ -19,12 +19,13 @@
                                         # flash_bwd_dkv_wgmma.cu,
                                         # flash_bwd_dq_wgmma.cu,
                                         # flash_bwd_dkv_tf32x3.cu,
-                                        # flash_bwd_dkv_tf32x3_wide.cu and
-                                        # flash_bwd_dq_tf32x3.cu only),
+                                        # flash_bwd_dkv_tf32x3_wide.cu,
+                                        # flash_bwd_dq_tf32x3.cu and
+                                        # flash_bwd_dq_tf32x3_wide.cu only),
                                         # the tf32x3 forward, wgmma dQ,
                                         # wgmma dK/dV, tf32x3 dQ, tf32x3
-                                        # dK/dV and tf32x3_wide dK/dV
-                                        # kernels' first
+                                        # dK/dV, tf32x3_wide dQ and
+                                        # tf32x3_wide dK/dV kernels' first
                                         # calls in child processes under a
                                         # timeout, 4 and its sums over one
                                         # training step (bf16 and f32)
@@ -36,7 +37,8 @@ it the build of the kernels):
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_fwd_tf32x3.cu, flash_bwd.cu,
      flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu,
      flash_bwd_dkv_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu,
-     flash_bwd_dq_tf32x3.cu, int8_matmul.cu, int8_matmul_wgmma.cu; one
+     flash_bwd_dq_tf32x3.cu, flash_bwd_dq_tf32x3_wide.cu, int8_matmul.cu,
+     int8_matmul_wgmma.cu; one
      nvcc each, in parallel) for sm_90a into the build directory, and
      prints ptxas's registers, shared memory and spills of the wgmma and
      tf32x3 kernels and each tf32x3 forward and backward instance's tiles;
@@ -44,8 +46,9 @@ it the build of the kernels):
      the main serving shape and D = 160), the wgmma dQ kernel's first
      calls (that kernel alone), the wgmma dK/dV kernel's,
      the tf32x3 dQ kernel's (f32, that kernel alone), the tf32x3 dK/dV
-     kernel's (f32) and the tf32x3_wide dK/dV kernel's (f32, D = 160: its
-     cluster pair), each in a child process under a timeout.
+     kernel's (f32), the tf32x3_wide dQ kernel's (f32, D = 104 and 160:
+     its cluster pair, that kernel alone) and the tf32x3_wide dK/dV
+     kernel's (f32, D = 160), each in a child process under a timeout.
   3. kernel: the forward kernels against their plain PyTorch version on the
      card at the SD-1.5 512px self-attention shapes, bf16 at the serving
      batch (4) and the training batch (1), each call through the wgmma
@@ -79,14 +82,15 @@ it the build of the kernels):
      heights, and the mma kernels of flash_bwd.cu on the same inputs; f32
      at D <= 96: flash_bwd_dq_tf32x3.cu and flash_bwd_dkv_tf32x3.cu, each
      also called directly at its tile heights, with both mma kernels on
-     the same inputs; f32 at 96 < D <= 160: dK/dV through
-     flash_bwd_dkv_tf32x3_wide.cu, also called directly, with the mma
-     kernel on the same inputs, and dQ through the mma kernel; else the
-     mma kernels). Relative errors; at the training levels, median times
+     the same inputs; f32 at 96 < D <= 160: flash_bwd_dq_tf32x3_wide.cu
+     and flash_bwd_dkv_tf32x3_wide.cu, each also called directly, with
+     both mma kernels on the same inputs; else the mma kernels). Relative
+     errors; at the training levels, median times
      of both dQ and both dK/dV kernels through their C entry points and as
      device time (CUDA-graph replays), the wgmma and tf32x3 kernels'
      device time at their other tile height, the tf32x3 kernels' shared
-     hi/lo split (once per backward call), the two wrappers, the plain
+     hi/lo split (once per backward call; where both kernels read it, also
+     the dK/dV part alone), the two wrappers, the plain
      versions, one autograd.grad of a retained SDPA graph (dQ, dK, dV
      together, bf16 and f32; timed only, its device time from
      torch.profiler), the FLOP bounds (tf32x3 and tf32x3_wide: at the TF32
@@ -116,10 +120,10 @@ it the build of the kernels):
      forward launch of the phase wgmma, every dQ and dK/dV launch as in
      phase 6). Then the same in f32 (the trainer's default dtype, the
      counted f32 path: 15 forward launches through flash_fwd_tf32x3.cu;
-     of dQ 10 through
-     flash_bwd_dq_tf32x3.cu (D = 40, 80) and 5 through the mma kernel
-     (D = 160); of dK/dV 10 through flash_bwd_dkv_tf32x3.cu and 5 through
-     flash_bwd_dkv_tf32x3_wide.cu (D = 160), none through the mma kernel;
+     of dQ 10 through flash_bwd_dq_tf32x3.cu (D = 40, 80) and 5 through
+     flash_bwd_dq_tf32x3_wide.cu (D = 160); of dK/dV 10 through
+     flash_bwd_dkv_tf32x3.cu and 5 through flash_bwd_dkv_tf32x3_wide.cu
+     (D = 160); none through the mma kernels;
      the LoRA gradients within 1e-3), and 3 warm-up and 5 timed f32
      training steps (AdamW 1e-4, clip 1.0), each with those launches:
      their median.
@@ -305,7 +309,7 @@ def phase_build(stems=None) -> None:
                  "flash_fwd_tf32x3", "flash_bwd_dkv_wgmma",
                  "flash_bwd_dq_wgmma",
                  "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
-                 "flash_bwd_dq_tf32x3"):
+                 "flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3_wide"):
         if stem in paths:
             with open(paths[stem][:-3] + ".log") as f:
                 for line in f:
@@ -316,8 +320,9 @@ def phase_build(stems=None) -> None:
     # rows for dQ), ring depth and dynamic shared memory (ptxas reports
     # static shared memory only); the tf32x3 kernels' also the rows a CTA
     # holds (kv rows for dK/dV, q rows for dQ and the forward; the
-    # tf32x3_wide kernel's kv rows per cluster pair); the tf32x3 forward's
-    # kv rows per stage and its split ring's depth
+    # tf32x3_wide kernels' kv or q rows per cluster pair, and the dQ one's
+    # column boxes of rank 0); the tf32x3 forward's kv rows per stage and
+    # its split ring's depth
     for stem, keys, min_d, max_d, step in (
             ("flash_fwd_tf32x3", ("BN", "stages", "smem_bytes", "BM_MAX"), 8,
              fa.WGMMA_F32_FWD_MAX_D, 8),
@@ -332,7 +337,10 @@ def phase_build(stems=None) -> None:
                                            "BN"),
              fa.WGMMA_F32_DKV_MAX_D + 8, fa.WGMMA_F32_DKV_WIDE_MAX_D, 8),
             ("flash_bwd_dq_tf32x3", ("BN", "stages", "smem_bytes",
-                                     "BM_MAX"), 8, fa.WGMMA_F32_DQ_MAX_D, 8)):
+                                     "BM_MAX"), 8, fa.WGMMA_F32_DQ_MAX_D, 8),
+            ("flash_bwd_dq_tf32x3_wide", ("BN", "stages", "smem_bytes", "BM",
+                                          "NB0"),
+             fa.WGMMA_F32_DQ_MAX_D + 8, fa.WGMMA_F32_DQ_WIDE_MAX_D, 8)):
         if stem not in paths:
             continue
         config = getattr(kernel_build.load_library(stem), stem + "_config")
@@ -747,7 +755,8 @@ def tf32x3_wide_probe(timeout_s: float = 60.0) -> None:
     """The tf32x3_wide dK/dV kernel's first calls (a cluster of two CTAs
     with mbarriers across them): an f32 ragged call at D = 160 and the
     16x16 training level (T = S = 256, D = 160) in f32 (the mma kernels
-    beside it on the same inputs, dQ through its mma kernel)."""
+    beside it on the same inputs, dQ through the tf32x3_wide dQ kernel,
+    which tf32x3_wide_dq_probe tried first)."""
     _probe("tf32x3_wide dK/dV", (
         "import torch, chip_smoke as c; "
         "g = torch.Generator('cuda').manual_seed(c.SEED); "
@@ -763,9 +772,11 @@ def check_dq_direct(B, H, T, S, D, gen, heads_inner=True,
     height its instance holds, against flash_bwd_dq_reference (the
     forward kernel makes O and L): bf16 the wgmma kernel (64 and 128),
     f32 the tf32x3 kernel on its split operands (128 only where
-    D <= TF32X3_DQ_BM128_MAX_D). The calls of dq_probe and
-    tf32x3_dq_probe."""
-    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    D <= TF32X3_DQ_BM128_MAX_D), above WGMMA_F32_DQ_MAX_D the tf32x3_wide
+    kernel (64 only). The calls of dq_probe, tf32x3_dq_probe and
+    tf32x3_wide_dq_probe."""
+    route = ("wgmma" if dtype == torch.bfloat16 else "tf32x3"
+             if D <= fa.WGMMA_F32_DQ_MAX_D else "tf32x3_wide")
     q, k, v = _qkv(B, H, T, S, D, dtype, gen, heads_inner)
     do = _qkv(B, H, T, T, D, dtype, gen, heads_inner)[0]
     scale = D ** -0.5
@@ -776,7 +787,7 @@ def check_dq_direct(B, H, T, S, D, gen, heads_inner=True,
                                          scale).float()
         qt = fa._q_tilde(q, scale)
         ops = (fa._tf32x3_operands(qt, do, k, v, ("dq",))["dq"]
-               if route == "tf32x3" else None)
+               if route in fa.TF32X3_ROUTES else None)
         bms = (64, 128) if route == "wgmma" or (
             D <= fa.TF32X3_DQ_BM128_MAX_D) else (64,)
         rel = {}
@@ -818,6 +829,24 @@ def tf32x3_dq_probe(timeout_s: float = 60.0) -> None:
         timeout_s)
 
 
+def tf32x3_wide_dq_probe(timeout_s: float = 60.0) -> None:
+    """The tf32x3_wide dQ kernel's first calls (a cluster of two CTAs that
+    hand their scores to each other through mbarriers across them): f32
+    ragged calls at D = 160 and at D = 104 (the pair's column boxes
+    unequal), and the 16x16 training level (T = S = 256, D = 160), that
+    kernel alone, before anything else launches it (tf32x3_wide_probe's
+    calls go through it too)."""
+    _probe("tf32x3_wide dQ", (
+        "import torch, chip_smoke as c; "
+        "g = torch.Generator('cuda').manual_seed(c.SEED); "
+        "c.check_dq_direct(1, 2, *c.RAGGED[:2], 160, g, heads_inner=False, "
+        "dtype=torch.float32); "
+        "c.check_dq_direct(1, 2, *c.FLASH_D_SWEEP, 104, g, "
+        "dtype=torch.float32); "
+        "c.check_dq_direct(1, 8, 256, 256, 160, g, dtype=torch.float32)"),
+        timeout_s)
+
+
 def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                       timed=True):
     """flash_bwd_dq and flash_bwd_dkv against their plain versions on the
@@ -830,7 +859,8 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
     dK/dV: bn 64 and 128, the same; tf32x3_wide 64 only). Timed: each
     routed kernel (a wgmma or tf32x3 one on Q~ formed beforehand, the
     tf32x3 ones also on the split operands formed beforehand, once for
-    both kernels, whose forming is timed apart) and each mma kernel it
+    both kernels, whose forming is timed apart, and where both read it
+    the dK/dV part alone) and each mma kernel it
     replaced, through its C entry point and as device time (CUDA-graph
     replays), and each wgmma or tf32x3 kernel's device time at its other
     tile height; both wrappers (Q~ and the split included); the plain
@@ -913,6 +943,9 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
             if tf32x3:  # the split the tf32x3 kernels read, once per call
                 calls["split_"] = lambda: fa._tf32x3_operands(
                     qt, do, k, v, tf32x3)
+            if len(tf32x3) == 2:  # and the part dK/dV reads alone
+                calls["split_dkv_only_"] = lambda: fa._tf32x3_operands(
+                    qt, do, k, v, ("dkv",))
             for name, call in calls.items():
                 row[name + "ms"] = _time_ms(call)
                 row[name + "device_ms"] = _graph_ms(call)
@@ -999,7 +1032,9 @@ def check_bwd_kernels(B, H, T, S, D, dtype, gen, heads_inner=True,
                       and D <= fa.WGMMA_F32_DKV_WIDE_MAX_D else "mma"),
             "dq_route": ("wgmma" if bf16 and D <= fa.WGMMA_DQ_MAX_D
                          else "tf32x3" if not bf16
-                         and D <= fa.WGMMA_F32_DQ_MAX_D else "mma")}
+                         and D <= fa.WGMMA_F32_DQ_MAX_D
+                         else "tf32x3_wide" if not bf16
+                         and D <= fa.WGMMA_F32_DQ_WIDE_MAX_D else "mma")}
     if bad or row["kernel"] != [route] or row["dq_kernel"] != [dq_route] \
             or {key: row[key] for key in want} != want:
         raise AssertionError(f"flash_bwd kernels disagree with their plain "
@@ -1023,12 +1058,12 @@ def phase_bwd_kernels():
         rows.append(check_bwd_kernels(2, 8, T, T, D, torch.bfloat16, gen,
                                       timed=False))
     # every D the routes send to the wgmma dQ and dK/dV kernels and to the
-    # tf32x3 dQ and the tf32x3 and tf32x3_wide dK/dV kernels (each of their
+    # tf32x3 and tf32x3_wide dQ and dK/dV kernels (each of their
     # instances), with ragged T and S
     for D in range(8, max(fa.WGMMA_DQ_MAX_D, fa.WGMMA_DKV_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.bfloat16, gen, timed=False))
-    for D in range(8, max(fa.WGMMA_F32_DQ_MAX_D,
+    for D in range(8, max(fa.WGMMA_F32_DQ_WIDE_MAX_D,
                           fa.WGMMA_F32_DKV_WIDE_MAX_D) + 1, 8):
         rows.append(check_bwd_kernels(1, 2, *FLASH_D_SWEEP, D,
                                       torch.float32, gen, timed=False))
@@ -1037,7 +1072,7 @@ def phase_bwd_kernels():
     H, T, D = SD21_768_LEVEL
     rows.append(check_bwd_kernels(1, H, T, T, D, torch.float32, gen,
                                   timed=False))
-    # and the tf32x3_wide kernel's over 4096 q rows at D = 160
+    # and the tf32x3_wide kernels' over 4096 q and kv rows at D = 160
     H, T, D = WIDE_LONG_LEVEL
     rows.append(check_bwd_kernels(1, H, T, T, D, torch.float32, gen,
                                   timed=False))
@@ -1051,9 +1086,8 @@ BWD_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms", "dq_prev_device_ms",
                 "library_device_ms", "dq_bound_ms", "dkv_bound_ms",
                 "exp_floor_ms")
 # f32: dQ and dK/dV run the tf32x3 and tf32x3_wide kernels where the
-# routes send them ("prev": the mma kernels on the same inputs; dQ's D = 160
-# level runs its mma kernel anyway), with the split they read (formed once
-# per backward call) and both bounds
+# routes send them ("prev": the mma kernels on the same inputs), with the
+# split they read (formed once per backward call) and both bounds
 BWD_F32_SUM_KEYS = ("dq_ms", "dq_device_ms", "dq_prev_ms",
                     "dq_prev_device_ms", "dq_wrapper_ms", "dkv_ms",
                     "dkv_device_ms", "dkv_prev_ms", "dkv_prev_device_ms",
@@ -1087,9 +1121,9 @@ def per_call_launches(fn, tiers) -> dict:
     (max_d, route) of `tiers` (widest last) with D <= max_d (bf16: "wgmma"
     to WGMMA_MAX_D for flash_fwd, to WGMMA_DQ_MAX_D for flash_bwd_dq, to
     WGMMA_DKV_MAX_D for flash_bwd_dkv; f32: "tf32x3" to
-    WGMMA_F32_FWD_MAX_D, to WGMMA_F32_DQ_MAX_D, and to WGMMA_F32_DKV_MAX_D
-    then "tf32x3_wide" to WGMMA_F32_DKV_WIDE_MAX_D), else through the mma
-    kernel."""
+    WGMMA_F32_FWD_MAX_D, to WGMMA_F32_DQ_MAX_D then "tf32x3_wide" to
+    WGMMA_F32_DQ_WIDE_MAX_D, and to WGMMA_F32_DKV_MAX_D then "tf32x3_wide"
+    to WGMMA_F32_DKV_WIDE_MAX_D), else through the mma kernel."""
     n = ROUTED_PER_UNET_CALL // len(SD15_ATTN_SHAPES)
     counts = dict.fromkeys(fn.launches_by_kernel, 0)
     for _, D in SD15_ATTN_SHAPES:
@@ -1512,6 +1546,8 @@ KERNEL_CLASSES = (
     ("flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3"),
     ("flash_bwd_dkv_mma", "bwd_dkv"),
     ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma"),
+    ("flash_bwd_dq_tf32x3_wide", "flash_bwd_dq_tf32x3_wide"),
+    ("flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3"),
     ("flash_bwd_dq_mma", "bwd_dq"),
     ("flash_fwd", "flash_fwd"),
     ("conv", "conv|fprop|dgrad|wgrad|winograd"),
@@ -1646,8 +1682,9 @@ def phase_grad(dt=torch.bfloat16):
     """The full-width LoRA gradient through the kernels against the one
     through the plain attention path; in bf16 (the bench's dtype) also
     with gradient checkpointing. f32 (the trainer's default) runs the f32
-    kernels: flash_fwd.cu, dQ through flash_bwd_dq_tf32x3.cu at
-    D <= WGMMA_F32_DQ_MAX_D and flash_bwd.cu above it, dK/dV through
+    kernels: flash_fwd_tf32x3.cu, dQ through flash_bwd_dq_tf32x3.cu at
+    D <= WGMMA_F32_DQ_MAX_D and flash_bwd_dq_tf32x3_wide.cu above it to
+    WGMMA_F32_DQ_WIDE_MAX_D, dK/dV through
     flash_bwd_dkv_tf32x3.cu at D <= WGMMA_F32_DKV_MAX_D and
     flash_bwd_dkv_tf32x3_wide.cu above it to WGMMA_F32_DKV_WIDE_MAX_D; then
     TRAIN_F32_WARMUP and TRAIN_F32_STEPS timed f32 training steps
@@ -1725,8 +1762,7 @@ def phase_grad(dt=torch.bfloat16):
     log("grad: " + json.dumps(row))
     # bf16: two steps through the kernels (plain, checkpointed), the
     # forward twice in the checkpointed one; f32: one step, the forward all
-    # tf32x3, dQ tf32x3 where D <= WGMMA_F32_DQ_MAX_D, dK/dV tf32x3 and
-    # tf32x3_wide (_per_step_want)
+    # tf32x3, dQ and dK/dV tf32x3 and tf32x3_wide (_per_step_want)
     want_dq, want_dkv, want_fwd = _per_step_want(dt)
     if bf16:
         want_dq, want_dkv = ({r: 2 * n for r, n in w.items()}
@@ -1763,7 +1799,8 @@ def _per_step_want(dt):
                                   ((fa.WGMMA_DKV_MAX_D, "wgmma"),)),
                 per_call_launches(fa.flash_fwd, ((fa.WGMMA_MAX_D, "wgmma"),)))
     return (per_call_launches(fa.flash_bwd_dq,
-                              ((fa.WGMMA_F32_DQ_MAX_D, "tf32x3"),)),
+                              ((fa.WGMMA_F32_DQ_MAX_D, "tf32x3"),
+                               (fa.WGMMA_F32_DQ_WIDE_MAX_D, "tf32x3_wide"))),
             per_call_launches(fa.flash_bwd_dkv,
                               ((fa.WGMMA_F32_DKV_MAX_D, "tf32x3"),
                                (fa.WGMMA_F32_DKV_WIDE_MAX_D, "tf32x3_wide"))),
@@ -2098,21 +2135,23 @@ def main_flash_bwd() -> int:
     """The backward kernels alone: the device line, the builds of the three
     forward kernels (the residuals, bf16 and f32), flash_bwd.cu,
     flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu,
-    flash_bwd_dkv_tf32x3_wide.cu and flash_bwd_dq_tf32x3.cu, the tf32x3
-    forward's, wgmma dQ, wgmma dK/dV, tf32x3 dQ, tf32x3 dK/dV and
-    tf32x3_wide dK/dV kernels' first calls in child processes under a
-    timeout, phase 4 and its sums over one training step (bf16 and f32)."""
+    flash_bwd_dkv_tf32x3_wide.cu, flash_bwd_dq_tf32x3.cu and
+    flash_bwd_dq_tf32x3_wide.cu, the tf32x3 forward's, wgmma dQ, wgmma
+    dK/dV, tf32x3 dQ, tf32x3 dK/dV, tf32x3_wide dQ and tf32x3_wide dK/dV
+    kernels' first calls in child processes under a timeout, phase 4 and
+    its sums over one training step (bf16 and f32)."""
     smi = phase_device()
     phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
                  "flash_bwd",
                  "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
                  "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
-                 "flash_bwd_dq_tf32x3"])
+                 "flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3_wide"])
     tf32x3_fwd_probe()
     dq_probe()
     dkv_probe()
     tf32x3_dq_probe()
     tf32x3_probe()
+    tf32x3_wide_dq_probe()
     tf32x3_wide_probe()
     bwd_step_sums(phase_bwd_kernels())
     log(smi)
@@ -2139,6 +2178,7 @@ def main() -> int:
     dkv_probe()
     tf32x3_dq_probe()
     tf32x3_probe()
+    tf32x3_wide_dq_probe()
     tf32x3_wide_probe()
     rows = phase_kernels()
     fwd_sums = flash_call_sums(rows)
@@ -2368,22 +2408,71 @@ def main() -> int:
         "library_computes": "dq, dk, dv",
         "exp_floor_ms": bwd_f32["exp_floor_ms"],
         # every f32 column summed over the 15 launches of one f32 step
+        # (the D = 160 level's through the tf32x3_wide kernel)
         "per_training_step": {k: v for k, v in bwd_sums["float32"].items()
                               if not k.startswith("dkv_")},
         "train_f32_step_ms_median": grad_f32["train_f32"]["step_ms_median"],
+    })
+    wide = next(r for r in f32_bwd if "dq_ms" in r
+                and (r["T"], r["D"]) == SD15_ATTN_SHAPES[-1])
+    wide_long = next(r for r in f32_bwd if (r["H"], r["T"], r["D"])
+                     == WIDE_LONG_LEVEL)
+    wide_dq_rows = [r for r in f32_bwd if r["dq_route"] == "tf32x3_wide"]
+    kernels.append({
+        "name": "flash_bwd_dq_tf32x3_wide",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/flash_bwd_dq_tf32x3_wide.cu",
+        "replaces": "lora_tpu/ops/flash_attention.py:178",
+        # the counted f32 training run of phase 7: every dQ launch at
+        # WGMMA_F32_DQ_MAX_D < D <= WGMMA_F32_DQ_WIDE_MAX_D (phase 7 checks
+        # it)
+        "launches": f32_dq["tf32x3_wide"],
+        "launches_by_path": {"train_f32_grad": f32_dq["tf32x3_wide"]},
+        "launches_by_kernel": f32_dq,
+        # worst dQ error over the f32 calls of phase 4 routed here (the
+        # 16x16 level, the ragged sweep of D from 104 to 160 and
+        # T = S = 4096), absolute and relative to the plain version's
+        # largest value
+        "max_abs_err": max(r[f"err_{e}"] for r in wide_dq_rows
+                           for e in ("dq", "dq_bm64")),
+        "max_rel_err": max(r[f"rel_{e}"] for r in wide_dq_rows
+                           for e in ("dq", "dq_bm64")),
+        "long_t_rel_err": wide_long["rel_dq"],
+        # at the 16x16 training level in f32 (T = S = 256, D = 160, B = 1,
+        # H = 8): the kernel on Q~ and its split operands formed
+        # beforehand; split: forming them for both kernels, split_dkv_only:
+        # the dK/dV kernel's part alone (what was formed at this level
+        # before this kernel read it); wrapper: flash_bwd_dq with its Q~
+        # and split; prev: the mma kernel (flash_bwd.cu) on the same
+        # inputs; bound: 3xTF32 at the dense TF32 rate, ffma_bound: the same
+        # work on CUDA-core FMAs; library: SDPA's backward in f32
+        **timed(wide, "dq_"),
+        "device_ms": wide["dq_device_ms"],
+        "split_ms": wide["split_ms"],
+        "split_device_ms": wide["split_device_ms"],
+        "split_dkv_only_device_ms": wide["split_dkv_only_device_ms"],
+        "wrapper_ms": wide["dq_wrapper_ms"],
+        "prev_ms": wide["dq_prev_ms"],
+        "prev_device_ms": wide["dq_prev_device_ms"],
+        "ffma_bound_ms": wide["dq_ffma_bound_ms"],
+        "library_ms": wide["library_ms"],
+        "library_device_ms": wide["library_device_ms"],
+        "library_computes": "dq, dk, dv",
+        "exp_floor_ms": wide["exp_floor_ms"],
     })
     kernels.append({
         "name": "flash_bwd_dq_mma",
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:178",
-        # the f32 training run of phase 7 at D > WGMMA_F32_DQ_MAX_D, and
-        # the bf16 training steps at D > WGMMA_DQ_MAX_D
+        # the f32 training run of phase 7 at D > WGMMA_F32_DQ_WIDE_MAX_D,
+        # and the bf16 training steps at D > WGMMA_DQ_MAX_D: none at
+        # SD-1.5's levels
         "launches": f32_dq["mma"] + train_dq["mma"],
         "launches_by_path": {"train_f32_grad": f32_dq["mma"],
                              "train": train_dq["mma"]},
         # worst f32 error of phase 4: the calls routed here, and the
-        # kernel called directly beside the tf32x3 one
+        # kernel called directly beside the tf32x3 and tf32x3_wide ones
         "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
                            for e in (("dq",) if r["dq_route"] == "mma"
                                      else ("dq_prev",))),
@@ -2472,10 +2561,6 @@ def main() -> int:
                               if not k.startswith("dq_")},
         "train_f32_step_ms_median": grad_f32["train_f32"]["step_ms_median"],
     })
-    wide = next(r for r in f32_bwd if "dkv_ms" in r
-                and (r["T"], r["D"]) == SD15_ATTN_SHAPES[-1])
-    wide_long = next(r for r in f32_bwd if (r["H"], r["T"], r["D"])
-                     == WIDE_LONG_LEVEL)
     wide_rows = [r for r in f32_bwd if r["route"] == "tf32x3_wide"]
     kernels.append({
         "name": "flash_bwd_dkv_tf32x3_wide",

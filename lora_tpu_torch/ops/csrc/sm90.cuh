@@ -2,9 +2,10 @@
 // directory (int8_matmul_wgmma.cu, flash_fwd_wgmma.cu,
 // flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_tf32x3.cu,
 // flash_bwd_dq_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu,
-// flash_fwd_tf32x3.cu): mbarriers, the generic-to-async proxy fence, the
-// cluster barrier and distributed shared memory (mapa, remote stores and
-// mbarrier arrivals), TMA loads and stores, wgmma
+// flash_bwd_dq_tf32x3_wide.cu, flash_fwd_tf32x3.cu): mbarriers, the
+// generic-to-async proxy fence, the cluster barrier and distributed shared
+// memory (mapa, remote stores, asynchronous remote stores counted on an
+// mbarrier, and mbarrier arrivals), TMA loads and stores, wgmma
 // shared-memory descriptors, the wgmma instructions (bf16 and tf32) and
 // their fence / commit / wait, the 3xTF32 split, and the host-side encoding
 // of TMA tensor maps through cudaGetDriverEntryPoint (so nothing links
@@ -101,6 +102,19 @@ __device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
                "f"(v.y), "f"(v.z), "f"(v.w)
                : "memory");
+}
+
+// 16 bytes into another CTA's shared memory (addr from cluster_map) as an
+// asynchronous store that counts its bytes on an mbarrier of that CTA (bar,
+// also from cluster_map): the receiver expects the bytes on its barrier
+// (mbar_expect_tx) and waits on it; the sender arrives on nothing and
+// fences nothing
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 
 // one arrival on an mbarrier of another CTA of the cluster (addr from

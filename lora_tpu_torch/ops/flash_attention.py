@@ -20,7 +20,14 @@ lora_tpu/ops/flash_attention.py:
         "tf32x3"   csrc/flash_bwd_dq_tf32x3.cu  f32 with D <= 96: the same
                                                 pipeline, every product as
                                                 three tf32 wgmmas (hi/lo)
-        "mma"      csrc/flash_bwd.cu            mma.sync: f32 with D > 96,
+        "tf32x3_wide"  csrc/flash_bwd_dq_tf32x3_wide.cu  f32 with
+                                                96 < D <= 160: 3xTF32 on a
+                                                cluster of two CTAs (S, P
+                                                and dP), P and dP passed
+                                                both ways through
+                                                distributed shared memory,
+                                                dQ's columns shared
+        "mma"      csrc/flash_bwd.cu            mma.sync: f32 with D > 160,
                                                 bf16 with D > 160, a stride
                                                 of 0
     flash_bwd_dkv  _bwd_dkv_kernel  dK and dV, through
@@ -44,16 +51,17 @@ the dK/dV kernel from dtype, D and layout alone; `_fwd_bm` the wgmma
 forward's q rows per CTA from T, B * H and the SM count (`_fwd_tf32x3_bm`
 the tf32x3 forward's, capped by what its shared memory holds), `_dq_bm` the
 wgmma dQ kernel's the same way (`_dq_tf32x3_bm` the tf32x3 dQ kernel's,
-capped by what its shared memory holds), `_dkv_bn` the wgmma dK/dV kernel's
-kv rows per CTA from S, B * H and the SM count (`_dkv_tf32x3_bn` the tf32x3
-kernel's, capped the same way; the tf32x3_wide kernel always takes
+capped by what its shared memory holds; the tf32x3_wide dQ kernel always
+takes TF32X3_DQ_WIDE_BM q rows per cluster pair), `_dkv_bn` the wgmma dK/dV
+kernel's kv rows per CTA from S, B * H and the SM count (`_dkv_tf32x3_bn` the
+tf32x3 kernel's, capped the same way; the tf32x3_wide kernel always takes
 TF32X3_WIDE_BN kv rows per cluster pair). The wgmma and tf32x3 backward
 kernels take Q~ = f32(q) * scale rounded to q's dtype (`_q_tilde`: TMA
-cannot scale on load). The three tf32x3 backward kernels also take every
+cannot scale on load). The four tf32x3 backward kernels also take every
 f32 operand split into tf32 hi and lo parts (`_split_tf32`), dK/dV (both of
-its kernels) q-innermost copies of Q~ and dO, dQ a kv-innermost copy of K
-(`_tf32x3_transposed`), all formed by `_tf32x3_operands` from one split of
-Q~, dO, K and V. The tf32x3 forward takes q, k and v as they are and makes
+its kernels) q-innermost copies of Q~ and dO, dQ (both of its kernels) a
+kv-innermost copy of K (`_tf32x3_transposed`), all formed by
+`_tf32x3_operands` from one split of Q~, dO, K and V. The tf32x3 forward takes q, k and v as they are and makes
 Q~, its split and those of K and V (V as its pi-permuted transposed copy)
 in shared memory after each tile lands.
 `flash_attention_backward` forms Q~ and that split once for both backward
@@ -71,7 +79,7 @@ Each wrapper runs its plain version for CPU tensors, launches its kernel for
 CUDA tensors (or raises: nothing reacts to a failure), and counts its
 launches in `<wrapper>.launches` and per kernel in
 `<wrapper>.launches_by_kernel` ({"wgmma", "tf32x3", "mma"}, and
-"tf32x3_wide" for flash_bwd_dkv, summing to `launches`).
+"tf32x3_wide" for the two backward wrappers, summing to `launches`).
 
 Build: the first CUDA call of a kernel compiles its own source (and no
 other) through ops/build.py (nvcc for sm_90a, plain C entry points loaded
@@ -117,10 +125,15 @@ TF32X3_WIDE_BN = 64
 # and the widest head at which BM_MAX is 128 q rows a CTA
 WGMMA_F32_DQ_MAX_D = 96
 TF32X3_DQ_BM128_MAX_D = 64
+# the widest f32 head the tf32x3_wide dQ kernel instantiates (it takes
+# WGMMA_F32_DQ_MAX_D < D <= this), and its q rows per cluster pair: MAX_DP
+# and BM of csrc/flash_bwd_dq_tf32x3_wide.cu
+WGMMA_F32_DQ_WIDE_MAX_D = 160
+TF32X3_DQ_WIDE_BM = 64
 # the tf32x3 kernels' transposed copies, rounded up with zeros so no TMA
 # box lies wholly past them: the q columns of Q~ and dO to T_ALIGN of the
 # two dK/dV sources (their largest q tile), the kv columns of K to S_ALIGN
-# of the dQ source (its largest kv tile)
+# of the two dQ sources (their largest kv tile)
 TF32X3_T_ALIGN = 32
 TF32X3_S_ALIGN = 64
 # the backward routes whose kernels read the split operands of
@@ -133,17 +146,19 @@ _fns: Dict[str, object] = {}  # entry -> the ctypes function, once loaded
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # pointers..., strides, B, H, T, S, D, is_bf16 (bm for "wgmma", "tf32x3",
-# "dq_wgmma" and "dq_tf32x3", bn for "dkv_wgmma", "dkv_tf32x3" and
-# "dkv_tf32x3_wide"), scale, stream
+# "dq_wgmma", "dq_tf32x3" and "dq_tf32x3_wide", bn for "dkv_wgmma",
+# "dkv_tf32x3" and "dkv_tf32x3_wide"), scale, stream
 _TAIL = [_STRIDES, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
 _ENTRY = {
     # entry: (source stem, C function, pointer arguments)
     "wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma", 5),
     "tf32x3": ("flash_fwd_tf32x3", "flash_fwd_tf32x3", 5),
     "mma": ("flash_fwd", "flash_fwd", 5),
-    # flash_bwd_dq's three routes, "dq_" + route
+    # flash_bwd_dq's four routes, "dq_" + route
     "dq_wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma", 7),
     "dq_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3", 13),
+    "dq_tf32x3_wide": ("flash_bwd_dq_tf32x3_wide",
+                       "flash_bwd_dq_tf32x3_wide", 13),
     "dq_mma": ("flash_bwd", "flash_bwd_dq", 7),
     # flash_bwd_dkv's four routes, "dkv_" + route
     "dkv_wgmma": ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma", 8),
@@ -360,21 +375,32 @@ def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     WGMMA_F32_DKV_MAX_D < D <= WGMMA_F32_DKV_WIDE_MAX_D, each where the
     layouts are ones TMA's tensor maps take (_tma_ok); "mma"
     (csrc/flash_bwd.cu) for the rest: wider D, a broadcast. A layout
-    _layout_ok refuses never launches: _check raises first. (dQ has no
-    wide f32 kernel: _dq_route keeps the shared rule.)"""
-    if (q.dtype == torch.float32
-            and WGMMA_F32_DKV_MAX_D < q.shape[3] <= WGMMA_F32_DKV_WIDE_MAX_D
-            and _tma_ok(q, k, v, do)):
-        return "tf32x3_wide"
-    return _kernel_route(WGMMA_DKV_MAX_D, WGMMA_F32_DKV_MAX_D, q, k, v, do)
+    _layout_ok refuses never launches: _check raises first."""
+    return _wide_route(WGMMA_DKV_MAX_D, WGMMA_F32_DKV_MAX_D,
+                       WGMMA_F32_DKV_WIDE_MAX_D, q, k, v, do)
 
 
 def _dq_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do: torch.Tensor) -> str:
-    """The dQ kernel of a call: _bwd_route's rule with WGMMA_DQ_MAX_D and
-    WGMMA_F32_DQ_MAX_D, "wgmma" (csrc/flash_bwd_dq_wgmma.cu), "tf32x3"
-    (csrc/flash_bwd_dq_tf32x3.cu) or "mma" (csrc/flash_bwd.cu)."""
-    return _kernel_route(WGMMA_DQ_MAX_D, WGMMA_F32_DQ_MAX_D, q, k, v, do)
+    """The dQ kernel of a call: _bwd_route's rule with WGMMA_DQ_MAX_D,
+    WGMMA_F32_DQ_MAX_D and WGMMA_F32_DQ_WIDE_MAX_D, "wgmma"
+    (csrc/flash_bwd_dq_wgmma.cu), "tf32x3" (csrc/flash_bwd_dq_tf32x3.cu),
+    "tf32x3_wide" (csrc/flash_bwd_dq_tf32x3_wide.cu) or "mma"
+    (csrc/flash_bwd.cu)."""
+    return _wide_route(WGMMA_DQ_MAX_D, WGMMA_F32_DQ_MAX_D,
+                       WGMMA_F32_DQ_WIDE_MAX_D, q, k, v, do)
+
+
+def _wide_route(max_d: int, f32_max_d: int, f32_wide_max_d: int,
+                q: torch.Tensor, *others: torch.Tensor) -> str:
+    """"tf32x3_wide" for f32 with f32_max_d < D <= f32_wide_max_d where
+    every tensor has a layout TMA's tensor maps take (_tma_ok), else
+    _kernel_route's rule."""
+    if (q.dtype == torch.float32
+            and f32_max_d < q.shape[3] <= f32_wide_max_d
+            and _tma_ok(q, *others)):
+        return "tf32x3_wide"
+    return _kernel_route(max_d, f32_max_d, q, *others)
 
 
 def _dq_bm(T: int, bh: int, sms: int = 132) -> int:
@@ -517,15 +543,18 @@ def _dq_launch(route, q, k, v, do, lse, delta, scale, bm=None,
     """One dQ kernel through its C entry point (no routing, no count). The
     wgmma and tf32x3 kernels take q as Q~ (_q_tilde: TMA cannot scale on
     load) and `bm` q rows per CTA (by default _dq_bm's, or
-    _dq_tf32x3_bm's); the tf32x3 kernel reads _tf32x3_operands(q, do, k,
-    v)["dq"], formed here unless given as `operands`; the mma kernel takes
-    q and scales it itself. dQ comes back in the layout of the q given."""
+    _dq_tf32x3_bm's; tf32x3_wide: TF32X3_DQ_WIDE_BM per cluster pair, the
+    only height it takes); the tf32x3 and tf32x3_wide kernels read
+    _tf32x3_operands(q, do, k, v)["dq"], formed here unless given as
+    `operands`; the mma kernel takes q and scales it itself. dQ comes back
+    in the layout of the q given."""
     dq = torch.empty_like(q)
     B, H, T, D = q.shape
     tensors = (q, k, v, do)
-    if route == "tf32x3":
+    if route in TF32X3_ROUTES:
         tensors = operands or _tf32x3_operands(q, do, k, v, ("dq",))["dq"]
-        arg = bm or _dq_tf32x3_bm(T, B * H, D, _sm_count(q.device))
+        arg = bm or (TF32X3_DQ_WIDE_BM if route == "tf32x3_wide" else
+                     _dq_tf32x3_bm(T, B * H, D, _sm_count(q.device)))
     elif route == "wgmma":
         arg = bm or _dq_bm(T, B * H, _sm_count(q.device))
     else:
@@ -605,7 +634,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, q_tilde=None,
 
 flash_fwd.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
 flash_fwd.launches = 0  # the sum of launches_by_kernel
-flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "tf32x3": 0, "mma": 0}
+flash_bwd_dq.launches_by_kernel = {"wgmma": 0, "tf32x3": 0,
+                                   "tf32x3_wide": 0, "mma": 0}
 flash_bwd_dq.launches = 0  # the sum of launches_by_kernel
 flash_bwd_dkv.launches_by_kernel = {"wgmma": 0, "tf32x3": 0,
                                     "tf32x3_wide": 0, "mma": 0}

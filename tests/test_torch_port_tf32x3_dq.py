@@ -265,8 +265,11 @@ def test_f32_dq_routes_to_tf32x3_up_to_its_widest_head(D):
 
 @pytest.mark.parametrize("D", [104, 160, 256])
 def test_wider_f32_dq_heads_stay_on_mma(D):
+    """Heads wider than this kernel's go to the tf32x3_wide dQ kernel up to
+    WGMMA_F32_DQ_WIDE_MAX_D, and beyond it stay on the mma kernel."""
     q = _bthd(1, 64, 2, D)
-    assert t_fa._dq_route(q, q, q, q) == "mma"
+    want = "tf32x3_wide" if D <= t_fa.WGMMA_F32_DQ_WIDE_MAX_D else "mma"
+    assert t_fa._dq_route(q, q, q, q) == want
 
 
 def test_f32_dq_odd_layouts_and_broadcasts_stay_on_mma():
@@ -340,7 +343,7 @@ def test_cpu_f32_dq_call_launches_nothing():
     assert t_fa._dq_route(q, k, v, do) == "tf32x3"
     fns = (t_fa.flash_bwd_dq, t_fa.flash_bwd_dkv)
     before = [(dict(f.launches_by_kernel), f.launches) for f in fns]
-    assert set(before[0][0]) == {"wgmma", "tf32x3", "mma"}
+    assert set(before[0][0]) == {"wgmma", "tf32x3", "tf32x3_wide", "mma"}
     dq = t_fa.flash_bwd_dq(*args)
     o, _ = t_fa.flash_attention_reference(q, k, v, scale)
     dq_b, _, _ = t_fa.flash_attention_backward(q, k, v, o, lse, do, scale)

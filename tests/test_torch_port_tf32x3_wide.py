@@ -261,10 +261,11 @@ def test_wide_f32_odd_layouts_and_broadcasts_stay_on_mma(D):
 
 
 @pytest.mark.parametrize("D", [104, 160])
-def test_wide_f32_dq_route_stays_on_mma(D):
-    """dQ has no wide f32 kernel: its route at these widths is unchanged."""
+def test_wide_f32_dq_route_takes_tf32x3_wide(D):
+    """dQ at these widths has its own cluster-pair kernel too
+    (csrc/flash_bwd_dq_tf32x3_wide.cu), so one split serves both."""
     q = _bthd(1, 64, 2, D)
-    assert t_fa._dq_route(q, q, q, q) == "mma"
+    assert t_fa._dq_route(q, q, q, q) == "tf32x3_wide"
 
 
 # --- the constants, the instances, shared memory ---------------------------
