@@ -2,10 +2,16 @@
 """Smoke run of the PyTorch port (lora_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repo root, one CUDA device
-    python3 chip_smoke.py --int8        # phases 1, 2 (int8 sources only), 8
-    python3 chip_smoke.py --int8-tiles  # the same, then every wgmma tile
-                                        # instance at every phase 8 shape
-                                        # (the data of int8_matmul._TILE_US)
+    python3 chip_smoke.py --int8        # phases 1, 2 (int8 sources only,
+                                        # the f32 wgmma kernel's first calls
+                                        # in a child process under a
+                                        # timeout), 8
+    python3 chip_smoke.py --int8-tiles  # the same, then every tile
+                                        # instance of both wgmma kernels at
+                                        # every phase 8 shape and each
+                                        # kernel's fitted time model (the
+                                        # data of int8_matmul._TILE_US and
+                                        # _TILE_US_F32)
     python3 chip_smoke.py --flash       # phases 1, 2 (the three forward
                                         # sources only), the wgmma and
                                         # tf32x3 forward kernels' first
@@ -38,11 +44,13 @@ it the build of the kernels):
      flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu,
      flash_bwd_dkv_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu,
      flash_bwd_dq_tf32x3.cu, flash_bwd_dq_tf32x3_wide.cu, int8_matmul.cu,
-     int8_matmul_wgmma.cu; one
+     int8_matmul_wgmma.cu, int8_matmul_wgmma_f32.cu; one
      nvcc each, in parallel) for sm_90a into the build directory, and
      prints ptxas's registers, shared memory and spills of the wgmma and
-     tf32x3 kernels and each tf32x3 forward and backward instance's tiles;
-     then the tf32x3 forward kernel's first calls (f32: the ragged call,
+     tf32x3 kernels, each tf32x3 forward and backward instance's tiles and
+     each f32 int8 instance's ring; then the f32 int8 wgmma kernel's first
+     calls (a ragged call, the main shape and K = 5120 at every tile
+     instance), the tf32x3 forward kernel's first calls (f32: the ragged call,
      the main serving shape and D = 160), the wgmma dQ kernel's first
      calls (that kernel alone), the wgmma dK/dV kernel's,
      the tf32x3 dQ kernel's (f32, that kernel alone), the tf32x3 dK/dV
@@ -128,20 +136,25 @@ it the build of the kernels):
      training steps (AdamW 1e-4, clip 1.0), each with those launches:
      their median.
   8. int8 kernel: the int8-weight matmul against its plain version at
-     every (M, K, N) phase 9 runs (UNet at batch 2, 4 and 8, CLIP, the VAE
-     decoder's attention), bf16 (each call must launch the wgmma kernel,
-     int8_matmul_wgmma.cu) and f32 (the mma.sync kernel, int8_matmul.cu),
-     plus ragged calls routed to each kernel and an unaligned bf16 call
-     (mma); relative errors. At request A's shapes, median times of the
-     routed kernel, of the mma kernel called directly on the same bf16
-     inputs, of cuBLAS (F.linear on the dequantized bf16 weight), of the
-     plain version, and the bound; their sums over one UNet call at
-     batch 4. Every int8 call of phases 9 and 9a is recorded, and one at a
+     every (M, K, N) phases 9 and 9a run (UNet at batch 2, 4 and 8, CLIP,
+     the VAE decoder's attention), bf16 (each call must launch the wgmma
+     kernel, int8_matmul_wgmma.cu) and f32 (the f32 wgmma kernel,
+     int8_matmul_wgmma_f32.cu), plus ragged calls routed to each kernel
+     (the mma.sync kernel, int8_matmul.cu, for K % 16 != 0 and N % 8 != 0),
+     a strided 3-D x and an unaligned bf16 call (mma); relative errors. At
+     request A's shapes, median times of the routed kernel, of the mma
+     kernel called directly on the same inputs ("prev", both dtypes), of
+     cuBLAS (F.linear on the dequantized weight in x's dtype), of the plain
+     version, and the bound; their sums over one UNet call at batch 4, bf16
+     and f32. Every int8 call of phases 9 and 9a is recorded, and one at a
      shape not checked here fails the run.
   9a. serve_int8 f32: the SD-1.5 UNet in f32, quantized: one call at
-     batch 4, within relative L2 5e-2 of the f32 UNet, 182 launches, all
-     of the mma kernel (f32 x), and 15 flash forward launches, all of the
-     tf32x3 kernel (flash_fwd_tf32x3.cu: f32).
+     batch 4, within relative L2 5e-2 of the f32 UNet, 182 int8 launches,
+     all of the f32 wgmma kernel, and 15 flash forward launches, all of the
+     tf32x3 kernel (flash_fwd_tf32x3.cu: f32); then a warm call's wall and
+     device time; then the prompts encoded by the f32 CLIP text encoder,
+     quantized (72 launches, all of the f32 wgmma kernel), within relative
+     L2 5e-2 of the unquantized one.
   9. serve_int8: quantized serving at full SD-1.5 width through HTTP. The
      slice's bf16 pipeline with the LoRA + TI at scale 0.8, then
      quantize_base(): param bytes before and after (UNet <= 0.55x), one
@@ -243,10 +256,11 @@ REMAT_LOSS_RTOL = 1e-3
 # K = 5120 terms). f32 outputs: that order alone, 1e-5. bf16 outputs: the
 # one rounding to bf16 (2^-8 = 3.9e-3 relative) may land on either side.
 INT8_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-# (M, K, N) that are not on the path, with the kernel each routes to:
-# masked M and N tails and a K tail (48 < 64) through the TMA ring's zero
-# fill; N % 8 != 0, K % 16 != 0 (W read element by element) and odd K (x
-# too) through the mma kernel
+# (M, K, N) that are not on the path, with the kernel each routes to
+# ("wgmma": the wgmma kernel of x's dtype): masked M and N tails and a K
+# tail (48 < 64: in f32 one 32-column box of the last K step lies wholly
+# past K) through the TMA ring's zero fill; N % 8 != 0, K % 16 != 0 (W read
+# element by element) and odd K (x too) through the mma kernel
 INT8_RAGGED = (((7, 64, 72), "wgmma"), ((100, 320, 320), "wgmma"),
                ((16383, 320, 2560), "wgmma"), ((33, 48, 40), "wgmma"),
                ((7, 64, 77), "mma"), ((33, 40, 48), "mma"),
@@ -305,7 +319,8 @@ def phase_build(stems=None) -> None:
     paths = kernel_build.build(stems)
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for stem in ("int8_matmul", "int8_matmul_wgmma", "flash_fwd_wgmma",
+    for stem in ("int8_matmul", "int8_matmul_wgmma", "int8_matmul_wgmma_f32",
+                 "flash_fwd_wgmma",
                  "flash_fwd_tf32x3", "flash_bwd_dkv_wgmma",
                  "flash_bwd_dq_wgmma",
                  "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
@@ -351,6 +366,18 @@ def phase_build(stems=None) -> None:
                 raise AssertionError(f"no {stem} instance for D = {dp}")
             log(f"build: {stem}: " + json.dumps(dict(zip(("DP", *keys),
                                                          out))))
+    # each f32 int8 instance's ring depth and dynamic shared memory
+    stem = "int8_matmul_wgmma_f32"
+    if stem in paths:
+        config = getattr(kernel_build.load_library(stem), stem + "_config")
+        config.argtypes = [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int)]
+        for bm, bn in i8.TILES:
+            out = (ctypes.c_int * 4)()
+            if config(bm, bn, out) != 0:
+                raise AssertionError(f"no {stem} instance for {(bm, bn)}")
+            log(f"build: {stem}: " + json.dumps(dict(zip(
+                ("BM", "BN", "stages", "smem_bytes"), out))))
 
 
 def _bound(flops: float, nbytes: float,
@@ -466,10 +493,11 @@ def _exp_floor_ms(B, H, T, S) -> float:
     return 1e3 * B * H * T * S / (sms * EXP_PER_CLOCK_PER_SM * _clock_hz)
 
 
-def _only(route: str, n: int) -> dict:
-    """flash_fwd.launches_by_kernel as a run that launched `route` n times
-    and no other forward kernel leaves it (from zero)."""
-    return {**dict.fromkeys(fa.flash_fwd.launches_by_kernel, 0), route: n}
+def _only(route: str, n: int, wrapper=fa.flash_fwd) -> dict:
+    """wrapper.launches_by_kernel (flash_fwd's by default) as a run that
+    launched `route` n times and no other of its kernels leaves it (from
+    zero)."""
+    return {**dict.fromkeys(wrapper.launches_by_kernel, 0), route: n}
 
 
 def _flash_key(q, k, v):
@@ -693,6 +721,18 @@ def _probe(what: str, code: str, timeout_s: float) -> None:
         raise AssertionError(f"the {what} kernel's first calls failed "
                              f"({proc.returncode})")
     log(f"probe: {what} passed in {time.perf_counter() - t0:.1f} s")
+
+
+def int8_f32_probe(timeout_s: float = 60.0) -> None:
+    """The f32 int8 wgmma kernel's first calls (its TMA thread, converters
+    and consumers hand stages on through mbarriers): a ragged call (M, N
+    and K tails, one f32 box in the last K step), the main shape and a
+    K = 5120 shape at every tile instance, each against the plain
+    version."""
+    _probe("f32 int8 wgmma", (
+        "import torch, chip_smoke as c; "
+        "c.int8_tile_sweep([(33, 48, 40), c.INT8_MAIN_SHAPE, "
+        "(256, 5120, 1280)], (torch.float32,), timed=False)"), timeout_s)
 
 
 def flash_probe(timeout_s: float = 60.0) -> None:
@@ -1210,11 +1250,11 @@ def _int8_inputs(M, K, N, dtype, gen):
 
 def _int8_direct(route, x, wq, scale, tile=None):
     """One kernel's C entry point called directly (no routing, no count):
-    the mma kernel on bf16 inputs for its time beside the wgmma kernel's,
-    or the wgmma kernel at a given tile."""
+    the mma kernel on the inputs of a wgmma kernel for its time beside
+    theirs, or a wgmma kernel at a given tile."""
     (M, K), N = x.shape, wq.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    tail = tile if route == "wgmma" else (int(x.dtype == torch.bfloat16),)
+    tail = (int(x.dtype == torch.bfloat16),) if route == "mma" else tile
     rc = i8._entry(route)(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
                           out.data_ptr(), M, N, K, *tail,
                           torch.cuda.current_stream().cuda_stream)
@@ -1229,14 +1269,18 @@ def _rel(got, want) -> float:
             / max(want.float().abs().max().item(), 1e-30))
 
 
+# the wgmma kernel of each dtype
+WGMMA_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32"}
+
+
 def check_int8(M, K, N, dtype, gen, timed=True, route=None):
     """The wrapper against the plain version at one shape; `route` is the
-    kernel it must launch (by default wgmma for bf16, mma for f32). Timed:
-    the routed kernel and the mma kernel (bf16), each through its C entry
-    point on the same inputs (one launch path for both), the wrapper,
-    cuBLAS (F.linear on the dequantized weight in x's dtype, made once
-    before timing), the plain version, and the bound."""
-    route = route or ("wgmma" if dtype == torch.bfloat16 else "mma")
+    kernel it must launch (by default the wgmma kernel of x's dtype).
+    Timed: the routed kernel and the mma kernel ("prev"), each through its
+    C entry point on the same inputs (one launch path for both), the
+    wrapper, cuBLAS (F.linear on the dequantized weight in x's dtype, made
+    once before timing), the plain version, and the bound."""
+    route = route or WGMMA_ROUTE[dtype]
     x, wq, scale = _int8_inputs(M, K, N, dtype, gen)
     with torch.inference_mode():
         before = dict(i8.int8_matmul.launches_by_kernel)
@@ -1250,17 +1294,18 @@ def check_int8(M, K, N, dtype, gen, timed=True, route=None):
                "dtype": str(dtype).replace("torch.", ""), "kernel": ran,
                "err": err, "rel": _rel(got, want)}
         if timed:
-            if dtype == torch.bfloat16:
-                row["rel_prev"] = _rel(_int8_direct("mma", x, wq, scale),
-                                       want)
+            prev = _int8_direct("mma", x, wq, scale)
+            row["err_prev"] = (prev.float() - want.float()).abs().max().item()
+            row["rel_prev"] = _rel(prev, want)
+            del prev
             w_lib = (wq.float() * scale[:, None]).to(dtype)
-            tile = (i8._tile(M, K, N, torch.cuda.get_device_properties(
-                0).multi_processor_count) if route == "wgmma" else None)
+            tile = (None if route == "mma" else i8._tile(
+                M, K, N, torch.cuda.get_device_properties(
+                    0).multi_processor_count, route))
             calls = {"": lambda: _int8_direct(route, x, wq, scale, tile),
                      "wrapper_": lambda: i8.int8_matmul(x, wq, scale),
-                     "library_": lambda: torch.nn.functional.linear(x, w_lib)}
-            if dtype == torch.bfloat16:
-                calls["prev_"] = lambda: _int8_direct("mma", x, wq, scale)
+                     "library_": lambda: torch.nn.functional.linear(x, w_lib),
+                     "prev_": lambda: _int8_direct("mma", x, wq, scale)}
             for name, call in calls.items():
                 row[name + "ms"] = _time_ms(call)
                 if name != "wrapper_":  # the same kernel as ""
@@ -1282,30 +1327,39 @@ def check_int8(M, K, N, dtype, gen, timed=True, route=None):
     return row
 
 
+INT8_SUM_KEYS = ("ms", "wrapper_ms", "prev_ms", "library_ms", "plain_ms",
+                 "device_ms", "prev_device_ms", "library_device_ms",
+                 "bound_ms")
+
+
 def int8_call_sums(rows) -> dict:
-    """Sums over the 182 launches of one UNet call at batch 4 (bf16) of
-    each timed column, weighted by each shape's count per call; over all
-    launches and over the M >= 1024 ones. The *ms columns time each call
-    alone, its host launch path included (it sets the time at M <= 308:
-    ctypes for the kernels, the Python wrapper for wrapper_ms, PyTorch's
-    dispatcher for cuBLAS); the *device_ms columns replay CUDA graphs of
-    the calls."""
+    """Sums over the 182 launches of one UNet call at batch 4, bf16 and
+    (keys "f32_*") f32, of each timed column, weighted by each shape's
+    count per call; over all launches and over the M >= 1024 ones. The *ms
+    columns time each call alone, its host launch path included (it sets
+    the time at M <= 308: ctypes for the kernels, the Python wrapper for
+    wrapper_ms, PyTorch's dispatcher for cuBLAS); the *device_ms columns
+    replay CUDA graphs of the calls. prev: the mma kernel on the same
+    inputs."""
     counts = {}
     for s in unet_int8_calls(4):
         counts[s] = counts.get(s, 0) + 1
-    by_shape = {(r["M"], r["K"], r["N"]): r for r in rows
-                if r["dtype"] == "bfloat16" and "ms" in r}
     sums = {"launches": sum(counts.values()),
             "launches_m_ge_1024": sum(c for s, c in counts.items()
                                       if s[0] >= 1024)}
-    for key in ("ms", "wrapper_ms", "prev_ms", "library_ms", "plain_ms",
-                "device_ms", "prev_device_ms", "library_device_ms",
-                "bound_ms"):
-        sums[key] = sum(c * by_shape[s][key] for s, c in counts.items())
-        sums[key + "_m_ge_1024"] = sum(c * by_shape[s][key]
-                                       for s, c in counts.items()
-                                       if s[0] >= 1024)
-    log("int8 per UNet call: " + json.dumps(sums))
+    for dtype, prefix in (("bfloat16", ""), ("float32", "f32_")):
+        by_shape = {(r["M"], r["K"], r["N"]): r for r in rows
+                    if r["dtype"] == dtype and "ms" in r}
+        for key in INT8_SUM_KEYS:
+            sums[prefix + key] = sum(c * by_shape[s][key]
+                                     for s, c in counts.items())
+            sums[prefix + key + "_m_ge_1024"] = sum(
+                c * by_shape[s][key] for s, c in counts.items()
+                if s[0] >= 1024)
+    log("int8 per UNet call: " + json.dumps(
+        {k: v for k, v in sums.items() if not k.startswith("f32_")}))
+    log("int8 f32 per UNet call: " + json.dumps(
+        {k: v for k, v in sums.items() if k.startswith("f32_")}))
     return sums
 
 
@@ -1318,19 +1372,27 @@ def phase_int8_kernels():
         for M, K, N in int8_phase_shapes():
             rows.append(check_int8(M, K, N, dtype, gen, timed=False))
         for (M, K, N), route in INT8_RAGGED:
-            check_int8(M, K, N, dtype, gen, timed=False,
-                       route=route if dtype == torch.bfloat16 else "mma")
+            rows.append(check_int8(
+                M, K, N, dtype, gen, timed=False,
+                route=WGMMA_ROUTE[dtype] if route == "wgmma" else route))
         # a leading batch dimension and an x whose rows are not contiguous
+        # (the wrapper copies it: then TMA takes it)
         x = torch.randn((2, 7, 96), generator=gen, device="cuda").to(dtype)
         wq = torch.randint(-127, 128, (40, 64), generator=gen, device="cuda",
                            dtype=torch.int8)
         s = torch.rand((40,), generator=gen, device="cuda")
         with torch.inference_mode():
+            before = dict(i8.int8_matmul.launches_by_kernel)
             got = i8.int8_matmul(x[..., 16:80], wq, s)
             want = i8.int8_matmul_reference(x[..., 16:80], wq, s)
+            ran = [k for k, v in i8.int8_matmul.launches_by_kernel.items()
+                   if v != before[k]]
         rel = _rel(got, want)
-        if got.shape != (2, 7, 40) or not rel <= INT8_REL_TOL[dtype]:
-            raise AssertionError(f"int8_matmul on a strided 3-D x: rel {rel}")
+        if got.shape != (2, 7, 40) or ran != [WGMMA_ROUTE[dtype]] or \
+                not rel <= INT8_REL_TOL[dtype]:
+            raise AssertionError(f"int8_matmul on a strided 3-D {dtype} x: "
+                                 f"rel {rel}, ran {ran}")
+        log(f"int8 kernel: strided 3-D {dtype} x through {ran}: rel {rel}")
     # bf16 x whose base is 2 bytes past a 16-byte boundary: the mma kernel
     M, K, N = 100, 320, 320
     x = torch.randn((M * K + 8,), generator=gen, device="cuda").to(
@@ -1339,34 +1401,74 @@ def phase_int8_kernels():
     with torch.inference_mode():
         before = i8.int8_matmul.launches_by_kernel["mma"]
         got = i8.int8_matmul(x, wq, s)
-        rel = _rel(got, i8.int8_matmul_reference(x, wq, s))
+        want = i8.int8_matmul_reference(x, wq, s)
+        rel = _rel(got, want)
     if i8.int8_matmul.launches_by_kernel["mma"] != before + 1 or \
             not rel <= INT8_REL_TOL[torch.bfloat16]:
         raise AssertionError(f"int8_matmul on an unaligned bf16 x: rel {rel}")
     log(f"int8 kernel: unaligned bf16 x {(M, K, N)} through mma: rel {rel}")
+    rows.append({"M": M, "K": K, "N": N, "dtype": "bfloat16",
+                 "kernel": ["mma"], "rel": rel,
+                 "err": (got.float() - want.float()).abs().max().item()})
     return rows
 
 
-def int8_tile_sweep(shapes=None):
-    """The wgmma kernel at every tile instance, called directly, at request
-    A's bf16 shapes: each instance checked against the plain version and
-    its device time taken (CUDA graph replay); the tile _tile picks beside
-    them."""
+def _fit_tile_model(times, tiles) -> dict:
+    """Per tile, the (us per wave, us per K step of 64) of _tile's model,
+    fit to {(M, K, N): {tile: ms}} with the least squared relative error:
+    waves * (a + b * k_steps) against each time, a linear least-squares
+    problem once each row is divided by its time."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fit = {}
+    for tile in tiles:
+        bm, bn = tile
+        rows, ones = [], []
+        for (M, K, N), by_tile in times.items():
+            waves = -(-(-(-M // bm) * -(-N // bn)) // sms)
+            t_us = 1e3 * by_tile[tile]
+            rows.append([waves / t_us, waves * -(-K // 64) / t_us])
+            ones.append(1.0)
+        (a, b), *_ = np.linalg.lstsq(np.array(rows), np.array(ones),
+                                     rcond=None)
+        fit[f"{bm}x{bn}"] = [round(float(a), 2), round(float(b), 2)]
+    return fit
+
+
+def int8_tile_sweep(shapes=None, dtypes=(torch.bfloat16, torch.float32),
+                    timed=True):
+    """Each dtype's wgmma kernel at every tile instance, called directly,
+    at request A's shapes (or `shapes`): each instance checked against the
+    plain version and (timed) its device time taken (CUDA graph replay),
+    the tile _tile picks beside them; then each kernel's time model fit to
+    those times, as _TILE_US and _TILE_US_F32 hold it."""
     gen = torch.Generator("cuda").manual_seed(SEED + 7)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for M, K, N in shapes or int8_path_shapes():
-        x, wq, scale = _int8_inputs(M, K, N, torch.bfloat16, gen)
-        row = {"M": M, "K": K, "N": N, "picked": list(i8._tile(M, K, N, sms))}
-        with torch.inference_mode():
-            want = i8.int8_matmul_reference(x, wq, scale)
-            for tile in i8.TILES:
-                rel = _rel(_int8_direct("wgmma", x, wq, scale, tile), want)
-                if not rel <= INT8_REL_TOL[torch.bfloat16]:
-                    raise AssertionError(f"wgmma tile {tile} at {(M, K, N)}: "
-                                         f"rel {rel}")
-                row[f"{tile[0]}x{tile[1]}"] = _graph_ms(
-                    lambda: _int8_direct("wgmma", x, wq, scale, tile))
-        log("int8 tiles: " + json.dumps(row))
+    for dtype in dtypes:
+        route = WGMMA_ROUTE[dtype]
+        tiles = tuple(i8._TILE_MODELS[route])
+        times = {}
+        for M, K, N in shapes or int8_path_shapes():
+            x, wq, scale = _int8_inputs(M, K, N, dtype, gen)
+            row = {"dtype": str(dtype).replace("torch.", ""), "M": M, "K": K,
+                   "N": N, "picked": list(i8._tile(M, K, N, sms, route))}
+            with torch.inference_mode():
+                want = i8.int8_matmul_reference(x, wq, scale)
+                for tile in tiles:
+                    rel = _rel(_int8_direct(route, x, wq, scale, tile), want)
+                    row[f"rel_{tile[0]}x{tile[1]}"] = rel
+                    if not rel <= INT8_REL_TOL[dtype]:
+                        raise AssertionError(f"{route} tile {tile} at "
+                                             f"{(M, K, N)}: rel {rel}")
+                    if timed:
+                        row[f"{tile[0]}x{tile[1]}"] = _graph_ms(
+                            lambda: _int8_direct(route, x, wq, scale, tile))
+            if timed:
+                times[(M, K, N)] = {t: row[f"{t[0]}x{t[1]}"] for t in tiles}
+            log("int8 tiles: " + json.dumps(row))
+            del x, wq, scale, want
+        if timed:
+            log(f"int8 tiles: {route} time model (us per wave, per K step): "
+                + json.dumps(_fit_tile_model(times, tiles)))
 
 
 def _random_lora_file(pipe, path, gen):
@@ -1550,6 +1652,7 @@ KERNEL_CLASSES = (
     ("flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3"),
     ("flash_bwd_dq_mma", "bwd_dq"),
     ("flash_fwd", "flash_fwd"),
+    ("int8_matmul", "int8_"),
     ("conv", "conv|fprop|dgrad|wgrad|winograd"),
     ("gemm", "gemm|cutlass|xmma|cublas|matmul"),
     ("layout", "nchw|nhwc|transpose|permute"),
@@ -1922,7 +2025,8 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
     if ratio > QUANT_UNET_BYTES_MAX:
         raise AssertionError(f"quantized UNet holds {ratio:.3f}x its bf16 "
                              f"bytes")
-    if unet_by_kernel != {"wgmma": per_call["unet"], "mma": 0} or \
+    if unet_by_kernel != _only("wgmma", per_call["unet"],
+                                i8.int8_matmul) or \
             unet_launches != per_call["unet"]:
         raise AssertionError(f"one UNet call launched int8_matmul "
                              f"{unet_by_kernel} times")
@@ -1966,7 +2070,7 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
         _check_pngs(body["images"], len(PROMPTS), 512)
         # every bf16 int8 call of the request launched the wgmma kernel
         if launches_a != want(encodes_a) or \
-                by_kernel_a != {"wgmma": launches_a, "mma": 0} or \
+                by_kernel_a != _only("wgmma", launches_a, i8.int8_matmul) or \
                 fwd_a != ROUTED_PER_UNET_CALL * STEPS or \
                 fwd_by_kernel_a != _only("wgmma", fwd_a):
             raise AssertionError(
@@ -2028,7 +2132,7 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
             raise AssertionError(f"request B ran as batched_with {batched}, "
                                  f"device batch {srv.last_device_batch}")
         if launches_b != want(encodes_b) or \
-                by_kernel_b != {"wgmma": launches_b, "mma": 0} or \
+                by_kernel_b != _only("wgmma", launches_b, i8.int8_matmul) or \
                 fwd_b != ROUTED_PER_UNET_CALL * STEPS or \
                 fwd_by_kernel_b != _only("wgmma", fwd_b):
             raise AssertionError(f"request B launched int8_matmul "
@@ -2071,15 +2175,24 @@ def phase_serve_int8(smi: str, bf16_request_s: float):
 
 
 def phase_serve_int8_f32(smi: str):
-    """The SD-1.5 UNet served in f32 with int8 weights: one call at batch 4
-    (random weights and inputs from the seed) through the int8 mma kernel
-    (the wgmma kernel takes bf16 x only) and the tf32x3 flash forward
-    kernel (f32 at every level), within QUANT_UNET_REL_L2_TOL of the same
-    UNet unquantized. Returns the int8 mma kernel's launches and the flash
-    forward's by kernel."""
+    """The SD-1.5 UNet and CLIP text encoder served in f32 with int8
+    weights (from_pretrained's default dtype): one UNet call at batch 4
+    (random weights and inputs from the seed) through the f32 int8 wgmma
+    kernel and the tf32x3 flash forward kernel (f32 at every level), within
+    QUANT_UNET_REL_L2_TOL of the same UNet unquantized; a warm call's wall
+    and device time; then the prompts encoded by the quantized f32 CLIP,
+    its 72 int8 launches all on the f32 wgmma kernel, within the same limit
+    of the unquantized encoder. Returns the int8 launches of the counted
+    UNet call and encode, by kernel, and the flash forward's."""
     from lora_tpu_torch.core.quantize import quantize_params_int8
-    from lora_tpu_torch.models.config import SD15_UNET
+    from lora_tpu_torch.data.tokenizer import default_tokenizer
+    from lora_tpu_torch.models.clip import CLIPTextModel
+    from lora_tpu_torch.models.config import SD15_TEXT, SD15_UNET
     from lora_tpu_torch.models.unet import UNet
+
+    def quantize(module):
+        for name, v in quantize_params_int8(module.flat_params()).items():
+            module.set_param(name, v)
 
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     unet = UNet(SD15_UNET, device="cuda", dtype=torch.float32, generator=gen)
@@ -2091,31 +2204,64 @@ def phase_serve_int8_f32(smi: str):
     t = torch.full((b,), 501, device="cuda")
     with torch.inference_mode():
         ref = unet(lat, t, ctx)
-        for name, v in quantize_params_int8(unet.flat_params()).items():
-            unet.set_param(name, v)
+        quantize(unet)
         torch.cuda.synchronize()
         _zero_counts()  # the counted main-path run
         out = unet(lat, t, ctx)
         torch.cuda.synchronize()
-    by_kernel = dict(i8.int8_matmul.launches_by_kernel)
-    fwd_by_kernel = dict(fa.flash_fwd.launches_by_kernel)
+        by_kernel = dict(i8.int8_matmul.launches_by_kernel)
+        fwd_by_kernel = dict(fa.flash_fwd.launches_by_kernel)
+        t0 = time.perf_counter()
+        unet(lat, t, ctx)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        # one more warm call under torch.profiler: device time by kernel
+        # class (int8_matmul among them) and the busy share
+        warm_profile = profile_step(lambda: unet(lat, t, ctx))
     rel = ((out - ref).norm() / ref.norm()).item()
+    del unet, ref, out
+    torch.cuda.empty_cache()
+
+    text = CLIPTextModel(SD15_TEXT, device="cuda", dtype=torch.float32,
+                         generator=gen)
+    ids = torch.tensor(default_tokenizer(vocab_size=SD15_TEXT.vocab_size)(
+        PROMPTS)["input_ids"], dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        text_ref = text(ids)
+        quantize(text)
+        torch.cuda.synchronize()
+        _zero_counts()  # the counted encode
+        text_out = text(ids)
+        torch.cuda.synchronize()
+    clip_by_kernel = dict(i8.int8_matmul.launches_by_kernel)
+    clip_rel = ((text_out - text_ref).norm() / text_ref.norm()).item()
     log("serve_int8_f32: " + json.dumps({
         "unet_call_rel_l2_vs_f32": rel, "int8_launches": by_kernel,
         "flash_fwd_launches": fwd_by_kernel,
+        "warm_unet_call_s": warm_s, "warm_unet_call_profile": {
+            k: warm_profile[k] for k in ("wall_ms", "device_ms", "launches",
+                                         "busy_share", "by_class")},
+        "clip_encode_rel_l2_vs_f32": clip_rel,
+        "clip_encode_int8_launches": clip_by_kernel,
         "limit": QUANT_UNET_REL_L2_TOL, "card": smi}))
-    if by_kernel != {"wgmma": 0, "mma": INT8_PER_CALL["unet"]} or \
+    if by_kernel != _only("wgmma_f32", INT8_PER_CALL["unet"],
+                          i8.int8_matmul) or \
             fwd_by_kernel != _per_step_want(torch.float32)[2]:
         raise AssertionError(f"the f32 quantized UNet call launched "
                              f"{by_kernel} int8 and {fwd_by_kernel} flash "
                              f"forward kernels")
-    if not (out.shape == ref.shape and np.isfinite(rel)
-            and rel <= QUANT_UNET_REL_L2_TOL):
-        raise AssertionError(f"f32 quantized UNet call is {rel} (relative "
-                             f"L2) from the f32 one")
-    del unet, ref, out
+    if clip_by_kernel != _only("wgmma_f32", INT8_PER_CALL["clip_encode"],
+                                i8.int8_matmul):
+        raise AssertionError(f"the f32 quantized CLIP encode launched "
+                             f"{clip_by_kernel} int8 kernels")
+    for what, r in (("UNet call", rel), ("CLIP encode", clip_rel)):
+        if not (np.isfinite(r) and r <= QUANT_UNET_REL_L2_TOL):
+            raise AssertionError(f"f32 quantized {what} is {r} (relative "
+                                 f"L2) from the f32 one")
+    del text, text_ref, text_out
     torch.cuda.empty_cache()
-    return by_kernel["mma"], fwd_by_kernel
+    return {k: by_kernel[k] + clip_by_kernel[k] for k in by_kernel}, \
+        fwd_by_kernel
 
 
 def main_flash() -> int:
@@ -2159,10 +2305,13 @@ def main_flash_bwd() -> int:
 
 
 def main_int8(tiles: bool) -> int:
-    """The int8 kernels alone: the device line, their two builds, phase 8
-    with its per-call sums, and with `tiles` every wgmma tile instance."""
+    """The int8 kernels alone: the device line, their three builds, the f32
+    wgmma kernel's first calls in a child process under a timeout, phase 8
+    with its per-call sums, and with `tiles` every tile instance of both
+    wgmma kernels and their fitted time models."""
     smi = phase_device()
-    phase_build(["int8_matmul", "int8_matmul_wgmma"])
+    phase_build(["int8_matmul", "int8_matmul_wgmma", "int8_matmul_wgmma_f32"])
+    int8_f32_probe()
     int8_call_sums(phase_int8_kernels())
     if tiles:
         int8_tile_sweep(int8_path_shapes() + int8_phase_shapes())
@@ -2173,6 +2322,7 @@ def main_int8(tiles: bool) -> int:
 def main() -> int:
     smi = phase_device()
     phase_build()
+    int8_f32_probe()
     tf32x3_fwd_probe()
     dq_probe()
     dkv_probe()
@@ -2632,6 +2782,18 @@ def main() -> int:
     })
     main_int8 = {r["dtype"]: r for r in int8_rows if "ms" in r
                  and (r["M"], r["K"], r["N"]) == INT8_MAIN_SHAPE}
+    # the int8 launches of both counted quantized paths, by kernel: bf16
+    # serving (all wgmma) and the f32 UNet call and CLIP encode (phase 9a)
+    int8_by_path = {"serve_int8": _only("wgmma", int8_launches,
+                                        i8.int8_matmul),
+                    "serve_int8_f32": f32_launches}
+    int8_by_kernel = {k: sum(c[k] for c in int8_by_path.values())
+                      for k in i8.int8_matmul.launches_by_kernel}
+
+    def routed_err(dtype, kernel):  # worst error of phase 8's calls
+        return max(r["err"] for r in int8_rows
+                   if r["dtype"] == dtype and r["kernel"] == [kernel])
+
     kernels.append({
         "name": "int8_matmul",
         "route": "cuda",
@@ -2641,33 +2803,68 @@ def main() -> int:
         # of them wgmma), at shapes phase 8 checked
         "launches": int8_launches,
         "launches_by_path": {"serve_int8": int8_launches},
-        "launches_by_kernel": {"wgmma": int8_launches, "mma": f32_launches},
-        # worst error over the bf16 shapes of phase 8 (all through wgmma)
-        "max_abs_err": max(r["err"] for r in int8_rows
-                           if r["dtype"] == "bfloat16"),
+        "launches_by_kernel": int8_by_kernel,
+        # worst error over the bf16 calls of phase 8 through wgmma
+        "max_abs_err": routed_err("bfloat16", "wgmma"),
         # median per launch at the GEGLU projection at 64x64, bf16, through
         # the kernel's C entry point; prev: the mma kernel the same way on
         # the same inputs; library: cuBLAS F.linear on the dequantized bf16
         # weight
         **timed(main_int8["bfloat16"]),
+        "device_ms": main_int8["bfloat16"]["device_ms"],
         "prev_ms": main_int8["bfloat16"]["prev_ms"],
         "library_ms": main_int8["bfloat16"]["library_ms"],
         # every column summed over the 182 launches of one UNet call at
         # batch 4 (each launch timed alone, host launch path included)
-        "per_unet_call": int8_sums,
+        "per_unet_call": {k: v for k, v in int8_sums.items()
+                          if not k.startswith("f32_")},
+    })
+    kernels.append({
+        "name": "int8_matmul_wgmma_f32",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/int8_matmul_wgmma_f32.cu",
+        "replaces": "lora_tpu/ops/int8_matmul.py:35",
+        # the f32 quantized UNet call and CLIP encode of phase 9a (f32 x)
+        "launches": f32_launches["wgmma_f32"],
+        "launches_by_path": {"serve_int8_f32": f32_launches["wgmma_f32"]},
+        # worst error over the f32 calls of phase 8 through wgmma_f32
+        "max_abs_err": routed_err("float32", "wgmma_f32"),
+        # at the GEGLU projection at 64x64, f32 x, through the C entry
+        # point; device: CUDA-graph replay; prev: the mma kernel on the same
+        # inputs; library: F.linear in f32 (TF32 off)
+        **timed(main_int8["float32"]),
+        "device_ms": main_int8["float32"]["device_ms"],
+        "wrapper_ms": main_int8["float32"]["wrapper_ms"],
+        "prev_ms": main_int8["float32"]["prev_ms"],
+        "prev_device_ms": main_int8["float32"]["prev_device_ms"],
+        "library_ms": main_int8["float32"]["library_ms"],
+        "library_device_ms": main_int8["float32"]["library_device_ms"],
+        "per_unet_call": {k: v for k, v in int8_sums.items()
+                          if k.startswith("f32_")},
     })
     kernels.append({
         "name": "int8_matmul_mma",
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "lora_tpu/ops/int8_matmul.py:35",
-        # the f32 quantized UNet call of phase 9a (f32 x)
-        "launches": f32_launches,
-        "launches_by_path": {"serve_int8_f32": f32_launches},
-        "max_abs_err": max(r["err"] for r in int8_rows
-                           if r["dtype"] == "float32"),
-        # at the GEGLU projection at 64x64, f32 x; library: F.linear in f32
-        **timed(main_int8["float32"]),
+        # no call of either quantized path takes it (K % 16, N % 8 and
+        # unaligned bases only); phase 8's calls routed to it
+        "launches": int8_by_kernel["mma"],
+        "launches_by_path": {p: c["mma"] for p, c in int8_by_path.items()},
+        "launches_in_checks": sum(r["kernel"] == ["mma"] for r in int8_rows),
+        # worst error of the calls routed to it and of it called directly
+        # beside the wgmma kernels (both dtypes)
+        "max_abs_err": max(routed_err("bfloat16", "mma"),
+                           routed_err("float32", "mma"),
+                           max(r["err_prev"] for r in int8_rows
+                               if "err_prev" in r)),
+        # at the GEGLU projection at 64x64, f32 x, called directly on the
+        # f32 wgmma kernel's inputs; library: F.linear in f32
+        "ms": main_int8["float32"]["prev_ms"],
+        "device_ms": main_int8["float32"]["prev_device_ms"],
+        "plain_ms": main_int8["float32"]["plain_ms"],
+        "bound_ms": main_int8["float32"]["bound_ms"],
+        "bound_by": main_int8["float32"]["bound_by"],
         "library_ms": main_int8["float32"]["library_ms"],
     })
     log(json.dumps({"kernels": kernels}))

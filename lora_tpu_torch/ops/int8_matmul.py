@@ -1,4 +1,4 @@
-"""Int8-weight matmul: two hand-written CUDA kernels for Hopper, their
+"""Int8-weight matmul: three hand-written CUDA kernels for Hopper, their
 wrapper and their plain PyTorch version.
 
     y = round_to_x_dtype((bf16(x) @ bf16(wq).T in f32) * scale)
@@ -6,22 +6,27 @@ wrapper and their plain PyTorch version.
 replacing the Pallas TPU kernel lora_tpu/ops/int8_matmul.py::_kernel. The
 quantized serving path (core/quantize.py) stores frozen base weights int8
 with per-output-channel scales; models/layers.dense sends every 2-D int8
-weight here. Both kernels read the int8 bytes from device memory and widen
-them on chip, so the weight's bandwidth stays halved:
+weight here. Every kernel reads the int8 bytes from device memory and
+widens them on chip, so the weight's bandwidth stays halved:
 
-    "wgmma"  csrc/int8_matmul_wgmma.cu  bf16 x: TMA ring, warp-specialised
-             wgmma with the widened W in registers, persistent tiles
-             (every call of bf16 quantized serving)
-    "mma"    csrc/int8_matmul.cu        mma.sync: f32 x, K % 16 != 0,
-             N % 8 != 0, base pointers that are not 16-byte aligned
+    "wgmma"      csrc/int8_matmul_wgmma.cu      bf16 x: TMA ring,
+                 warp-specialised wgmma with the widened W in registers,
+                 persistent tiles (every call of bf16 quantized serving)
+    "wgmma_f32"  csrc/int8_matmul_wgmma_f32.cu  f32 x: the same pipeline,
+                 x landed as f32 and rounded to bf16 in shared memory by
+                 the consumer warps under their wgmmas, f32 stored from
+                 the accumulators (every call of f32 quantized serving,
+                 from_pretrained's default dtype)
+    "mma"        csrc/int8_matmul.cu            mma.sync: K % 16 != 0,
+                 N % 8 != 0, base pointers that are not 16-byte aligned
 
 `_route` picks one from dtype, shape and pointer alignment alone, and
-`_tile` the wgmma kernel's output tile from (M, K, N) and the SM count. A
-CUDA call launches the chosen kernel or raises: nothing reacts to a
-failure. CPU tensors take the plain version. Launches are counted in
-`int8_matmul.launches_by_kernel` and, summed, in `int8_matmul.launches`.
-The first CUDA call of each kernel builds its own source through
-ops/build.py; nothing is compiled at import.
+`_tile` a wgmma kernel's output tile from (M, K, N), the SM count and that
+kernel's time model. A CUDA call launches the chosen kernel or raises:
+nothing reacts to a failure. CPU tensors take the plain version. Launches
+are counted in `int8_matmul.launches_by_kernel` and, summed, in
+`int8_matmul.launches`. The first CUDA call of each kernel builds its own
+source through ops/build.py; nothing is compiled at import.
 """
 
 from __future__ import annotations
@@ -45,9 +50,12 @@ _ENTRY = {
     # x, wq, scale, out, M, N, K, BM, BN, stream
     "wgmma": ("int8_matmul_wgmma", "int8_matmul_wgmma",
               [_P] * 4 + [_I] * 5 + [_P]),
+    "wgmma_f32": ("int8_matmul_wgmma_f32", "int8_matmul_wgmma_f32",
+                  [_P] * 4 + [_I] * 5 + [_P]),
 }
-# the wgmma kernel's (BM, BN) output tiles: BM rows of x (64, 128 or 256:
-# the n of wgmma's m64nBMk16), BN rows of W (64 per consumer warpgroup)
+# the (BM, BN) output tiles of both wgmma kernels: BM rows of x (64, 128 or
+# 256: the n of wgmma's m64nBMk16), BN rows of W (64 per consumer
+# warpgroup)
 TILES = tuple((bm, bn) for bn in (64, 128) for bm in (64, 128, 256))
 # the wgmma kernel's time per tile, in microseconds per wave of tiles (one
 # tile on each SM: pipeline fill, epilogue) and per K step of 64 in a wave,
@@ -57,12 +65,18 @@ TILES = tuple((bm, bn) for bn in (64, 128) for bm in (64, 128, 256))
 _TILE_US = {(64, 64): (0.66, 0.29), (128, 64): (0.92, 0.36),
             (256, 64): (2.25, 0.42), (64, 128): (0.77, 0.39),
             (128, 128): (1.28, 0.50), (256, 128): (3.10, 0.65)}
+# the same for the f32 kernel, fit the same way at every f32 shape
+# (chip_smoke.py --int8-tiles prints both fits)
+_TILE_US_F32 = {(64, 64): (1.00, 0.54), (128, 64): (1.68, 0.82),
+                (256, 64): (2.67, 1.79), (64, 128): (1.41, 0.64),
+                (128, 128): (2.70, 0.84), (256, 128): (5.22, 1.56)}
+_TILE_MODELS = {"wgmma": _TILE_US, "wgmma_f32": _TILE_US_F32}
 _sms: Dict[int, int] = {}
 
 
 def _entry(route: str):
-    """The ctypes entry point of one kernel ("wgmma" or "mma"), building
-    its source on first use."""
+    """The ctypes entry point of one kernel (a key of _ENTRY), building its
+    source on first use."""
     with _lib_lock:
         if route not in _fns:
             stem, name, argtypes = _ENTRY[route]
@@ -84,29 +98,32 @@ def int8_matmul_reference(x: torch.Tensor, wq: torch.Tensor,
 
 
 def _route(x2: torch.Tensor, wq: torch.Tensor) -> str:
-    """"wgmma" for what TMA can load: bf16 x (TMA cannot round f32 on
-    load), 16-byte global row strides (K % 16 == 0 for the int8 rows),
-    N % 8 == 0 and 16-byte aligned bases; "mma" for everything else."""
+    """What TMA can load: 16-byte global row strides (K % 16 == 0 for the
+    int8 rows), N % 8 == 0 and 16-byte aligned bases, goes to "wgmma" for
+    bf16 x and to "wgmma_f32" for f32 x; everything else to "mma"."""
     N, K = wq.shape
-    if (x2.dtype == torch.bfloat16 and K % 16 == 0 and N % 8 == 0
-            and x2.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0):
-        return "wgmma"
+    if (K % 16 == 0 and N % 8 == 0 and x2.data_ptr() % 16 == 0
+            and wq.data_ptr() % 16 == 0):
+        return "wgmma" if x2.dtype == torch.bfloat16 else "wgmma_f32"
     return "mma"
 
 
 @functools.lru_cache(maxsize=4096)
-def _tile(M: int, K: int, N: int, sms: int = 132) -> Tuple[int, int]:
-    """The wgmma kernel's output tile for an (M, K) x (K, N) product on
-    `sms` SMs: the one `_TILE_US` gives the least time, counting whole
-    waves of tiles (a last wave that fills few SMs costs as much as a full
-    one)."""
+def _tile(M: int, K: int, N: int, sms: int = 132,
+          route: str = "wgmma") -> Tuple[int, int]:
+    """The output tile of the wgmma kernel `route` for an (M, K) x (K, N)
+    product on `sms` SMs: the instance its time model (_TILE_MODELS) gives
+    the least time, counting whole waves of tiles (a last wave that fills
+    few SMs costs as much as a full one)."""
+    model = _TILE_MODELS[route]
+
     def us(tile):
         bm, bn = tile
         tiles = -(-M // bm) * -(-N // bn)
-        per_wave, per_step = _TILE_US[tile]
+        per_wave, per_step = model[tile]
         return -(-tiles // sms) * (per_wave + per_step * -(-K // 64))
 
-    return min(TILES, key=us)
+    return min(model, key=us)
 
 
 def _sm_count(device: torch.device) -> int:
@@ -160,11 +177,11 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
             M, N, K)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "wgmma":
-            rc = _entry(route)(*args, *_tile(M, K, N, _sm_count(x.device)),
-                               stream)
-        else:
+        if route == "mma":
             rc = _entry(route)(*args, int(x.dtype == torch.bfloat16), stream)
+        else:
+            rc = _entry(route)(
+                *args, *_tile(M, K, N, _sm_count(x.device), route), stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul ({route}) launch failed: cudaError "
                            f"{rc} for x{tuple(x.shape)} {x.dtype} wq{(N, K)}")
@@ -173,5 +190,5 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
     return out.reshape(*lead, N)
 
 
-int8_matmul.launches_by_kernel = {"wgmma": 0, "mma": 0}
+int8_matmul.launches_by_kernel = {"wgmma": 0, "wgmma_f32": 0, "mma": 0}
 int8_matmul.launches = 0  # the sum of launches_by_kernel

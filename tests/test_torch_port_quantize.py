@@ -214,8 +214,8 @@ def test_route_sends_every_sd15_serving_shape_to_wgmma(mkn):
 @pytest.mark.parametrize("case", ["f32", "k_not_16", "n_not_8",
                                   "x_misaligned", "w_misaligned"])
 def test_route_sends_the_rest_to_mma(case):
-    """What TMA cannot load: f32 x, 16-byte row strides, N % 8 and bases
-    that are not 16-byte aligned."""
+    """What TMA cannot load: 16-byte row strides, N % 8 and bases that are
+    not 16-byte aligned. Aligned f32 x goes to the f32 wgmma kernel."""
     M, K, N = 100, 320, 320
     x, wq = _x(M, K), _wq(N, K)
     if case == "f32":
@@ -230,7 +230,7 @@ def test_route_sends_the_rest_to_mma(case):
     else:
         wq = torch.zeros(N * K + 16, dtype=torch.int8)[1:N * K + 1]
         wq = wq.view(N, K)
-    assert t_i8._route(x, wq) == "mma"
+    assert t_i8._route(x, wq) == ("wgmma_f32" if case == "f32" else "mma")
 
 
 @pytest.mark.parametrize("mkn", SD15_INT8_SHAPES + [
@@ -285,7 +285,7 @@ def test_cpu_wrapper_counts_no_launch_in_either_kernel(dtype):
     out = t_i8.int8_matmul(x, wq, s)
     assert (t_i8.int8_matmul.launches,
             t_i8.int8_matmul.launches_by_kernel) == before
-    assert set(before[1]) == {"wgmma", "mma"}
+    assert set(before[1]) == {"wgmma", "wgmma_f32", "mma"}
     assert before[0] == sum(before[1].values())
     torch.testing.assert_close(out, t_i8.int8_matmul_reference(x, wq, s),
                                rtol=0, atol=0)
