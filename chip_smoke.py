@@ -35,8 +35,15 @@
                                         # calls in child processes under a
                                         # timeout, 4 and its sums over one
                                         # training step (bf16 and f32)
+    python3 chip_smoke.py --modes       # phases 1, 2 (flash_fwd.cu,
+                                        # flash_fwd_wgmma.cu, int8_matmul.cu
+                                        # and int8_matmul_wgmma.cu only),
+                                        # 10, then phase 3's bf16 UNet
+                                        # calls and phase 8's bf16 shapes
+                                        # (untimed), every shape phase 10
+                                        # reached checked against them
 
-Phases, each printing its own lines (about 5 minutes on one H100, most of
+Phases, each printing its own lines (about 6 minutes on one H100, most of
 it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
@@ -167,6 +174,24 @@ it the build of the kernels):
      the pipeline called directly; request B (4 concurrent one-prompt
      requests) coalesced into one device batch of 4; healthz, metrics and
      drain.
+  10. modes: the rest of SD-1.5 sampling at full width, bf16, 512x512, 2
+     prompts, 50 steps, CFG 7.5, on the slice's pipeline (LoRA + TI at
+     0.8): txt2img under pndm, euler, euler_a, dpm++, euler_karras and
+     euler_a_karras; img2img (ddim) and latent-blend inpainting (ddim and
+     euler_a) at strength 0.8 (40 steps), the blend's kept region checked
+     to end at the image's latents exactly and the repainted region to
+     move; the 9-channel inpaint (ddim) on a second random pipeline whose
+     UNet is SD15_UNET with in_channels=9 (the runwayml/stable-diffusion-
+     inpainting layout); then the slice's pipeline quantized behind a
+     PipelineServer on localhost (max_batch 2) warmed over both image
+     modes, and one img2img and one inpaint request over HTTP with PNGs
+     encoded here: every int8 launch the weights imply (UNet, CLIP, the
+     VAE encoder's and decoder's attention; all wgmma), the PNGs decoded
+     to 512x512, the img2img pixels equal to the pipeline called directly.
+     Each request is counted alone: 15 flash launches per UNet call, all
+     through the wgmma kernel; its wall time is printed. Every flash and
+     int8 call of phases 5 to 10 is recorded, and one at a shape phase 3 or
+     phase 8 did not check fails the run.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -179,6 +204,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -288,6 +314,18 @@ QUANT_UNET_BYTES_MAX = 0.55  # of the bf16 UNet's parameter bytes
 # out, fc1, fc2), the VAE decoder's mid-block attention (q/k/v/out)
 INT8_PER_CALL = {"unet": 182, "clip_encode": 72, "vae_decode": 4}
 B_REQUESTS = 4  # request B: concurrent one-prompt requests, one device batch
+# phase 10: every txt2img sampler but phase 5's ddim, each on one 2-prompt
+# request of STEPS steps; the image modes' strength (img2img and blend
+# inpainting run the last int(STEPS * 0.8) = 40 of the steps)
+MODE_SAMPLERS = ("pndm", "euler", "euler_a", "dpm++", "euler_karras",
+                 "euler_a_karras")
+MODE_STRENGTH = 0.8
+# 2-D int8 weights of the VAE encoder's mid-block attention (q/k/v/out):
+# one launch each per encode in quantized serving's image modes
+INT8_VAE_ENCODE = 4
+# phase 3's bf16 UNet batches: timed (serving, training), then untimed (the
+# server's other buckets under CFG, phase 5's LoRA check)
+FLASH_TIMED_BATCHES, FLASH_OTHER_BATCHES = (4, 1), (8, 2)
 
 
 def log(*parts) -> None:
@@ -629,13 +667,13 @@ def check_kernel(B, H, T, S, D, dtype, gen, heads_inner=True, timed=True):
 def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(SEED)
     rows = []
-    for B in (4, 1):  # serving, training
+    for B in FLASH_TIMED_BATCHES:  # serving, training
         for T, D in SD15_ATTN_SHAPES:
             rows.append(check_kernel(B, 8, T, T, D, torch.bfloat16, gen))
     # the other UNet batches of the main paths: the server's warm-up
     # buckets and request B (2 and 8 rows under CFG), the LoRA check of
     # phase 5 (2 rows, no CFG)
-    for B in (8, 2):
+    for B in FLASH_OTHER_BATCHES:
         for T, D in SD15_ATTN_SHAPES:
             rows.append(check_kernel(B, 8, T, T, D, torch.bfloat16, gen,
                                      timed=False))
@@ -2264,6 +2302,270 @@ def phase_serve_int8_f32(smi: str):
         fwd_by_kernel
 
 
+def _unet_calls(scheduler: str = "ddim", strength=None) -> int:
+    """UNet calls of one request of STEPS steps: PNDM visits one timestep
+    twice; a strength runs the last int(STEPS * strength) steps."""
+    if strength is not None:
+        return min(int(STEPS * strength), STEPS)
+    return STEPS + (scheduler == "pndm")
+
+
+def _mode_inputs(batch: int, gen):
+    """A smooth random image (batch, 512, 512, 3) in [-1, 1] (8x8 random
+    colours, bilinearly upsampled) and its inpainting mask (1 = repaint):
+    a centred box of 256x256 pixels and, in the last row, the bottom
+    quarter too."""
+    low = torch.rand((batch, 3, 8, 8), generator=gen, device="cuda")
+    image = torch.nn.functional.interpolate(
+        low, size=(512, 512), mode="bilinear", align_corners=False)
+    image = (image * 2 - 1).permute(0, 2, 3, 1).contiguous()
+    mask = torch.zeros((batch, 512, 512, 1), device="cuda")
+    mask[:, 128:384, 128:384] = 1.0
+    mask[-1, 384:] = 1.0
+    return image, mask
+
+
+def _check_images(images, n: int, what: str) -> None:
+    if images.shape != (n, 512, 512, 3):
+        raise AssertionError(f"{what}: images have shape {images.shape}")
+    if not (np.isfinite(images).all() and images.min() >= 0.0
+            and images.max() <= 1.0):
+        raise AssertionError(f"{what}: images are not finite values in "
+                             f"[0, 1]")
+
+
+def phase_modes(smi: str):
+    """Phase 10: the rest of SD-1.5 sampling at full width, bf16, 512x512,
+    2 prompts, STEPS steps, CFG 7.5, on the slice's pipeline (LoRA + TI at
+    0.8): txt2img under every other sampler; img2img and latent-blend
+    inpainting (ddim, euler_a) at strength 0.8, the blend's kept region
+    checked to end at the image's latents exactly and the repainted region
+    to move; the 9-channel inpaint on a second random pipeline with the
+    runwayml/stable-diffusion-inpainting UNet layout (SD15_UNET with
+    in_channels=9); then the pipeline quantized behind a PipelineServer on
+    localhost (max_batch 2): warmup over both image modes, one img2img and
+    one inpaint request over HTTP with PNGs encoded here, every int8 and
+    flash launch counted, the PNGs decoded to 512x512, and the img2img
+    pixels equal to the pipeline called directly. Each request is counted
+    alone (counts set to 0 just before, read just after): 15 flash launches
+    per UNet call, all through the wgmma kernel. Returns the flash
+    launches by kernel over all requests and the int8 launches by kernel
+    over the HTTP requests."""
+    from lora_tpu_torch import serve
+    from lora_tpu_torch.models.config import SD15_UNET
+    from lora_tpu_torch.pipelines.sd import (
+        StableDiffusionPipeline,
+        _latent_mask,
+    )
+
+    pipe = _patched_pipe("modes")
+    image, mask = _mode_inputs(len(PROMPTS),
+                               torch.Generator("cuda").manual_seed(SEED + 8))
+    fwd_total = dict.fromkeys(fa.flash_fwd.launches_by_kernel, 0)
+    report = {}
+
+    def counted(name, calls, fn, int8_want=lambda: 0):
+        """fn() as one counted request of `calls` UNet calls; int8_want():
+        the int8 launches it must have made (all wgmma), asked after it."""
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd = dict(fa.flash_fwd.launches_by_kernel)
+        int8 = dict(i8.int8_matmul.launches_by_kernel)
+        report[name] = {"wall_s": wall, "unet_calls": calls,
+                        "flash_fwd": fwd, "int8_matmul": int8}
+        log(f"modes: {name}: " + json.dumps(report[name]))
+        if fwd != _only("wgmma", ROUTED_PER_UNET_CALL * calls):
+            raise AssertionError(
+                f"{name}: flash_fwd launched {fwd}, not "
+                f"{ROUTED_PER_UNET_CALL} wgmma per UNet call x {calls}")
+        if int8 != _only("wgmma", int8_want(), i8.int8_matmul):
+            raise AssertionError(f"{name}: int8_matmul launched {int8}, not "
+                                 f"{int8_want()} wgmma")
+        for k in fwd_total:
+            fwd_total[k] += fwd[k]
+        return out
+
+    def gen(offset):
+        return torch.Generator("cuda").manual_seed(SEED + offset)
+
+    # one short uncounted call: first-use costs (cuDNN plans, allocator)
+    pipe(PROMPTS, num_inference_steps=2, height=512, width=512,
+         generator=gen(1))
+    kw = dict(num_inference_steps=STEPS, guidance_scale=7.5)
+    for sched in MODE_SAMPLERS:
+        images = counted(f"txt2img {sched}", _unet_calls(sched),
+                         lambda: pipe(PROMPTS, height=512, width=512,
+                                      generator=gen(1), scheduler=sched,
+                                      **kw))
+        _check_images(images, len(PROMPTS), f"txt2img {sched}")
+    blend_calls = _unet_calls(strength=MODE_STRENGTH)
+    images = counted("img2img ddim", blend_calls,
+                     lambda: pipe.img2img(PROMPTS, image,
+                                          strength=MODE_STRENGTH,
+                                          generator=gen(2), **kw))
+    _check_images(images, len(PROMPTS), "img2img")
+    keep = None
+    for sched in ("ddim", "euler_a"):
+        images, lat, z0 = counted(
+            f"inpaint_blend {sched}", blend_calls,
+            lambda: pipe.inpaint_blend(PROMPTS, image, mask,
+                                       strength=MODE_STRENGTH,
+                                       generator=gen(3), scheduler=sched,
+                                       return_latents=True, **kw))
+        _check_images(images, len(PROMPTS), f"inpaint_blend {sched}")
+        if keep is None:
+            keep = (_latent_mask(mask, 64, 64, torch.float32) == 0).expand(
+                lat.shape)
+        kept_equal = torch.equal(lat[keep], z0[keep])
+        moved = (lat[~keep].float() - z0[~keep].float()).abs().max().item()
+        report[f"inpaint_blend {sched}"].update(
+            kept_region_equals_z0=kept_equal, repainted_max_abs_diff=moved)
+        if not kept_equal or not moved > 0.0:
+            raise AssertionError(
+                f"inpaint_blend {sched}: kept region equal to z0: "
+                f"{kept_equal}; repainted region moved by {moved}")
+        del lat, z0
+
+    inpaint_pipe = StableDiffusionPipeline.random_init(
+        generator=gen(9), device="cuda", dtype=torch.bfloat16,
+        unet_cfg=dataclasses.replace(SD15_UNET, in_channels=9))
+    images = counted("inpaint 9-channel ddim", STEPS,
+                     lambda: inpaint_pipe.inpaint(PROMPTS, image, mask,
+                                                  generator=gen(4), **kw))
+    _check_images(images, len(PROMPTS), "inpaint 9-channel")
+    del inpaint_pipe
+    torch.cuda.empty_cache()
+
+    # quantized serving of both image modes over HTTP
+    pipe.quantize_base()
+    torch.cuda.empty_cache()
+    per_call = {"unet": _int8_dense(pipe.unet),
+                "clip_encode": _int8_dense(pipe.text_encoder),
+                "vae_encode": _int8_dense(pipe.vae, "encoder."),
+                "vae_decode": _int8_dense(pipe.vae, "decoder.")}
+    if per_call != {**INT8_PER_CALL, "vae_encode": INT8_VAE_ENCODE}:
+        raise AssertionError(f"2-D int8 weights per call {per_call}")
+    encodes = [0]  # CLIP encode calls, each one int8 launch per 2-D weight
+    encode_prompt = pipe.encode_prompt
+
+    def counted_encode(prompts):
+        encodes[0] += 1
+        return encode_prompt(prompts)
+
+    pipe.encode_prompt = counted_encode
+    image_png = serve._png_b64(((image[0] + 1) / 2).cpu().numpy())
+    mask_png = serve._png_b64(mask[0].expand(-1, -1, 3).cpu().numpy())
+    srv = serve.PipelineServer(pipe, port=0, max_batch=2,
+                               batch_window_ms=100.0).start()
+    http, http_seed = {}, 5
+    try:
+        t0 = time.perf_counter()
+        srv.warmup(steps=2, modes=("img2img", "inpaint"),
+                   strength=MODE_STRENGTH)
+        torch.cuda.synchronize()
+        report["http warmup"] = {"wall_s": time.perf_counter() - t0}
+        int8_total = dict.fromkeys(i8.int8_matmul.launches_by_kernel, 0)
+        for mode in ("img2img", "inpaint"):
+            payload = {"mode": mode, "prompt": PROMPTS, "image": image_png,
+                       "steps": STEPS, "guidance": 7.5,
+                       "strength": MODE_STRENGTH, "seed": http_seed}
+            if mode == "inpaint":
+                payload["mask"] = mask_png
+            encodes[0] = 0
+            body = counted(
+                f"http {mode}", blend_calls,
+                lambda: _http(srv.port, "/generate", payload)[1],
+                int8_want=lambda: (per_call["unet"] * blend_calls
+                                   + per_call["clip_encode"] * encodes[0]
+                                   + per_call["vae_encode"]
+                                   + per_call["vae_decode"]))
+            name = f"http {mode}"
+            report[name].update(clip_encodes=encodes[0],
+                                latency_ms=body["latency_ms"],
+                                batched_with=body["batched_with"])
+            for k in int8_total:
+                int8_total[k] += report[name]["int8_matmul"][k]
+            if len(body["images"]) != len(PROMPTS):
+                raise AssertionError(f"{name}: {len(body['images'])} images")
+            for b64 in body["images"]:
+                rgb = serve._png_decode(base64.b64decode(b64))
+                if rgb.shape != (512, 512, 3):
+                    raise AssertionError(f"{name}: a PNG decodes to "
+                                         f"{rgb.shape}")
+            http[mode] = body["images"]
+        # the pipeline called directly on the decoded PNG, with a generator
+        # seeded as the server seeds it and the embeddings the server used
+        with srv.lock:
+            key = srv._embed_key_alpha()
+            emb = torch.stack([srv._embeds[(p, key)] for p in PROMPTS])
+            neg = torch.stack([srv._embeds[("", key)]] * len(PROMPTS))
+            sent = torch.from_numpy(serve._b64_to_image(
+                image_png, len(PROMPTS))).cuda()
+            direct = pipe.img2img(
+                None, sent, strength=MODE_STRENGTH,
+                generator=torch.Generator("cuda").manual_seed(http_seed),
+                prompt_embeds=emb, negative_prompt_embeds=neg, **kw)
+        if [serve._png_b64(im) for im in direct] != http["img2img"]:
+            raise AssertionError("the img2img request's PNGs differ from "
+                                 "the pipeline called directly")
+        if srv.drain(timeout=60) is not True:
+            raise AssertionError("the server did not drain")
+    finally:
+        srv.stop()
+    log("modes: " + json.dumps({
+        "requests": report, "flash_fwd_launches": fwd_total,
+        "http_int8_launches": int8_total, "int8_per_call": per_call,
+        "steps": STEPS, "strength": MODE_STRENGTH, "cfg": 7.5,
+        "card": smi}))
+    del srv, pipe
+    torch.cuda.empty_cache()
+    return fwd_total, int8_total
+
+
+def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
+    """Every flash forward call and int8 call recorded on the main paths was
+    checked against its plain version: its shapes (and for flash, dtype and
+    strides) are those of a row of phase 3 and phase 8."""
+    unchecked = int8_seen - {(r["M"], r["K"], r["N"], r["dtype"])
+                             for r in int8_rows}
+    if unchecked:
+        raise AssertionError(f"quantized serving ran int8_matmul at shapes "
+                             f"phase 8 did not check: {sorted(unchecked)}")
+    unchecked = flash_seen - {_row_key(r) for r in rows}
+    if unchecked:
+        raise AssertionError(f"the main paths ran flash_fwd at shapes or "
+                             f"layouts phase 3 did not check: "
+                             f"{sorted(unchecked)}")
+    log(f"flash_fwd: the main paths ran {len(flash_seen)} shapes and "
+        f"layouts, each checked in phase 3; int8_matmul {len(int8_seen)} "
+        f"shapes, each checked in phase 8")
+
+
+def main_modes() -> int:
+    """Phases 1, 2 (the sources the phase runs and flash_fwd.cu, which
+    phase 3 calls beside the wgmma kernel) and 10; then phase 3's bf16 UNet
+    calls and phase 8's bf16 shapes, untimed, and every shape phase 10
+    reached checked against them."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "int8_matmul",
+                 "int8_matmul_wgmma"])
+    with recording_flash_shapes(set()) as flash_seen, \
+            recording_int8_shapes(set()) as int8_seen:
+        phase_modes(smi)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    rows = [check_kernel(B, 8, T, T, D, torch.bfloat16, gen, timed=False)
+            for B in FLASH_TIMED_BATCHES + FLASH_OTHER_BATCHES
+            for T, D in SD15_ATTN_SHAPES]
+    int8_rows = [check_int8(M, K, N, torch.bfloat16, gen, timed=False)
+                 for M, K, N in int8_path_shapes() + int8_phase_shapes()]
+    check_recorded(flash_seen, rows, int8_seen, int8_rows)
+    log(smi)
+    return 0
+
+
 def main_flash() -> int:
     """The three forward kernels alone: the device line, their builds, the
     wgmma and tf32x3 kernels' first calls in child processes under a
@@ -2346,18 +2648,8 @@ def main() -> int:
             f32_launches, f32_fwd = phase_serve_int8_f32(smi)
             int8_launches, serve_int8_fwd = phase_serve_int8(smi,
                                                              bf16_request_s)
-    unchecked = seen - {(r["M"], r["K"], r["N"], r["dtype"])
-                        for r in int8_rows}
-    if unchecked:
-        raise AssertionError(f"quantized serving ran int8_matmul at shapes "
-                             f"phase 8 did not check: {sorted(unchecked)}")
-    unchecked = flash_seen - {_row_key(r) for r in rows}
-    if unchecked:
-        raise AssertionError(f"phases 5-9 ran flash_fwd at shapes or "
-                             f"layouts phase 3 did not check: "
-                             f"{sorted(unchecked)}")
-    log(f"flash_fwd: phases 5-9 ran {len(flash_seen)} shapes and layouts, "
-        f"each checked in phase 3")
+            modes_fwd, modes_int8 = phase_modes(smi)
+    check_recorded(flash_seen, rows, seen, int8_rows)
 
     def at_main_shape(rs, dtype="bfloat16"):  # the largest main-path shape
         # (the forward's first such row is batch 4's, the backward's only)
@@ -2373,7 +2665,7 @@ def main() -> int:
     bf16_bwd = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
     # the per-kernel counts each bf16 main path measured, summed
     by_path = {"txt2img": serve_fwd, "train": train_fwd,
-               "serve_int8": serve_int8_fwd}
+               "serve_int8": serve_int8_fwd, "modes": modes_fwd}
     fwd_by_kernel = {r: sum(c[r] for c in by_path.values())
                      for r in fa.flash_fwd.launches_by_kernel}
     kernels = [{
@@ -2381,9 +2673,10 @@ def main() -> int:
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/flash_fwd_wgmma.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:104",
-        # the serving run (50 UNet calls), the timed training steps and the
-        # two quantized HTTP requests (50 UNet calls each): all bf16, all
-        # through the wgmma kernel (each phase checks it)
+        # the serving run (50 UNet calls), the timed training steps, the
+        # two quantized HTTP requests (50 UNet calls each) and phase 10's
+        # samplers and image modes: all bf16, all through the wgmma kernel
+        # (each phase checks it)
         "launches": fwd_by_kernel["wgmma"],
         "launches_by_path": {p: c["wgmma"] for p, c in by_path.items()},
         "launches_by_kernel": fwd_by_kernel,
@@ -2786,7 +3079,8 @@ def main() -> int:
     # serving (all wgmma) and the f32 UNet call and CLIP encode (phase 9a)
     int8_by_path = {"serve_int8": _only("wgmma", int8_launches,
                                         i8.int8_matmul),
-                    "serve_int8_f32": f32_launches}
+                    "serve_int8_f32": f32_launches,
+                    "modes_http": modes_int8}
     int8_by_kernel = {k: sum(c[k] for c in int8_by_path.values())
                       for k in i8.int8_matmul.launches_by_kernel}
 
@@ -2799,10 +3093,12 @@ def main() -> int:
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/int8_matmul_wgmma.cu",
         "replaces": "lora_tpu/ops/int8_matmul.py:35",
-        # quantized serving: request A and request B, every bf16 call (all
-        # of them wgmma), at shapes phase 8 checked
-        "launches": int8_launches,
-        "launches_by_path": {"serve_int8": int8_launches},
+        # quantized serving: request A and request B, and phase 10's
+        # img2img and inpaint requests, every bf16 call (all of them
+        # wgmma), at shapes phase 8 checked
+        "launches": int8_launches + modes_int8["wgmma"],
+        "launches_by_path": {"serve_int8": int8_launches,
+                             "modes_http": modes_int8["wgmma"]},
         "launches_by_kernel": int8_by_kernel,
         # worst error over the bf16 calls of phase 8 through wgmma
         "max_abs_err": routed_err("bfloat16", "wgmma"),
@@ -2882,7 +3178,9 @@ if __name__ == "__main__":
         sys.exit(main_flash())
     if sys.argv[1:] == ["--flash-bwd"]:
         sys.exit(main_flash_bwd())
+    if sys.argv[1:] == ["--modes"]:
+        sys.exit(main_modes())
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
-                 f"--flash-bwd]")
+                 f"--flash-bwd | --modes]")
     sys.exit(main())

@@ -1,19 +1,22 @@
-"""Stable Diffusion txt2img pipeline in PyTorch: the serving path.
+"""Stable Diffusion pipeline in PyTorch: txt2img, img2img, 9-channel
+inpainting and latent-blend inpainting, the serving path.
 
-The counterpart of lora_tpu/pipelines/sd.py for txt2img with the DDIM
-sampler. The pipeline owns the UNet, the CLIP text encoder and the VAE as
-nn.Modules and the loaded LoRAs as data (core/lora.py): patch_pipe loads a
-LoRA (+ TI embeds) file in the indexed "{model}:{idx}:up|down" schema, and
-every UNet / text-encoder call gets the LoRA tree passed in. The denoising
-loop is a Python loop under torch.inference_mode(); latents and images are
-NHWC, as in the JAX package. `from_pretrained` loads a diffusers-layout
-directory (models/hf_import.py); `quantize_base` turns the base weights
-int8 (core/quantize.py); `prompt_embeds` pass precomputed conditioning
-through, as the serving embed cache does (serve.py).
+The counterpart of lora_tpu/pipelines/sd.py. The pipeline owns the UNet, the
+CLIP text encoder and the VAE as nn.Modules and the loaded LoRAs as data
+(core/lora.py): patch_pipe loads a LoRA (+ TI embeds) file in the indexed
+"{model}:{idx}:up|down" schema, and every UNet / text-encoder call gets the
+LoRA tree passed in. The denoising loop (_denoise: ddim | pndm | euler |
+euler_a | dpm++, with Karras sigmas for the Euler pair) is a Python loop
+under torch.inference_mode(); latents and images are NHWC, as in the JAX
+package. Every random draw comes from a torch.Generator, or is handed in
+(the latents, the VAE posterior noise, the init noise, Euler-ancestral's
+per-step noise), so tests can reproduce the JAX package's draws.
+`from_pretrained` loads a diffusers-layout directory (models/hf_import.py);
+`quantize_base` turns the base weights int8 (core/quantize.py);
+`prompt_embeds` pass precomputed conditioning through, as the serving embed
+cache does (serve.py).
 
-Still to port (ROADMAP Queue A): the other samplers (PNDM, Euler,
-DPM-Solver++), img2img and inpainting, kohya-ss / LyCORIS files in
-patch_pipe.
+Still to port (ROADMAP Queue A): kohya-ss / LyCORIS files in patch_pipe.
 """
 
 from __future__ import annotations
@@ -36,9 +39,37 @@ from ..models import schedulers
 from ..models.clip import CLIPTextModel, apply_ti
 from ..models.config import SD15_TEXT, SD15_UNET, SD15_VAE
 from ..models.unet import UNet, unet_forward
-from ..models.vae import VAE
+from ..models.vae import VAE, vae_encode
 
 _TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
+
+
+# every scheduler name the pipeline takes, and the loop each runs: the
+# Karras variants are the Euler loops on Karras sigmas
+SCHEDULERS = {"ddim": "ddim", "pndm": "pndm", "euler": "euler",
+              "euler_a": "euler_a", "dpm++": "dpm++",
+              "euler_karras": "euler", "euler_a_karras": "euler_a"}
+# the loops that step in sigma space (their latents start at sigmas[0])
+_SIGMA_LOOPS = ("euler", "euler_a")
+
+
+def _latent_mask(mask: torch.Tensor, h: int, w: int,
+                 dtype) -> torch.Tensor:
+    """Nearest-sample a pixel-space (B, H, W, 1) mask down to the (B, h, w,
+    1) latent grid: rows and columns arange(n) * (N / n) in float32,
+    truncated, as lora_tpu's _latent_mask picks them."""
+    ys = (np.arange(h, dtype=np.float32)
+          * np.float32(mask.shape[1] / h)).astype(np.int64)
+    xs = (np.arange(w, dtype=np.float32)
+          * np.float32(mask.shape[2] / w)).astype(np.int64)
+    ys, xs = (torch.from_numpy(i).to(mask.device) for i in (ys, xs))
+    return mask[:, ys][:, :, xs].to(dtype)
+
+
+def _strength_start(num_inference_steps: int, strength: float) -> int:
+    """The first of the schedule's steps that an img2img-style run takes
+    (Python float arithmetic, as lora_tpu computes it)."""
+    return max(num_inference_steps - int(num_inference_steps * strength), 0)
 
 
 def _float_param(module: torch.nn.Module) -> torch.Tensor:
@@ -223,6 +254,30 @@ class StableDiffusionPipeline:
                 f"{height}x{width}")
 
     # -- sampling -----------------------------------------------------------
+    def _scheduler_arrays(self, scheduler: str, num_inference_steps: int):
+        """(timesteps (S,) int64, sigmas (S + 1,) float32 or None) of a
+        scheduler, numpy on the host; PNDM's timesteps are S + 1 (its
+        warm-up duplicate)."""
+        sched = self.schedule
+        if scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {scheduler!r}; expected one "
+                             f"of {', '.join(SCHEDULERS)}")
+        if scheduler in ("euler_karras", "euler_a_karras"):
+            sigmas, ts = schedulers.karras_sigmas(sched, num_inference_steps)
+            return ts, sigmas
+        if scheduler in _SIGMA_LOOPS:
+            return (schedulers.euler_timesteps(sched, num_inference_steps),
+                    schedulers.euler_sigmas(sched, num_inference_steps))
+        tables = {"ddim": schedulers.ddim_timesteps,
+                  "pndm": schedulers.pndm_timesteps,
+                  "dpm++": schedulers.dpmpp_timesteps}
+        return tables[scheduler](sched, num_inference_steps), None
+
+    def _sigma_tensor(self, sigma) -> torch.Tensor:
+        """A float32 table value as a 0-d float32 tensor on the device."""
+        return torch.tensor(float(sigma), dtype=torch.float32,
+                            device=self.device)
+
     @torch.inference_mode()
     def __call__(
         self,
@@ -239,17 +294,18 @@ class StableDiffusionPipeline:
         prompt_embeds: Optional[torch.Tensor] = None,
         negative_prompt_embeds: Optional[torch.Tensor] = None,
         return_latents: bool = False,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
     ):
         """txt2img: float32 images (B, height, width, 3) in [0, 1], NHWC
         (and the final latents with return_latents=True). Latents are drawn
-        from `generator` unless given. lora_idx routes each prompt through
-        its own adapter of a stacked LoRA. prompt_embeds (and, with CFG,
+        from `generator` unless given; the Euler samplers scale them by
+        sigmas[0] (in the latents' dtype, as lora_tpu does). euler_a draws
+        one normal per step from `generator`, or takes them from
+        `step_noise`. lora_idx routes each prompt through its own adapter
+        of a stacked LoRA. prompt_embeds (and, with CFG,
         negative_prompt_embeds) replace the prompt strings."""
-        if scheduler != "ddim":
-            raise NotImplementedError(
-                f"scheduler={scheduler!r}: only 'ddim' is ported (ROADMAP "
-                "Queue A: the other samplers)")
         use_cfg = guidance_scale > 1.0
+        ts, sigmas = self._scheduler_arrays(scheduler, num_inference_steps)
         text_emb, uncond, B = self._resolve_cond(
             prompt, negative_prompt, use_cfg, prompt_embeds,
             negative_prompt_embeds)
@@ -259,9 +315,15 @@ class StableDiffusionPipeline:
             latents = self.prepare_latents(B, height, width, generator)
         else:
             latents = torch.as_tensor(latents, device=self.device)
-        latents = self._denoise_ddim(latents, text_emb, uncond,
-                                     guidance_scale, num_inference_steps,
-                                     lora_idx)
+        method = SCHEDULERS[scheduler]
+        if method in _SIGMA_LOOPS:
+            # unit-variance latents; the Euler loops start at sigma_max
+            latents = latents * self._sigma_tensor(sigmas[0]).to(
+                latents.dtype)
+        latents = self._denoise(
+            latents, text_emb, uncond, guidance_scale, num_inference_steps,
+            ts, method, sigmas, lora_idx=lora_idx, generator=generator,
+            step_noise=step_noise)
         images = self._decode(latents)
         if return_latents:
             return images, latents
@@ -291,13 +353,35 @@ class StableDiffusionPipeline:
         uncond = self.encode_prompt(list(negative_prompt)) if use_cfg else None
         return text_emb, uncond, B
 
-    def _denoise_ddim(self, latents, text_emb, uncond, guidance_scale: float,
-                      num_inference_steps: int, lora_idx=None):
-        """The DDIM loop; CFG batches uncond before cond, as the JAX
-        package does."""
+    def _denoise(self, latents, text_emb, uncond, guidance_scale: float,
+                 num_inference_steps: int, ts: np.ndarray,
+                 method: str = "ddim", sigmas: Optional[np.ndarray] = None,
+                 lora_idx=None, extra_channels=None, blend=None,
+                 generator: Optional[torch.Generator] = None,
+                 step_noise: Optional[Sequence[torch.Tensor]] = None):
+        """The denoising loop, lora_tpu's _denoise_loop: `method` is ddim |
+        pndm | euler | euler_a | dpm++ over the timesteps `ts` (and, for the
+        Euler pair, `sigmas`, one longer). CFG batches uncond before cond.
+        extra_channels: the 9-channel UNet's [mask | masked-image latents],
+        joined to each step's input on the last axis. blend = (mask, z0,
+        noise), latent-blend inpainting: after every step the kept region
+        (mask == 0) is overwritten with z0 renoised to the stepped-to level
+        by the one fixed noise draw, and the last step blends z0 itself, so
+        the kept region's final latents equal z0. euler_a's per-step noise
+        comes from `step_noise` when given, else from `generator`. The
+        tables are uploaded once; no step reads a value back to the
+        host."""
+        if method not in SCHEDULERS.values():
+            raise ValueError(f"unknown scheduler method {method!r}")
+        if method == "pndm" and blend is not None:
+            raise ValueError(
+                "latent-blend inpainting is not supported with the pndm "
+                "scheduler (warmup duplicate step); use ddim/euler/dpm++")
+        if method == "euler_a" and step_noise is None and generator is None:
+            raise ValueError("euler_a draws noise every step: pass "
+                             "generator= (or step_noise=)")
         dev = latents.device
         sched = self.schedule.to(dev)
-        ts = schedulers.ddim_timesteps(sched, num_inference_steps)
         step_delta = sched.num_train_timesteps // num_inference_steps
         use_cfg = uncond is not None
         ctx = torch.cat([uncond, text_emb]) if use_cfg else text_emb
@@ -308,17 +392,80 @@ class StableDiffusionPipeline:
         params = self.unet.flat_params()
         B = latents.shape[0]
         n_in = 2 * B if use_cfg else B
-        for t in ts.tolist():
-            model_in = torch.cat([latents, latents]) if use_cfg else latents
-            out = unet_forward(params, model_in,
-                               torch.full((n_in,), t, device=dev), ctx,
+        ts_dev = torch.as_tensor(np.asarray(ts, np.int64), device=dev)
+        sig = (None if sigmas is None else
+               torch.as_tensor(np.asarray(sigmas, np.float32), device=dev))
+
+        def eps_at(lat, t, scale_in=None):
+            inp = lat if scale_in is None else scale_in
+            if extra_channels is not None:
+                inp = torch.cat([inp, extra_channels], dim=-1)
+            model_in = torch.cat([inp, inp]) if use_cfg else inp
+            out = unet_forward(params, model_in, t.expand(n_in), ctx,
                                self.unet.cfg, lora=lora)
             if use_cfg:
                 u, c = out[:B], out[B:]
                 out = u + guidance_scale * (c - u)
-            latents = schedulers.ddim_step(
-                sched, out, torch.full((B,), t, device=dev), latents,
-                torch.full((B,), t - step_delta, device=dev))
+            return out
+
+        if blend is not None:
+            mask, z0, noise0 = blend
+            shape = (-1,) + (1,) * (z0.ndim - 1)
+
+        def blend_t(lat, t_next):
+            """The kept region at timestep t_next ((B,); < 0: z0 itself)."""
+            if blend is None:
+                return lat
+            known = schedulers.add_noise(sched, z0, noise0,
+                                         t_next.clamp(min=0))
+            known = torch.where((t_next < 0).reshape(shape), z0, known)
+            return (mask * lat + (1.0 - mask) * known).to(lat.dtype)
+
+        def blend_sigma(lat, sigma_next):
+            """The same in sigma space: z0 + sigma_next * noise (0 on the
+            last step: z0 itself)."""
+            if blend is None:
+                return lat
+            known = z0 + sigma_next * noise0
+            return (mask * lat + (1.0 - mask) * known).to(lat.dtype)
+
+        if method == "pndm":
+            state = schedulers.pndm_init_state(latents.shape, device=dev)
+        elif method == "dpm++":
+            state = schedulers.dpmpp_init_state(latents.shape, device=dev)
+            ts_next = torch.cat([ts_dev[1:], ts_dev.new_full((1,), -1)])
+        for i in range(len(ts)):
+            t = ts_dev[i]
+            if method == "ddim":
+                out = eps_at(latents, t)
+                prev = (t - step_delta).expand(B)
+                latents = schedulers.ddim_step(sched, out, t.expand(B),
+                                               latents, prev)
+                latents = blend_t(latents, prev)
+            elif method == "pndm":
+                out = eps_at(latents, t)
+                latents, state = schedulers.pndm_step(
+                    sched, state, out, t, latents, step_delta)
+            elif method == "dpm++":
+                out = eps_at(latents, t)
+                latents, state = schedulers.dpmpp_step(
+                    sched, state, out, t, latents, ts_next[i])
+                latents = blend_t(latents, ts_next[i].expand(B))
+            else:  # euler | euler_a
+                sigma, sigma_next = sig[i], sig[i + 1]
+                scaled = schedulers.euler_scale_model_input(latents, sigma)
+                out = eps_at(latents, t, scale_in=scaled)
+                if method == "euler":
+                    latents = schedulers.euler_step(latents, out, sigma,
+                                                    sigma_next)
+                else:
+                    noise = (torch.as_tensor(step_noise[i], device=dev)
+                             if step_noise is not None else
+                             torch.randn(latents.shape, generator=generator,
+                                         device=dev, dtype=torch.float32))
+                    latents = schedulers.euler_ancestral_step(
+                        latents, out, sigma, sigma_next, noise)
+                latents = blend_sigma(latents, sigma_next)
         return latents
 
     @torch.inference_mode()
@@ -327,12 +474,185 @@ class StableDiffusionPipeline:
         images = self.vae.decode(latents)
         return (images.float() / 2 + 0.5).clamp(0.0, 1.0).cpu().numpy()
 
-    def img2img(self, *args, **kwargs):
-        raise NotImplementedError(
-            "img2img is not ported yet (ROADMAP Queue A: img2img and "
-            "inpaint)")
+    def _encode_image(self, image, generator, noise) -> torch.Tensor:
+        """VAE-encode an image (B, H, W, 3) in [-1, 1] in the pipeline's
+        dtype to scaled latents, with a posterior sample: `noise` when
+        given, else drawn from `generator`."""
+        if noise is None and generator is None:
+            raise ValueError("pass generator= (or the posterior noise)")
+        return vae_encode(self.vae.flat_params(), image.to(self.dtype),
+                          self.vae.cfg, generator, noise=noise)
 
-    def inpaint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "inpaint is not ported yet (ROADMAP Queue A: img2img and "
-            "inpaint)")
+    def _draw(self, shape, dtype, generator, given) -> torch.Tensor:
+        """`given` on the device, or a standard normal draw from
+        `generator`."""
+        if given is not None:
+            return torch.as_tensor(given, device=self.device).to(dtype)
+        if generator is None:
+            raise ValueError("pass generator= (or the draws themselves)")
+        return torch.randn(tuple(shape), generator=generator,
+                           device=self.device, dtype=dtype)
+
+    def _image_input(self, image) -> torch.Tensor:
+        image = torch.as_tensor(image, device=self.device)
+        self._check_size(int(image.shape[1]), int(image.shape[2]))
+        return image
+
+    @torch.inference_mode()
+    def img2img(
+        self,
+        prompt: Union[str, Sequence[str]],
+        init_image,                       # (B, H, W, 3) in [-1, 1]
+        strength: float = 0.8,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        negative_prompt: Union[str, Sequence[str]] = "",
+        generator: Optional[torch.Generator] = None,
+        lora_idx: Optional[Sequence[int]] = None,
+        prompt_embeds: Optional[torch.Tensor] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        posterior_noise: Optional[torch.Tensor] = None,
+        init_noise: Optional[torch.Tensor] = None,
+    ) -> np.ndarray:
+        """img2img with DDIM: encode the image (a posterior sample), noise
+        it to the step the strength starts at (the last int(S * strength)
+        of the S DDIM steps), then denoise. The posterior noise and the
+        init noise are drawn from `generator` in that order, or given."""
+        use_cfg = guidance_scale > 1.0
+        text_emb, uncond, B = self._resolve_cond(
+            prompt, negative_prompt, use_cfg, prompt_embeds,
+            negative_prompt_embeds)
+        image = self._image_input(init_image)
+        ts = schedulers.ddim_timesteps(self.schedule, num_inference_steps)
+        ts = ts[_strength_start(num_inference_steps, strength):]
+        if len(ts) == 0:
+            raise ValueError(
+                f"strength={strength} leaves zero denoising steps at "
+                f"num_inference_steps={num_inference_steps}")
+        z = self._encode_image(image, generator, posterior_noise)
+        noise = self._draw(z.shape, z.dtype, generator, init_noise)
+        z = schedulers.add_noise(
+            self.schedule.to(z.device), z, noise,
+            torch.full((B,), int(ts[0]), device=z.device))
+        latents = self._denoise(z, text_emb, uncond, guidance_scale,
+                                num_inference_steps, ts, lora_idx=lora_idx)
+        return self._decode(latents)
+
+    @torch.inference_mode()
+    def inpaint(
+        self,
+        prompt: Union[str, Sequence[str]],
+        image,                            # (B, H, W, 3) in [-1, 1]
+        mask,                             # (B, H, W, 1) in {0, 1}; 1 = repaint
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        negative_prompt: Union[str, Sequence[str]] = "",
+        generator: Optional[torch.Generator] = None,
+        prompt_embeds: Optional[torch.Tensor] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        posterior_noise: Optional[torch.Tensor] = None,
+        latents: Optional[torch.Tensor] = None,
+    ) -> np.ndarray:
+        """9-channel SD-inpainting (the runwayml/stable-diffusion-inpainting
+        layout) with DDIM: the UNet's input is [noisy latents | the mask on
+        the latent grid | the masked image's latents] on the last axis. The
+        posterior noise and the initial latents are drawn from `generator`
+        in that order, or given."""
+        cfg = self.unet.cfg
+        if cfg.in_channels != 9:
+            raise ValueError("inpaint() needs an inpainting UNet "
+                             f"(in_channels=9), got {cfg.in_channels}")
+        use_cfg = guidance_scale > 1.0
+        text_emb, uncond, B = self._resolve_cond(
+            prompt, negative_prompt, use_cfg, prompt_embeds,
+            negative_prompt_embeds)
+        image = self._image_input(image)
+        mask = torch.as_tensor(mask, device=self.device)
+        masked_latents = self._encode_image(image * (mask < 0.5), generator,
+                                            posterior_noise)
+        h, w = masked_latents.shape[1:3]
+        extra = torch.cat([_latent_mask(mask, h, w, self.dtype),
+                           masked_latents], dim=-1)
+        latents = self._draw((B, h, w, cfg.out_channels), self.dtype,
+                             generator, latents)
+        ts = schedulers.ddim_timesteps(self.schedule, num_inference_steps)
+        latents = self._denoise(latents, text_emb, uncond, guidance_scale,
+                                num_inference_steps, ts,
+                                extra_channels=extra)
+        return self._decode(latents)
+
+    @torch.inference_mode()
+    def inpaint_blend(
+        self,
+        prompt: Union[str, Sequence[str]],
+        image,                            # (B, H, W, 3) in [-1, 1]
+        mask,                             # (B, H, W, 1) in {0, 1}; 1 = repaint
+        strength: float = 0.8,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        negative_prompt: Union[str, Sequence[str]] = "",
+        generator: Optional[torch.Generator] = None,
+        scheduler: str = "ddim",
+        lora_idx: Optional[Sequence[int]] = None,
+        prompt_embeds: Optional[torch.Tensor] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        posterior_noise: Optional[torch.Tensor] = None,
+        init_noise: Optional[torch.Tensor] = None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
+        return_latents: bool = False,
+    ):
+        """Latent-blend inpainting for plain 4-channel checkpoints (the
+        diffusers legacy / A1111 technique): start img2img-style from the
+        noised original, and after every step overwrite the kept region
+        with the original latents renoised to the stepped-to level, so only
+        the masked region is resampled; the kept region's final latents
+        equal the original's exactly. Any scheduler but pndm; strength as
+        in img2img. The posterior noise, the init noise (float32) and
+        euler_a's step noise are drawn from `generator` in that order, or
+        given. return_latents=True also returns the final latents and the
+        original's (z0)."""
+        cfg = self.unet.cfg
+        if cfg.in_channels != cfg.out_channels:
+            raise ValueError(
+                "inpaint_blend() is the technique for plain checkpoints; a "
+                "9-channel inpainting UNet should use inpaint()")
+        ts, sigmas = self._scheduler_arrays(scheduler, num_inference_steps)
+        method = SCHEDULERS[scheduler]
+        if method == "pndm":
+            raise ValueError(
+                "latent-blend inpainting is not supported with the pndm "
+                "scheduler; use ddim/euler/euler_a/dpm++")
+        t_start = _strength_start(num_inference_steps, strength)
+        ts = ts[t_start:]
+        if len(ts) == 0:
+            raise ValueError(
+                f"strength={strength} leaves zero denoising steps at "
+                f"num_inference_steps={num_inference_steps}")
+        use_cfg = guidance_scale > 1.0
+        text_emb, uncond, B = self._resolve_cond(
+            prompt, negative_prompt, use_cfg, prompt_embeds,
+            negative_prompt_embeds)
+        image = self._image_input(image)
+        mask = torch.as_tensor(mask, device=self.device)
+        z0 = self._encode_image(image, generator, posterior_noise)
+        h, w = z0.shape[1:3]
+        mask_small = _latent_mask(mask, h, w, torch.float32)
+        noise0 = self._draw(z0.shape, torch.float32, generator, init_noise)
+        if method in _SIGMA_LOOPS:
+            sigmas = sigmas[t_start:]
+            latents = (z0 + self._sigma_tensor(sigmas[0]) * noise0).to(
+                self.dtype)
+        else:
+            latents = schedulers.add_noise(
+                self.schedule.to(z0.device), z0, noise0,
+                torch.full((B,), int(ts[0]), device=z0.device)).to(
+                    self.dtype)
+        latents = self._denoise(
+            latents, text_emb, uncond, guidance_scale, num_inference_steps,
+            ts, method, sigmas, lora_idx=lora_idx,
+            blend=(mask_small, z0.float(), noise0), generator=generator,
+            step_noise=step_noise)
+        images = self._decode(latents)
+        if return_latents:
+            return images, latents, z0
+        return images

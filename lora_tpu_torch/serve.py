@@ -1,10 +1,13 @@
 """Serving endpoint over the port's StableDiffusionPipeline: the counterpart
-of lora_tpu/serve.py for txt2img (stdlib HTTP, no other dependency).
+of lora_tpu/serve.py (stdlib HTTP and zlib, no other dependency).
 
   POST /generate   {"prompt": str | [str], "steps": int, "guidance": float,
                     "height": int, "width": int, "seed": int,
                     "scheduler": str, "alpha": float, "lora_idx": [int],
-                    "negative_prompt": str, "deadline_ms": float}
+                    "negative_prompt": str, "deadline_ms": float,
+                    "mode": "txt2img" | "img2img" | "inpaint",
+                    "image": base64 PNG | [base64 PNG, ...],
+                    "mask": base64 PNG | [...], "strength": float}
                    -> {"images": [base64 PNG, ...], "latency_ms": float,
                        "batched_with": int}
                    -> 400 {"error": ...} for a malformed or unsupported
@@ -17,19 +20,30 @@ of lora_tpu/serve.py for txt2img (stdlib HTTP, no other dependency).
   GET  /metrics    -> requests/images served, shed count, embed cache
                       hits/misses, queue depth, exec-time EWMA, uptime
 
-Concurrent requests with the same sampling config (steps/guidance/size/
-scheduler/alpha/negative prompt/routing) are MICRO-BATCHED: a worker thread
-coalesces them (up to `max_batch` rows, within `batch_window_ms`, cut early
-when a member's `deadline_ms` budget minus the EWMA-estimated batch
-execution time is about to be spent) into one device batch, padded up to a
-batch bucket so only len(batch_buckets) batch shapes ever run; each request
-keeps its own prompt, seed-derived latents (torch.Generator(device)
-.manual_seed(seed)) and `lora_idx` adapter routing. Prompt embeddings come
-from an LRU keyed by (text, adapter generation, effective alpha).
+Concurrent requests with the same sampling config (mode/strength/steps/
+guidance/size/scheduler/alpha/negative prompt/routing) are MICRO-BATCHED: a
+worker thread coalesces them (up to `max_batch` rows, within
+`batch_window_ms`, cut early when a member's `deadline_ms` budget minus the
+EWMA-estimated batch execution time is about to be spent) into one device
+batch, padded up to a batch bucket so only len(batch_buckets) batch shapes
+ever run; each request keeps its own prompt and `lora_idx` adapter routing,
+and txt2img requests their own seed-derived latents
+(torch.Generator(device).manual_seed(seed)). Prompt embeddings come from an
+LRU keyed by (text, adapter generation, effective alpha). The scheduler
+name is checked against the pipeline's set at admit.
 
-Not ported yet (ROADMAP Queue A, Slice 3): the image modes (mode "img2img" /
-"inpaint") and their PNG decoding; such requests get a 400 at admit and are
-never half-run. SDXL pipelines (Slice 6) are refused at construction.
+Image modes: mode="img2img" takes a base64 PNG `image` (its size defines the
+sampling size; one PNG per prompt row, or a single PNG replicated);
+mode="inpaint" also takes a same-size `mask` PNG (luma >= 128 = repaint)
+and runs the 9-channel inpainting UNet if the checkpoint has one, else
+latent-blend inpainting. img2img and the 9-channel inpaint sample with
+ddim; blend inpainting takes any scheduler but pndm. Their randomness (the
+VAE posterior sample and the init noise; euler_a's step noise, also in
+txt2img) is drawn batch-wide from the FIRST member's seed, so it is
+reproducible per (seed, batch composition). PNGs are decoded here on zlib
+(_png_decode: 8-bit and palette/gray below 8 bits, non-interlaced; a 16-bit
+or interlaced PNG is a 400 that names the case). SDXL pipelines (Slice 6)
+are refused at construction.
 """
 
 from __future__ import annotations
@@ -51,8 +65,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-_IMAGE_MODES_TODO = ("not ported yet (ROADMAP Queue A, Slice 3: img2img / "
-                     "inpaint and the server's image modes)")
+MODES = ("txt2img", "img2img", "inpaint")
 
 
 def _png_bytes(rgb: np.ndarray) -> bytes:
@@ -78,6 +91,176 @@ def _png_b64(arr: np.ndarray) -> str:
     JAX package's _png_b64 does: clip, * 255, truncate to uint8."""
     rgb = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
     return base64.b64encode(_png_bytes(rgb)).decode()
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> (samples per pixel, the bit depths this decoder takes)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
+              4: (2, (8,)), 6: (4, (8,))}
+
+
+def _png_chunks(data: bytes):
+    """(tag, body) of each chunk up to IEND, every CRC checked."""
+    pos = 8
+    while True:
+        if pos + 12 > len(data):
+            raise ValueError("truncated PNG: no IEND chunk")
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4:
+            raise ValueError(f"truncated PNG in chunk {tag!r}")
+        if struct.unpack(">I", crc)[0] != zlib.crc32(tag + body) & 0xFFFFFFFF:
+            raise ValueError(f"PNG chunk {tag!r} fails its CRC")
+        yield tag, body
+        if tag == b"IEND":
+            return
+        pos += 12 + n
+
+
+def _unfilter_sequential(ftype: int, line: bytes, prior: bytes,
+                         bpp: int) -> bytearray:
+    """Average (3) and Paeth (4) scanlines: each byte needs the one bpp to
+    its left already reconstructed, so a loop (the first bpp bytes see a
+    zero left neighbour)."""
+    cur = bytearray(line)
+    if ftype == 3:
+        for i in range(bpp):
+            cur[i] = (cur[i] + (prior[i] >> 1)) & 0xFF
+        for i in range(bpp, len(cur)):
+            cur[i] = (cur[i] + ((cur[i - bpp] + prior[i]) >> 1)) & 0xFF
+        return cur
+    for i in range(bpp):  # a = c = 0: the predictor is b
+        cur[i] = (cur[i] + prior[i]) & 0xFF
+    for i in range(bpp, len(cur)):
+        a, b, c = cur[i - bpp], prior[i], prior[i - bpp]
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - c - c)
+        if pa <= pb and pa <= pc:
+            cur[i] = (cur[i] + a) & 0xFF
+        elif pb <= pc:
+            cur[i] = (cur[i] + b) & 0xFF
+        else:
+            cur[i] = (cur[i] + c) & 0xFF
+    return cur
+
+
+def _png_decode(data: bytes) -> np.ndarray:
+    """A PNG's pixels as (H, W, 3) uint8 RGB, as Pillow's convert("RGB")
+    gives them: gray replicated (1-, 2- and 4-bit gray scaled to 0..255),
+    palette indices mapped (tRNS ignored), alpha dropped. Takes colour
+    types 0, 2, 3, 4 and 6 at 8 bits (0 and 3 also at 1, 2 and 4) with
+    every filter, non-interlaced; anything else raises ValueError naming
+    the case."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG image (only PNG is decoded)")
+    header, palette, idat = None, None, []
+    for tag, body in _png_chunks(data):
+        if tag == b"IHDR":
+            if len(body) != 13:
+                raise ValueError("malformed PNG IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3]
+        elif tag == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    w, h, depth, ctype, compression, filtering, interlace = header
+    if depth == 16:
+        raise ValueError("16-bit PNG is not supported: save the image with "
+                         "8 bits per channel")
+    if interlace:
+        raise ValueError("interlaced (Adam7) PNG is not supported: save the "
+                         "image non-interlaced")
+    if ctype not in _PNG_TYPES or depth not in _PNG_TYPES[ctype][1]:
+        raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is "
+                         "not supported")
+    if compression or filtering or not w or not h:
+        raise ValueError("malformed PNG header")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    channels = _PNG_TYPES[ctype][0]
+    bpp = max(1, channels * depth // 8)      # filter unit in bytes
+    stride = (w * channels * depth + 7) // 8
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data: {e}") from None
+    if len(raw) < h * (stride + 1):
+        raise ValueError("truncated PNG image data")
+    rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(
+        h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = int(rows[y, 0]), rows[y, 1:]
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum in each of the bpp lanes
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif ftype == 2:  # Up
+            cur = line + prior
+        elif ftype in (3, 4):
+            cur = np.frombuffer(_unfilter_sequential(
+                ftype, line.tobytes(), prior.tobytes(), bpp), np.uint8)
+        else:
+            raise ValueError(f"PNG scanline filter {ftype} is not valid")
+        out[y] = cur
+        prior = out[y]
+    if depth < 8:  # unpack the samples of each byte, most significant first
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+            h, -1)[:, :w]
+    px = out.reshape(h, w, channels)
+    if ctype == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette) // 3] = palette.reshape(-1, 3)
+        return table[px[..., 0]]
+    if ctype in (0, 4):
+        gray = px[..., 0] * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(gray[..., None], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def _luma(rgb: np.ndarray) -> np.ndarray:
+    """ITU-R 601-2 luma as Pillow's convert("L") computes it, in integers:
+    (R * 19595 + G * 38470 + B * 7471 + 0x8000) >> 16."""
+    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
+    return (r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16
+
+
+def _png_rows(b64s, n_rows: int, field: str) -> list:
+    """Decoded RGB pixels of a request field: a single base64 PNG is
+    replicated across the prompt rows; a list must carry one per row."""
+    items = [b64s] * n_rows if isinstance(b64s, str) else list(b64s)
+    if len(items) != n_rows:
+        raise ValueError(f"{field!r} carries {len(items)} PNGs for {n_rows} "
+                         "prompt rows")
+    return [_png_decode(base64.b64decode(s)) for s in items]
+
+
+def _b64_to_image(b64s, n_rows: int) -> np.ndarray:
+    """Base64 PNG(s) as (n_rows, H, W, 3) float32 in [-1, 1], all the same
+    size (one device batch is one shape)."""
+    rows = [r.astype(np.float32) / 127.5 - 1.0
+            for r in _png_rows(b64s, n_rows, "image")]
+    if any(r.shape != rows[0].shape for r in rows):
+        raise ValueError("all 'image' PNGs in one request must share a size")
+    return np.stack(rows)
+
+
+def _b64_to_mask(b64s, n_rows: int, hw: tuple) -> np.ndarray:
+    """Base64 PNG(s) as a binary (n_rows, H, W, 1) float32 mask (luma >=
+    128 -> 1.0 = repaint), checked against the image size."""
+    rows = []
+    for rgb in _png_rows(b64s, n_rows, "mask"):
+        m = (_luma(rgb) >= 128).astype(np.float32)
+        if m.shape != tuple(hw):
+            raise ValueError(
+                f"mask size {m.shape} does not match image size {tuple(hw)}")
+        rows.append(m[..., None])
+    return np.stack(rows)
 
 
 class ServerOverloaded(Exception):
@@ -111,11 +294,24 @@ class _Pending:
         d = req.get("deadline_ms")
         self.deadline = self.t0 + float(d) / 1000.0 if d is not None else None
         self.mode = req.get("mode", "txt2img")
-        if self.mode in ("img2img", "inpaint"):
-            raise ValueError(f"mode {self.mode!r} is {_IMAGE_MODES_TODO}")
-        if self.mode != "txt2img":
+        if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}; expected "
                              "txt2img | img2img | inpaint")
+        self.image = self.mask = None
+        if self.mode != "txt2img":
+            if req.get("image") is None:
+                raise ValueError(
+                    f"mode {self.mode!r} requires a base64 PNG 'image'")
+            self.image = _b64_to_image(req["image"], self.n_rows)
+            # the init image defines the sampling size; key() groups by it
+            req["height"] = int(self.image.shape[1])
+            req["width"] = int(self.image.shape[2])
+            if self.mode == "inpaint":
+                if req.get("mask") is None:
+                    raise ValueError(
+                        "mode 'inpaint' requires a base64 PNG 'mask'")
+                self.mask = _b64_to_mask(req["mask"], self.n_rows,
+                                         self.image.shape[1:3])
         # coerce EVERY field the scheduler thread would otherwise touch NOW,
         # inside the requester's thread: malformed fields are a 400 at
         # admit time, never a crash of a coalesced batch or of key()
@@ -131,12 +327,15 @@ class _Pending:
                         f"'lora_idx' carries {len(items)} entries for "
                         f"{self.n_rows} prompt rows")
                 self.lora_idx = [int(i) for i in items]
+            self.steps = int(req.get("steps", 30))
+            self.strength = (float(req.get("strength", 0.8))
+                             if self.mode != "txt2img" else None)
             self._key = (
-                int(req.get("steps", 30)), float(req.get("guidance", 7.5)),
+                self.steps, float(req.get("guidance", 7.5)),
                 int(req.get("height", 512)), int(req.get("width", 512)),
                 req.get("scheduler", "ddim"), req.get("alpha"),
                 req.get("negative_prompt", ""),
-                self.lora_idx is not None)
+                self.lora_idx is not None, self.mode, self.strength)
         except (TypeError, ValueError) as e:
             raise ValueError(f"malformed request field: {e}")
 
@@ -256,6 +455,15 @@ class PipelineServer:
 
     def generate(self, req: dict) -> dict:
         t0 = time.perf_counter()
+        if req.get("mode", "txt2img") != "txt2img":
+            # shed image modes BEFORE paying their base64 + PNG decode when
+            # the server is draining or full (checked again below)
+            with self._shed_lock:
+                if self.draining or self._queued_rows >= self.max_queue:
+                    self.shed_count += 1
+                    raise ServerOverloaded(
+                        "server is draining or at max_queue; retry with "
+                        "backoff")
         pending = _Pending(req)
         if pending.n_rows < 1:
             # an empty prompt list would crash the whole coalesced group in
@@ -265,7 +473,7 @@ class PipelineServer:
             raise ValueError(
                 f"prompt list of {pending.n_rows} exceeds max_batch "
                 f"{self.max_batch}; split the request")
-        self._check_txt2img()
+        self._check_image_mode(pending)
         if self._fatal is not None:
             raise SchedulerDown(
                 f"serving scheduler crashed: {self._fatal!r}")
@@ -300,14 +508,53 @@ class PipelineServer:
                 "latency_ms": round((time.perf_counter() - t0) * 1000, 1),
                 "batched_with": pending.batched_with}
 
-    def _check_txt2img(self) -> None:
-        """A 9-channel inpainting UNet cannot run txt2img: reject at admit
-        (400), never mid-batch."""
+    def _nine_channel(self) -> bool:
         cfg = self.pipe.unet.cfg
-        if cfg.in_channels != cfg.out_channels:
+        return cfg.in_channels != cfg.out_channels
+
+    def _check_image_mode(self, pending: "_Pending") -> None:
+        """Reject at admit (400) what the checkpoint or the routed pipeline
+        path cannot run, so it never fails a coalesced group: a scheduler
+        the pipeline does not know, a mode the UNet cannot serve, a size
+        the UNet cannot round-trip, a sampler the mode does not take, a
+        strength that leaves no step."""
+        from .pipelines.sd import SCHEDULERS
+
+        sched = pending.req.get("scheduler", "ddim")
+        if not isinstance(sched, str) or sched not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {sched!r}; expected one of "
+                             f"{', '.join(SCHEDULERS)}")
+        nine_ch = self._nine_channel()
+        if pending.mode == "txt2img":
+            if nine_ch:
+                raise ValueError(
+                    "this checkpoint's UNet is a 9-channel inpainting UNet; "
+                    "it serves mode='inpaint' only")
+            return
+        self.pipe._check_size(int(pending.image.shape[1]),
+                              int(pending.image.shape[2]))
+        if pending.mode == "img2img":
+            if nine_ch:
+                raise ValueError(
+                    "this checkpoint's UNet is a 9-channel inpainting UNet; "
+                    "img2img is not supported (use mode='inpaint')")
+            if sched != "ddim":
+                raise ValueError("img2img serving samples with ddim only")
+        elif nine_ch:
+            if sched != "ddim":
+                raise ValueError(
+                    "9-channel inpainting serving samples with ddim only")
+            if pending.lora_idx is not None:
+                raise ValueError("lora_idx routing is not supported on the "
+                                 "9-channel inpainting path")
+            return  # strength does not apply
+        elif sched == "pndm":
+            raise ValueError("latent-blend inpainting does not support the "
+                             "pndm scheduler")
+        if int(pending.steps * pending.strength) <= 0:
             raise ValueError(
-                "this checkpoint's UNet is a 9-channel inpainting UNet; it "
-                f"serves mode='inpaint' only, which is {_IMAGE_MODES_TODO}")
+                f"strength={pending.strength} leaves zero denoising steps at "
+                f"steps={pending.steps}")
 
     # -- micro-batching worker ----------------------------------------------
     def _window_remaining(self, group, window_end: float) -> float:
@@ -486,6 +733,9 @@ class PipelineServer:
 
     @torch.inference_mode()
     def _run_group(self, group: list):
+        if group[0].mode != "txt2img":
+            self._run_image_group(group)
+            return
         r0 = group[0].req
         height, width = int(r0.get("height", 512)), int(r0.get("width", 512))
         prompts, counts, lora_idx, pad = self._assemble_rows(group)
@@ -498,16 +748,10 @@ class PipelineServer:
         if pad:
             latents.append(latents[-1][-1:].expand(pad, -1, -1, -1))
         with self.lock:
-            alpha = r0.get("alpha")
-            if alpha is not None:
-                self.pipe.tune_lora_scale(float(alpha))
-            emb = self._cached_embeds(prompts, self._embed_key_alpha())
-            neg = (self._cached_embeds([negative] * len(prompts),
-                                       self._embed_key_alpha())
-                   if guidance > 1.0 else None)
+            emb, neg = self._group_embeds(r0, prompts, guidance, negative)
             imgs = self.pipe(
                 None,
-                num_inference_steps=int(r0.get("steps", 30)),
+                num_inference_steps=group[0].steps,
                 guidance_scale=guidance,
                 height=height, width=width,
                 scheduler=r0.get("scheduler", "ddim"),
@@ -515,31 +759,102 @@ class PipelineServer:
                 lora_idx=lora_idx,
                 prompt_embeds=emb,
                 negative_prompt_embeds=neg,
+                # euler_a's step noise, batch-wide from the first member
+                generator=torch.Generator(device=dev).manual_seed(
+                    group[0].seed),
             )
+        self._scatter(group, counts, imgs)
+
+    def _group_embeds(self, r0: dict, prompts: list, guidance: float,
+                      negative: str):
+        """The group's prompt and (with CFG) negative embeddings from the
+        cache, after applying the group's alpha (caller holds the pipe
+        lock)."""
+        alpha = r0.get("alpha")
+        if alpha is not None:
+            self.pipe.tune_lora_scale(float(alpha))
+        emb = self._cached_embeds(prompts, self._embed_key_alpha())
+        neg = (self._cached_embeds([negative] * len(prompts),
+                                   self._embed_key_alpha())
+               if guidance > 1.0 else None)
+        return emb, neg
+
+    @staticmethod
+    def _scatter(group: list, counts: list, imgs) -> None:
         off = 0
         for p, n in zip(group, counts):
             p.images = imgs[off:off + n]
             off += n
 
+    @torch.inference_mode()
+    def _run_image_group(self, group: list):
+        """img2img / inpaint micro-batch: rows are (prompt, image[, mask])
+        triples, coalesced and bucket-padded as txt2img's are (key() adds
+        mode and strength; the init image pins height/width). The group's
+        randomness (VAE posterior sample, init noise, euler_a's step noise)
+        is drawn batch-wide from the FIRST member's seed: per-row seeding
+        would need per-row posterior draws the pipelines do not expose, so
+        image-mode reproducibility is per (seed, batch composition), as in
+        lora_tpu. Prompt rows come from the embed cache."""
+        r0 = group[0].req
+        prompts, counts, lora_idx, pad = self._assemble_rows(group)
+        images = np.concatenate([p.image for p in group])
+        masks = (np.concatenate([p.mask for p in group])
+                 if group[0].mask is not None else None)
+        if pad:
+            images = np.concatenate([images, np.repeat(images[-1:], pad, 0)])
+            if masks is not None:
+                masks = np.concatenate([masks, np.repeat(masks[-1:], pad, 0)])
+        dev = self.pipe.device
+        image = torch.from_numpy(images).to(dev)
+        mask = None if masks is None else torch.from_numpy(masks).to(dev)
+        guidance = float(r0.get("guidance", 7.5))
+        kw = dict(num_inference_steps=group[0].steps, guidance_scale=guidance,
+                  generator=torch.Generator(device=dev).manual_seed(
+                      group[0].seed))
+        with self.lock:
+            kw["prompt_embeds"], kw["negative_prompt_embeds"] = \
+                self._group_embeds(r0, prompts, guidance,
+                                   r0.get("negative_prompt", ""))
+            if group[0].mode == "img2img":
+                imgs = self.pipe.img2img(None, image,
+                                         strength=group[0].strength,
+                                         lora_idx=lora_idx, **kw)
+            elif self._nine_channel():
+                imgs = self.pipe.inpaint(None, image, mask, **kw)
+            else:
+                imgs = self.pipe.inpaint_blend(
+                    None, image, mask, strength=group[0].strength,
+                    scheduler=r0.get("scheduler", "ddim"), lora_idx=lora_idx,
+                    **kw)
+        self._scatter(group, counts, imgs)
+
     def warmup(self, steps: int = 30, height: int = 512, width: int = 512,
                guidance: float = 7.5, scheduler: str = "ddim",
-               modes: tuple = ("txt2img",)) -> float:
-        """Run one group per batch bucket at this sampling config before
-        taking traffic (deploy-time warmup: the first call of each batch
-        shape pays the one-off costs: allocator growth, kernel builds).
-        Returns the wall seconds spent. Only txt2img is ported: another
-        mode raises, as a live request would."""
+               modes: tuple = ("txt2img",), strength: float = 0.8) -> float:
+        """Run one group per batch bucket at this sampling config and each
+        of `modes` before taking traffic (deploy-time warmup: the first call
+        of each batch shape pays the one-off costs: allocator growth, kernel
+        builds). Image modes run on a black height x width image (and an
+        all-repaint mask); the init image pins their size, so warm the sizes
+        you will receive. A mode the checkpoint cannot serve raises, as a
+        live request would. Returns the wall seconds spent."""
         t0 = time.monotonic()
+        img = mask = None
+        if any(m != "txt2img" for m in modes):
+            img = _png_b64(np.zeros((height, width, 3), np.float32))
+            mask = _png_b64(np.ones((height, width, 3), np.float32))
         for mode in modes:
-            _Pending({"prompt": "warmup probe", "mode": mode})
-            self._check_txt2img()
+            base = {"steps": steps, "height": height, "width": width,
+                    "guidance": guidance, "scheduler": scheduler,
+                    "mode": mode, "strength": strength, "image": img,
+                    "mask": mask if mode == "inpaint" else None}
+            self._check_image_mode(_Pending({"prompt": "warmup probe",
+                                             **base}))
             for b in self.batch_buckets:
-                group = [_Pending({"prompt": f"warmup {i}", "steps": steps,
-                                   "height": height, "width": width,
-                                   "guidance": guidance,
-                                   "scheduler": scheduler, "seed": i})
-                         for i in range(b)]
-                self._run_group(group)
+                self._run_group([_Pending({"prompt": f"warmup {i}",
+                                           "seed": i, **base})
+                                 for i in range(b)])
         return time.monotonic() - t0
 
     def metrics(self) -> dict:
@@ -591,7 +906,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(
         prog="python -m lora_tpu_torch.serve",
-        description="Serve txt2img from a diffusers-layout SD checkpoint.")
+        description="Serve txt2img, img2img and inpainting from a "
+                    "diffusers-layout SD checkpoint.")
     ap.add_argument("--model", required=True)
     ap.add_argument("--lora", default=None)
     ap.add_argument("--port", type=int, default=8500)
@@ -611,8 +927,9 @@ def main(argv=None):
     ap.add_argument("--warmup_steps", type=int, default=30,
                     help="sampler steps used for the warmup config")
     ap.add_argument("--warmup_modes", default="txt2img",
-                    help="comma-separated modes to warm; only txt2img is "
-                         "ported")
+                    help="comma-separated modes to warm "
+                         "(txt2img,img2img,inpaint); image modes warm at "
+                         "the default 512px size")
     args = ap.parse_args(argv)
     # validate before the model loads: a typo must not cost a checkpoint
     # load and a warmup before it fails
@@ -626,9 +943,7 @@ def main(argv=None):
     warm_modes = tuple(m.strip()
                        for m in args.warmup_modes.split(",") if m.strip())
     for m in warm_modes:
-        if m in ("img2img", "inpaint"):
-            ap.error(f"--warmup_modes: mode {m!r} is {_IMAGE_MODES_TODO}")
-        if m != "txt2img":
+        if m not in MODES:
             ap.error(f"--warmup_modes: unknown mode {m!r}; expected "
                      "txt2img | img2img | inpaint")
     if not warm_modes and not args.no_warmup:

@@ -1,5 +1,6 @@
-"""The port's packaging: its wheel carries the CUDA sources the kernels are
-built from, and an installed (read-only) package builds them elsewhere."""
+"""The port's packaging: its own distribution (lora_tpu_torch/pyproject.toml)
+stands alone, the wheels carry the CUDA sources the kernels are built from,
+and an installed (read-only) package builds them elsewhere."""
 
 import os
 import shutil
@@ -49,6 +50,45 @@ def test_wheel_carries_the_kernel_sources(tmp_path):
     made = set(os.listdir(REPO)) - set(before)
     assert not {n for n in made
                 if n in ("build", "dist") or n.endswith(".egg-info")}, made
+
+
+def test_port_wheel_stands_alone(tmp_path):
+    """`pip wheel` of lora_tpu_torch/ alone (its own pyproject.toml) builds
+    offline a wheel that requires torch and numpy, not jax; whose one
+    console script starts the port's server; that carries every package
+    of the port and every csrc source, and nothing of lora_tpu."""
+    pkg = os.path.join(REPO, "lora_tpu_torch")
+    src = tmp_path / "lora_tpu_torch"
+    shutil.copytree(pkg, src, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__", "build", "*.egg-info"))
+    env = dict(os.environ, PIP_NO_CACHE_DIR="1",
+               PIP_DISABLE_PIP_VERSION_CHECK="1")
+    subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", "--no-deps",
+         "--no-build-isolation", "--no-index", "-w", str(tmp_path / "dist"),
+         str(src)],
+        check=True, capture_output=True, cwd=tmp_path, env=env, timeout=300)
+    (wheel,) = (tmp_path / "dist").glob("lora_tpu_torch-*.whl")
+    zf = zipfile.ZipFile(wheel)
+    names = set(zf.namelist())
+    info = next(n.split("/")[0] for n in names if n.endswith("/METADATA"))
+    meta = zf.read(f"{info}/METADATA").decode()
+    requires = sorted(line.split(":", 1)[1].strip()
+                      for line in meta.splitlines()
+                      if line.startswith("Requires-Dist:"))
+    assert requires == ["numpy", "torch"], requires
+    scripts = zf.read(f"{info}/entry_points.txt").decode()
+    assert "lora_serve_torch = lora_tpu_torch.serve:main" in scripts
+    assert "lora_tpu." not in scripts, scripts
+    assert not {n for n in names if n.startswith("lora_tpu/")}
+    packages = {os.path.relpath(d, REPO) for d, _, files in os.walk(pkg)
+                if "__init__.py" in files}
+    carried = {os.path.dirname(n) for n in names if n.endswith("__init__.py")}
+    assert carried == packages, sorted(packages ^ carried)
+    sources = {f"lora_tpu_torch/ops/csrc/{n}" for n in os.listdir(CSRC)
+               if n.endswith((".cu", ".cuh"))}
+    assert sources <= names, sorted(sources - names)
+    assert {n.split("/")[0] for n in names} == {"lora_tpu_torch", info}
 
 
 def test_build_dir_override_and_read_only_package(tmp_path, monkeypatch):

@@ -39,6 +39,17 @@ PROMPTS = ["a photo of <s1> dog", "a <s1> style town"]
 TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_goldens.py's pipeline limits
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny CPU shapes gain nothing from intra-op threads, and with
+    several test processes on the cores those threads oversubscribe them
+    (several times slower); restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_pipe(unet_p, text_p, vae_p):
     """A port pipeline holding the given numpy params."""
     modules = []
@@ -171,11 +182,21 @@ def test_unported_paths_raise(params, tmp_path):
     with pytest.raises(ValueError, match="multiples of 64"):
         pipe("x", num_inference_steps=1, height=32, width=32,
              generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="other samplers"):
+    # the samplers and image modes are ported: they run, and reject what
+    # lora_tpu rejects
+    out = pipe("x", num_inference_steps=2, height=64, width=64,
+               scheduler="pndm", generator=torch.Generator())
+    assert out.shape == (1, 64, 64, 3) and np.isfinite(out).all()
+    with pytest.raises(ValueError, match="unknown scheduler"):
         pipe("x", num_inference_steps=1, height=64, width=64,
-             scheduler="pndm", generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="img2img"):
-        pipe.img2img("x", None)
+             scheduler="lms", generator=torch.Generator())
+    img = torch.zeros((1, 64, 64, 3))
+    out = pipe.img2img("x", img, num_inference_steps=2,
+                       generator=torch.Generator())
+    assert out.shape == (1, 64, 64, 3) and np.isfinite(out).all()
+    with pytest.raises(ValueError, match="in_channels=9"):
+        pipe.inpaint("x", img, torch.ones((1, 64, 64, 1)),
+                     generator=torch.Generator())
     from lora_tpu_torch.formats.reader import save_file
 
     kohya = str(tmp_path / "kohya.safetensors")

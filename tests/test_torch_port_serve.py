@@ -1,18 +1,23 @@
 """The port's serving endpoint (lora_tpu_torch/serve.py) on the tiny CPU
-pipeline with int8 base weights: the txt2img behaviour of tests/test_serve.py
+pipeline with int8 base weights: the behaviour of tests/test_serve.py
 (micro-batching, buckets, warmup, the embed cache, backpressure, drain, the
-crash path, admit-time validation), image modes refused with a 400, HTTP
-pixels equal to a direct pipeline call, the quantized pipeline against
-lora_tpu's, the stdlib PNG encoder against lora_tpu's Pillow one, and
-main()'s argument validation."""
+crash path, admit-time validation), the image modes (img2img, latent-blend
+and 9-channel inpaint: serving, coalescing by mode and strength, the
+rejections lora_tpu makes at admit, the embed cache, warmup, shedding
+before the PNG decode), every sampler served and an unknown one refused at
+admit, HTTP pixels equal to a direct pipeline call, the quantized pipeline
+against lora_tpu's, the stdlib PNG encoder against lora_tpu's Pillow one,
+and main()'s argument validation."""
 
 import base64
 import io
 import json
+import struct
 import threading
 import time
 import urllib.error
 import urllib.request
+import zlib
 
 import numpy as np
 import pytest
@@ -47,6 +52,17 @@ from lora_tpu_torch.serve import (  # noqa: E402
 # [0, 1] after 2 steps and the VAE: 4x the measured gap (4.5e-3 max,
 # 3.3e-4 mean).
 IMAGE_MAX_ABS, IMAGE_MEAN_ABS = 2e-2, 1.5e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny CPU shapes gain nothing from intra-op threads, and with
+    several test processes on the cores those threads oversubscribe them
+    (several times slower); restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tiny_pipe(in_channels=4):
@@ -496,19 +512,263 @@ def test_lora_idx_and_seed_validated_at_admit(server):
     assert status == 200 and len(out["images"]) == 1
 
 
+def _image_png(seed=11, h=64, w=64):
+    rng = np.random.default_rng(seed)
+    return base64.b64encode(t_serve._png_bytes(
+        rng.integers(0, 256, (h, w, 3), dtype=np.uint8))).decode()
+
+
+def _mask_png(h=64, w=64):
+    """Repaint the right half."""
+    m = np.zeros((h, w, 3), np.uint8)
+    m[:, w // 2:] = 255
+    return base64.b64encode(t_serve._png_bytes(m)).decode()
+
+
+def _sixteen_bit_png():
+    """The header of a 16-bit RGB PNG: refused before its data is read."""
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", 64, 64, 16, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(b"")) + chunk(b"IEND", b""))
+    return base64.b64encode(png).decode()
+
+
 def test_image_modes_rejected_with_400(server):
-    """img2img / inpaint wait for ROADMAP Slice 3: a 400 that says so, at
-    admit, for live requests and for warmup."""
-    for mode in ("img2img", "inpaint"):
-        status, body = _status(server, {"mode": mode, "prompt": "x",
-                                        "image": "aGk=", "steps": 2})
-        assert status == 400 and "Slice 3" in body["error"], body
-        with pytest.raises(ValueError, match="Slice 3"):
-            server.warmup(steps=2, height=64, width=64, modes=(mode,))
-    assert _status(server, {"mode": "paint-by-numbers", "prompt": "x"})[0] \
-        == 400
+    """The image modes are served; what lora_tpu rejects at admit is a 400
+    there, for live requests and for warmup, and never enters the queue."""
+    img = _image_png()
+    cases = [
+        ({"mode": "paint-by-numbers"}, "unknown mode"),
+        ({"mode": "img2img"}, "requires a base64 PNG 'image'"),
+        ({"mode": "inpaint", "image": img}, "requires a base64 PNG 'mask'"),
+        ({"mode": "inpaint", "image": img, "mask": _mask_png(32, 32)},
+         "does not match image size"),
+        ({"mode": "img2img", "image": img, "scheduler": "euler"},
+         "ddim only"),
+        ({"mode": "inpaint", "image": img, "mask": _mask_png(),
+          "scheduler": "pndm"}, "pndm"),
+        ({"mode": "img2img", "image": _image_png(h=40, w=40)},
+         "multiples of 64"),
+        ({"mode": "img2img", "prompt": ["a", "b"], "image": [img]},
+         "carries 1 PNGs for 2"),
+        ({"mode": "img2img", "image": img, "strength": 0.1, "steps": 5},
+         "zero denoising steps"),
+        ({"mode": "img2img", "image": _sixteen_bit_png()}, "16-bit"),
+        ({"mode": "img2img", "image": "aGk="}, "not a PNG"),
+        ({"mode": "img2img", "image": img, "strength": "lots"},
+         "malformed request field"),
+    ]
+    for extra, msg in cases:
+        status, body = _status(server, {"prompt": "x", "steps": 2, **extra})
+        assert status == 400 and msg in body["error"], (extra, body)
+    with pytest.raises(ValueError, match="pndm"):
+        server.warmup(steps=2, height=64, width=64, modes=("inpaint",),
+                      scheduler="pndm")
     m = server.metrics()
     assert m["queued_rows"] == 0 and m["inflight"] == 0
+
+
+def test_unknown_scheduler_is_a_400_at_admit(server):
+    """A scheduler the pipeline does not know never enters a group; every
+    sampler lora_tpu serves is served."""
+    for bad in ("lms", 3, None):
+        status, body = _status(server, {"prompt": "x", "steps": 2,
+                                        "height": 64, "width": 64,
+                                        "scheduler": bad})
+        assert status == 400 and "unknown scheduler" in body["error"], bad
+    m = server.metrics()
+    assert m["queued_rows"] == 0 and m["inflight"] == 0
+    for sched in ("pndm", "euler", "euler_a", "dpm++", "euler_karras",
+                  "euler_a_karras"):
+        out, status = _post(server, {"prompt": "a sampler probe", "steps": 3,
+                                     "height": 64, "width": 64, "seed": 2,
+                                     "scheduler": sched})
+        assert status == 200 and len(out["images"]) == 1, sched
+    assert server.metrics()["scheduler_alive"] is True
+
+
+def test_img2img_serving(server):
+    payload = {"mode": "img2img", "prompt": "a tiny tree",
+               "image": _image_png(), "steps": 2, "strength": 1.0,
+               "seed": 3}
+    out, status = _post(server, payload)
+    assert status == 200 and len(out["images"]) == 1
+    rgb = t_serve._png_decode(base64.b64decode(out["images"][0]))
+    assert rgb.shape == (64, 64, 3)
+    # a single-request group is fully seed-deterministic
+    out2, _ = _post(server, payload)
+    assert out["images"] == out2["images"]
+
+
+def test_inpaint_serving_keep_all_matches_roundtrip(server):
+    """An all-keep mask (latent blending on the plain 4-channel pipe)
+    returns decode(encode(image)) exactly, up to the PNG's truncation to 8
+    bits: the posterior noise is the first draw of the group's generator,
+    seeded with the request's seed."""
+    rng = np.random.default_rng(5)
+    arr = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    payload = {"mode": "inpaint", "prompt": "x",
+               "image": base64.b64encode(t_serve._png_bytes(arr)).decode(),
+               "mask": base64.b64encode(t_serve._png_bytes(
+                   np.zeros((64, 64, 3), np.uint8))).decode(),
+               "steps": 2, "guidance": 1.0, "seed": 9, "scheduler": "euler"}
+    out, status = _post(server, payload)
+    assert status == 200
+    got = t_serve._png_decode(base64.b64decode(out["images"][0]))
+    pipe = server.pipe
+    image = torch.from_numpy(arr.astype(np.float32) / 127.5 - 1.0)[None]
+    with torch.inference_mode():
+        z0 = pipe._encode_image(image, torch.Generator().manual_seed(9),
+                                None)
+        expect = pipe._decode(z0)[0]
+    assert np.abs(got / 255.0 - expect).max() <= 1.0 / 255.0 + 1e-6
+
+
+def test_image_mode_coalescing(server):
+    """Concurrent same-config img2img requests run in one device batch;
+    txt2img never merges with an image mode, nor one strength with
+    another."""
+    img = _image_png()
+    results = {}
+
+    def fire(name, seed):
+        results[name] = _post(server, {"mode": "img2img", "prompt": "t",
+                                       "image": img, "steps": 2,
+                                       "strength": 1.0, "seed": seed})
+
+    lead = threading.Thread(target=fire, args=("lead", 0))
+    lead.start()
+    time.sleep(0.3)
+    followers = [threading.Thread(target=fire, args=(f"f{i}", i + 1))
+                 for i in range(2)]
+    for t in followers:
+        t.start()
+    for t in [lead] + followers:
+        t.join(timeout=300)
+    assert all(s == 200 for _, s in results.values())
+    assert max(out["batched_with"] for out, _ in results.values()) >= 2
+    # the group's draws come from its first member's seed, so members of
+    # one batch differ only through their position in it
+    P = t_serve._Pending
+    assert P({"prompt": "t"}).key() != P({"mode": "img2img", "prompt": "t",
+                                          "image": img}).key()
+    assert P({"mode": "img2img", "prompt": "t", "image": img,
+              "strength": 0.5}).key() != \
+        P({"mode": "img2img", "prompt": "t", "image": img,
+           "strength": 0.6}).key()
+    assert P({"mode": "img2img", "prompt": "t", "image": img}).key() != \
+        P({"mode": "inpaint", "prompt": "t", "image": img,
+           "mask": _mask_png()}).key()
+
+
+def test_image_mode_uses_embed_cache(server):
+    """A repeated img2img request serves its prompt and negative prompt
+    embeddings from the cache and returns the same PNG."""
+    payload = {"mode": "img2img", "prompt": "a cached img2img prompt",
+               "image": _image_png(seed=21), "steps": 2, "strength": 1.0,
+               "seed": 4}
+    out1, _ = _post(server, payload)
+    h0 = server.embed_cache_hits
+    out2, _ = _post(server, payload)
+    assert server.embed_cache_hits >= h0 + 2
+    assert out1["images"] == out2["images"]
+
+
+def test_warmup_covers_image_modes(server):
+    srv = PipelineServer(server.pipe, port=0, max_batch=2).start()
+    try:
+        secs = srv.warmup(steps=2, height=64, width=64,
+                          modes=("img2img", "inpaint"), strength=1.0)
+        assert secs > 0 and srv.last_device_batch == 2
+        out, status = _post(srv, {"mode": "img2img", "prompt": "live",
+                                  "image": _image_png(), "steps": 2,
+                                  "strength": 1.0, "seed": 3})
+        assert status == 200 and len(out["images"]) == 1
+    finally:
+        srv.stop()
+
+
+def test_image_modes_shed_before_decode(server, monkeypatch):
+    """A draining or full server sheds image-mode requests before paying
+    their base64 + PNG decode."""
+    def boom(*a, **k):
+        raise AssertionError("image decode ran before the shed check")
+
+    srv = PipelineServer(server.pipe, port=0)
+    try:
+        monkeypatch.setattr(t_serve, "_b64_to_image", boom)
+        srv.draining = True
+        with pytest.raises(ServerOverloaded):
+            srv.generate({"mode": "img2img", "prompt": "x", "steps": 2,
+                          "image": _image_png(), "strength": 1.0})
+        srv.draining = False
+        srv.max_queue = 0
+        with pytest.raises(ServerOverloaded):
+            srv.generate({"mode": "inpaint", "prompt": "x", "steps": 2,
+                          "image": _image_png(), "mask": _mask_png()})
+        assert srv.shed_count == 2
+    finally:
+        srv.stop()
+
+
+def test_http_image_pixels_equal_direct_pipeline_call(server):
+    """img2img and latent-blend inpaint (euler_a: its step noise too) over
+    HTTP return the PNGs of the pipeline called directly with a generator
+    seeded with the request's seed and the same embeddings."""
+    pipe = server.pipe
+    prompts = ["an image parity probe", "another row"]
+    img = _image_png(seed=31)
+    image = torch.from_numpy(t_serve._b64_to_image(img, 2))
+    mask = torch.from_numpy(t_serve._b64_to_mask(_mask_png(), 2, (64, 64)))
+    with torch.inference_mode():
+        emb = pipe.encode_prompt(prompts)
+        neg = pipe.encode_prompt(["", ""])
+    kw = dict(num_inference_steps=4, guidance_scale=7.5, prompt_embeds=emb,
+              negative_prompt_embeds=neg)
+    for mode, direct in (
+            ("img2img", lambda g: pipe.img2img(None, image, strength=0.75,
+                                               generator=g, **kw)),
+            ("inpaint", lambda g: pipe.inpaint_blend(
+                None, image, mask, strength=0.75, scheduler="euler_a",
+                generator=g, **kw))):
+        out, status = _post(server, {
+            "mode": mode, "prompt": prompts, "image": img,
+            "mask": _mask_png() if mode == "inpaint" else None,
+            "scheduler": "euler_a" if mode == "inpaint" else "ddim",
+            "steps": 4, "guidance": 7.5, "strength": 0.75, "seed": 17})
+        assert status == 200
+        want = direct(torch.Generator().manual_seed(17))
+        assert out["images"] == [t_serve._png_b64(im) for im in want], mode
+
+
+def test_nine_channel_inpaint_serving():
+    """A 9-channel checkpoint serves mode='inpaint' through its UNet path
+    (ddim), and rejects img2img, another sampler and lora_idx at admit."""
+    srv = PipelineServer(_tiny_pipe(in_channels=9), port=0)
+    try:
+        out = srv.generate({"mode": "inpaint", "prompt": ["a dog", "a cat"],
+                            "image": _image_png(), "mask": _mask_png(),
+                            "steps": 2, "seed": 1})
+        assert len(out["images"]) == 2
+        base = {"prompt": "x", "image": _image_png(), "mask": _mask_png(),
+                "steps": 2}
+        for extra, msg in (({"mode": "img2img"}, "9-channel"),
+                           ({"mode": "inpaint", "scheduler": "euler"},
+                            "ddim only"),
+                           ({"mode": "inpaint", "lora_idx": [0]},
+                            "lora_idx")):
+            with pytest.raises(ValueError, match=msg):
+                srv.generate({**base, **extra})
+        secs = srv.warmup(steps=2, height=64, width=64, modes=("inpaint",))
+        assert secs > 0
+        m = srv.metrics()
+        assert m["queued_rows"] == 0 and m["inflight"] == 0
+    finally:
+        srv.stop()
 
 
 def test_nine_channel_checkpoint_rejects_txt2img():
@@ -731,8 +991,9 @@ def test_main_validates_arguments(tmp_path, monkeypatch, capsys):
         (["--model", "/nonexistent", "--batch_buckets", "1, x"],
          "comma-separated ints"),
         (["--model", "/nonexistent", "--device", "nonsense"], "--device"),
-        (["--model", "/nonexistent", "--warmup_modes", "txt2img, img2img"],
-         "Slice 3"),
+        # the image modes pass validation: the device check after it fails
+        (["--model", "/nonexistent", "--warmup_modes",
+          "txt2img, img2img, inpaint", "--device", "nonsense"], "--device"),
         (["--model", "/nonexistent", "--warmup_modes", "paint"],
          "unknown mode"),
         (["--model", "/nonexistent", "--warmup_modes", ","], "--no_warmup"),
