@@ -42,8 +42,18 @@
                                         # calls and phase 8's bf16 shapes
                                         # (untimed), every shape phase 10
                                         # reached checked against them
+    python3 chip_smoke.py --adapters    # phases 1, 2 (flash_fwd.cu,
+                                        # flash_fwd_wgmma.cu,
+                                        # flash_fwd_tf32x3.cu, int8_matmul.cu
+                                        # and int8_matmul_wgmma.cu only), the
+                                        # tf32x3 forward's first calls in a
+                                        # child process, 11, then phase 3's
+                                        # UNet calls (bf16, and f32 at batch
+                                        # 4) and request A's int8 shapes
+                                        # (untimed), every shape phase 11
+                                        # reached checked against them
 
-Phases, each printing its own lines (about 6 minutes on one H100, most of
+Phases, each printing its own lines (about 8 minutes on one H100, most of
 it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
@@ -189,9 +199,31 @@ it the build of the kernels):
      VAE encoder's and decoder's attention; all wgmma), the PNGs decoded
      to 512x512, the img2img pixels equal to the pipeline called directly.
      Each request is counted alone: 15 flash launches per UNet call, all
-     through the wgmma kernel; its wall time is printed. Every flash and
-     int8 call of phases 5 to 10 is recorded, and one at a shape phase 3 or
-     phase 8 did not check fails the run.
+     through the wgmma kernel; its wall time is printed.
+  11. adapters: kohya / LoCon and LyCORIS files at full SD-1.5 width,
+     written from the seed: K (kohya LoCon over every UNet and text LoCon
+     site, rank 8, alpha 4, every third 3x3 conv CP-decomposed) and L (one
+     LyCORIS module per LoCon site, the algorithms of LYCORIS_LINEAR and
+     LYCORIS_CONV round-robin: LoRA, LoHa flat and Tucker, LoKr full,
+     factored and Tucker, IA3, DoRA, OFT with rescale, BOFT, GLoRA, full
+     with diff_b; norm modules on every resnet norm1 and CLIP
+     layer_norm1). Each file loaded in f32 on the card and on the CPU from
+     the same base weights: every entry and param delta within 1e-5 of its
+     largest value. On a bf16 pipeline: patch_pipe of K and of L timed,
+     bf16 UNet calls at batch 4 without an adapter, with K and with L
+     (median wall, profiler device time, 15 wgmma flash launches each);
+     L served over HTTP (2 prompts, 512px, 50 DDIM steps, seed 7) at alpha
+     1.0, 0.5, 1.0: requests 1 and 3 the same PNG bytes, request 2 not,
+     the embed cache one entry per text and alpha; then K patched on the
+     live server: every norm and bias param back to its original bit for
+     bit, and one more request. L at alpha 0.7 against collapse_lora(0.7)
+     in one UNet call at batch 4: bf16 printed, f32 within relative L2
+     1e-4 (15 tf32x3 flash launches). Quantized: a second pipeline patched
+     with a LyCORIS file without base-weight-dependent modules, then
+     quantize_base(), one HTTP request (every int8 launch wgmma); then L
+     refused on the int8 base with a ValueError. Every flash and int8 call
+     of phases 5 to 11 is recorded, and one at a shape phase 3 or phase 8
+     did not check fails the run.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -326,6 +358,31 @@ INT8_VAE_ENCODE = 4
 # phase 3's bf16 UNet batches: timed (serving, training), then untimed (the
 # server's other buckets under CFG, phase 5's LoRA check)
 FLASH_TIMED_BATCHES, FLASH_OTHER_BATCHES = (4, 1), (8, 2)
+# phase 11: the kohya LoCon file K (rank 8, .alpha 4, every third 3x3 conv
+# CP-decomposed) and the LyCORIS file L (one module per LoCon site, the
+# algorithms below assigned round-robin, linear and conv sites apart, and
+# norm modules on every resnet norm1 and CLIP layer_norm1)
+ADAPTER_RANK, ADAPTER_ALPHA, ADAPTER_CP_EVERY = 8, 4.0, 3
+LYCORIS_LINEAR = ("lora", "loha", "lokr_full", "lokr_factored", "ia3",
+                  "dora", "oft", "boft", "glora", "full")
+LYCORIS_CONV = ("lora", "loha", "loha_tucker", "lokr_full", "lokr_factored",
+                "lokr_tucker", "ia3", "dora", "oft", "boft", "glora", "full")
+# the algorithms whose delta is composed from the base weight: a file for
+# an int8 base leaves them out
+BASE_DEPENDENT = ("ia3", "dora", "oft", "boft", "glora")
+# max |card - CPU| of every composed entry and param delta, over its own
+# max |value|: both compose the same f32 products (TF32 off), the card's
+# cuBLAS / cuSOLVER summing in another order (the Cayley inverse of blocks
+# of 16 and the GLoRA W @ A over up to 1280 terms are the longest sums)
+ADAPTER_COMPOSE_REL = 1e-5
+# f32 UNet call (batch 4) with L at alpha 0.7 against the same UNet after
+# collapse_lora(0.7): W x + 0.7 (dW x) against (W + 0.7 dW) x, f32 sums in
+# another order through 16 transformers and 22 resnets (the flash kernel's
+# 3xTF32 the same on both sides)
+ADAPTER_COLLAPSE_REL_L2 = 1e-4
+ADAPTER_ALPHAS = (1.0, 0.5, 1.0)  # the three HTTP requests on L
+ADAPTER_COLLAPSE_ALPHA = 0.7
+ADAPTER_UNET_REPS = 10  # timed UNet calls per adapter (after 2 warm-up)
 
 
 def log(*parts) -> None:
@@ -2525,6 +2582,563 @@ def phase_modes(smi: str):
     return fwd_total, int8_total
 
 
+def _file_array(x: torch.Tensor) -> np.ndarray:
+    """A tensor as a file holds it: float16 on the host (bool as it is)."""
+    x = x.detach()
+    return (x if x.dtype == torch.bool else x.to(torch.float16)).cpu().numpy()
+
+
+def _divisor(n: int) -> int:
+    """LoKr's first kron factor along an axis of n: 4, 2 or 1."""
+    return next((d for d in (4, 2) if n % d == 0), 1)
+
+
+def _oft_block(n: int, stages: int = 1):
+    """The even OFT block b (16 down to 2) whose butterfly stages tile n
+    channels (n % (b 2^(stages - 1)) == 0), or None."""
+    return next((b for b in (16, 8, 4, 2)
+                 if n % (b * 2 ** (stages - 1)) == 0), None)
+
+
+def _fits(algo: str, site) -> bool:
+    if algo == "oft":
+        return _oft_block(site.out_dim) is not None
+    if algo == "boft":
+        return _oft_block(site.out_dim, 2) is not None
+    return True
+
+
+def _lycoris_leaves(algo: str, site, w: torch.Tensor, gen, i: int) -> dict:
+    """{leaf: tensor} of one LyCORIS module of `algo` on `site`, drawn from
+    `gen` on w's device; w: the site's f32 base weight (DoRA's magnitude is
+    drawn around the merged weight's row norms); i: the site's index in its
+    cycle (IA3 alternates its axis). DoRA, OFT and BOFT store W' - W, a
+    difference of two values of W's size: their draws move W by tens of
+    percent, so that f32 rounding of W (eps |W|) stays far below the
+    ADAPTER_COMPOSE_REL of max |W' - W| that the loaders are held to."""
+    def rn(*shape, s=1.0):
+        return s * torch.randn(shape, generator=gen, device=w.device)
+
+    conv = site.kind == "conv"
+    k = tuple(site.kernel) if conv else ()
+    one = (1, 1) if conv else ()
+    flat = site.in_dim * int(np.prod(k or (1,)))
+    r = 4
+    alpha = torch.tensor(float(r))
+    if algo in ("lora", "dora"):
+        down = rn(r, site.in_dim, *k, s=flat ** -0.5)
+        up = rn(site.out_dim, r, *one, s=0.1)
+        out = {"lora_down": down, "lora_up": up,
+               "alpha": torch.tensor(r / 2.0)}
+        if algo == "dora":
+            merged = w.reshape(site.out_dim, -1) + 0.5 * (
+                up.reshape(site.out_dim, r) @ down.reshape(r, -1))
+            m = merged.norm(dim=1) * (1 + rn(site.out_dim, s=0.1))
+            out["dora_scale"] = m.reshape((-1,) + (1,) * (w.ndim - 1))
+        return out
+    if algo == "loha":
+        return {"hada_w1_a": rn(site.out_dim, r, s=0.5),
+                "hada_w1_b": rn(r, flat, s=flat ** -0.5),
+                "hada_w2_a": rn(site.out_dim, r, s=0.5),
+                "hada_w2_b": rn(r, flat, s=flat ** -0.5), "alpha": alpha}
+    if algo == "loha_tucker":
+        return {"hada_t1": rn(r, r, *k, s=0.5),
+                "hada_w1_a": rn(r, site.out_dim, s=0.5),
+                "hada_w1_b": rn(r, site.in_dim, s=flat ** -0.5),
+                "hada_t2": rn(r, r, *k, s=0.5),
+                "hada_w2_a": rn(r, site.out_dim, s=0.5),
+                "hada_w2_b": rn(r, site.in_dim, s=flat ** -0.5),
+                "alpha": alpha}
+    if algo.startswith("lokr"):
+        o1, i1 = _divisor(site.out_dim), _divisor(site.in_dim)
+        o2, i2 = site.out_dim // o1, site.in_dim // i1
+        out = {"lokr_w1": rn(o1, i1, s=0.5)}
+        if algo == "lokr_full":
+            out["lokr_w2"] = rn(o2, i2, *k, s=0.1 * flat ** -0.5)
+        elif algo == "lokr_factored":
+            out.update(lokr_w2_a=rn(o2, r, s=0.5),
+                       lokr_w2_b=rn(r, flat // i1, s=0.1 * flat ** -0.5),
+                       alpha=alpha)
+        else:  # lokr_tucker
+            out.update(lokr_t2=rn(r, r, *k, s=0.5),
+                       lokr_w2_a=rn(r, o2, s=0.5),
+                       lokr_w2_b=rn(r, i2, s=0.1 * flat ** -0.5),
+                       alpha=alpha)
+        return out
+    if algo == "ia3":
+        on_input = i % 2 == 0
+        return {"weight": rn(site.in_dim if on_input else site.out_dim,
+                             s=0.05),
+                "on_input": torch.tensor(on_input)}
+    if algo == "oft":
+        b = _oft_block(site.out_dim)
+        return {"oft_blocks": rn(site.out_dim // b, b, b, s=0.05),
+                "rescale": 1 + rn(site.out_dim, 1, s=0.01)}
+    if algo == "boft":
+        # alpha 0.01: ||Q||_F clamped to 0.01 * out_dim over both stages
+        # (a factor of ~0.2-0.5 at these widths)
+        b = _oft_block(site.out_dim, 2)
+        return {"oft_blocks": rn(2, site.out_dim // b, b, b, s=0.05),
+                "alpha": torch.tensor(0.01)}
+    if algo == "glora":
+        return {"a1": rn(r, site.in_dim, *one, s=0.1),
+                "a2": rn(site.in_dim, r, *one, s=0.1),
+                "b1": rn(r, site.in_dim, *one, s=0.1),
+                "b2": rn(site.out_dim, r, *k, s=0.1 * flat ** -0.5),
+                "alpha": alpha}
+    if algo == "full":
+        return {"diff": rn(*w.shape, s=0.05) * w.std()}
+    raise ValueError(f"unknown algorithm {algo!r}")
+
+
+# leaves stored as "<base>.<leaf>.weight"; every other leaf as "<base>.<leaf>"
+_WEIGHT_LEAVES = ("lora_up", "lora_down", "lora_mid", "a1", "a2", "b1", "b2")
+
+
+def _adapter_sites(pipe):
+    from lora_tpu_torch.core.sites import (
+        text_encoder_locon_sites,
+        unet_locon_sites,
+    )
+
+    return (("unet", pipe.unet, unet_locon_sites(pipe.unet.cfg)),
+            ("text_encoder", pipe.text_encoder,
+             text_encoder_locon_sites(pipe.text_encoder.cfg)))
+
+
+def _kohya_file(pipe, path: str, gen) -> dict:
+    """K: a kohya LoCon file over every UNet and text LoCon site, rank
+    ADAPTER_RANK, `.alpha` ADAPTER_ALPHA (not the rank), every
+    ADAPTER_CP_EVERY-th 3x3 conv CP-decomposed (1x1 down, kxk lora_mid).
+    Returns its counts."""
+    from lora_tpu_torch.formats.kohya import kohya_key
+    from lora_tpu_torch.formats.reader import save_file
+
+    r, dev = ADAPTER_RANK, pipe.device
+    tensors, n_sites, n_cp, n_3x3 = {}, 0, 0, 0
+
+    def rn(*shape, s=1.0):
+        return s * torch.randn(shape, generator=gen, device=dev)
+
+    for model, _, sites in _adapter_sites(pipe):
+        for s in sites:
+            base = kohya_key(model, s.name)
+            k = tuple(s.kernel) if s.kind == "conv" else ()
+            flat = s.in_dim * int(np.prod(k or (1,)))
+            cp = k not in ((), (1, 1)) and n_3x3 % ADAPTER_CP_EVERY == 0
+            n_3x3 += k not in ((), (1, 1))
+            if cp:
+                down = rn(r, s.in_dim, 1, 1, s=s.in_dim ** -0.5)
+                tensors[base + ".lora_mid.weight"] = _file_array(
+                    rn(r, r, *k, s=(r * k[0] * k[1]) ** -0.5))
+                n_cp += 1
+            else:
+                down = rn(r, s.in_dim, *k, s=flat ** -0.5)
+            tensors[base + ".lora_down.weight"] = _file_array(down)
+            tensors[base + ".lora_up.weight"] = _file_array(
+                rn(s.out_dim, r, *((1, 1) if k else ()), s=0.1))
+            tensors[base + ".alpha"] = np.asarray(ADAPTER_ALPHA, np.float16)
+            n_sites += 1
+    save_file(tensors, path)
+    return {"modules": n_sites, "cp_convs": n_cp, "convs_3x3": n_3x3,
+            "bytes": os.path.getsize(path)}
+
+
+def _lycoris_file(pipe, path: str, gen, exclude=()) -> dict:
+    """L: a LyCORIS file with one module on every UNet and text LoCon site,
+    the algorithms of LYCORIS_LINEAR / LYCORIS_CONV (less `exclude`)
+    assigned round-robin, each site taking the next one its shapes allow
+    (one cycle per model and site kind); a full module's diff_b where the
+    site has a bias; norm modules (w_norm, b_norm) on every resnet norm1
+    and every CLIP layer_norm1. Returns {"plan": {(model, site): algo},
+    "counts": {kind: {algo: n}}, "norms": n, ...}."""
+    from lora_tpu_torch.formats.kohya import kohya_key
+    from lora_tpu_torch.formats.reader import save_file
+
+    tensors, plan = {}, {}
+    counts = {"linear": {}, "conv": {}}
+    n_norms = 0
+    for model, module, sites in _adapter_sites(pipe):
+        params = module.flat_params()
+        cursor = {"linear": 0, "conv": 0}
+        for s in sites:
+            cycle = [a for a in (LYCORIS_LINEAR if s.kind == "linear"
+                                 else LYCORIS_CONV) if a not in exclude]
+            j = cursor[s.kind]
+            while not _fits(cycle[j % len(cycle)], s):
+                j += 1
+            algo = cycle[j % len(cycle)]
+            cursor[s.kind] = j + 1
+            w = params[s.name + ".weight"].float()
+            leaves = _lycoris_leaves(algo, s, w, gen, j)
+            if algo == "full" and s.name + ".bias" in params:
+                leaves["diff_b"] = 0.01 * torch.randn(
+                    (s.out_dim,), generator=gen, device=w.device)
+            base = kohya_key(model, s.name)
+            for leaf, v in leaves.items():
+                key = (f"{base}.{leaf}.weight" if leaf in _WEIGHT_LEAVES
+                       else f"{base}.{leaf}")
+                tensors[key] = _file_array(v)
+            plan[(model, s.name)] = algo
+            counts[s.kind][algo] = counts[s.kind].get(algo, 0) + 1
+        prefix = "lora_unet" if model == "unet" else "lora_te"
+        for name, t in params.items():
+            if (model == "unet" and ".resnets." in name
+                    and name.endswith(".norm1.weight")) or \
+                    name.endswith(".layer_norm1.weight"):
+                base = prefix + "_" + name[:-len(".weight")].replace(".", "_")
+                for leaf in ("w_norm", "b_norm"):
+                    tensors[f"{base}.{leaf}"] = _file_array(0.05 * torch.randn(
+                        t.shape, generator=gen, device=t.device))
+                n_norms += 1
+    for kind, algos in (("linear", LYCORIS_LINEAR), ("conv", LYCORIS_CONV)):
+        missing = [a for a in algos
+                   if a not in exclude and not counts[kind].get(a)]
+        if missing:
+            raise AssertionError(f"L has no {kind} site for {missing}")
+    save_file(tensors, path)
+    return {"plan": plan, "counts": counts, "norm_modules": n_norms,
+            "bytes": os.path.getsize(path)}
+
+
+def _compose_errors(pipe, path: str, lycoris: bool, plan: dict) -> dict:
+    """The file loaded in f32 on the card and on the CPU from the same base
+    params: max |card - CPU| / max |CPU| of each entry and param delta, the
+    worst per algorithm ("norm", "full diff_b" for param deltas); and the
+    card's load time. Fails above ADAPTER_COMPOSE_REL, or when the two
+    loads hold other sites or keys."""
+    from lora_tpu_torch.formats.kohya import load_kohya
+    from lora_tpu_torch.formats.lycoris import load_lycoris
+
+    (_, unet, u_sites), (_, text, t_sites) = _adapter_sites(pipe)
+    params = {"unet": unet.flat_params(), "text": text.flat_params()}
+
+    def load(device):
+        kw = dict(unet_sites=u_sites, text_sites=t_sites, dtype=torch.float32,
+                  device=device)
+        if not lycoris:
+            return load_kohya(path, **kw)
+        p = {m: {k: v.to(device) for k, v in d.items()}
+             for m, d in params.items()}
+        return load_lycoris(path, unet_params=p["unet"],
+                            text_params=p["text"], **kw)
+
+    t0 = time.perf_counter()
+    card = load(pipe.device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = load("cpu")
+    worst = {}
+    for model, tc, tp in zip(("unet", "text_encoder"), card, cpu):
+        if list(tc["sites"]) != list(tp["sites"]) or \
+                set(tc.get("param_deltas", {})) != set(
+                    tp.get("param_deltas", {})):
+            raise AssertionError(f"{path}: the card's and the CPU's {model} "
+                                 f"trees hold other sites or keys")
+        pairs = [(plan.get((model, site), "lora"), got, entry[leaf])
+                 for site, entry in tp["sites"].items()
+                 for leaf, got in tc["sites"][site].items()]
+        pairs += [("full diff_b" if k[:-len(".bias")] in tp["sites"]
+                   else "norm", tc["param_deltas"][k], want)
+                  for k, want in tp.get("param_deltas", {}).items()]
+        for algo, got, want in pairs:
+            worst[algo] = max(worst.get(algo, 0.0), _rel(got.cpu(), want))
+    if max(worst.values()) > ADAPTER_COMPOSE_REL:
+        raise AssertionError(f"{path}: composed on the card, off the CPU by "
+                             f"{worst} (limit {ADAPTER_COMPOSE_REL})")
+    return {"card_load_s": card_s, "worst_rel_err_by_algo": worst}
+
+
+def _norm_and_bias(pipe) -> dict:
+    """Clones of every norm and bias param of the UNet and the text
+    encoder."""
+    return {(m, k): v.detach().clone()
+            for m, module in (("unet", pipe.unet),
+                              ("text_encoder", pipe.text_encoder))
+            for k, v in module.flat_params().items()
+            if k.endswith(".bias") or "norm" in k.rsplit(".", 2)[-2]}
+
+
+def _unet_inputs(dtype, gen):
+    """One UNet call's inputs at batch 4 (2 prompts under CFG), 512px."""
+    b = 2 * len(PROMPTS)
+    return (torch.randn((b, 64, 64, 4), generator=gen, device="cuda",
+                        dtype=dtype),
+            torch.full((b,), 501, device="cuda"),
+            torch.randn((b, 77, 768), generator=gen, device="cuda",
+                        dtype=dtype))
+
+
+def _unet_out(pipe, inputs, lora) -> torch.Tensor:
+    with torch.inference_mode():
+        return pipe.unet(*inputs, lora=lora)
+
+
+def _time_unet(pipe, inputs, lora, route: str) -> dict:
+    """ADAPTER_UNET_REPS UNet calls (after 2 warm-up), each synchronized:
+    their median and min wall ms, the flash launches per call (which must
+    be ROUTED_PER_UNET_CALL of `route`), and the device ms per call from
+    torch.profiler."""
+    for _ in range(2):
+        _unet_out(pipe, inputs, lora)
+    torch.cuda.synchronize()
+    _zero_counts()
+    walls = []
+    for _ in range(ADAPTER_UNET_REPS):
+        t0 = time.perf_counter()
+        _unet_out(pipe, inputs, lora)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    fwd = dict(fa.flash_fwd.launches_by_kernel)
+    if fwd != _only(route, ROUTED_PER_UNET_CALL * ADAPTER_UNET_REPS):
+        raise AssertionError(f"{ADAPTER_UNET_REPS} UNet calls launched "
+                             f"flash_fwd {fwd}, not {ROUTED_PER_UNET_CALL} "
+                             f"{route} each")
+    return {"wall_ms_median": statistics.median(walls),
+            "wall_ms_min": min(walls),
+            "device_ms": _kernel_ms(lambda: _unet_out(pipe, inputs, lora),
+                                    reps=3),
+            "flash_fwd_per_call": {k: v / ADAPTER_UNET_REPS
+                                   for k, v in fwd.items()}}
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_adapters(smi: str):
+    """Phase 11: kohya / LoCon and LyCORIS files through patch_pipe, the
+    base-param deltas, collapse_lora and the server, at full SD-1.5 width.
+    Returns the bf16 and f32 flash forward launches and the int8 launches
+    of its counted runs, by kernel."""
+    from lora_tpu_torch import serve
+    from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
+    report = {"card": smi}
+    fwd_total = dict.fromkeys(fa.flash_fwd.launches_by_kernel, 0)
+    f32_total = dict(fwd_total)
+    int8_total = dict.fromkeys(i8.int8_matmul.launches_by_kernel, 0)
+
+    def new_pipe(dtype):
+        return StableDiffusionPipeline.random_init(
+            generator=torch.Generator("cuda").manual_seed(SEED),
+            device="cuda", dtype=dtype)
+
+    def counted(name, calls, fn, int8_want=lambda: 0):
+        """fn() as one counted request of `calls` UNet calls: ROUTED_PER_
+        UNET_CALL wgmma flash launches each, and int8_want() wgmma int8
+        launches (asked after it)."""
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        fwd = dict(fa.flash_fwd.launches_by_kernel)
+        int8 = dict(i8.int8_matmul.launches_by_kernel)
+        report[name] = {"wall_s": time.perf_counter() - t0,
+                        "flash_fwd": fwd, "int8_matmul": int8}
+        log(f"adapters: {name}: " + json.dumps(report[name]))
+        if fwd != _only("wgmma", ROUTED_PER_UNET_CALL * calls):
+            raise AssertionError(f"{name}: flash_fwd launched {fwd}, not "
+                                 f"{ROUTED_PER_UNET_CALL} wgmma x {calls}")
+        if int8 != _only("wgmma", int8_want(), i8.int8_matmul):
+            raise AssertionError(f"{name}: int8_matmul launched {int8}, not "
+                                 f"{int8_want()} wgmma")
+        for k in fwd_total:
+            fwd_total[k] += fwd[k]
+        for k in int8_total:
+            int8_total[k] += int8[k]
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        k_path, l_path, l0_path = (os.path.join(tmp, n) for n in (
+            "locon.safetensors", "lycoris.safetensors",
+            "lycoris_int8.safetensors"))
+        pipe = new_pipe(torch.bfloat16)
+        orig = _norm_and_bias(pipe)
+        report["file_K"] = _kohya_file(pipe, k_path, gen)
+        lyco = _lycoris_file(pipe, l_path, gen)
+        plan = lyco.pop("plan")
+        report["file_L"] = lyco
+        log("adapters: files: " + json.dumps(
+            {"K": report["file_K"], "L": report["file_L"]}))
+
+        # the loaders on the card against the same files composed on the CPU
+        report["compose"] = {
+            "K": _compose_errors(pipe, k_path, False, {}),
+            "L": _compose_errors(pipe, l_path, True, plan),
+            "limit": ADAPTER_COMPOSE_REL}
+        log("adapters: compose: " + json.dumps(report["compose"]))
+
+        # bf16 UNet calls at batch 4: no adapter, K, L; each file's load
+        inputs = _unet_inputs(torch.bfloat16, gen)
+        unet = {"none": _time_unet(pipe, inputs, None, "wgmma")}
+        loads = {}
+        for name, path in (("K", k_path), ("L", l_path)):
+            t0 = time.perf_counter()
+            pipe.patch_pipe(path)
+            torch.cuda.synchronize()
+            loads[name] = time.perf_counter() - t0
+            unet[name] = _time_unet(pipe, inputs, pipe.lora_unet, "wgmma")
+        report["patch_pipe_s"], report["unet_bf16_b4"] = loads, unet
+        log("adapters: unet bf16 batch 4: " + json.dumps(
+            {"patch_pipe_s": loads, "unet": unet, "card": smi}))
+        if not (pipe.has_base_deltas("unet")
+                and pipe.has_base_deltas("text_encoder")):
+            raise AssertionError("L installed no base deltas")
+
+        # serving L over HTTP at alpha 1.0, 0.5, 1.0; then K patched live
+        srv = serve.PipelineServer(pipe, port=0, max_batch=2,
+                                   batch_window_ms=50.0).start()
+        try:
+            images = []
+            for i, alpha in enumerate(ADAPTER_ALPHAS):
+                body = counted(f"http L alpha {alpha} ({i + 1})", STEPS,
+                               lambda: _http(srv.port, "/generate", {
+                                   "prompt": PROMPTS, "steps": STEPS,
+                                   "guidance": 7.5, "height": 512,
+                                   "width": 512, "seed": 7,
+                                   "alpha": alpha})[1])
+                _check_pngs(body["images"], len(PROMPTS), 512)
+                images.append(body["images"])
+            with srv.lock:
+                per_text = {t: sum(1 for tt, _ in srv._embeds if tt == t)
+                            for t in PROMPTS + [""]}
+                alpha_keys = len({k for _, k in srv._embeds})
+            serving = {"requests_1_3_equal": images[0] == images[2],
+                       "request_2_differs": images[1] != images[0],
+                       "embed_entries_per_text": per_text,
+                       "embed_alpha_keys": alpha_keys}
+            with srv.lock:
+                t0 = time.perf_counter()
+                pipe.patch_pipe(k_path)
+                torch.cuda.synchronize()
+                serving["live_patch_K_s"] = time.perf_counter() - t0
+            now = _norm_and_bias(pipe)
+            serving["norm_bias_params"] = len(orig)
+            serving["restored_bit_for_bit"] = sum(
+                torch.equal(now[k], v) for k, v in orig.items())
+            body = counted("http K after live patch", STEPS,
+                           lambda: _http(srv.port, "/generate", {
+                               "prompt": PROMPTS, "steps": STEPS,
+                               "guidance": 7.5, "height": 512,
+                               "width": 512, "seed": 7})[1])
+            _check_pngs(body["images"], len(PROMPTS), 512)
+            if srv.drain(timeout=60) is not True:
+                raise AssertionError("the server did not drain")
+        finally:
+            srv.stop()
+        report["serving"] = serving
+        log("adapters: serving: " + json.dumps(serving))
+        if not (serving["requests_1_3_equal"]
+                and serving["request_2_differs"]
+                and per_text == dict.fromkeys(PROMPTS + [""], 2)
+                and alpha_keys == 2
+                and serving["restored_bit_for_bit"] == len(orig)):
+            raise AssertionError(f"serving L: {serving}")
+
+        # bf16: L at 0.7 against collapse_lora(0.7) (no limit: bf16 weights
+        # round W + 0.7 dW once more)
+        a = ADAPTER_COLLAPSE_ALPHA
+        pipe.patch_pipe(l_path)
+        pipe.tune_lora_scale(a)
+        patched = _unet_out(pipe, inputs, pipe.lora_unet)
+        pipe.collapse_lora(a)
+        report["collapse_bf16_rel_l2"] = _rel_l2(
+            _unet_out(pipe, inputs, None), patched)
+        del pipe, patched, srv
+        torch.cuda.empty_cache()
+
+        # f32: the same, within ADAPTER_COLLAPSE_REL_L2
+        pipe = new_pipe(torch.float32)
+        inputs = _unet_inputs(torch.float32, gen)
+        pipe.patch_pipe(l_path)
+        pipe.tune_lora_scale(a)
+        _zero_counts()
+        patched = _unet_out(pipe, inputs, pipe.lora_unet)
+        torch.cuda.synchronize()
+        f32_fwd = dict(fa.flash_fwd.launches_by_kernel)
+        if f32_fwd != _only("tf32x3", ROUTED_PER_UNET_CALL):
+            raise AssertionError(f"the f32 UNet call launched flash_fwd "
+                                 f"{f32_fwd}")
+        for k in f32_total:
+            f32_total[k] += f32_fwd[k]
+        pipe.collapse_lora(a)
+        rel = _rel_l2(_unet_out(pipe, inputs, None), patched)
+        report["collapse_f32_rel_l2"] = rel
+        log("adapters: collapse: " + json.dumps({
+            "alpha": a, "bf16_rel_l2": report["collapse_bf16_rel_l2"],
+            "f32_rel_l2": rel, "f32_limit": ADAPTER_COLLAPSE_REL_L2,
+            "f32_flash_fwd": f32_fwd}))
+        if not rel <= ADAPTER_COLLAPSE_REL_L2:
+            raise AssertionError(f"f32 UNet call with L at {a} is {rel} "
+                                 f"(relative L2) from collapse_lora({a})")
+        del pipe, patched, inputs
+        torch.cuda.empty_cache()
+
+        # quantized: a LyCORIS file without base-weight-dependent modules,
+        # patched before quantize_base, served over HTTP; then L refused
+        pipe = new_pipe(torch.bfloat16)
+        report["file_L_int8"] = _lycoris_file(pipe, l0_path, gen,
+                                              exclude=BASE_DEPENDENT)
+        report["file_L_int8"].pop("plan")
+        pipe.patch_pipe(l0_path)
+        pipe.quantize_base()
+        torch.cuda.empty_cache()
+        per_call = {"unet": _int8_dense(pipe.unet),
+                    "clip_encode": _int8_dense(pipe.text_encoder),
+                    "vae_decode": _int8_dense(pipe.vae, "decoder.")}
+        if per_call != INT8_PER_CALL:
+            raise AssertionError(f"2-D int8 weights per call {per_call}")
+        encodes = [0]
+        encode_prompt = pipe.encode_prompt
+
+        def counted_encode(prompts):
+            encodes[0] += 1
+            return encode_prompt(prompts)
+
+        pipe.encode_prompt = counted_encode
+        srv = serve.PipelineServer(pipe, port=0, max_batch=2,
+                                   batch_window_ms=50.0).start()
+        try:
+            body = counted("http int8 L without base-dependent modules",
+                           STEPS,
+                           lambda: _http(srv.port, "/generate", {
+                               "prompt": PROMPTS, "steps": STEPS,
+                               "guidance": 7.5, "height": 512,
+                               "width": 512, "seed": 7})[1],
+                           int8_want=lambda: (
+                               per_call["unet"] * STEPS
+                               + per_call["clip_encode"] * encodes[0]
+                               + per_call["vae_decode"]))
+            _check_pngs(body["images"], len(PROMPTS), 512)
+            if srv.drain(timeout=60) is not True:
+                raise AssertionError("the server did not drain")
+        finally:
+            srv.stop()
+        try:
+            pipe.patch_pipe(l_path)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("the int8 pipe composed L's base-weight-"
+                                 "dependent modules")
+        if "int8-quantized" not in refused or "quantize_base" not in refused:
+            raise AssertionError(f"the int8 pipe refused L with {refused!r}")
+        report["int8_refusal"] = refused
+        log("adapters: int8: " + json.dumps({
+            "file": report["file_L_int8"], "clip_encodes": encodes[0],
+            "refusal": refused}))
+        del srv, pipe
+        torch.cuda.empty_cache()
+    log("adapters: " + json.dumps({
+        "flash_fwd_launches": fwd_total, "f32_flash_fwd_launches": f32_total,
+        "http_int8_launches": int8_total, "steps": STEPS, "cfg": 7.5,
+        "card": smi}))
+    return fwd_total, f32_total, int8_total
+
+
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
     """Every flash forward call and int8 call recorded on the main paths was
     checked against its plain version: its shapes (and for flash, dtype and
@@ -2563,6 +3177,35 @@ def main_modes() -> int:
                  for M, K, N in int8_path_shapes() + int8_phase_shapes()]
     check_recorded(flash_seen, rows, int8_seen, int8_rows)
     log(smi)
+    return 0
+
+
+def main_adapters() -> int:
+    """Phases 1, 2 (the sources phase 11 runs, and flash_fwd.cu, which
+    phase 3 calls beside the wgmma and tf32x3 kernels), the tf32x3 forward
+    kernel's first calls in a child process, and 11; then phase 3's UNet
+    calls (bf16 at every batch, f32 at batch 4) and phase 8's bf16 shapes,
+    untimed, and every shape phase 11 reached checked against them."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
+                 "int8_matmul", "int8_matmul_wgmma"])
+    tf32x3_fwd_probe()
+    with recording_flash_shapes(set()) as flash_seen, \
+            recording_int8_shapes(set()) as int8_seen:
+        phase_adapters(smi)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    rows = [check_kernel(B, 8, T, T, D, torch.bfloat16, gen, timed=False)
+            for B in FLASH_TIMED_BATCHES + FLASH_OTHER_BATCHES
+            for T, D in SD15_ATTN_SHAPES]
+    rows += [check_kernel(4, 8, T, T, D, torch.float32, gen, timed=False)
+             for T, D in SD15_ATTN_SHAPES]
+    int8_rows = [check_int8(M, K, N, torch.bfloat16, gen, timed=False)
+                 for M, K, N in int8_path_shapes()]
+    check_recorded(flash_seen, rows, int8_seen, int8_rows)
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -2649,6 +3292,7 @@ def main() -> int:
             int8_launches, serve_int8_fwd = phase_serve_int8(smi,
                                                              bf16_request_s)
             modes_fwd, modes_int8 = phase_modes(smi)
+            adapters_fwd, adapters_f32, adapters_int8 = phase_adapters(smi)
     check_recorded(flash_seen, rows, seen, int8_rows)
 
     def at_main_shape(rs, dtype="bfloat16"):  # the largest main-path shape
@@ -2665,7 +3309,8 @@ def main() -> int:
     bf16_bwd = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
     # the per-kernel counts each bf16 main path measured, summed
     by_path = {"txt2img": serve_fwd, "train": train_fwd,
-               "serve_int8": serve_int8_fwd, "modes": modes_fwd}
+               "serve_int8": serve_int8_fwd, "modes": modes_fwd,
+               "adapters": adapters_fwd}
     fwd_by_kernel = {r: sum(c[r] for c in by_path.values())
                      for r in fa.flash_fwd.launches_by_kernel}
     kernels = [{
@@ -2674,9 +3319,9 @@ def main() -> int:
         "source": "lora_tpu_torch/ops/csrc/flash_fwd_wgmma.cu",
         "replaces": "lora_tpu/ops/flash_attention.py:104",
         # the serving run (50 UNet calls), the timed training steps, the
-        # two quantized HTTP requests (50 UNet calls each) and phase 10's
-        # samplers and image modes: all bf16, all through the wgmma kernel
-        # (each phase checks it)
+        # two quantized HTTP requests (50 UNet calls each), phase 10's
+        # samplers and image modes and phase 11's HTTP requests: all bf16,
+        # all through the wgmma kernel (each phase checks it)
         "launches": fwd_by_kernel["wgmma"],
         "launches_by_path": {p: c["wgmma"] for p, c in by_path.items()},
         "launches_by_kernel": fwd_by_kernel,
@@ -2698,10 +3343,12 @@ def main() -> int:
         "per_unet_call": {k: v for k, v in fwd_sums.items()
                           if not k.startswith("f32_")},
     }]
-    # the f32 forward: the f32 quantized UNet call of phase 9a and the
-    # counted f32 training run of phase 7 (f32 attention)
+    # the f32 forward: the f32 quantized UNet call of phase 9a, the
+    # counted f32 training run of phase 7 (f32 attention) and phase 11's
+    # f32 UNet call with L
     f32_by_path = {"serve_int8_f32": f32_fwd,
-                   "train_f32_grad": grad_f32["fwd_launches_by_kernel"]}
+                   "train_f32_grad": grad_f32["fwd_launches_by_kernel"],
+                   "adapters_f32": adapters_f32}
     f32_fwd_by_kernel = {r: sum(c[r] for c in f32_by_path.values())
                          for r in fa.flash_fwd.launches_by_kernel}
     f32_rows = [r for r in rows if r["dtype"] == "float32"]
@@ -3080,7 +3727,8 @@ def main() -> int:
     int8_by_path = {"serve_int8": _only("wgmma", int8_launches,
                                         i8.int8_matmul),
                     "serve_int8_f32": f32_launches,
-                    "modes_http": modes_int8}
+                    "modes_http": modes_int8,
+                    "adapters_http": adapters_int8}
     int8_by_kernel = {k: sum(c[k] for c in int8_by_path.values())
                       for k in i8.int8_matmul.launches_by_kernel}
 
@@ -3093,12 +3741,14 @@ def main() -> int:
         "route": "cuda",
         "source": "lora_tpu_torch/ops/csrc/int8_matmul_wgmma.cu",
         "replaces": "lora_tpu/ops/int8_matmul.py:35",
-        # quantized serving: request A and request B, and phase 10's
-        # img2img and inpaint requests, every bf16 call (all of them
-        # wgmma), at shapes phase 8 checked
-        "launches": int8_launches + modes_int8["wgmma"],
+        # quantized serving: request A and request B, phase 10's img2img
+        # and inpaint requests and phase 11's quantized request, every
+        # bf16 call (all of them wgmma), at shapes phase 8 checked
+        "launches": (int8_launches + modes_int8["wgmma"]
+                     + adapters_int8["wgmma"]),
         "launches_by_path": {"serve_int8": int8_launches,
-                             "modes_http": modes_int8["wgmma"]},
+                             "modes_http": modes_int8["wgmma"],
+                             "adapters_http": adapters_int8["wgmma"]},
         "launches_by_kernel": int8_by_kernel,
         # worst error over the bf16 calls of phase 8 through wgmma
         "max_abs_err": routed_err("bfloat16", "wgmma"),
@@ -3180,7 +3830,9 @@ if __name__ == "__main__":
         sys.exit(main_flash_bwd())
     if sys.argv[1:] == ["--modes"]:
         sys.exit(main_modes())
+    if sys.argv[1:] == ["--adapters"]:
+        sys.exit(main_adapters())
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
-                 f"--flash-bwd | --modes]")
+                 f"--flash-bwd | --modes | --adapters]")
     sys.exit(main())

@@ -25,6 +25,16 @@ make_optimizer, make_train_step, LoRA dropout, gradient checkpointing):
     step = make_train_step(..., optimizer=make_optimizer(trainable, {"lora_unet": 1e-4}))
     loss = step(trainable, (unet_params, {}, {}), batch, generator)
 
+patch_pipe also loads kohya-ss / LoCon and LyCORIS files (formats/kohya.py,
+formats/lycoris.py; LoHa, LoKr, IA3, DoRA, OFT, BOFT, GLoRA, full and norm
+modules), and the LoRA combinators of core/lora.py (merge, add, join,
+stack_loras + with_lora_idx for K adapters routed per prompt, collapse,
+ranks, inspect) are exported here:
+
+    from lora_tpu_torch import stack_loras
+    pipe.lora_unet = stack_loras([lora_a, lora_b])
+    images = pipe(["a dog", "a town"], lora_idx=[0, 1], generator=g)
+
 Serving also takes diffusers-layout checkpoints
 (StableDiffusionPipeline.from_pretrained), an int8 base
 (pipe.quantize_base()) and an HTTP server (serve.py, txt2img):
@@ -39,3 +49,43 @@ with nvcc at first use (ops/build.py).
 """
 
 __version__ = "0.1.0"
+
+from .formats.safetensors_io import (  # noqa: F401
+    DEFAULT_TARGET_REPLACE,
+    EMBED_FLAG,
+    TEXT_ENCODER_DEFAULT_TARGET_REPLACE,
+    TEXT_ENCODER_EXTENDED_TARGET_REPLACE,
+    UNET_DEFAULT_TARGET_REPLACE,
+    UNET_EXTENDED_TARGET_REPLACE,
+    load_safeloras,
+    load_safeloras_both,
+    load_safeloras_embeds,
+    parse_safeloras,
+    parse_safeloras_embeds,
+    save_safeloras,
+    save_safeloras_with_embeds,
+)
+from .core.lora import (  # noqa: F401
+    add_lora,
+    collapse_lora,
+    init_lora,
+    inspect_lora,
+    join_loras,
+    lora_from_deltas,
+    lora_from_flat,
+    lora_from_pairs,
+    lora_ranks,
+    lora_to_pairs,
+    merge_loras,
+    set_lora_diag,
+    stack_loras,
+    tune_lora_scale,
+    with_lora_idx,
+)
+from .core.sites import (  # noqa: F401
+    Site,
+    text_encoder_locon_sites,
+    text_encoder_lora_sites,
+    unet_locon_sites,
+    unet_lora_sites,
+)

@@ -61,12 +61,11 @@ def state_dict_from_jax(params: Dict[str, np.ndarray], *, device="cpu",
 def lora_from_jax(tree: dict, *, device="cpu",
                   dtype: Optional[torch.dtype] = None) -> LoraTree:
     """A JAX LoRA tree -> the port's: per-site up/down (+ diag) or full-rank
-    delta, scale, and the stacked adapters' per-sample idx."""
-    extra = set(tree) - {"sites", "scale", "idx"}
+    delta, scale, the stacked adapters' per-sample idx, and a LyCORIS
+    tree's param_deltas ({param path: float32 tensor})."""
+    extra = set(tree) - {"sites", "scale", "idx", "param_deltas"}
     if extra:
-        raise NotImplementedError(
-            f"LoRA tree keys {sorted(extra)} are not ported yet (LyCORIS "
-            "param_deltas: ROADMAP Queue A kohya/LyCORIS)")
+        raise ValueError(f"unknown LoRA tree keys {sorted(extra)}")
     out = {
         "sites": {name: {k: to_torch(v, device, dtype)
                          for k, v in entry.items()}
@@ -75,6 +74,9 @@ def lora_from_jax(tree: dict, *, device="cpu",
     }
     if "idx" in tree:
         out["idx"] = to_torch(tree["idx"], device, torch.long)
+    if "param_deltas" in tree:
+        out["param_deltas"] = {k: to_torch(v, device, torch.float32)
+                               for k, v in tree["param_deltas"].items()}
     return out
 
 

@@ -18,10 +18,19 @@ Weight layout is torch's Linear/Conv2d (out, in[, kh, kw]).
 
 Training adds LoRA dropout: a keep mask on the bypass output, scaled by
 1 / (1 - p), drawn from a per-site generator (models/layers.py).
+
+The combinators are pure functions on trees, as in lora_tpu: merge_loras,
+add_lora, join_loras (rank concatenation), stack_loras + with_lora_idx
+(K adapters routed per batch element), set_lora_diag, lora_ranks,
+inspect_lora and collapse_lora (fold into the base weights). A tree loaded
+from a LyCORIS file (formats/lycoris.py) may also carry "param_deltas"
+({param path: f32 tensor}, norm and bias deltas), which the pipeline
+applies to its base params.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,6 +74,12 @@ def init_lora(
             "scale": torch.tensor(scale, dtype=torch.float32, device=device)}
 
 
+def _to_tensor(a, device, dtype) -> torch.Tensor:
+    """A numpy array (copied) or a tensor, on `device` in `dtype`."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
 def lora_from_pairs(
     pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     sites: Sequence[Site],
@@ -72,14 +87,14 @@ def lora_from_pairs(
     dtype=torch.float32,
     device="cpu",
 ) -> LoraTree:
-    """LoRA tree from an ordered [(up, down), ...] list (the on-disk order);
-    conv tensors are told apart by ndim."""
+    """LoRA tree from an ordered [(up, down), ...] list (the on-disk order;
+    numpy arrays or tensors); conv tensors are told apart by ndim."""
     if len(pairs) != len(sites):
         raise ValueError(f"got {len(pairs)} pairs for {len(sites)} sites")
     site_params = {}
     for site, (up, down) in zip(sites, pairs):
-        up = torch.as_tensor(np.array(up), device=device).to(dtype)
-        down = torch.as_tensor(np.array(down), device=device).to(dtype)
+        up = _to_tensor(up, device, dtype)
+        down = _to_tensor(down, device, dtype)
         want_nd = 2 if site.kind == "linear" else 4
         if up.ndim != want_nd or down.ndim != want_nd:
             raise ValueError(
@@ -100,6 +115,29 @@ def lora_from_flat(
                            dtype, device)
 
 
+def lora_from_deltas(
+    deltas: Sequence, sites: Sequence[Site], scale: float = 1.0,
+    dtype=torch.float32, device="cpu",
+) -> LoraTree:
+    """LoRA tree of full-rank weight deltas (numpy arrays or tensors, torch
+    weight layout: (out, in) linear / OIHW conv): the exact form of the
+    composed LyCORIS LoHa/LoKr/IA3/... modules."""
+    if len(deltas) != len(sites):
+        raise ValueError(f"got {len(deltas)} deltas for {len(sites)} sites")
+    site_params = {}
+    for site, d in zip(sites, deltas):
+        d = _to_tensor(d, device, dtype)
+        want = ((site.out_dim, site.in_dim) if site.kind == "linear"
+                else (site.out_dim, site.in_dim) + tuple(site.kernel))
+        if tuple(d.shape) != want:
+            raise ValueError(
+                f"site {site.name} expects delta shape {want}, got "
+                f"{tuple(d.shape)}")
+        site_params[site.name] = {"delta": d}
+    return {"sites": site_params,
+            "scale": torch.tensor(scale, dtype=torch.float32, device=device)}
+
+
 def lora_to_pairs(lora: LoraTree,
                   sites: Sequence[Site]) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Save-order float32 numpy pairs; up is pre-multiplied by the runtime
@@ -112,7 +150,8 @@ def lora_to_pairs(lora: LoraTree,
         if "delta" in entry:
             raise ValueError(
                 f"site {site.name} holds a full-rank delta (LoHa/LoKr/IA3); "
-                "it has no (up, down) factorization")
+                f"it has no (up, down) factorization — distill one with "
+                f"core.svd first")
         out.append((entry["up"].float().cpu().numpy() * scale,
                     entry["down"].float().cpu().numpy()))
     return out
@@ -123,6 +162,183 @@ def tune_lora_scale(lora: LoraTree, alpha: float) -> LoraTree:
     device = lora["scale"].device
     return {**lora,
             "scale": torch.tensor(alpha, dtype=torch.float32, device=device)}
+
+
+@contextlib.contextmanager
+def f32_products():
+    """Matmuls inside run in true f32 (TF32 off on the card), whatever the
+    caller set: adapter weights are composed and folded in f32, as
+    lora_tpu composes them on the host."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def set_lora_diag(lora: LoraTree, diag) -> LoraTree:
+    """A per-rank diagonal selector on every site (the reference's
+    set_lora_diag, lora.py:883-886)."""
+    diag = torch.as_tensor(diag, dtype=torch.float32,
+                           device=lora["scale"].device)
+    return {**lora, "sites": {name: {**entry, "diag": diag}
+                              for name, entry in lora["sites"].items()}}
+
+
+def _unit_scale(lora: LoraTree) -> torch.Tensor:
+    return torch.tensor(1.0, dtype=torch.float32,
+                        device=lora["scale"].device)
+
+
+def merge_loras(l1: LoraTree, l2: LoraTree, alpha_1: float,
+                alpha_2: float) -> LoraTree:
+    """Per-tensor weighted sum (`lora_add --mode=lpl`)."""
+    if set(l1["sites"]) != set(l2["sites"]):
+        raise ValueError("merge requires identical site sets")
+    sites = {}
+    for name in l1["sites"]:
+        a, b = l1["sites"][name], l2["sites"][name]
+        if ("delta" in a) != ("delta" in b):
+            raise ValueError(
+                f"cannot merge a factored LoRA with a full-rank delta at "
+                f"{name}")
+        if "delta" in a:
+            if a["delta"].shape != b["delta"].shape:
+                raise ValueError(f"shape mismatch at {name}")
+            sites[name] = {
+                "delta": alpha_1 * a["delta"] + alpha_2 * b["delta"]}
+            continue
+        if a["up"].shape != b["up"].shape or \
+                a["down"].shape != b["down"].shape:
+            raise ValueError(f"shape mismatch at {name}")
+        sites[name] = {"up": alpha_1 * a["up"] + alpha_2 * b["up"],
+                       "down": alpha_1 * a["down"] + alpha_2 * b["down"]}
+    return {"sites": sites, "scale": _unit_scale(l1)}
+
+
+def add_lora(lora: LoraTree, incoming: LoraTree, alpha: float = 1.0,
+             beta: float = 1.0) -> LoraTree:
+    """up/down <- alpha * incoming + beta * existing (the reference's
+    monkeypatch_add_lora, lora.py:850-874)."""
+    sites = {}
+    for name, entry in lora["sites"].items():
+        inc = incoming["sites"][name]
+        if "delta" in entry or "delta" in inc:
+            if not ("delta" in entry and "delta" in inc):
+                raise ValueError(
+                    f"cannot mix a factored LoRA with a full-rank delta at "
+                    f"{name}")
+            sites[name] = {
+                "delta": alpha * inc["delta"] + beta * entry["delta"]}
+            continue
+        sites[name] = {"up": alpha * inc["up"] + beta * entry["up"],
+                       "down": alpha * inc["down"] + beta * entry["down"]}
+    return {**lora, "sites": sites}
+
+
+def join_loras(loras: Sequence[LoraTree]) -> Tuple[LoraTree, List[int]]:
+    """N LoRAs as one of rank sum(r_i): down concatenated on the rank axis
+    0, up on axis 1 (the reference's lora_join, lora_manager.py:44-55).
+    Returns (joined, ranklist) for block-diagonal selector tuning."""
+    names = set(loras[0]["sites"])
+    for other in loras[1:]:
+        if set(other["sites"]) != names:
+            raise ValueError("join requires identical site sets")
+    ranklist = []
+    for lora in loras:
+        if any("delta" in e for e in lora["sites"].values()):
+            raise ValueError(
+                "join requires factored (up, down) LoRAs; full-rank "
+                "LoHa/LoKr/IA3 deltas have no rank axis to concatenate")
+        ranks = {e["down"].shape[0] for e in lora["sites"].values()}
+        if len(ranks) > 1:
+            raise ValueError("Rank should be the same per model")
+        ranklist.append(ranks.pop() if ranks else 0)
+    sites = {name: {
+        "up": torch.cat([l["sites"][name]["up"] for l in loras], dim=1),
+        "down": torch.cat([l["sites"][name]["down"] for l in loras], dim=0),
+    } for name in loras[0]["sites"]}
+    return {"sites": sites, "scale": _unit_scale(loras[0])}, ranklist
+
+
+def _entry_delta(entry: dict) -> torch.Tensor:
+    """A site's weight delta in f32: the full-rank entry, or up @ down with
+    conv kernels flattened to 2-D (lora.py:635-669)."""
+    if "delta" in entry:
+        return entry["delta"].float()
+    up, down = entry["up"].float(), entry["down"].float()
+    with f32_products():
+        return up.reshape(up.shape[0], -1) @ down.reshape(down.shape[0], -1)
+
+
+def collapse_lora(params: Dict[str, torch.Tensor], lora: LoraTree,
+                  alpha: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Fold the LoRA into the base weights: W += alpha * delta, in f32 and
+    cast back to W's dtype (the runtime scale and selector are not
+    applied, as in the reference). Returns a new params dict. An int8
+    (quantized) weight has no f32 value to fold into: that raises."""
+    out = dict(params)
+    for name, entry in lora["sites"].items():
+        key = name + ".weight"
+        w = out[key]
+        if w.dtype == torch.int8:
+            raise ValueError(
+                f"collapse_lora: {key!r} is an int8-quantized weight; "
+                f"collapse the LoRA before quantize_base")
+        delta = _entry_delta(entry).to(w.device)
+        out[key] = (w.float() + alpha * delta.reshape(w.shape)).to(w.dtype)
+    return out
+
+
+def lora_ranks(lora: LoraTree, sites: Sequence[Site]) -> List[int]:
+    out = []
+    for s in sites:
+        entry = lora["sites"][s.name]
+        if "delta" in entry:
+            raise ValueError(
+                f"site {s.name} holds a full-rank delta; it has no rank")
+        out.append(int(entry["down"].shape[0]))
+    return out
+
+
+def inspect_lora(lora: LoraTree) -> Dict[str, List[float]]:
+    """Per-site mean |delta| drift diagnostic (lora.py:1025-1042)."""
+    return {name: [float(_entry_delta(entry).abs().mean())]
+            for name, entry in lora["sites"].items()}
+
+
+def stack_loras(loras: Sequence[LoraTree]) -> LoraTree:
+    """K same-shape LoRAs as one tree for per-sample routed serving: up
+    (K, out, r[, 1, 1]), down (K, r, in[, kh, kw]), scale (K,). At apply
+    time the tree carries "idx" (B,) (with_lora_idx; the pipeline's
+    lora_idx=) picking an adapter per batch element."""
+    names = set(loras[0]["sites"])
+    for other in loras[1:]:
+        if set(other["sites"]) != names:
+            raise ValueError("stack requires identical site sets")
+    sites = {}
+    for name in loras[0]["sites"]:
+        entries = [l["sites"][name] for l in loras]
+        if any("delta" in e for e in entries):
+            raise ValueError(
+                f"stack requires factored (up, down) LoRAs at {name}; "
+                f"full-rank LoHa/LoKr/IA3 deltas are not routable")
+        shapes = {(tuple(e["up"].shape), tuple(e["down"].shape))
+                  for e in entries}
+        if len(shapes) > 1:
+            raise ValueError(f"rank mismatch at {name}: {shapes}")
+        sites[name] = {"up": torch.stack([e["up"] for e in entries]),
+                       "down": torch.stack([e["down"] for e in entries])}
+    scale = torch.stack([l["scale"].to(torch.float32).reshape(())
+                         for l in loras])
+    return {"sites": sites, "scale": scale}
+
+
+def with_lora_idx(lora: LoraTree, idx) -> LoraTree:
+    """Attach the per-sample adapter index to a stacked LoRA tree."""
+    return {**lora, "idx": torch.as_tensor(idx, dtype=torch.long,
+                                           device=lora["scale"].device)}
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,14 @@ inpainting and latent-blend inpainting, the serving path.
 The counterpart of lora_tpu/pipelines/sd.py. The pipeline owns the UNet, the
 CLIP text encoder and the VAE as nn.Modules and the loaded LoRAs as data
 (core/lora.py): patch_pipe loads a LoRA (+ TI embeds) file in the indexed
-"{model}:{idx}:up|down" schema, and every UNet / text-encoder call gets the
-LoRA tree passed in. The denoising loop (_denoise: ddim | pndm | euler |
+"{model}:{idx}:up|down" schema, or a kohya-ss / LoCon file
+(formats/kohya.py) or a LyCORIS file (formats/lycoris.py) in the
+lora_unet_* / lora_te_* schema, and every UNet / text-encoder call gets the
+LoRA tree passed in. LyCORIS norm modules and bias diffs are base-param
+deltas: the pipeline writes W + alpha * delta into its modules' params,
+keeps the originals to restore them, and re-applies at every
+tune_lora_scale; collapse_lora folds the LoRAs and these deltas into the
+base weights. The denoising loop (_denoise: ddim | pndm | euler |
 euler_a | dpm++, with Karras sigmas for the Euler pair) is a Python loop
 under torch.inference_mode(); latents and images are NHWC, as in the JAX
 package. Every random draw comes from a torch.Generator, or is handed in
@@ -15,8 +21,6 @@ per-step noise), so tests can reproduce the JAX package's draws.
 `quantize_base` turns the base weights int8 (core/quantize.py);
 `prompt_embeds` pass precomputed conditioning through, as the serving embed
 cache does (serve.py).
-
-Still to port (ROADMAP Queue A): kohya-ss / LyCORIS files in patch_pipe.
 """
 
 from __future__ import annotations
@@ -28,8 +32,15 @@ import torch
 
 from ..core import lora as lora_core
 from ..core.quantize import quantize_params_int8
-from ..core.sites import text_encoder_lora_sites, unet_lora_sites
+from ..core.sites import (
+    text_encoder_locon_sites,
+    text_encoder_lora_sites,
+    unet_locon_sites,
+    unet_lora_sites,
+)
 from ..data.tokenizer import CLIPTokenizer, default_tokenizer
+from ..formats.kohya import load_kohya
+from ..formats.lycoris import is_lycoris, load_lycoris
 from ..formats.safetensors_io import (
     SafetensorsFile,
     parse_safeloras,
@@ -98,6 +109,10 @@ class StableDiffusionPipeline:
         # tune_lora_scale (patch_pipe / apply_ti / remove_lora), so caches of
         # adapter-dependent results (the serving embed LRU) see the change
         self.adapter_generation = 0
+        # a LyCORIS file's base-param deltas per model ("unet",
+        # "text_encoder"): {"deltas": {name: f32}, "orig": {name: clone},
+        # "alpha": the scale they were last applied at}
+        self.base_deltas: Optional[Dict[str, dict]] = None
 
     @classmethod
     def random_init(cls, generator: torch.Generator, device,
@@ -158,15 +173,25 @@ class StableDiffusionPipeline:
     def patch_pipe(self, path: str, patch_unet: bool = True,
                    patch_text: bool = True,
                    patch_ti: bool = True) -> Dict[str, np.ndarray]:
-        """Load a LoRA (+ TI embeds) file in the indexed schema; returns the
-        embeds. The reference's patch_pipe (lora.py:958-1022)."""
+        """Load a LoRA (+ TI embeds) file; returns the embeds. The
+        reference's patch_pipe (lora.py:958-1022). Files in the kohya-ss /
+        webui key schema (lora_unet_* / lora_te_*) load through
+        formats/kohya.py, or formats/lycoris.py when they carry a LyCORIS
+        factor, against the LoCon site supersets; they carry no embeds.
+        A new file first restores the base params an earlier LyCORIS file
+        changed, whatever its format: base deltas never stack."""
+        self._clear_base_deltas()
         with SafetensorsFile(path) as f:
-            if any(k.startswith(("lora_unet_", "lora_te_")) for k in f.keys()):
-                raise NotImplementedError(
-                    f"{path} is a kohya-ss / LyCORIS file: not ported yet "
-                    "(ROADMAP Queue A: kohya/LyCORIS in patch_pipe)")
-            loras = parse_safeloras(f)
-            embeds = parse_safeloras_embeds(f)
+            keys = list(f.keys())
+            kohya = any(k.startswith(("lora_unet_", "lora_te_"))
+                        for k in keys)
+            if not kohya:
+                loras = parse_safeloras(f)
+                embeds = parse_safeloras_embeds(f)
+        if kohya:
+            self._patch_kohya(path, keys, patch_unet, patch_text)
+            self.adapter_generation += 1
+            return {}
         for model, sites_of, attr, wanted in (
                 ("unet", self.unet_sites, "lora_unet", patch_unet),
                 ("text_encoder", self.text_sites, "lora_text", patch_text)):
@@ -179,6 +204,84 @@ class StableDiffusionPipeline:
             self.apply_ti(embeds)
         self.adapter_generation += 1
         return embeds
+
+    def _patch_kohya(self, path: str, keys: List[str], patch_unet: bool,
+                     patch_text: bool) -> None:
+        """A kohya / LoCon or LyCORIS file's trees, their entries in the
+        pipeline's dtype on its device (LyCORIS modules composed there from
+        the current base weights); the LyCORIS param deltas installed."""
+        kw = dict(
+            unet_sites=(unet_locon_sites(self.unet.cfg)
+                        if patch_unet else None),
+            text_sites=(text_encoder_locon_sites(self.text_encoder.cfg)
+                        if patch_text else None),
+            dtype=self.dtype, device=self.device)
+        if is_lycoris(keys):
+            lu, lt = load_lycoris(
+                path, unet_params=self.unet.flat_params(),
+                text_params=self.text_encoder.flat_params(), **kw)
+            lu = self._install_base_deltas("unet", lu)
+            lt = self._install_base_deltas("text_encoder", lt)
+        else:
+            lu, lt = load_kohya(path, **kw)
+        if lu is not None:
+            self.lora_unet = lu
+        if lt is not None:
+            self.lora_text = lt
+
+    def _module(self, model: str) -> torch.nn.Module:
+        return {"unet": self.unet, "text_encoder": self.text_encoder}[model]
+
+    def _install_base_deltas(self, model: str, tree: Optional[dict]):
+        """Pop a LyCORIS tree's `param_deltas`, record clones of the params
+        they change, and apply them at scale 1. Returns the tree without
+        them (None if it held nothing else)."""
+        if tree is None or "param_deltas" not in tree:
+            return tree
+        tree = dict(tree)
+        deltas = tree.pop("param_deltas")
+        params = self._module(model).flat_params()
+        if self.base_deltas is None:
+            self.base_deltas = {}
+        self.base_deltas[model] = {
+            "deltas": deltas,
+            "orig": {k: params[k].detach().clone() for k in deltas},
+            "alpha": None}
+        self._apply_base_deltas(model, 1.0)
+        return tree if tree["sites"] else None
+
+    def _apply_base_deltas(self, model: str, alpha: float) -> None:
+        """W = orig + alpha * delta in f32, cast to the param's dtype."""
+        rec = (self.base_deltas or {}).get(model)
+        if rec is None:
+            return
+        module = self._module(model)
+        for k, d in rec["deltas"].items():
+            o = rec["orig"][k]
+            module.set_param(k, (o.float() + alpha * d.float()).to(o.dtype))
+        rec["alpha"] = float(alpha)
+
+    def _clear_base_deltas(self, restore: bool = True) -> None:
+        """Drop the base-delta records, first writing the original params
+        back (bit for bit) unless `restore` is False."""
+        for model, rec in (self.base_deltas or {}).items():
+            if restore:
+                module = self._module(model)
+                for k, o in rec["orig"].items():
+                    module.set_param(k, o)
+        self.base_deltas = None
+
+    def has_base_deltas(self, model: str) -> bool:
+        """Whether alpha-dependent base-param deltas (LyCORIS norm/full
+        modules) are installed on `model`: serving caches of that model's
+        outputs must key on the alpha, as for a LoRA."""
+        return bool((self.base_deltas or {}).get(model))
+
+    def base_delta_alpha(self, model: str) -> Optional[float]:
+        """The scale `model`'s base deltas were last applied at (None
+        without base deltas)."""
+        rec = (self.base_deltas or {}).get(model)
+        return None if rec is None else rec["alpha"]
 
     def apply_ti(self, embeds: Dict[str, np.ndarray]) -> List[str]:
         """Add TI tokens to the tokenizer (a token already there keeps its
@@ -203,23 +306,43 @@ class StableDiffusionPipeline:
 
     def tune_lora_scale(self, alpha: float,
                         text_alpha: Optional[float] = None) -> None:
+        """The LoRAs' scale, and the base deltas re-applied at it (the text
+        encoder's at `text_alpha` when given)."""
+        text_alpha = alpha if text_alpha is None else text_alpha
         if self.lora_unet is not None:
             self.lora_unet = lora_core.tune_lora_scale(self.lora_unet, alpha)
         if self.lora_text is not None:
-            self.lora_text = lora_core.tune_lora_scale(
-                self.lora_text, alpha if text_alpha is None else text_alpha)
+            self.lora_text = lora_core.tune_lora_scale(self.lora_text,
+                                                       text_alpha)
+        self._apply_base_deltas("unet", alpha)
+        self._apply_base_deltas("text_encoder", text_alpha)
 
     def remove_lora(self) -> None:
-        """The reference's monkeypatch_remove_lora (lora.py:812-847)."""
+        """The reference's monkeypatch_remove_lora (lora.py:812-847); base
+        deltas are restored."""
         self.lora_unet = None
         self.lora_text = None
+        self._clear_base_deltas()
         self.adapter_generation += 1
 
-    def has_base_deltas(self, model: str) -> bool:
-        """Whether alpha-dependent base-param deltas (LyCORIS norm/full
-        modules) are installed on `model`. None are until kohya/LyCORIS
-        files load (ROADMAP Queue A); serving caches ask."""
-        return False
+    def collapse_lora(self, alpha: float = 1.0) -> None:
+        """Fold the LoRAs into the base weights at `alpha` (lora.py:
+        635-669; core/lora.collapse_lora: f32, cast back), and the base
+        deltas at the same alpha, whose restore record is dropped. Delta
+        entries fold as stored (in the pipeline's dtype). An int8 base
+        raises: collapse before quantize_base."""
+        for module, lora in ((self.unet, self.lora_unet),
+                             (self.text_encoder, self.lora_text)):
+            if lora is None:
+                continue
+            params = module.flat_params()
+            for k, v in lora_core.collapse_lora(params, lora, alpha).items():
+                if v is not params[k]:
+                    module.set_param(k, v)
+        for model in self.base_deltas or {}:
+            self._apply_base_deltas(model, alpha)
+        self._clear_base_deltas(restore=False)
+        self.remove_lora()
 
     def quantize_base(self) -> None:
         """Serving memory lever: int8 per-channel base weights for the UNet,

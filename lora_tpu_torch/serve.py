@@ -32,6 +32,14 @@ and txt2img requests their own seed-derived latents
 LRU keyed by (text, adapter generation, effective alpha). The scheduler
 name is checked against the pipeline's set at admit.
 
+Adapters: the pipe may hold an indexed, kohya / LoCon or LyCORIS file
+(patch_pipe, also on a live server: the adapter generation invalidates the
+cached embeddings), or K stacked adapters (core/lora.stack_loras) that
+`lora_idx` routes per prompt row. A request's `alpha` re-tunes the LoRAs
+and a LyCORIS file's base-param deltas (norm modules, bias diffs); the
+effective text alpha in the embed key covers both, so a file whose text
+modules are all norms still keys its embeddings on alpha.
+
 Image modes: mode="img2img" takes a base64 PNG `image` (its size defines the
 sampling size; one PNG per prompt row, or a single PNG replicated);
 mode="inpaint" also takes a same-size `mask` PNG (luma >= 128 = repaint)
@@ -690,21 +698,24 @@ class PipelineServer:
     def _embed_key_alpha(self):
         """The embed cache's adapter component: the adapter generation (a
         patch_pipe / apply_ti / remove_lora on a live server invalidates
-        the entries) and, with a text-encoder LoRA patched, the EFFECTIVE
-        scale, read from the pipe's text LoRA (not the request field: a
-        request that omits alpha runs at the current scale, which may have
-        been tuned before the server started). Unlike lora_tpu, which
-        tracks the last request's alpha from an assumed 1.0, this key holds
-        whatever scale the pipe was given. Caller holds the pipe lock."""
+        the entries) and the EFFECTIVE text alpha, from the pipe (not the
+        request field: a request that omits alpha runs at the current
+        scale, which may have been tuned before the server started): the
+        text LoRA's scale, and the alpha the text encoder's LyCORIS base
+        deltas were last applied at (a file of norm modules alone leaves
+        no text LoRA, yet its embeddings follow alpha). Without either the
+        embeddings do not depend on alpha: one entry per text. Unlike
+        lora_tpu, which tracks the last request's alpha from an assumed
+        1.0, this key holds whatever scale the pipe was given. Caller holds
+        the pipe lock."""
         gen = self.pipe.adapter_generation
-        if self.pipe.has_base_deltas("text_encoder"):
-            raise NotImplementedError(
-                "LyCORIS base deltas on the text encoder are not ported yet "
-                "(ROADMAP Queue A: kohya/LyCORIS in patch_pipe)")
         lora = self.pipe.lora_text
-        if lora is None:
+        scale = None if lora is None else tuple(
+            lora["scale"].reshape(-1).tolist())
+        base = self.pipe.base_delta_alpha("text_encoder")
+        if scale is None and base is None:
             return gen, None
-        return gen, tuple(lora["scale"].reshape(-1).tolist())
+        return gen, (scale, base)
 
     def _assemble_rows(self, group: list):
         """Flatten a coalesced group into device-batch rows: (prompts padded

@@ -197,10 +197,24 @@ def test_unported_paths_raise(params, tmp_path):
     with pytest.raises(ValueError, match="in_channels=9"):
         pipe.inpaint("x", img, torch.ones((1, 64, 64, 1)),
                      generator=torch.Generator())
+    # kohya-ss files are ported: a LoCon module on proj_in loads and
+    # applies (formats/kohya.py; tests/test_torch_port_kohya.py holds them
+    # against lora_tpu)
     from lora_tpu_torch.formats.reader import save_file
 
     kohya = str(tmp_path / "kohya.safetensors")
-    save_file({"lora_unet_down_blocks_0_attentions_0_proj_in.lora_up.weight":
-               np.zeros((4, 4), np.float32)}, kohya, {})
-    with pytest.raises(NotImplementedError, match="kohya"):
-        pipe.patch_pipe(kohya)
+    base = "lora_unet_down_blocks_0_attentions_0_proj_in"
+    rng = np.random.default_rng(0)
+    save_file({base + ".lora_up.weight": rng.standard_normal(
+                   (32, 4, 1, 1)).astype(np.float32),
+               base + ".lora_down.weight": rng.standard_normal(
+                   (4, 32, 1, 1)).astype(np.float32),
+               base + ".alpha": np.asarray(2.0, np.float32)}, kohya, {})
+    before = pipe("x", num_inference_steps=2, height=64, width=64,
+                  generator=torch.Generator().manual_seed(1))
+    assert pipe.patch_pipe(kohya) == {}
+    assert list(pipe.lora_unet["sites"]) == [
+        "down_blocks.0.attentions.0.proj_in"]
+    after = pipe("x", num_inference_steps=2, height=64, width=64,
+                 generator=torch.Generator().manual_seed(1))
+    assert np.abs(after - before).max() > 1e-4

@@ -258,6 +258,94 @@ def test_embed_cache_invalidated_on_adapter_swap(server, tmp_path):
         pipe.adapter_generation += 1
 
 
+def test_embed_cache_keys_on_text_base_delta_alpha(server, tmp_path):
+    """A LyCORIS file whose text modules are all norms leaves no text LoRA,
+    yet its base deltas make the embeddings depend on alpha: the cache
+    keys on the alpha they were last applied at (a key without it would
+    serve alpha 0's embeddings at alpha 1)."""
+    from lora_tpu_torch.formats.reader import save_file
+
+    pipe = server.pipe
+    had_text, had_unet = pipe.lora_text, pipe.lora_unet
+    rng = np.random.default_rng(4)
+    tensors = {}
+    for i in range(TINY_TEXT.num_hidden_layers):
+        base = f"lora_te_text_model_encoder_layers_{i}_layer_norm1"
+        for leaf in ("w_norm", "b_norm"):
+            tensors[f"{base}.{leaf}"] = (0.5 * rng.standard_normal(
+                TINY_TEXT.hidden_size)).astype(np.float32)
+    path = str(tmp_path / "text_norms.safetensors")
+    save_file(tensors, path)
+    base = {"prompt": "norm probe", "steps": 2, "height": 64, "width": 64,
+            "seed": 17}
+    try:
+        with server.lock:
+            pipe.patch_pipe(path)
+        assert pipe.lora_text is None and pipe.has_base_deltas(
+            "text_encoder")
+        out_a, _ = _post(server, {**base, "alpha": 0.0})
+        out_none, _ = _post(server, base)        # runs at effective 0.0
+        out_b, _ = _post(server, {**base, "alpha": 1.0})
+        out_none2, _ = _post(server, base)       # now effective 1.0
+        assert out_none["images"] == out_a["images"]
+        assert out_none2["images"] == out_b["images"]
+        assert out_a["images"] != out_b["images"]
+        keys = {k for t, k in server._embeds if t == "norm probe"}
+        assert len(keys) == 2, keys
+    finally:
+        with server.lock:
+            pipe.remove_lora()
+        pipe.lora_text, pipe.lora_unet = had_text, had_unet
+    # remove_lora wrote the original params back
+    assert not pipe.has_base_deltas("text_encoder")
+
+
+def test_stacked_adapters_routed_in_one_group(server):
+    """stack_loras + lora_idx: one 2-prompt request routes row 0 through
+    adapter A and row 1 through adapter B, in one device batch; each row
+    equals that row of the same request served with its adapter alone
+    (unstacked, unrouted), within the quantized pipeline's limits: the
+    routed bypass sums in another order, and every int8 dense rounds its
+    input to bf16."""
+    from lora_tpu_torch.core.lora import stack_loras
+
+    pipe = server.pipe
+    had_text, had_unet = pipe.lora_text, pipe.lora_unet
+    adapters = []
+    for seed in (31, 32):
+        lora = init_lora(pipe.unet_sites(), r=2, device="cpu",
+                         generator=torch.Generator().manual_seed(seed))
+        g = torch.Generator().manual_seed(seed + 10)
+        for e in lora["sites"].values():
+            e["up"] = 0.3 * torch.randn(e["up"].shape, generator=g)
+        adapters.append(lora)
+    base = {"prompt": ["route a", "route b"], "steps": 2, "height": 64,
+            "width": 64, "seed": 19}
+
+    def pixels(out):
+        return [t_serve._png_decode(base64.b64decode(b)) / 255.0
+                for b in out["images"]]
+
+    try:
+        pipe.lora_text = None
+        pipe.lora_unet = stack_loras(adapters)
+        routed, status = _post(server, {**base, "lora_idx": [0, 1]})
+        assert status == 200 and routed["batched_with"] == 1
+        assert server.last_device_batch == 2
+        alone = []
+        for lora in adapters:
+            pipe.lora_unet = lora
+            alone.append(pixels(_post(server, base)[0]))
+    finally:
+        pipe.lora_text, pipe.lora_unet = had_text, had_unet
+    got = pixels(routed)
+    for row in (0, 1):
+        diff = np.abs(got[row] - alone[row][row])
+        assert diff.max() <= IMAGE_MAX_ABS and diff.mean() <= IMAGE_MEAN_ABS
+        other = np.abs(got[row] - alone[1 - row][row])
+        assert other.mean() > 10 * IMAGE_MEAN_ABS, other.mean()
+
+
 def test_mixed_config_concurrency(server):
     """Concurrent requests with DIFFERENT configs are never merged, and all
     complete (the spill path seeds the next batch)."""
