@@ -52,8 +52,16 @@
                                         # 4) and request A's int8 shapes
                                         # (untimed), every shape phase 11
                                         # reached checked against them
+    python3 chip_smoke.py --train       # phases 1, 2 (the flash sources
+                                        # and adam8bit.cu only), the
+                                        # tf32x3 and wgmma backward
+                                        # kernels' first calls in child
+                                        # processes under a timeout, 12
+                                        # (with its own flash checks at
+                                        # the trainer's shapes), and the
+                                        # kernels line's adam8bit row
 
-Phases, each printing its own lines (about 8 minutes on one H100, most of
+Phases, each printing its own lines (about 10 minutes on one H100, most of
 it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
@@ -61,7 +69,7 @@ it the build of the kernels):
      flash_bwd_dkv_wgmma.cu, flash_bwd_dq_wgmma.cu,
      flash_bwd_dkv_tf32x3.cu, flash_bwd_dkv_tf32x3_wide.cu,
      flash_bwd_dq_tf32x3.cu, flash_bwd_dq_tf32x3_wide.cu, int8_matmul.cu,
-     int8_matmul_wgmma.cu, int8_matmul_wgmma_f32.cu; one
+     int8_matmul_wgmma.cu, int8_matmul_wgmma_f32.cu, adam8bit.cu; one
      nvcc each, in parallel) for sm_90a into the build directory, and
      prints ptxas's registers, shared memory and spills of the wgmma and
      tf32x3 kernels, each tf32x3 forward and backward instance's tiles and
@@ -224,6 +232,35 @@ it the build of the kernels):
      refused on the int8 base with a ValueError. Every flash and int8 call
      of phases 5 to 11 is recorded, and one at a shape phase 3 or phase 8
      did not check fails the run.
+  12. trainer: DreamBooth training through its entry point,
+     cli.lora_db.train. 12a: the blockwise-int8 Adam kernel
+     (csrc/adam8bit.cu) against its plain version at the counted run's
+     UNet and CLIP group sizes, 256 * 1000 + 37 and 1 elements, 3 updates
+     each with the clip scale on the device: params, codes and scales bit
+     for bit; at the UNet group its wrapper, device (CUDA graph), plain
+     and bound times. The flash kernels against their plain versions
+     (untimed) at the trainer's shapes: f32 forward at batch 4 and 2, f32
+     dQ and dK/dV at batch 2, bf16 at batch 1. 12b: a random full-width
+     SD-1.5 pipeline from the seed written as an fp16 diffusers directory
+     without a CLIP vocabulary (the hashed tokenizer, opted in), and four
+     instance PNGs (512^2, 480x640, 720x480, 768^2). 12c: the counted run,
+     f32 at 512px, rank 4, the text encoder trained, prior preservation
+     with 2 class images sampled at 10 steps, the 8-bit Adam, uncached
+     latents, lr 1e-4, 20 steps, saves every 10 with the train state, .pt
+     and safetensors: 20 steps, no preemption, finite losses at steps 1,
+     10 and 20, every artifact, the class PNGs at 512^2, the final file
+     through patch_pipe moving a UNet call, and exactly the launches of 20
+     f32 steps (per step 15 forward through flash_fwd_tf32x3.cu, dQ and
+     dK/dV 10 through the tf32x3 and 5 through the tf32x3_wide kernels, 2
+     adam8bit) and of 10 sampling UNet calls, none through an mma.sync
+     kernel; the median step time (CUDA events around each step), peak
+     memory and the 8-bit state's bytes against f32 AdamW's. 12d: resumed
+     from 12c's train state to 25 steps. 12e: bf16, cached latents, LoCon
+     targets in the kohya schema, AdamW, 5 steps, every flash launch
+     through the wgmma kernels, the file through patch_pipe. 12f: `python
+     -m lora_tpu_torch.cli.lora_db` as a child process, 2 steps with
+     cached latents. Every flash forward call of 12c-12e is recorded and
+     must be at a checked shape.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -415,7 +452,7 @@ def phase_build(stems=None) -> None:
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for stem in ("int8_matmul", "int8_matmul_wgmma", "int8_matmul_wgmma_f32",
-                 "flash_fwd_wgmma",
+                 "adam8bit", "flash_fwd_wgmma",
                  "flash_fwd_tf32x3", "flash_bwd_dkv_wgmma",
                  "flash_bwd_dq_wgmma",
                  "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
@@ -3139,6 +3176,464 @@ def phase_adapters(smi: str):
     return fwd_total, f32_total, int8_total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the DreamBooth trainer through lora_db
+# ---------------------------------------------------------------------------
+
+# 12a: extra group sizes of the blockwise-int8 Adam check (a ragged last
+# block, one element) beside the counted run's UNet and CLIP groups
+ADAM8BIT_EXTRA_N = (256 * 1000 + 37, 1)
+ADAM8BIT_UPDATES = 3
+# f32 operations per element of the update (csrc/adam8bit.cu: the clip,
+# two dequantizations, the moments, the step, the decayed update, the
+# absmax and two encodes): the operation side of its bound; 16 bytes per
+# element (g and p read, p written, two int8 codes read and written) and
+# 16 per block of 256 (two scales read and written) are the byte side
+ADAM8BIT_OPS_PER_ELEMENT = 32
+# 12b-12f: the counted run and the runs after it
+TRAINER_STEPS, TRAINER_SAVE_STEPS = 20, 10
+TRAINER_RESUME_STEPS = 25
+TRAINER_BF16_STEPS = 5
+TRAINER_CLI_STEPS = 2
+TRAINER_CLASS_IMAGES, TRAINER_SAMPLE_STEPS = 2, 10
+TRAINER_RANK = 4
+# the instance images: (height, width), each resized to 512 on its short
+# side and center-cropped
+TRAINER_IMAGES = ((512, 512), (480, 640), (720, 480), (768, 768))
+
+
+def lora_group_size(sites, rank: int) -> int:
+    """Elements of a rank-`rank` LoRA group raveled: every site's down and
+    up, and the scale leaf."""
+    n = 1
+    for s in sites:
+        kh, kw = (1, 1) if s.kind == "linear" else tuple(s.kernel)
+        n += rank * s.in_dim * kh * kw + s.out_dim * rank
+    return n
+
+
+def check_adam8bit(n: int, gen, timed: bool) -> dict:
+    """adam8bit_update against its plain version on the card: a group of n
+    elements, ADAM8BIT_UPDATES updates with the clip scale as a device
+    tensor; params, codes and scales must be bit-identical after each.
+    Timed: the wrapper (host launch path included), its device time from
+    CUDA-graph replays, the plain version, and the bound."""
+    from lora_tpu_torch.ops import adam8bit as a8
+    from lora_tpu_torch.training.optim import _bias_corrections
+
+    p = torch.randn(n, generator=gen, device="cuda")
+    q, s = a8.quantize(torch.zeros(n, device="cuda"))
+    kern = [p.clone(), q.clone(), s.clone(), q.clone(), s.clone()]
+    plain = [t.clone() for t in kern]
+    clip = torch.tensor(0.7, device="cuda")
+    for count in range(1, ADAM8BIT_UPDATES + 1):
+        g = 0.01 * torch.randn(n, generator=gen, device="cuda")
+        c1, c2 = _bias_corrections((0.9, 0.999), count)
+        kw = dict(lr=1e-4, wd=1e-2, b1=0.9, b2=0.999, eps=1e-8, c1=c1, c2=c2)
+        before = a8.adam8bit_update.launches
+        a8.adam8bit_update(g, clip, *kern, **kw)
+        a8.adam8bit_update_reference(g, clip, *plain, **kw)
+        torch.cuda.synchronize()
+        if a8.adam8bit_update.launches != before + 1:
+            raise AssertionError("adam8bit_update did not launch its kernel")
+        for name, a, b in zip(("p", "mu_q", "mu_s", "nu_q", "nu_s"), kern,
+                              plain):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"adam8bit kernel and plain version differ in {name} at "
+                    f"n = {n}, update {count}: max |diff| "
+                    f"{(a.float() - b.float()).abs().max().item()}")
+    nb = a8.n_blocks(n)
+    row = {"n": n, "blocks": nb, "updates": ADAM8BIT_UPDATES,
+           "bit_identical": True,
+           "max_abs_err": (kern[0] - plain[0]).abs().max().item()}
+    if timed:
+        row["ms"] = _time_ms(lambda: a8.adam8bit_update(g, clip, *kern, **kw))
+        row["device_ms"] = _graph_ms(
+            lambda: a8.adam8bit_update(g, clip, *kern, **kw))
+        row["plain_ms"] = _time_ms(
+            lambda: a8.adam8bit_update_reference(g, clip, *plain, **kw))
+        row.update(_bound(ADAM8BIT_OPS_PER_ELEMENT * n, 16 * n + 16 * nb,
+                          PEAK_F32_FLOPS))
+    log("adam8bit: " + json.dumps(row))
+    return row
+
+
+def _trainer_groups():
+    from lora_tpu_torch.core.sites import (
+        text_encoder_lora_sites,
+        unet_lora_sites,
+    )
+    from lora_tpu_torch.models.config import SD15_TEXT, SD15_UNET
+
+    return (lora_group_size(unet_lora_sites(SD15_UNET), TRAINER_RANK),
+            lora_group_size(text_encoder_lora_sites(SD15_TEXT),
+                            TRAINER_RANK))
+
+
+def _trainer_inputs(root: str):
+    """12b: a random full-width SD-1.5 pipeline from the seed in f32 on the
+    card, written as an fp16 diffusers directory (no CLIP vocabulary: the
+    hashed tokenizer, opted in through LORA_TPU_ALLOW_HASHED_TOKENIZER),
+    and TRAINER_IMAGES as PNGs by the port's encoder."""
+    from lora_tpu_torch.data.png import _png_bytes
+    from lora_tpu_torch.models.hf_import import save_pipeline_params
+    from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
+
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline.random_init(
+        torch.Generator("cuda").manual_seed(SEED), "cuda")
+    model = os.path.join(root, "model")
+    save_pipeline_params(pipe, model, fp16=True)
+    inst = os.path.join(root, "instance")
+    os.makedirs(inst)
+    rng = np.random.default_rng(SEED)
+    for i, (h, w) in enumerate(TRAINER_IMAGES):
+        yy, xx = np.mgrid[0:h, 0:w]
+        rgb = np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1),
+                        (xx + yy) % 256], -1) + rng.integers(-20, 20,
+                                                             (h, w, 3))
+        with open(os.path.join(inst, f"{i}.png"), "wb") as f:
+            f.write(_png_bytes(np.clip(rgb, 0, 255).astype(np.uint8)))
+    os.environ["LORA_TPU_ALLOW_HASHED_TOKENIZER"] = "1"
+    log(f"trainer: inputs {model} (fp16) and {len(TRAINER_IMAGES)} PNGs "
+        f"{TRAINER_IMAGES} in {time.perf_counter() - t0:.1f} s")
+    return pipe, model, inst
+
+
+@contextlib.contextmanager
+def timing_trainer_steps(record: dict):
+    """Wraps the trainer's step factory (training/dreambooth.py
+    make_train_step): CUDA events around each step (read after the run, so
+    the loop gains no host sync) and the optimizer it was built with."""
+    from lora_tpu_torch.training import dreambooth
+
+    real = dreambooth.make_train_step
+
+    def make_train_step(**kw):
+        step = real(**kw)
+        record["optimizer"] = kw["optimizer"]
+        record["events"] = []
+
+        def timed_step(*a, **kw2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(*a, **kw2)
+            end.record()
+            record["events"].append((start, end))
+            return loss
+
+        return timed_step
+
+    dreambooth.make_train_step = make_train_step
+    try:
+        yield record
+    finally:
+        dreambooth.make_train_step = real
+
+
+def _step_ms(record: dict, skip: int = 2) -> list:
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in record["events"][skip:]]
+
+
+def _launches():
+    from lora_tpu_torch.ops.adam8bit import adam8bit_update
+
+    return {"flash_fwd": dict(fa.flash_fwd.launches_by_kernel),
+            "flash_bwd_dq": dict(fa.flash_bwd_dq.launches_by_kernel),
+            "flash_bwd_dkv": dict(fa.flash_bwd_dkv.launches_by_kernel),
+            "adam8bit": adam8bit_update.launches}
+
+
+def _zero_trainer_counts():
+    from lora_tpu_torch.ops.adam8bit import adam8bit_update
+
+    _zero_counts()
+    adam8bit_update.launches = 0
+
+
+def _scaled(counts: dict, k: int) -> dict:
+    return {r: k * n for r, n in counts.items()}
+
+
+def _added(a: dict, b: dict) -> dict:
+    return {r: a[r] + b[r] for r in a}
+
+
+def _expect_launches(what: str, got: dict, steps: int, unet_calls: int,
+                     dt, adam: int) -> None:
+    """Every flash launch of `steps` training steps and `unet_calls`
+    sampling UNet calls through the routes _per_step_want names for `dt`
+    (no mma.sync kernel), and `adam` blockwise-int8 updates."""
+    dq, dkv, fwd = _per_step_want(dt)
+    want = {"flash_fwd": _scaled(fwd, steps + unet_calls),
+            "flash_bwd_dq": _scaled(dq, steps),
+            "flash_bwd_dkv": _scaled(dkv, steps), "adam8bit": adam}
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, not {want}")
+
+
+def _metrics(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_trainer_result(res: dict, steps: int, what: str) -> None:
+    if res["steps"] != steps or res["preempted"]:
+        raise AssertionError(f"{what}: {res['steps']} steps, preempted "
+                             f"{res['preempted']}; wanted {steps}")
+    if not np.isfinite(res["final_loss"]):
+        raise AssertionError(f"{what}: non-finite final loss")
+
+
+def _patched_unet_check(pipe, path: str, what: str) -> dict:
+    """The file through the port's patch_pipe: one UNet call at batch 4,
+    finite and apart from the call without it."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+    inputs = _unet_inputs(pipe.dtype, gen)
+    pipe.remove_lora()
+    plain = _unet_out(pipe, inputs, None)
+    pipe.patch_pipe(path)
+    out = _unet_out(pipe, inputs, pipe.lora_unet)
+    pipe.remove_lora()
+    moved = (out.float() - plain.float()).abs().max().item()
+    if not torch.isfinite(out).all() or moved == 0.0:
+        raise AssertionError(f"{what}: the UNet call with {path} is not "
+                             f"finite or equals the call without it "
+                             f"(max |diff| {moved})")
+    return {"file": os.path.basename(path), "unet_max_abs_change": moved}
+
+
+def _level_key(row) -> tuple:
+    return row["B"], row["H"], row["T"], row["S"], row["D"], row["dtype"]
+
+
+def trainer_flash_rows(gen, fwd_rows=(), bwd_rows=()) -> list:
+    """The flash kernels against their plain versions, untimed, at the
+    trainer's shapes that phases 3 and 4 (fwd_rows, bwd_rows) did not
+    check: f32 forward at batch 4 (the class images' sampling) and batch 2
+    (prior preservation's [instance | class] rows), f32 dQ and dK/dV at
+    batch 2, bf16 forward, dQ and dK/dV at batch 1 (12e). Returns the
+    forward rows, the given ones included."""
+    rows = list(fwd_rows)
+    done = {_level_key(r) for r in fwd_rows}
+    done_bwd = {_level_key(r) for r in bwd_rows}
+    for B, dtype in ((4, torch.float32), (2, torch.float32),
+                     (1, torch.bfloat16)):
+        for T, D in SD15_ATTN_SHAPES:
+            key = (B, 8, T, T, D, str(dtype).replace("torch.", ""))
+            if key not in done:
+                rows.append(check_kernel(B, 8, T, T, D, dtype, gen,
+                                         timed=False))
+    for B, dtype in ((2, torch.float32), (1, torch.bfloat16)):
+        for T, D in SD15_ATTN_SHAPES:
+            key = (B, 8, T, T, D, str(dtype).replace("torch.", ""))
+            if key not in done_bwd:
+                check_bwd_kernels(B, 8, T, T, D, dtype, gen, timed=False)
+    return rows
+
+
+def phase_trainer(smi: str, fwd_rows=(), bwd_rows=()) -> dict:
+    """Phase 12: 12a the blockwise-int8 Adam kernel against its plain
+    version; 12b the inputs; 12c the counted run through
+    cli.lora_db.train; 12d its resume; 12e bf16 with cached latents and
+    LoCon targets; 12f the console entry as a subprocess. Every flash
+    forward call of 12c-12e is recorded and must be at a shape checked
+    against the plain version (fwd_rows: phase 3's, and this phase's
+    own; bwd_rows: phase 4's, whose levels this phase does not check
+    again)."""
+    from lora_tpu_torch.cli import lora_db
+    from lora_tpu_torch.data.png import png_size
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+    # 12a
+    n_unet, n_text = _trainer_groups()
+    adam_rows = [check_adam8bit(n, gen, timed=(n == n_unet))
+                 for n in (n_unet, n_text) + ADAM8BIT_EXTRA_N]
+    rows = trainer_flash_rows(gen, fwd_rows, bwd_rows)
+    out = {"adam8bit_rows": adam_rows}
+    with tempfile.TemporaryDirectory(prefix="lora_db_") as root:
+        pipe, model, inst = _trainer_inputs(root)
+        common = dict(instance_data_dir=inst,
+                      instance_prompt="a photo of sks dog", resolution=512,
+                      lora_rank=TRAINER_RANK, seed=SEED, learning_rate=1e-4)
+        with recording_flash_shapes(set()) as seen:
+            out.update(_trainer_runs(lora_db, pipe, model, root, common,
+                                     png_size))
+        unchecked = seen - {_row_key(r) for r in rows}
+        if unchecked:
+            raise AssertionError(f"the trainer ran flash_fwd at shapes or "
+                                 f"layouts no check covered: "
+                                 f"{sorted(unchecked)}")
+        log(f"trainer: flash_fwd ran {len(seen)} shapes and layouts, each "
+            f"checked against its plain version")
+        out["cli"] = _trainer_cli(model, inst, root)
+    log(f"trainer: {smi}")
+    return out
+
+
+def _trainer_runs(lora_db, pipe, model, root, common, png_size) -> dict:
+    out = {}
+    # 12c: the counted run
+    run = os.path.join(root, "run")
+    cls = os.path.join(root, "class")
+    flags = dict(common, output_dir=run, train_text_encoder=True,
+                 with_prior_preservation=True, class_data_dir=cls,
+                 class_prompt="a photo of a dog",
+                 num_class_images=TRAINER_CLASS_IMAGES,
+                 sample_steps=TRAINER_SAMPLE_STEPS, use_8bit_adam=True,
+                 max_train_steps=TRAINER_STEPS,
+                 save_steps=TRAINER_SAVE_STEPS, save_train_state=True,
+                 output_format="both")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_trainer_counts()
+    t0 = time.perf_counter()
+    with timing_trainer_steps({}) as rec:
+        res = lora_db.train(model, device="cuda", **flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launches()
+    _check_trainer_result(res, TRAINER_STEPS, "12c")
+    # the class images' sampling: ceil(2 / 4) batch of 2 prompts under CFG
+    unet_calls = TRAINER_SAMPLE_STEPS * -(-TRAINER_CLASS_IMAGES // 4)
+    _expect_launches("12c", got, TRAINER_STEPS, unet_calls, torch.float32,
+                     adam=2 * TRAINER_STEPS)
+    records = _metrics(os.path.join(run, "metrics.jsonl"))
+    steps = [r["step"] for r in records if "step" in r]
+    if steps != [1, TRAINER_SAVE_STEPS, TRAINER_STEPS] or not all(
+            np.isfinite(r["loss"]) and (r["step"] == 1 or "sps" in r)
+            for r in records if "step" in r):
+        raise AssertionError(f"12c metrics.jsonl: {records}")
+    want = {f"lora_weight{s}.{e}" for s in ("", f"_s{TRAINER_SAVE_STEPS}")
+            for e in ("safetensors", "pt", "text_encoder.pt")}
+    want |= {"train_state.safetensors", "metrics.jsonl"}
+    missing = want - set(os.listdir(run))
+    gen_pngs = sorted(f for f in os.listdir(cls) if f.startswith("gen_"))
+    if missing or len(gen_pngs) != TRAINER_CLASS_IMAGES or any(
+            png_size(os.path.join(cls, f)) != (512, 512) for f in gen_pngs):
+        raise AssertionError(f"12c artifacts: missing {sorted(missing)}, "
+                             f"class images {gen_pngs}")
+    patched = _patched_unet_check(
+        pipe, os.path.join(run, "lora_weight.safetensors"), "12c")
+    opt = rec["optimizer"]
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in opt.state_tensors()[1:])
+    n_params = sum(p.numel() for p in opt.params)
+    step_ms = _step_ms(rec)
+    out["counted"] = {
+        "steps": res["steps"], "wall_s": wall,
+        "steps_per_sec": res["steps_per_sec"],
+        "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "losses": {r["step"]: r["loss"] for r in records if "step" in r},
+        "sps": {r["step"]: r["sps"] for r in records if "sps" in r},
+        "launches": got,
+        "launches_per_step": {k: {r: n / TRAINER_STEPS for r, n in v.items()}
+                              if isinstance(v, dict) else v / TRAINER_STEPS
+                              for k, v in got.items()},
+        "class_image_unet_calls": unet_calls,
+        "params": n_params, "int8_adam_state_bytes": state_bytes,
+        "f32_adamw_state_bytes": 8 * n_params,
+        "patched": patched}
+    log("trainer 12c: " + json.dumps(out["counted"]))
+    # 12d: resume from 12c's train state to TRAINER_RESUME_STEPS
+    _zero_trainer_counts()
+    with timing_trainer_steps({}) as rec:
+        res = lora_db.train(model, device="cuda", **dict(
+            flags, output_dir=os.path.join(root, "resumed"),
+            max_train_steps=TRAINER_RESUME_STEPS,
+            resume_state=os.path.join(run, "train_state.safetensors")))
+    _check_trainer_result(res, TRAINER_RESUME_STEPS, "12d")
+    ran = len(rec["events"])
+    if ran != TRAINER_RESUME_STEPS - TRAINER_STEPS:
+        raise AssertionError(f"12d ran {ran} steps, not "
+                             f"{TRAINER_RESUME_STEPS - TRAINER_STEPS}: the "
+                             f"resume did not start at {TRAINER_STEPS}")
+    got = _launches()
+    _expect_launches("12d", got, ran, 0, torch.float32, adam=2 * ran)
+    out["resumed"] = {"start": TRAINER_STEPS, "end": res["steps"],
+                      "final_loss": res["final_loss"], "launches": got}
+    log("trainer 12d: " + json.dumps(out["resumed"]))
+    # 12e: bf16, cached latents, LoCon targets, plain AdamW
+    bf16 = os.path.join(root, "bf16")
+    _zero_trainer_counts()
+    with timing_trainer_steps({}) as rec:
+        res = lora_db.train(model, device="cuda", mixed_precision="bf16",
+                            **dict(common, output_dir=bf16,
+                                   cached_latents=True, lora_targets="locon",
+                                   output_format="safe",
+                                   max_train_steps=TRAINER_BF16_STEPS,
+                                   save_steps=0))
+    _check_trainer_result(res, TRAINER_BF16_STEPS, "12e")
+    got = _launches()
+    _expect_launches("12e", got, TRAINER_BF16_STEPS, 0, torch.bfloat16,
+                     adam=0)
+    out["bf16"] = {"steps": res["steps"], "launches": got,
+                   "step_ms_median": statistics.median(_step_ms(rec, 1)),
+                   "final_loss": res["final_loss"],
+                   "patched": _patched_unet_check(
+                       pipe, os.path.join(bf16, "lora_weight.safetensors"),
+                       "12e")}
+    log("trainer 12e: " + json.dumps(out["bf16"]))
+    return out
+
+
+def _trainer_cli(model: str, inst: str, root: str) -> dict:
+    """12f: `python -m lora_tpu_torch.cli.lora_db` in a child process, 2
+    steps with cached latents; exit 0 and lora_weight.safetensors."""
+    outdir = os.path.join(root, "cli")
+    cmd = [sys.executable, "-m", "lora_tpu_torch.cli.lora_db",
+           "--pretrained_model_name_or_path", model,
+           "--instance_data_dir", inst,
+           "--instance_prompt", "a photo of sks dog", "--output_dir", outdir,
+           "--max_train_steps", str(TRAINER_CLI_STEPS), "--cached_latents",
+           "--save_steps", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    for line in (proc.stdout + proc.stderr).splitlines()[-8:]:
+        log(f"trainer 12f: {line}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(
+            os.path.join(outdir, "lora_weight.safetensors")):
+        raise AssertionError(f"12f: the console entry exited "
+                             f"{proc.returncode} or wrote no "
+                             f"lora_weight.safetensors")
+    log(f"trainer 12f: exit 0 in {wall:.1f} s")
+    return {"exit": proc.returncode, "wall_s": wall}
+
+
+def adam8bit_kernel_row(trainer: dict) -> dict:
+    """The kernels-line row of csrc/adam8bit.cu: launches from the counted
+    run (12c), the worst error and the times from 12a at the UNet group."""
+    rows = trainer["adam8bit_rows"]
+    main = rows[0]
+    return {
+        "name": "adam8bit",
+        "route": "cuda",
+        "source": "lora_tpu_torch/ops/csrc/adam8bit.cu",
+        # not a Pallas kernel: lora_tpu's blockwise-int8 Adam is jnp under
+        # optax (scale_by_adam_8bit)
+        "replaces": "lora_tpu/training/optim.py:28",
+        "launches": trainer["counted"]["launches"]["adam8bit"],
+        "launches_by_path": {"trainer": trainer["counted"]["launches"][
+            "adam8bit"]},
+        # params, codes and scales bit-identical to the plain version at
+        # every size of 12a
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "group_elements": main["n"],
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        # no one PyTorch call computes the blockwise-int8 update
+        "library_ms": None,
+    }
+
+
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
     """Every flash forward call and int8 call recorded on the main paths was
     checked against its plain version: its shapes (and for flash, dtype and
@@ -3294,6 +3789,12 @@ def main() -> int:
             modes_fwd, modes_int8 = phase_modes(smi)
             adapters_fwd, adapters_f32, adapters_int8 = phase_adapters(smi)
     check_recorded(flash_seen, rows, seen, int8_rows)
+    trainer = phase_trainer(smi, rows, bwd_rows)
+    # the trainer's launches by wrapper: f32 (12c and 12d), bf16 (12e)
+    trainer_f32 = {w: _added(trainer["counted"]["launches"][w],
+                             trainer["resumed"]["launches"][w])
+                   for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    trainer_bf16 = trainer["bf16"]["launches"]
 
     def at_main_shape(rs, dtype="bfloat16"):  # the largest main-path shape
         # (the forward's first such row is batch 4's, the backward's only)
@@ -3310,7 +3811,8 @@ def main() -> int:
     # the per-kernel counts each bf16 main path measured, summed
     by_path = {"txt2img": serve_fwd, "train": train_fwd,
                "serve_int8": serve_int8_fwd, "modes": modes_fwd,
-               "adapters": adapters_fwd}
+               "adapters": adapters_fwd,
+               "trainer_bf16": trainer_bf16["flash_fwd"]}
     fwd_by_kernel = {r: sum(c[r] for c in by_path.values())
                      for r in fa.flash_fwd.launches_by_kernel}
     kernels = [{
@@ -3348,7 +3850,8 @@ def main() -> int:
     # f32 UNet call with L
     f32_by_path = {"serve_int8_f32": f32_fwd,
                    "train_f32_grad": grad_f32["fwd_launches_by_kernel"],
-                   "adapters_f32": adapters_f32}
+                   "adapters_f32": adapters_f32,
+                   "trainer": trainer_f32["flash_fwd"]}
     f32_fwd_by_kernel = {r: sum(c[r] for c in f32_by_path.values())
                          for r in fa.flash_fwd.launches_by_kernel}
     f32_rows = [r for r in rows if r["dtype"] == "float32"]
@@ -3435,8 +3938,11 @@ def main() -> int:
         "replaces": "lora_tpu/ops/flash_attention.py:178",
         # the timed training steps: every launch at D <= WGMMA_DQ_MAX_D
         # (phase 6 checks it)
-        "launches": train_dq["wgmma"],
-        "launches_by_path": {"train": train_dq["wgmma"]},
+        "launches": (train_dq["wgmma"]
+                     + trainer_bf16["flash_bwd_dq"]["wgmma"]),
+        "launches_by_path": {
+            "train": train_dq["wgmma"],
+            "trainer_bf16": trainer_bf16["flash_bwd_dq"]["wgmma"]},
         "launches_by_kernel": train_dq,
         # worst dQ error over the bf16 calls of phase 4 routed here
         "max_abs_err": max(r[f"err_{e}"] for r in bf16_bwd
@@ -3468,8 +3974,11 @@ def main() -> int:
         "replaces": "lora_tpu/ops/flash_attention.py:178",
         # the counted f32 training run of phase 7: every dQ launch at
         # D <= WGMMA_F32_DQ_MAX_D (phase 7 checks it)
-        "launches": f32_dq["tf32x3"],
-        "launches_by_path": {"train_f32_grad": f32_dq["tf32x3"]},
+        "launches": (f32_dq["tf32x3"]
+                     + trainer_f32["flash_bwd_dq"]["tf32x3"]),
+        "launches_by_path": {
+            "train_f32_grad": f32_dq["tf32x3"],
+            "trainer": trainer_f32["flash_bwd_dq"]["tf32x3"]},
         "launches_by_kernel": f32_dq,
         # worst dQ error over the f32 calls of phase 4 routed here
         "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
@@ -3516,8 +4025,11 @@ def main() -> int:
         # the counted f32 training run of phase 7: every dQ launch at
         # WGMMA_F32_DQ_MAX_D < D <= WGMMA_F32_DQ_WIDE_MAX_D (phase 7 checks
         # it)
-        "launches": f32_dq["tf32x3_wide"],
-        "launches_by_path": {"train_f32_grad": f32_dq["tf32x3_wide"]},
+        "launches": (f32_dq["tf32x3_wide"]
+                     + trainer_f32["flash_bwd_dq"]["tf32x3_wide"]),
+        "launches_by_path": {
+            "train_f32_grad": f32_dq["tf32x3_wide"],
+            "trainer": trainer_f32["flash_bwd_dq"]["tf32x3_wide"]},
         "launches_by_kernel": f32_dq,
         # worst dQ error over the f32 calls of phase 4 routed here (the
         # 16x16 level, the ragged sweep of D from 104 to 160 and
@@ -3558,9 +4070,13 @@ def main() -> int:
         # the f32 training run of phase 7 at D > WGMMA_F32_DQ_WIDE_MAX_D,
         # and the bf16 training steps at D > WGMMA_DQ_MAX_D: none at
         # SD-1.5's levels
-        "launches": f32_dq["mma"] + train_dq["mma"],
-        "launches_by_path": {"train_f32_grad": f32_dq["mma"],
-                             "train": train_dq["mma"]},
+        "launches": (f32_dq["mma"] + train_dq["mma"]
+                     + trainer_f32["flash_bwd_dq"]["mma"]
+                     + trainer_bf16["flash_bwd_dq"]["mma"]),
+        "launches_by_path": {
+            "train_f32_grad": f32_dq["mma"], "train": train_dq["mma"],
+            "trainer": trainer_f32["flash_bwd_dq"]["mma"],
+            "trainer_bf16": trainer_bf16["flash_bwd_dq"]["mma"]},
         # worst f32 error of phase 4: the calls routed here, and the
         # kernel called directly beside the tf32x3 and tf32x3_wide ones
         "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
@@ -3586,8 +4102,11 @@ def main() -> int:
         "replaces": "lora_tpu/ops/flash_attention.py:210",
         # the timed training steps: every launch at D <= WGMMA_DKV_MAX_D
         # (phase 6 checks it)
-        "launches": train_dkv["wgmma"],
-        "launches_by_path": {"train": train_dkv["wgmma"]},
+        "launches": (train_dkv["wgmma"]
+                     + trainer_bf16["flash_bwd_dkv"]["wgmma"]),
+        "launches_by_path": {
+            "train": train_dkv["wgmma"],
+            "trainer_bf16": trainer_bf16["flash_bwd_dkv"]["wgmma"]},
         "launches_by_kernel": train_dkv,
         # worst dK / dV error over the bf16 calls of phase 4 routed here
         "max_abs_err": max(r[f"err_{e}"] for r in bf16_bwd
@@ -3617,8 +4136,11 @@ def main() -> int:
         "replaces": "lora_tpu/ops/flash_attention.py:210",
         # the counted f32 training run of phase 7: every dK/dV launch at
         # D <= WGMMA_F32_DKV_MAX_D (phase 7 checks it)
-        "launches": f32_dkv["tf32x3"],
-        "launches_by_path": {"train_f32_grad": f32_dkv["tf32x3"]},
+        "launches": (f32_dkv["tf32x3"]
+                     + trainer_f32["flash_bwd_dkv"]["tf32x3"]),
+        "launches_by_path": {
+            "train_f32_grad": f32_dkv["tf32x3"],
+            "trainer": trainer_f32["flash_bwd_dkv"]["tf32x3"]},
         "launches_by_kernel": f32_dkv,
         # worst dK / dV error over the f32 calls of phase 4 routed here
         "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
@@ -3660,8 +4182,11 @@ def main() -> int:
         # the counted f32 training run of phase 7: every dK/dV launch at
         # WGMMA_F32_DKV_MAX_D < D <= WGMMA_F32_DKV_WIDE_MAX_D (phase 7
         # checks it)
-        "launches": f32_dkv["tf32x3_wide"],
-        "launches_by_path": {"train_f32_grad": f32_dkv["tf32x3_wide"]},
+        "launches": (f32_dkv["tf32x3_wide"]
+                     + trainer_f32["flash_bwd_dkv"]["tf32x3_wide"]),
+        "launches_by_path": {
+            "train_f32_grad": f32_dkv["tf32x3_wide"],
+            "trainer": trainer_f32["flash_bwd_dkv"]["tf32x3_wide"]},
         "launches_by_kernel": f32_dkv,
         # worst dK / dV error over the f32 calls of phase 4 routed here
         # (the 16x16 level, the ragged sweep of D from 104 to 160 and
@@ -3699,9 +4224,13 @@ def main() -> int:
         # the f32 training run of phase 7 at D > WGMMA_F32_DKV_WIDE_MAX_D,
         # and the bf16 training steps at D > WGMMA_DKV_MAX_D: none at
         # SD-1.5's levels
-        "launches": f32_dkv["mma"] + train_dkv["mma"],
-        "launches_by_path": {"train_f32_grad": f32_dkv["mma"],
-                             "train": train_dkv["mma"]},
+        "launches": (f32_dkv["mma"] + train_dkv["mma"]
+                     + trainer_f32["flash_bwd_dkv"]["mma"]
+                     + trainer_bf16["flash_bwd_dkv"]["mma"]),
+        "launches_by_path": {
+            "train_f32_grad": f32_dkv["mma"], "train": train_dkv["mma"],
+            "trainer": trainer_f32["flash_bwd_dkv"]["mma"],
+            "trainer_bf16": trainer_bf16["flash_bwd_dkv"]["mma"]},
         # worst f32 error of phase 4: the calls routed here, and the
         # kernel called directly beside the tf32x3 and tf32x3_wide ones
         "max_abs_err": max(r[f"err_{e}"] for r in f32_bwd
@@ -3813,7 +4342,36 @@ def main() -> int:
         "bound_by": main_int8["float32"]["bound_by"],
         "library_ms": main_int8["float32"]["library_ms"],
     })
+    kernels.append(adam8bit_kernel_row(trainer))
     log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_train() -> int:
+    """Phases 1, 2 (the flash sources and adam8bit.cu), the tf32x3 and
+    wgmma backward kernels' first calls in child processes, and 12 (its
+    flash checks at the trainer's shapes stand in for phases 3 and 4);
+    then the kernels line with the adam8bit row."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
+                 "flash_bwd",
+                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
+                 "flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3_wide",
+                 "adam8bit"])
+    tf32x3_fwd_probe()
+    dq_probe()
+    dkv_probe()
+    tf32x3_dq_probe()
+    tf32x3_probe()
+    tf32x3_wide_dq_probe()
+    tf32x3_wide_probe()
+    trainer = phase_trainer(smi)
+    log(json.dumps({"kernels": [adam8bit_kernel_row(trainer)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3832,7 +4390,9 @@ if __name__ == "__main__":
         sys.exit(main_modes())
     if sys.argv[1:] == ["--adapters"]:
         sys.exit(main_adapters())
+    if sys.argv[1:] == ["--train"]:
+        sys.exit(main_train())
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
-                 f"--flash-bwd | --modes | --adapters]")
+                 f"--flash-bwd | --modes | --adapters | --train]")
     sys.exit(main())

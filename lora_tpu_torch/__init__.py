@@ -35,6 +35,14 @@ ranks, inspect) are exported here:
     pipe.lora_unet = stack_loras([lora_a, lora_b])
     images = pipe(["a dog", "a town"], lora_idx=[0, 1], generator=g)
 
+The DreamBooth trainer runs from a diffusers-layout directory and a folder
+of images (training/dreambooth.py, cli/lora_db.py; the low-memory Adams
+of training/optim.py, the int8 one a hand-written CUDA kernel):
+
+    python -m lora_tpu_torch.cli.lora_db --pretrained_model_name_or_path DIR \
+        --instance_data_dir IMAGES --instance_prompt "a photo of sks dog" \
+        --output_dir OUT --use_8bit_adam
+
 Serving also takes diffusers-layout checkpoints
 (StableDiffusionPipeline.from_pretrained), an int8 base
 (pipe.quantize_base()) and an HTTP server (serve.py, txt2img):

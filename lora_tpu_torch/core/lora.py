@@ -152,8 +152,8 @@ def lora_to_pairs(lora: LoraTree,
                 f"site {site.name} holds a full-rank delta (LoHa/LoKr/IA3); "
                 f"it has no (up, down) factorization — distill one with "
                 f"core.svd first")
-        out.append((entry["up"].float().cpu().numpy() * scale,
-                    entry["down"].float().cpu().numpy()))
+        out.append((entry["up"].detach().float().cpu().numpy() * scale,
+                    entry["down"].detach().float().cpu().numpy()))
     return out
 
 

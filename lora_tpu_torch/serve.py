@@ -48,9 +48,9 @@ latent-blend inpainting. img2img and the 9-channel inpaint sample with
 ddim; blend inpainting takes any scheduler but pndm. Their randomness (the
 VAE posterior sample and the init noise; euler_a's step noise, also in
 txt2img) is drawn batch-wide from the FIRST member's seed, so it is
-reproducible per (seed, batch composition). PNGs are decoded here on zlib
-(_png_decode: 8-bit and palette/gray below 8 bits, non-interlaced; a 16-bit
-or interlaced PNG is a 400 that names the case). SDXL pipelines (Slice 6)
+reproducible per (seed, batch composition). PNGs are decoded on zlib
+(data/png.py _png_decode: 8-bit and palette/gray below 8 bits,
+non-interlaced; a 16-bit or interlaced PNG is a 400 that names the case). SDXL pipelines (Slice 6)
 are refused at construction.
 """
 
@@ -61,37 +61,19 @@ import collections
 import json
 import os
 import queue
-import struct
 import sys
 import threading
 import time
 import traceback
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .data.png import _png_bytes, _png_decode
+
 MODES = ("txt2img", "img2img", "inpaint")
-
-
-def _png_bytes(rgb: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of a (H, W, 3) uint8 array: one IDAT, filter 0 on
-    every row. Written with zlib + struct because the serving host need not
-    have Pillow (the GPU machines this port targets do not)."""
-    h, w, _ = rgb.shape
-    raw = np.concatenate(
-        [np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + chunk(b"IEND", b""))
 
 
 def _png_b64(arr: np.ndarray) -> str:
@@ -99,136 +81,6 @@ def _png_b64(arr: np.ndarray) -> str:
     JAX package's _png_b64 does: clip, * 255, truncate to uint8."""
     rgb = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
     return base64.b64encode(_png_bytes(rgb)).decode()
-
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> (samples per pixel, the bit depths this decoder takes)
-_PNG_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
-              4: (2, (8,)), 6: (4, (8,))}
-
-
-def _png_chunks(data: bytes):
-    """(tag, body) of each chunk up to IEND, every CRC checked."""
-    pos = 8
-    while True:
-        if pos + 12 > len(data):
-            raise ValueError("truncated PNG: no IEND chunk")
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        crc = data[pos + 8 + n:pos + 12 + n]
-        if len(crc) < 4:
-            raise ValueError(f"truncated PNG in chunk {tag!r}")
-        if struct.unpack(">I", crc)[0] != zlib.crc32(tag + body) & 0xFFFFFFFF:
-            raise ValueError(f"PNG chunk {tag!r} fails its CRC")
-        yield tag, body
-        if tag == b"IEND":
-            return
-        pos += 12 + n
-
-
-def _unfilter_sequential(ftype: int, line: bytes, prior: bytes,
-                         bpp: int) -> bytearray:
-    """Average (3) and Paeth (4) scanlines: each byte needs the one bpp to
-    its left already reconstructed, so a loop (the first bpp bytes see a
-    zero left neighbour)."""
-    cur = bytearray(line)
-    if ftype == 3:
-        for i in range(bpp):
-            cur[i] = (cur[i] + (prior[i] >> 1)) & 0xFF
-        for i in range(bpp, len(cur)):
-            cur[i] = (cur[i] + ((cur[i - bpp] + prior[i]) >> 1)) & 0xFF
-        return cur
-    for i in range(bpp):  # a = c = 0: the predictor is b
-        cur[i] = (cur[i] + prior[i]) & 0xFF
-    for i in range(bpp, len(cur)):
-        a, b, c = cur[i - bpp], prior[i], prior[i - bpp]
-        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - c - c)
-        if pa <= pb and pa <= pc:
-            cur[i] = (cur[i] + a) & 0xFF
-        elif pb <= pc:
-            cur[i] = (cur[i] + b) & 0xFF
-        else:
-            cur[i] = (cur[i] + c) & 0xFF
-    return cur
-
-
-def _png_decode(data: bytes) -> np.ndarray:
-    """A PNG's pixels as (H, W, 3) uint8 RGB, as Pillow's convert("RGB")
-    gives them: gray replicated (1-, 2- and 4-bit gray scaled to 0..255),
-    palette indices mapped (tRNS ignored), alpha dropped. Takes colour
-    types 0, 2, 3, 4 and 6 at 8 bits (0 and 3 also at 1, 2 and 4) with
-    every filter, non-interlaced; anything else raises ValueError naming
-    the case."""
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError("not a PNG image (only PNG is decoded)")
-    header, palette, idat = None, None, []
-    for tag, body in _png_chunks(data):
-        if tag == b"IHDR":
-            if len(body) != 13:
-                raise ValueError("malformed PNG IHDR chunk")
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"PLTE":
-            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3]
-        elif tag == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
-    w, h, depth, ctype, compression, filtering, interlace = header
-    if depth == 16:
-        raise ValueError("16-bit PNG is not supported: save the image with "
-                         "8 bits per channel")
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG is not supported: save the "
-                         "image non-interlaced")
-    if ctype not in _PNG_TYPES or depth not in _PNG_TYPES[ctype][1]:
-        raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is "
-                         "not supported")
-    if compression or filtering or not w or not h:
-        raise ValueError("malformed PNG header")
-    if ctype == 3 and palette is None:
-        raise ValueError("palette PNG without a PLTE chunk")
-    channels = _PNG_TYPES[ctype][0]
-    bpp = max(1, channels * depth // 8)      # filter unit in bytes
-    stride = (w * channels * depth + 7) // 8
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise ValueError(f"corrupt PNG image data: {e}") from None
-    if len(raw) < h * (stride + 1):
-        raise ValueError("truncated PNG image data")
-    rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(
-        h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        ftype, line = int(rows[y, 0]), rows[y, 1:]
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:  # Sub: a running sum in each of the bpp lanes
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif ftype == 2:  # Up
-            cur = line + prior
-        elif ftype in (3, 4):
-            cur = np.frombuffer(_unfilter_sequential(
-                ftype, line.tobytes(), prior.tobytes(), bpp), np.uint8)
-        else:
-            raise ValueError(f"PNG scanline filter {ftype} is not valid")
-        out[y] = cur
-        prior = out[y]
-    if depth < 8:  # unpack the samples of each byte, most significant first
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
-            h, -1)[:, :w]
-    px = out.reshape(h, w, channels)
-    if ctype == 3:
-        table = np.zeros((256, 3), np.uint8)
-        table[:len(palette) // 3] = palette.reshape(-1, 3)
-        return table[px[..., 0]]
-    if ctype in (0, 4):
-        gray = px[..., 0] * np.uint8(255 // ((1 << depth) - 1))
-        return np.repeat(gray[..., None], 3, axis=-1)
-    return np.ascontiguousarray(px[..., :3])
 
 
 def _luma(rgb: np.ndarray) -> np.ndarray:

@@ -1,0 +1,432 @@
+"""The DreamBooth-LoRA trainer, the counterpart of
+lora_tpu/training/dreambooth.py for one process: prior preservation with
+class images generated on the fly, dual UNet / text learning rates, cached
+latents and text embeddings, resume from .pt adapters or from a full train
+state, preemption on SIGTERM, and periodic and final saves in the .pt and
+safetensors forms (the kohya schema for lora_targets="locon").
+
+Random draws come from torch.Generators: the LoRA init from seed and
+seed + 1, the cached-latent encode from seed + 99, the steps from seed + 7
+(one generator the step draws from, saved in the train state), the class
+images from seed + 1000 + s. The host reads the loss only where lora_tpu
+does, at step 1 and every 10th step; in between nothing waits for the
+device.
+
+Not ported yet: SDXL pipelines (ROADMAP Slice 6) and device meshes
+(fsdp / tensor_parallel, ROADMAP Slice 7); both raise. data_parallel on one
+device is no mesh, as in lora_tpu.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import random
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import lora as lora_core
+from ..core.save import save_all
+from ..core.sites import (
+    text_encoder_locon_sites,
+    text_encoder_lora_sites,
+    unet_locon_sites,
+    unet_lora_sites,
+)
+from ..data.dataset import (
+    DreamBoothDataset,
+    IMAGE_SUFFIXES,
+    data_loader,
+    device_prefetch,
+    prefetch,
+)
+from ..data.png import _png_bytes
+from ..formats import pt_io
+from ..formats.kohya import save_kohya
+from ..formats.safetensors_io import (
+    UNET_DEFAULT_TARGET_REPLACE,
+    UNET_EXTENDED_TARGET_REPLACE,
+)
+from ..models.clip import clip_text_forward
+from ..models.vae import vae_encode
+from ..utils.metrics import MetricsLogger
+from .checkpoint import PreemptionGuard, load_train_state, save_train_state
+from .loss import LossConfig
+from .optim import make_lr_schedule, make_optimizer
+from .train_step import make_train_step, make_trainable
+
+
+@dataclasses.dataclass
+class DreamBoothConfig:
+    instance_data_dir: str = ""
+    output_dir: str = "./output"
+    instance_prompt: str = ""
+    with_prior_preservation: bool = False
+    class_data_dir: Optional[str] = None
+    class_prompt: Optional[str] = None
+    num_class_images: int = 100
+    prior_loss_weight: float = 1.0
+    resolution: int = 512
+    train_batch_size: int = 1
+    learning_rate: float = 1e-4
+    learning_rate_text: float = 5e-5
+    train_text_encoder: bool = False
+    lora_rank: int = 4
+    max_train_steps: int = 800
+    save_steps: int = 500
+    gradient_accumulation_steps: int = 1
+    gradient_checkpointing: bool = False
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 0
+    max_grad_norm: float = 1.0
+    adam_weight_decay: float = 1e-2
+    use_8bit_adam: bool = False  # blockwise-int8 Adam (optim low_memory)
+    dataloader_num_workers: int = 0  # thread-pool sample decode (0 = serial)
+    seed: int = 0
+    color_jitter: bool = False
+    h_flip: bool = False
+    resume_unet: Optional[str] = None
+    resume_text_encoder: Optional[str] = None
+    resume_state: Optional[str] = None  # full train-state checkpoint
+    save_train_state: bool = False
+    output_format: str = "both"  # pt | safe | both
+    # which modules carry LoRA: "default" (attention + GEGLU), "extended"
+    # (+ ResnetBlock2D convs), or "locon" (the kohya full-conv superset,
+    # saved in the kohya schema)
+    lora_targets: str = "default"
+    mixed_precision: Optional[str] = None  # None | "bf16"
+    cached_latents: bool = False
+    cache_text_embeddings: bool = True  # off when the text encoder trains
+    # mesh flags (lora_tpu's): data_parallel on one device is no mesh;
+    # fsdp / tensor_parallel > 1 are not ported yet (ROADMAP Slice 7)
+    data_parallel: bool = False
+    preemption_sync_every: int = 10  # multi-process only (Slice 7)
+    fsdp: int = 1
+    tensor_parallel: int = 1
+    scale_lr: bool = False   # lr *= ga * per-device batch * dp
+    sample_guidance_scale: float = 7.5
+    sample_steps: int = 50
+
+
+def generate_class_images(pipe, cfg: DreamBoothConfig) -> None:
+    """Prior-preservation class images: num_class_images in
+    class_data_dir, the missing ones sampled from class_prompt in batches
+    of 4 and written as gen_{i}.png (lora_tpu writes JPEGs through
+    Pillow)."""
+    os.makedirs(cfg.class_data_dir, exist_ok=True)
+    cur = len([f for f in os.listdir(cfg.class_data_dir)
+               if f.lower().endswith(IMAGE_SUFFIXES)])
+    need = cfg.num_class_images - cur
+    if need <= 0:
+        return
+    print(f"Generating {need} class images for prior preservation...")
+    bs = 4
+    for s in range(0, need, bs):
+        n = min(bs, need - s)
+        gen = torch.Generator(pipe.device).manual_seed(cfg.seed + 1000 + s)
+        imgs = pipe([cfg.class_prompt] * n,
+                    num_inference_steps=cfg.sample_steps,
+                    guidance_scale=cfg.sample_guidance_scale,
+                    height=cfg.resolution, width=cfg.resolution,
+                    generator=gen)
+        for j in range(n):
+            path = os.path.join(cfg.class_data_dir, f"gen_{cur + s + j}.png")
+            with open(path, "wb") as f:
+                f.write(_png_bytes((imgs[j] * 255).astype(np.uint8)))
+
+
+def _sites(pipe, cfg: DreamBoothConfig):
+    """(UNet sites, text-encoder sites) of cfg.lora_targets, with
+    lora_tpu's refusals."""
+    ucfg, tcfg = pipe.unet.cfg, pipe.text_encoder.cfg
+    if cfg.lora_targets == "locon":
+        if cfg.output_format != "safe":
+            raise ValueError(
+                "lora_targets='locon' saves in the kohya schema only; set "
+                "output_format='safe' (the flat .pt list has no key names "
+                "to carry the extra modules)")
+        if cfg.resume_unet or cfg.resume_text_encoder:
+            raise ValueError(
+                "lora_targets='locon' does not support .pt adapter resume; "
+                "use save_train_state/resume_state for run continuation")
+        return unet_locon_sites(ucfg), text_encoder_locon_sites(tcfg)
+    if cfg.lora_targets == "extended":
+        return (unet_lora_sites(ucfg, set(UNET_EXTENDED_TARGET_REPLACE)),
+                text_encoder_lora_sites(tcfg))
+    if cfg.lora_targets == "default":
+        return unet_lora_sites(ucfg), text_encoder_lora_sites(tcfg)
+    raise ValueError(f"lora_targets must be default|extended|locon, "
+                     f"got {cfg.lora_targets!r}")
+
+
+def _check_unported(pipe, cfg: DreamBoothConfig) -> None:
+    if pipe.unet.cfg.addition_embed_type == "text_time":
+        raise NotImplementedError(
+            "SDXL DreamBooth training (text_time conditioning, dual text "
+            "encoders) is not ported yet (ROADMAP Slice 6)")
+    if cfg.fsdp > 1 or cfg.tensor_parallel > 1:
+        raise NotImplementedError(
+            f"fsdp={cfg.fsdp} / tensor_parallel={cfg.tensor_parallel}: a "
+            "device mesh is not ported yet (ROADMAP Slice 7)")
+    if (cfg.data_parallel and pipe.device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "data_parallel over several GPUs is not ported yet (ROADMAP "
+            "Slice 7); on one device it is no mesh")
+
+
+def _cached_latents(pipe, ds, cfg, dtype):
+    """Every example encoded once (its augmentation fixed at cache time):
+    ([(latent, host ids)] of the instances, the same of the class
+    images)."""
+    vae_p, vae_cfg = pipe.vae.flat_params(), pipe.vae.cfg
+    gen = torch.Generator(pipe.device).manual_seed(cfg.seed + 99)
+
+    def encode_items(n_take, get):
+        items = []
+        for i in range(n_take):
+            img, ids = get(i)
+            x = torch.from_numpy(np.ascontiguousarray(img[None])).to(
+                pipe.device, dtype)
+            with torch.no_grad():
+                lat = vae_encode(vae_p, x, vae_cfg, gen)[0]
+            items.append((lat, np.asarray(ids, np.int64)))
+        return items
+
+    inst = encode_items(
+        ds.num_instance_images,
+        lambda i: (ds[i]["instance_images"], ds[i]["instance_prompt_ids"]))
+    cls_items = []
+    if cfg.with_prior_preservation:
+        cls_items = encode_items(
+            ds.num_class_images,
+            lambda i: (ds[i]["class_images"], ds[i]["class_prompt_ids"]))
+    return inst, cls_items
+
+
+def _cached_loader(inst, cls_items, cfg, batch_size, device, ids_on_host):
+    """lora_tpu's cached-latent sample stream: random.Random(seed) picks
+    batch_size instance items (and as many class items), [instance |
+    class]."""
+    r = random.Random(cfg.seed)
+    is_inst = torch.cat([torch.ones(batch_size), torch.zeros(batch_size)]
+                        ).to(device) if cfg.with_prior_preservation else None
+    dev_ids = {}
+    while True:
+        picks = [inst[r.randrange(len(inst))] for _ in range(batch_size)]
+        if cfg.with_prior_preservation:
+            picks += [cls_items[r.randrange(len(cls_items))]
+                      for _ in range(batch_size)]
+        ids = np.stack([i for _, i in picks])
+        if not ids_on_host:  # each row layout uploaded once
+            key = ids.tobytes()
+            if key not in dev_ids:
+                dev_ids[key] = torch.from_numpy(ids).to(device)
+            ids = dev_ids[key]
+        batch = {"latents": torch.stack([lat for lat, _ in picks]),
+                 "input_ids": ids}
+        if is_inst is not None:
+            batch["is_instance"] = is_inst
+        yield batch
+
+
+def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
+    _check_unported(pipe, cfg)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    device = pipe.device
+    dtype = torch.bfloat16 if cfg.mixed_precision == "bf16" else torch.float32
+    log = MetricsLogger(os.path.join(cfg.output_dir, "metrics.jsonl"))
+
+    if cfg.with_prior_preservation:
+        if not (cfg.class_data_dir and cfg.class_prompt):
+            raise ValueError("with_prior_preservation needs class_data_dir "
+                             "and class_prompt")
+        generate_class_images(pipe, cfg)
+    batch_size = cfg.train_batch_size  # one process, no mesh: dp = 1
+
+    usites, tsites = _sites(pipe, cfg)
+    trainable = {"lora_unet": lora_core.init_lora(
+        usites, r=cfg.lora_rank,
+        generator=torch.Generator(device).manual_seed(cfg.seed),
+        device=device)}
+    if cfg.resume_unet:
+        trainable["lora_unet"] = lora_core.lora_from_flat(
+            pt_io.load_lora_pt(cfg.resume_unet), usites, device=device)
+    if cfg.train_text_encoder:
+        trainable["lora_text"] = lora_core.init_lora(
+            tsites, r=cfg.lora_rank,
+            generator=torch.Generator(device).manual_seed(cfg.seed + 1),
+            device=device)
+        if cfg.resume_text_encoder:
+            trainable["lora_text"] = lora_core.lora_from_flat(
+                pt_io.load_lora_pt(cfg.resume_text_encoder), tsites,
+                device=device)
+    make_trainable(trainable)
+
+    ds = DreamBoothDataset(
+        instance_data_root=cfg.instance_data_dir,
+        instance_prompt=cfg.instance_prompt,
+        tokenizer=pipe.tokenizer,
+        class_data_root=(cfg.class_data_dir if cfg.with_prior_preservation
+                         else None),
+        class_prompt=cfg.class_prompt,
+        size=cfg.resolution,
+        color_jitter=cfg.color_jitter,
+        h_flip=cfg.h_flip,
+        seed=cfg.seed,
+    )
+    # frozen-text fast path: the prompts are fixed, so their embeddings are
+    # constants, encoded once and CLIP leaves the loop
+    cache_text = cfg.cache_text_embeddings and not cfg.train_text_encoder
+    closers = []
+    if cfg.cached_latents:
+        inst, cls_items = _cached_latents(pipe, ds, cfg, dtype)
+        loader = _cached_loader(inst, cls_items, cfg, batch_size, device,
+                                ids_on_host=cache_text)
+    else:
+        host = prefetch(data_loader(
+            ds, batch_size, seed=cfg.seed,
+            prior_preservation=cfg.with_prior_preservation,
+            num_workers=cfg.dataloader_num_workers))
+        closers.append(host)
+        loader = device_prefetch(
+            host, device=device,
+            keep_on_host=("input_ids",) if cache_text else ())
+    closers.append(loader)
+
+    lr_scale = (cfg.gradient_accumulation_steps * cfg.train_batch_size
+                if cfg.scale_lr else 1)
+    lrs = {"lora_unet": make_lr_schedule(
+        cfg.lr_scheduler, cfg.learning_rate * lr_scale, cfg.max_train_steps,
+        cfg.lr_warmup_steps)}
+    if cfg.train_text_encoder:
+        lrs["lora_text"] = make_lr_schedule(
+            cfg.lr_scheduler, cfg.learning_rate_text * lr_scale,
+            cfg.max_train_steps, cfg.lr_warmup_steps)
+    opt = make_optimizer(trainable, lrs,
+                         weight_decay=cfg.adam_weight_decay,
+                         max_grad_norm=cfg.max_grad_norm,
+                         grad_accum=cfg.gradient_accumulation_steps,
+                         low_memory="int8" if cfg.use_8bit_adam else False)
+    loss_cfg = LossConfig(
+        cached_latents=cfg.cached_latents,
+        with_prior_preservation=cfg.with_prior_preservation,
+        prior_loss_weight=cfg.prior_loss_weight,
+        gradient_checkpointing=cfg.gradient_checkpointing,
+    )
+    step_fn = make_train_step(
+        unet_cfg=pipe.unet.cfg, text_cfg=pipe.text_encoder.cfg,
+        vae_cfg=pipe.vae.cfg, sched=pipe.schedule, loss_cfg=loss_cfg,
+        optimizer=opt, dtype=dtype)
+    base = (pipe.unet.flat_params(), pipe.text_encoder.flat_params(),
+            pipe.vae.flat_params())
+
+    @torch.no_grad()
+    def save(step_tag: str, final=False):
+        name = "lora_weight" if final else f"lora_weight_s{step_tag}"
+        path = os.path.join(cfg.output_dir, name)
+        lu, lt = trainable.get("lora_unet"), trainable.get("lora_text")
+        if cfg.lora_targets == "locon":
+            save_kohya(path + ".safetensors", lora_unet=lu, unet_sites=usites,
+                       lora_text=lt, text_sites=tsites)
+            return
+        if cfg.output_format in ("safe", "both"):
+            save_all(path + ".safetensors", lora_unet=lu, unet_sites=usites,
+                     lora_text=lt, text_sites=tsites, save_ti=False,
+                     target_replace_module_unet=(
+                         UNET_EXTENDED_TARGET_REPLACE
+                         if cfg.lora_targets == "extended"
+                         else UNET_DEFAULT_TARGET_REPLACE))
+        if cfg.output_format in ("pt", "both"):
+            save_all(path + ".pt", lora_unet=lu, unet_sites=usites,
+                     lora_text=lt, text_sites=tsites, save_ti=False,
+                     safe_form=False)
+
+    text_emb_cache = {}
+
+    def embed_ids(ids_np: np.ndarray) -> torch.Tensor:
+        key = ids_np.tobytes()
+        if key not in text_emb_cache:
+            with torch.no_grad():
+                text_emb_cache[key] = clip_text_forward(
+                    base[1], torch.from_numpy(ids_np).to(device),
+                    pipe.text_encoder.cfg, None, dtype=dtype)
+        return text_emb_cache[key]
+
+    rng = torch.Generator(device).manual_seed(cfg.seed + 7)
+    state_path = os.path.join(cfg.output_dir, "train_state.safetensors")
+    start_step = 0
+    if cfg.resume_state:
+        start_step = load_train_state(cfg.resume_state, trainable, opt, rng)
+        print(f"Resumed full train state at step {start_step}")
+
+    ga = cfg.gradient_accumulation_steps
+    t_start = time.perf_counter()
+    global_step = start_step
+    preempted = False
+    loss = torch.tensor(float("nan"))  # defined even if the loop never runs
+    try:
+        with PreemptionGuard() as guard:  # handler restored even on raise
+            for micro in range(start_step * ga, cfg.max_train_steps * ga):
+                if guard.should_stop:
+                    # checkpoint the full train state so resume_state goes
+                    # on exactly here
+                    save_train_state(state_path, trainable, opt, global_step,
+                                     rng)
+                    save(f"preempt_{global_step}")
+                    print(f"Preempted at step {global_step}; train state "
+                          "saved")
+                    preempted = True
+                    break
+                batch = next(loader)
+                if cache_text:
+                    batch["encoder_hidden_states"] = embed_ids(
+                        batch.pop("input_ids"))
+                loss = step_fn(trainable, base, batch, generator=rng)
+                if micro == start_step * ga:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    t_start = time.perf_counter()  # steps/s without warm-up
+                if (micro + 1) % ga:
+                    continue
+                global_step += 1
+                if global_step % 10 == 0 or global_step == 1:
+                    lf = float(loss)
+                    if not np.isfinite(lf):
+                        raise FloatingPointError(
+                            f"non-finite loss at step {global_step} — check "
+                            "LR (reference guidance: ~1e-4 for LoRA) / data")
+                    kw = dict(step=global_step, loss=lf)
+                    if global_step > 1:  # step 1's window holds the warm-up
+                        kw["sps"] = global_step / (time.perf_counter()
+                                                   - t_start)
+                    log.log(**kw)
+                if cfg.save_steps and global_step % cfg.save_steps == 0:
+                    save(str(global_step))
+                    if cfg.save_train_state:
+                        save_train_state(state_path, trainable, opt,
+                                         global_step, rng)
+                    with torch.no_grad():
+                        moved = sorted(lora_core.inspect_lora(
+                            trainable["lora_unet"]).items())[:4]
+                    print("moved:", json.dumps(
+                        {k: round(v[0], 6) for k, v in moved}))
+    finally:
+        for it in reversed(closers):  # ends the prefetch thread
+            it.close()
+
+    if not preempted:
+        # a preempted run must not overwrite the completed-run artifact
+        # with a partly trained adapter
+        save("final", final=True)
+    elapsed = time.perf_counter() - t_start
+    result = {"steps": global_step, "seconds": elapsed,
+              "steps_per_sec": global_step / max(elapsed, 1e-9),
+              "preempted": preempted,
+              "final_loss": float(loss)}
+    log.log(**result)
+    return {**result, "trainable": trainable}

@@ -1,6 +1,6 @@
 """lora_tpu_torch's copies of lora_tpu's framework-free modules (configs,
-structure, LoRA sites, tokenizer, safetensors reader/schema) stay equal to
-the originals, and the port imports no jax."""
+structure, LoRA sites, tokenizer, safetensors reader/schema, the CLI flag
+parser) stay equal to the originals, and the port imports no jax."""
 
 import ast
 import dataclasses
@@ -28,7 +28,7 @@ from lora_tpu_torch.models import structure as t_struct  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["models/config.py", "models/structure.py", "core/sites.py",
           "data/tokenizer.py", "formats/reader.py",
-          "formats/safetensors_io.py"]
+          "formats/safetensors_io.py", "cli/_fire.py"]
 CONFIGS = sorted(
     n for n, v in vars(j_cfg).items()
     if isinstance(v, (j_cfg.UNetConfig, j_cfg.VAEConfig,
@@ -164,9 +164,12 @@ def test_lora_file_parses_and_writes_identically(tmp_path, cast_fp16):
 
 def test_port_imports_no_jax():
     modules = ["lora_tpu_torch", "lora_tpu_torch.convert",
+               "lora_tpu_torch.cli._fire", "lora_tpu_torch.cli.lora_db",
                "lora_tpu_torch.core.lora", "lora_tpu_torch.core.quantize",
-               "lora_tpu_torch.core.sites",
+               "lora_tpu_torch.core.save", "lora_tpu_torch.core.sites",
+               "lora_tpu_torch.data.dataset", "lora_tpu_torch.data.png",
                "lora_tpu_torch.data.tokenizer",
+               "lora_tpu_torch.formats.pt_io",
                "lora_tpu_torch.formats.reader",
                "lora_tpu_torch.formats.safetensors_io",
                "lora_tpu_torch.models.clip", "lora_tpu_torch.models.config",
@@ -178,15 +181,23 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.ops.attention", "lora_tpu_torch.ops.build",
                "lora_tpu_torch.ops.flash_attention",
                "lora_tpu_torch.ops.int8_matmul",
+               "lora_tpu_torch.ops.adam8bit",
                "lora_tpu_torch.pipelines.sd", "lora_tpu_torch.serve",
+               "lora_tpu_torch.training.checkpoint",
+               "lora_tpu_torch.training.dreambooth",
                "lora_tpu_torch.training.loss",
                "lora_tpu_torch.training.optim",
-               "lora_tpu_torch.training.train_step"]
+               "lora_tpu_torch.training.train_step",
+               "lora_tpu_torch.utils.metrics",
+               "lora_tpu_torch.utils.profiling"]
+    # ... and none imports Pillow at import time (the card's machine has
+    # none; the dataset imports it only for a JPEG)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lora_tpu'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lora_tpu',\n"
+            "                                    'PIL'))\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -126,9 +126,22 @@ def test_lr_schedules_match_optax(name, warmup):
 
 
 def test_low_memory_adam_raises():
-    t_tree = trainable_from_jax(_toy_trainable())
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        t_optim.make_optimizer(t_tree, {"lora_unet": 1e-3}, low_memory="int8")
+    """Both low-memory Adams run (tests/test_torch_port_optim_lowmem.py
+    holds them against optax); only an unknown mode raises."""
+    for mode in ("int8", "bf16", True):
+        t_tree = trainable_from_jax(_toy_trainable())
+        before = jax.tree_util.tree_map(np.array, trainable_to_numpy(t_tree))
+        opt = t_optim.make_optimizer(t_tree, {"lora_unet": 1e-3},
+                                     low_memory=mode)
+        _set_grads(t_tree, _toy_grads(before, 1, seed=2)[0])
+        opt.step()
+        after = trainable_to_numpy(t_tree)
+        assert opt.count == 1
+        assert not np.array_equal(after["lora_unet"]["sites"]["a.to_q"]["up"],
+                                  before["lora_unet"]["sites"]["a.to_q"]["up"])
+    with pytest.raises(ValueError, match="low_memory"):
+        t_optim.make_optimizer(trainable_from_jax(_toy_trainable()),
+                               {"lora_unet": 1e-3}, low_memory="int4")
 
 
 def test_ti_norm_prior_matches_jax():
