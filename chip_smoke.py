@@ -60,6 +60,12 @@
                                         # (with its own flash checks at
                                         # the trainer's shapes), and the
                                         # kernels line's adam8bit row
+    python3 chip_smoke.py --pti         # phases 1, 2 (the flash sources
+                                        # only), the tf32x3 and wgmma
+                                        # kernels' first calls in child
+                                        # processes under a timeout, 13
+                                        # (with its own flash checks at
+                                        # phase 13's shapes)
 
 Phases, each printing its own lines (about 10 minutes on one H100, most of
 it the build of the kernels):
@@ -261,6 +267,36 @@ it the build of the kernels):
      -m lora_tpu_torch.cli.lora_db` as a child process, 2 steps with
      cached latents. Every flash forward call of 12c-12e is recorded and
      must be at a checked shape.
+  13. pti: pivotal tuning through cli.lora_pti.train and the legacy TI
+     trainer through cli.lora_ti.train. The flash kernels against their
+     plain versions (untimed) at phase 13's shapes phases 3 and 4 did not
+     check. 13a: 12b's pipeline, directory and PNGs, and a 9-channel
+     SD-1.5 (in_channels=9) from the seed in bf16, written the same way.
+     13b: the counted run, f32 at 512px, placeholder tokens <s1>|<s2>,
+     the object template, face masks written by the dataset as gray PNGs
+     (the ellipse fallback), the text encoder, continue_inversion, cached
+     latents, rank 4, 4 inversion and 4 tuning steps of 2 micro-steps,
+     saves every 2: every artifact (step_inv_2, step_inv_4, step_2,
+     step_4, final_lora), finite losses of both phases, each TI row's
+     norm nearer 0.4 after inversion than at its init, the final file
+     through patch_pipe moving a text encode of a prompt with <s1> and a
+     UNet call, and exactly 15 forward (tf32x3), 10 tf32x3 + 5
+     tf32x3_wide dQ and dK/dV launches per tuning micro-step, one tf32x3
+     dQ and dK/dV fewer per inversion micro-step (the first
+     self-attention precedes every cross-attention, so no gradient
+     reaches it while only the TI rows train), none through an mma.sync
+     kernel; the median micro-step of each phase (CUDA events)
+     and peak memory. 13c: the 9-channel UNet in bf16, train_inpainting,
+     cached latents, LoCon targets, 2 + 2 steps: every flash launch
+     wgmma, the kohya file through patch_pipe moving a 9-channel UNet
+     call, the .embeds.pt sidecar through load_a1111_embedding. 13d: the
+     legacy trainer, f32, 4 steps, unfreeze_lora_step 2, saves every 2 in
+     .pt and safetensors: the TI row of lora_ti_s2 and lora_ti_final the
+     same bits, the LoRA's up factors zero at s2, the launches as in 13b
+     per step. 13e: `python -m lora_tpu_torch.cli.lora_pti` as a child
+     process, 1 + 1 steps. Every flash forward call of 13b-13d is
+     recorded and must be at a checked shape; each flash row of the
+     kernels line gains the "pti" and "pti_bf16" launches.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -2896,10 +2932,11 @@ def _norm_and_bias(pipe) -> dict:
             if k.endswith(".bias") or "norm" in k.rsplit(".", 2)[-2]}
 
 
-def _unet_inputs(dtype, gen):
-    """One UNet call's inputs at batch 4 (2 prompts under CFG), 512px."""
+def _unet_inputs(dtype, gen, channels: int = 4):
+    """One UNet call's inputs at batch 4 (2 prompts under CFG), 512px
+    (`channels` latent channels in: 9 for an inpainting UNet)."""
     b = 2 * len(PROMPTS)
-    return (torch.randn((b, 64, 64, 4), generator=gen, device="cuda",
+    return (torch.randn((b, 64, 64, channels), generator=gen, device="cuda",
                         dtype=dtype),
             torch.full((b,), 501, device="cuda"),
             torch.randn((b, 77, 768), generator=gen, device="cuda",
@@ -3302,18 +3339,23 @@ def _trainer_inputs(root: str):
 
 
 @contextlib.contextmanager
-def timing_trainer_steps(record: dict):
-    """Wraps the trainer's step factory (training/dreambooth.py
-    make_train_step): CUDA events around each step (read after the run, so
-    the loop gains no host sync) and the optimizer it was built with."""
-    from lora_tpu_torch.training import dreambooth
+def timing_trainer_steps(record: dict, trainer=None):
+    """Wraps a trainer module's step factory (make_train_step of
+    training/dreambooth.py unless `trainer` names another): CUDA events
+    around each step (read after the run, so the loop gains no host sync)
+    and the optimizer it was built with. Each factory call (one per
+    training phase) starts a new list of events in record["phases"];
+    record["events"] is the latest."""
+    if trainer is None:
+        from lora_tpu_torch.training import dreambooth as trainer
 
-    real = dreambooth.make_train_step
+    real = trainer.make_train_step
 
     def make_train_step(**kw):
         step = real(**kw)
         record["optimizer"] = kw["optimizer"]
         record["events"] = []
+        record.setdefault("phases", []).append(record["events"])
 
         def timed_step(*a, **kw2):
             start = torch.cuda.Event(enable_timing=True)
@@ -3326,16 +3368,17 @@ def timing_trainer_steps(record: dict):
 
         return timed_step
 
-    dreambooth.make_train_step = make_train_step
+    trainer.make_train_step = make_train_step
     try:
         yield record
     finally:
-        dreambooth.make_train_step = real
+        trainer.make_train_step = real
 
 
-def _step_ms(record: dict, skip: int = 2) -> list:
+def _step_ms(record: dict, skip: int = 2, events=None) -> list:
     torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in record["events"][skip:]]
+    return [a.elapsed_time(b) for a, b in
+            (record["events"] if events is None else events)[skip:]]
 
 
 def _launches():
@@ -3410,29 +3453,36 @@ def _level_key(row) -> tuple:
     return row["B"], row["H"], row["T"], row["S"], row["D"], row["dtype"]
 
 
-def trainer_flash_rows(gen, fwd_rows=(), bwd_rows=()) -> list:
-    """The flash kernels against their plain versions, untimed, at the
-    trainer's shapes that phases 3 and 4 (fwd_rows, bwd_rows) did not
-    check: f32 forward at batch 4 (the class images' sampling) and batch 2
-    (prior preservation's [instance | class] rows), f32 dQ and dK/dV at
-    batch 2, bf16 forward, dQ and dK/dV at batch 1 (12e). Returns the
-    forward rows, the given ones included."""
+def flash_rows_at(gen, fwd_levels, bwd_levels, fwd_rows=(),
+                  bwd_rows=()) -> list:
+    """The flash kernels against their plain versions, untimed, at every
+    SD-1.5 level of each (batch, dtype) of fwd_levels (the forward) and
+    bwd_levels (dQ and dK/dV) that phases 3 and 4 (fwd_rows, bwd_rows) did
+    not check. Returns the forward rows, the given ones included."""
     rows = list(fwd_rows)
     done = {_level_key(r) for r in fwd_rows}
     done_bwd = {_level_key(r) for r in bwd_rows}
-    for B, dtype in ((4, torch.float32), (2, torch.float32),
-                     (1, torch.bfloat16)):
-        for T, D in SD15_ATTN_SHAPES:
-            key = (B, 8, T, T, D, str(dtype).replace("torch.", ""))
-            if key not in done:
-                rows.append(check_kernel(B, 8, T, T, D, dtype, gen,
-                                         timed=False))
-    for B, dtype in ((2, torch.float32), (1, torch.bfloat16)):
-        for T, D in SD15_ATTN_SHAPES:
-            key = (B, 8, T, T, D, str(dtype).replace("torch.", ""))
-            if key not in done_bwd:
-                check_bwd_kernels(B, 8, T, T, D, dtype, gen, timed=False)
+    for levels, checked, check in ((fwd_levels, done, check_kernel),
+                                   (bwd_levels, done_bwd,
+                                    check_bwd_kernels)):
+        for B, dtype in levels:
+            for T, D in SD15_ATTN_SHAPES:
+                key = (B, 8, T, T, D, str(dtype).replace("torch.", ""))
+                if key not in checked:
+                    row = check(B, 8, T, T, D, dtype, gen, timed=False)
+                    if check is check_kernel:
+                        rows.append(row)
     return rows
+
+
+def trainer_flash_rows(gen, fwd_rows=(), bwd_rows=()) -> list:
+    """Phase 12's shapes: f32 forward at batch 4 (the class images'
+    sampling) and batch 2 (prior preservation's [instance | class] rows),
+    f32 dQ and dK/dV at batch 2, bf16 forward, dQ and dK/dV at batch 1
+    (12e)."""
+    return flash_rows_at(
+        gen, ((4, torch.float32), (2, torch.float32), (1, torch.bfloat16)),
+        ((2, torch.float32), (1, torch.bfloat16)), fwd_rows, bwd_rows)
 
 
 def phase_trainer(smi: str, fwd_rows=(), bwd_rows=()) -> dict:
@@ -3582,29 +3632,36 @@ def _trainer_runs(lora_db, pipe, model, root, common, png_size) -> dict:
     return out
 
 
-def _trainer_cli(model: str, inst: str, root: str) -> dict:
-    """12f: `python -m lora_tpu_torch.cli.lora_db` in a child process, 2
-    steps with cached latents; exit 0 and lora_weight.safetensors."""
-    outdir = os.path.join(root, "cli")
-    cmd = [sys.executable, "-m", "lora_tpu_torch.cli.lora_db",
-           "--pretrained_model_name_or_path", model,
-           "--instance_data_dir", inst,
-           "--instance_prompt", "a photo of sks dog", "--output_dir", outdir,
-           "--max_train_steps", str(TRAINER_CLI_STEPS), "--cached_latents",
-           "--save_steps", "0"]
+def _console_entry(what: str, cli: str, args, outdir: str,
+                   artifact: str) -> dict:
+    """`python -m lora_tpu_torch.cli.<cli> ARGS --output_dir OUTDIR` in a
+    child process from the repo root: exit 0 and OUTDIR/ARTIFACT."""
+    cmd = [sys.executable, "-m", f"lora_tpu_torch.cli.{cli}", *args,
+           "--output_dir", outdir]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                           capture_output=True, text=True, timeout=600)
     for line in (proc.stdout + proc.stderr).splitlines()[-8:]:
-        log(f"trainer 12f: {line}")
+        log(f"{what}: {line}")
     wall = time.perf_counter() - t0
     if proc.returncode != 0 or not os.path.exists(
-            os.path.join(outdir, "lora_weight.safetensors")):
-        raise AssertionError(f"12f: the console entry exited "
-                             f"{proc.returncode} or wrote no "
-                             f"lora_weight.safetensors")
-    log(f"trainer 12f: exit 0 in {wall:.1f} s")
+            os.path.join(outdir, artifact)):
+        raise AssertionError(f"{what}: the console entry exited "
+                             f"{proc.returncode} or wrote no {artifact}")
+    log(f"{what}: exit 0 in {wall:.1f} s")
     return {"exit": proc.returncode, "wall_s": wall}
+
+
+def _trainer_cli(model: str, inst: str, root: str) -> dict:
+    """12f: `python -m lora_tpu_torch.cli.lora_db`, 2 steps with cached
+    latents."""
+    return _console_entry(
+        "trainer 12f", "lora_db",
+        ["--pretrained_model_name_or_path", model, "--instance_data_dir",
+         inst, "--instance_prompt", "a photo of sks dog",
+         "--max_train_steps", str(TRAINER_CLI_STEPS), "--cached_latents",
+         "--save_steps", "0"],
+        os.path.join(root, "cli"), "lora_weight.safetensors")
 
 
 def adam8bit_kernel_row(trainer: dict) -> dict:
@@ -3632,6 +3689,403 @@ def adam8bit_kernel_row(trainer: dict) -> dict:
         # no one PyTorch call computes the blockwise-int8 update
         "library_ms": None,
     }
+
+
+# phase 13: pivotal tuning through lora_pti and the legacy TI trainer
+# through lora_ti. 13b: inversion and tuning steps (each of PTI_GA
+# micro-steps), saves every PTI_SAVE_STEPS; 13c: bf16 inpainting, 2 + 2
+# steps of one micro-step; 13d: legacy TI steps, the TI row on until
+# PTI_TI_UNFREEZE; 13e: the console entry, 1 + 1 steps
+PTI_STEPS, PTI_GA, PTI_SAVE_STEPS = 4, 2, 2
+PTI_BF16_STEPS = 2
+PTI_TI_STEPS, PTI_TI_UNFREEZE = 4, 2
+PTI_TOKENS = ("<s1>", "<s2>")
+PTI_PROMPT = "a photo of <s1> dog"
+
+
+def pti_flash_rows(gen, fwd_rows=(), bwd_rows=()) -> list:
+    """Phase 13's shapes: forward, dQ and dK/dV at batch 1 in f32 (13b,
+    13d) and bf16 (13c), and the forward at batch 4 in both (the UNet
+    calls through patch_pipe)."""
+    at_1 = ((1, torch.float32), (1, torch.bfloat16))
+    return flash_rows_at(gen, at_1 + ((4, torch.float32),
+                                      (4, torch.bfloat16)),
+                         at_1, fwd_rows, bwd_rows)
+
+
+@contextlib.contextmanager
+def recording_ti_init(record: dict):
+    """Wraps training/pti.py setup_ti: the initial TI rows it returns go to
+    record["ti_init"]."""
+    from lora_tpu_torch.training import pti
+
+    real = pti.setup_ti
+
+    def setup_ti(*a, **kw):
+        ids, rows = real(*a, **kw)
+        record["ti_init"] = rows.detach().clone()
+        return ids, rows
+
+    pti.setup_ti = setup_ti
+    try:
+        yield record
+    finally:
+        pti.setup_ti = real
+
+
+def _expect_pti_launches(what: str, got: dict, dt, inversion: int,
+                         tuning: int) -> None:
+    """The flash launches of `inversion` + `tuning` PTI micro-steps in
+    `dt`: _per_step_want's each, less one dQ and one dK/dV launch per
+    inversion micro-step at the first level (T = S = 4096, D = 40, routed
+    to "tf32x3" in f32 and "wgmma" in bf16). The first spatial
+    self-attention comes before every cross-attention, so while only the
+    TI rows train its q, k and v carry no gradient, and autograd runs no
+    backward for it."""
+    dq, dkv, fwd = _per_step_want(dt)
+    first = "tf32x3" if dt == torch.float32 else "wgmma"
+    micro = inversion + tuning
+    want = {"flash_fwd": _scaled(fwd, micro),
+            "flash_bwd_dq": _scaled(dq, micro),
+            "flash_bwd_dkv": _scaled(dkv, micro), "adam8bit": 0}
+    for w in ("flash_bwd_dq", "flash_bwd_dkv"):
+        want[w][first] -= inversion
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, not {want}")
+
+
+def _embeds(path: str) -> dict:
+    from lora_tpu_torch.formats.safetensors_io import load_safeloras_embeds
+
+    return load_safeloras_embeds(path)
+
+
+def _expect_files(what: str, out: str, want) -> None:
+    missing = set(want) - set(os.listdir(out))
+    if missing:
+        raise AssertionError(f"{what}: missing {sorted(missing)} in "
+                             f"{sorted(os.listdir(out))}")
+
+
+def _check_pti_metrics(what: str, out: str) -> dict:
+    """lora_pti's records: step 1 and the final loss of each phase, every
+    loss finite; returns {phase: final loss}."""
+    records = _metrics(os.path.join(out, "metrics.jsonl"))
+    got = [(r.get("phase"), r.get("step"), "final_loss" in r)
+           for r in records]
+    want = [("inversion", 1, False), ("inversion", None, True),
+            ("tune", 1, False), ("tune", None, True)]
+    if got != want or not all(np.isfinite(r.get("loss",
+                                                r.get("final_loss")))
+                              for r in records):
+        raise AssertionError(f"{what} metrics.jsonl: {records}")
+    return {r["phase"]: r["final_loss"] for r in records
+            if "final_loss" in r}
+
+
+def _pti_text_check(pipe, path: str) -> float:
+    """A text encode of PTI_PROMPT without the adapter and after
+    patch_pipe of `path` (its LoRA and TI rows): max |difference|, which
+    must be finite and nonzero."""
+    pipe.remove_lora()
+    with torch.inference_mode():
+        plain = pipe.encode_prompt([PTI_PROMPT]).float()
+        pipe.patch_pipe(path)
+        moved = pipe.encode_prompt([PTI_PROMPT]).float()
+    pipe.remove_lora()
+    diff = (moved - plain).abs().max().item()
+    if not torch.isfinite(moved).all() or diff == 0.0:
+        raise AssertionError(f"13b: the text encode with {path} is not "
+                             f"finite or equals the one without it "
+                             f"(max |diff| {diff})")
+    return diff
+
+
+def _pti_inputs(root: str):
+    """13a: 12b's f32 pipeline, fp16 directory and instance PNGs, and a
+    9-channel SD-1.5 (SD15_UNET with in_channels=9) from the seed in bf16,
+    written the same way."""
+    from lora_tpu_torch.models.config import SD15_UNET
+    from lora_tpu_torch.models.hf_import import save_pipeline_params
+    from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
+
+    pipe, model, inst = _trainer_inputs(root)
+    t0 = time.perf_counter()
+    ipipe = StableDiffusionPipeline.random_init(
+        torch.Generator("cuda").manual_seed(SEED + 13), "cuda",
+        dtype=torch.bfloat16,
+        unet_cfg=dataclasses.replace(SD15_UNET, in_channels=9))
+    imodel = os.path.join(root, "model_inpaint")
+    save_pipeline_params(ipipe, imodel, fp16=True)
+    log(f"pti: the 9-channel bf16 pipeline written to {imodel} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return pipe, model, inst, ipipe, imodel
+
+
+def phase_pti(smi: str, fwd_rows=(), bwd_rows=()) -> dict:
+    """Phase 13: the flash kernels at phase 13's shapes phases 3 and 4 did
+    not check; 13a the inputs; 13b the counted lora_pti run; 13c bf16
+    inpainting with LoCon targets; 13d the legacy TI trainer through
+    lora_ti; 13e the console entry as a child process. Every flash
+    forward call of 13b-13d is recorded and must be at a shape checked
+    against the plain version."""
+    from lora_tpu_torch.cli import lora_pti, lora_ti
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 13)
+    rows = pti_flash_rows(gen, fwd_rows, bwd_rows)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="lora_pti_") as root:
+        pipe, model, inst, ipipe, imodel = _pti_inputs(root)
+        common = dict(instance_data_dir=inst, resolution=512,
+                      lora_rank=TRAINER_RANK, seed=SEED,
+                      placeholder_tokens="|".join(PTI_TOKENS),
+                      use_template="object")
+        with recording_flash_shapes(set()) as seen:
+            out["counted"] = _pti_counted(lora_pti, pipe, model, inst, root,
+                                          common)
+            out["bf16"] = _pti_bf16(lora_pti, ipipe, imodel, root, common)
+            out["ti"] = _pti_legacy(lora_ti, pipe, model, inst, root)
+        unchecked = seen - {_row_key(r) for r in rows}
+        if unchecked:
+            raise AssertionError(f"phase 13 ran flash_fwd at shapes or "
+                                 f"layouts no check covered: "
+                                 f"{sorted(unchecked)}")
+        log(f"pti: flash_fwd ran {len(seen)} shapes and layouts, each "
+            f"checked against its plain version")
+        out["cli"] = _pti_cli(model, inst, root)
+    log(f"pti: {smi}")
+    return out
+
+
+def _pti_counted(lora_pti, pipe, model, inst, root, common) -> dict:
+    """13b: f32 at 512px, face masks written by the dataset (the ellipse
+    fallback), the text encoder, continue_inversion, cached latents;
+    PTI_STEPS steps of PTI_GA micro-steps in each phase."""
+    from lora_tpu_torch.data.png import png_size
+    from lora_tpu_torch.training import pti
+
+    run = os.path.join(root, "pti")
+    # a constant TI schedule keeps the norm prior's pull (lambda = 100 lr)
+    # on at every inversion step
+    flags = dict(common, output_dir=run, lr_scheduler="constant",
+                 use_face_segmentation_condition=True,
+                 train_text_encoder=True, continue_inversion=True,
+                 cached_latents=True, max_train_steps_ti=PTI_STEPS,
+                 max_train_steps_tuning=PTI_STEPS,
+                 gradient_accumulation_steps=PTI_GA,
+                 save_steps=PTI_SAVE_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_trainer_counts()
+    t0 = time.perf_counter()
+    with timing_trainer_steps({}, pti) as rec, \
+            recording_ti_init({}) as ti:
+        res = lora_pti.train(model, device="cuda", **flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launches()
+    micro = 2 * PTI_STEPS * PTI_GA
+    if res["preempted"] or not np.isfinite(res["final_loss"]):
+        raise AssertionError(f"13b: preempted {res['preempted']}, final "
+                             f"loss {res['final_loss']}")
+    _expect_pti_launches("13b", got, torch.float32, micro // 2,
+                         micro // 2)
+    final_losses = _check_pti_metrics("13b", run)
+    saves = [f"step_inv_{s}" for s in range(PTI_SAVE_STEPS, PTI_STEPS + 1,
+                                            PTI_SAVE_STEPS)]
+    saves += [f"step_{s}" for s in range(PTI_SAVE_STEPS, PTI_STEPS + 1,
+                                         PTI_SAVE_STEPS)]
+    _expect_files("13b", run, [f"{s}.safetensors" for s in saves]
+                  + ["final_lora.safetensors", "metrics.jsonl"])
+    # the face masks the dataset wrote: gray PNGs at each image's size
+    masks = {}
+    for i, (h, w) in enumerate(TRAINER_IMAGES):
+        path = os.path.join(inst, f"{i}.mask.png")
+        with open(path, "rb") as f:
+            head = f.read(26)
+        if head[25] != 0 or png_size(path) != (w, h):
+            raise AssertionError(f"13b: {path} is not a gray PNG of "
+                                 f"{w}x{h}")
+        masks[f"{i}.mask.png"] = [w, h]
+    # the norm prior: each row nearer 0.4 after inversion than at its init
+    inv = _embeds(os.path.join(run, f"step_inv_{PTI_STEPS}.safetensors"))
+    norms = {}
+    for tok, row0 in zip(PTI_TOKENS, ti["ti_init"]):
+        n0 = row0.norm().item()
+        n1 = float(np.linalg.norm(inv[tok]))
+        if not abs(n1 - 0.4) < abs(n0 - 0.4):
+            raise AssertionError(f"13b: {tok}'s norm went {n0} -> {n1}, "
+                                 f"not toward 0.4")
+        norms[tok] = [n0, n1]
+    final = os.path.join(run, "final_lora.safetensors")
+    text_moved = _pti_text_check(pipe, final)
+    patched = _patched_unet_check(pipe, final, "13b")
+    phases = [_step_ms(rec, events=e) for e in rec["phases"]]
+    result = {
+        "micro_steps": micro, "wall_s": wall,
+        "micro_step_ms_median": {p: statistics.median(ms) for p, ms in
+                                 zip(("inversion", "tune"), phases)},
+        "micro_step_ms": dict(zip(("inversion", "tune"), phases)),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "final_losses": final_losses, "launches": got,
+        "launches_per_micro_step": {
+            k: {r: n / micro for r, n in v.items()}
+            for k, v in got.items() if isinstance(v, dict)},
+        "masks": masks, "ti_norms": norms,
+        "text_max_abs_change": text_moved, "patched": patched}
+    log("pti 13b: " + json.dumps(result))
+    return result
+
+
+def _pti_bf16(lora_pti, ipipe, imodel, root, common) -> dict:
+    """13c: the 9-channel UNet in bf16, train_inpainting with cached
+    latents, LoCon targets (a kohya file and an A1111 sidecar)."""
+    from lora_tpu_torch.formats.pt_io import load_a1111_embedding
+    from lora_tpu_torch.training import pti
+
+    run = os.path.join(root, "pti_bf16")
+    _zero_trainer_counts()
+    with timing_trainer_steps({}, pti) as rec:
+        res = lora_pti.train(imodel, device="cuda", mixed_precision="bf16",
+                             **dict(common, output_dir=run,
+                                    train_inpainting=True,
+                                    cached_latents=True,
+                                    lora_targets="locon",
+                                    max_train_steps_ti=PTI_BF16_STEPS,
+                                    max_train_steps_tuning=PTI_BF16_STEPS,
+                                    gradient_accumulation_steps=1,
+                                    save_steps=0))
+    got = _launches()
+    if res["preempted"] or not np.isfinite(res["final_loss"]):
+        raise AssertionError(f"13c: preempted {res['preempted']}, final "
+                             f"loss {res['final_loss']}")
+    _expect_pti_launches("13c", got, torch.bfloat16, PTI_BF16_STEPS,
+                         PTI_BF16_STEPS)
+    _check_pti_metrics("13c", run)
+    _expect_files("13c", run, ["final_lora.safetensors",
+                               "final_lora.embeds.pt", "metrics.jsonl"])
+    name, embeds = load_a1111_embedding(
+        os.path.join(run, "final_lora.embeds.pt"))
+    if name != "final_lora" or sorted(embeds) != list(PTI_TOKENS) or any(
+            v.shape != (768,) or not np.isfinite(v).all()
+            for v in embeds.values()):
+        raise AssertionError(f"13c: the sidecar holds {name!r}, "
+                             f"{ {k: v.shape for k, v in embeds.items()} }")
+    # the kohya file through patch_pipe on the 9-channel pipeline
+    inputs = _unet_inputs(torch.bfloat16,
+                          torch.Generator("cuda").manual_seed(SEED + 13), 9)
+    plain = _unet_out(ipipe, inputs, None)
+    ipipe.patch_pipe(os.path.join(run, "final_lora.safetensors"))
+    n_sites = len(ipipe.lora_unet["sites"])
+    moved_out = _unet_out(ipipe, inputs, ipipe.lora_unet)
+    ipipe.remove_lora()
+    moved = (moved_out.float() - plain.float()).abs().max().item()
+    if not torch.isfinite(moved_out).all() or moved == 0.0:
+        raise AssertionError(f"13c: the 9-channel UNet call with the kohya "
+                             f"file is not finite or unchanged ({moved})")
+    result = {"micro_steps": 2 * PTI_BF16_STEPS, "launches": got,
+              "micro_step_ms_median": {
+                  p: statistics.median(_step_ms(rec, 1, e))
+                  for p, e in zip(("inversion", "tune"), rec["phases"])},
+              "final_loss": res["final_loss"], "kohya_unet_sites": n_sites,
+              "unet_max_abs_change": moved,
+              "sidecar_tokens": sorted(embeds)}
+    log("pti 13c: " + json.dumps(result))
+    return result
+
+
+def _pti_legacy(lora_ti, pipe, model, inst, root) -> dict:
+    """13d: the legacy TI trainer, f32, PTI_TI_STEPS steps, the TI row on
+    until PTI_TI_UNFREEZE and the LoRA after, .pt and safetensors saves."""
+    from lora_tpu_torch.training import ti_legacy
+
+    run = os.path.join(root, "ti")
+    _zero_trainer_counts()
+    with timing_trainer_steps({}, ti_legacy) as rec:
+        res = lora_ti.train(model, device="cuda", instance_data_dir=inst,
+                            output_dir=run, resolution=512,
+                            placeholder_token=PTI_TOKENS[0],
+                            lora_rank=TRAINER_RANK, seed=SEED,
+                            max_train_steps=PTI_TI_STEPS,
+                            unfreeze_lora_step=PTI_TI_UNFREEZE,
+                            save_steps=PTI_TI_UNFREEZE,
+                            output_format="both")
+    got = _launches()
+    if res["preempted"] or not np.isfinite(res["final_loss"]):
+        raise AssertionError(f"13d: preempted {res['preempted']}, final "
+                             f"loss {res['final_loss']}")
+    _expect_launches("13d", got, PTI_TI_STEPS, 0, torch.float32, adam=0)
+    saves = (f"lora_ti_s{PTI_TI_UNFREEZE}", "lora_ti_final")
+    _expect_files("13d", run, [s + e for s in saves for e in (
+        ".safetensors", ".pt", ".ti.pt")] + ["metrics.jsonl"])
+    from lora_tpu_torch.formats.reader import load_file
+
+    (s2, _), (final, _) = (load_file(os.path.join(run, s + ".safetensors"))
+                           for s in saves)
+    tok = PTI_TOKENS[0]
+    ups = [k for k in s2 if k.endswith(":up")]
+    if not np.array_equal(s2[tok], final[tok]) or any(
+            s2[k].any() for k in ups) or not any(final[k].any()
+                                                 for k in ups):
+        raise AssertionError("13d: the TI row moved after the unfreeze "
+                             "step, or the LoRA before it")
+    patched = _patched_unet_check(
+        pipe, os.path.join(run, "lora_ti_final.safetensors"), "13d")
+    result = {"steps": PTI_TI_STEPS, "launches": got,
+              "step_ms_median": statistics.median(_step_ms(rec, 1)),
+              "final_loss": res["final_loss"],
+              "ti_row_frozen_after_unfreeze": True, "patched": patched}
+    log("pti 13d: " + json.dumps(result))
+    return result
+
+
+def _pti_cli(model: str, inst: str, root: str) -> dict:
+    """13e: `python -m lora_tpu_torch.cli.lora_pti`, 1 + 1 steps."""
+    return _console_entry(
+        "pti 13e", "lora_pti",
+        ["--pretrained_model_name_or_path", model, "--instance_data_dir",
+         inst, "--placeholder_tokens", "<s1>", "--use_template", "object",
+         "--max_train_steps_ti", "1", "--max_train_steps_tuning", "1",
+         "--gradient_accumulation_steps", "1", "--save_steps", "0"],
+        os.path.join(root, "pti_cli"), "final_lora.safetensors")
+
+
+# the flash rows of the kernels line: (wrapper, route) of each
+FLASH_ROW_ROUTES = {
+    "flash_fwd": ("flash_fwd", "wgmma"),
+    "flash_fwd_tf32x3": ("flash_fwd", "tf32x3"),
+    "flash_fwd_mma": ("flash_fwd", "mma"),
+    "flash_bwd_dq": ("flash_bwd_dq", "wgmma"),
+    "flash_bwd_dq_tf32x3": ("flash_bwd_dq", "tf32x3"),
+    "flash_bwd_dq_tf32x3_wide": ("flash_bwd_dq", "tf32x3_wide"),
+    "flash_bwd_dq_mma": ("flash_bwd_dq", "mma"),
+    "flash_bwd_dkv": ("flash_bwd_dkv", "wgmma"),
+    "flash_bwd_dkv_tf32x3": ("flash_bwd_dkv", "tf32x3"),
+    "flash_bwd_dkv_tf32x3_wide": ("flash_bwd_dkv", "tf32x3_wide"),
+    "flash_bwd_dkv_mma": ("flash_bwd_dkv", "mma"),
+}
+
+
+def add_pti_launches(kernels: list, pti: dict) -> None:
+    """Each flash row of the kernels line gains phase 13's launches of its
+    kernel: "pti" (13b and 13d, f32) and "pti_bf16" (13c)."""
+    paths = {"pti": _added_launches(pti["counted"]["launches"],
+                                    pti["ti"]["launches"]),
+             "pti_bf16": pti["bf16"]["launches"]}
+    for row in kernels:
+        if row["name"] not in FLASH_ROW_ROUTES:
+            continue
+        wrapper, route = FLASH_ROW_ROUTES[row["name"]]
+        for path, launches in paths.items():
+            n = launches[wrapper][route]
+            row["launches"] += n
+            row["launches_by_path"][path] = n
+
+
+def _added_launches(a: dict, b: dict) -> dict:
+    return {w: _added(a[w], b[w]) for w in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")}
 
 
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
@@ -3790,10 +4244,10 @@ def main() -> int:
             adapters_fwd, adapters_f32, adapters_int8 = phase_adapters(smi)
     check_recorded(flash_seen, rows, seen, int8_rows)
     trainer = phase_trainer(smi, rows, bwd_rows)
+    pti = phase_pti(smi, rows, bwd_rows)
     # the trainer's launches by wrapper: f32 (12c and 12d), bf16 (12e)
-    trainer_f32 = {w: _added(trainer["counted"]["launches"][w],
-                             trainer["resumed"]["launches"][w])
-                   for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    trainer_f32 = _added_launches(trainer["counted"]["launches"],
+                                  trainer["resumed"]["launches"])
     trainer_bf16 = trainer["bf16"]["launches"]
 
     def at_main_shape(rs, dtype="bfloat16"):  # the largest main-path shape
@@ -4343,6 +4797,7 @@ def main() -> int:
         "library_ms": main_int8["float32"]["library_ms"],
     })
     kernels.append(adam8bit_kernel_row(trainer))
+    add_pti_launches(kernels, pti)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -4379,6 +4834,35 @@ def main_train() -> int:
     return 0
 
 
+def main_pti() -> int:
+    """Phases 1, 2 (the flash sources), the tf32x3 and wgmma backward
+    kernels' and the tf32x3 forward's first calls in child processes, and
+    13 (its flash checks at phase 13's shapes stand in for phases 3 and
+    4); then phase 13's launches by path and kernel."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
+                 "flash_bwd",
+                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
+                 "flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3_wide"])
+    tf32x3_fwd_probe()
+    dq_probe()
+    dkv_probe()
+    tf32x3_dq_probe()
+    tf32x3_probe()
+    tf32x3_wide_dq_probe()
+    tf32x3_wide_probe()
+    pti = phase_pti(smi)
+    log("pti launches: " + json.dumps(
+        {p: pti[k]["launches"] for p, k in (("13b", "counted"),
+                                            ("13c", "bf16"), ("13d", "ti"))}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] in (["--int8"], ["--int8-tiles"]):
         sys.exit(main_int8(sys.argv[1] == "--int8-tiles"))
@@ -4392,7 +4876,9 @@ if __name__ == "__main__":
         sys.exit(main_adapters())
     if sys.argv[1:] == ["--train"]:
         sys.exit(main_train())
+    if sys.argv[1:] == ["--pti"]:
+        sys.exit(main_pti())
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
-                 f"--flash-bwd | --modes | --adapters | --train]")
+                 f"--flash-bwd | --modes | --adapters | --train | --pti]")
     sys.exit(main())

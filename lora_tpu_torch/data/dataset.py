@@ -1,7 +1,9 @@
-"""The DreamBooth dataset and its loader: the counterpart of
-lora_tpu/data/dataset.py (_resize_short, _center_crop, crop_geometry,
-_color_jitter, load_image_norm, DreamBoothDataset, prefetch,
-device_prefetch, data_loader), without Pillow on the way.
+"""The training datasets and their loader: the counterpart of
+lora_tpu/data/dataset.py (the caption templates, _resize_short,
+_center_crop, crop_geometry, _color_jitter, load_image_norm,
+_get_cutout_holes, generate_random_mask, PivotalTuningDataset,
+DreamBoothDataset, DreamBoothTiDataset, prefetch, device_prefetch,
+data_loader), without Pillow on the way.
 
 Images come out as lora_tpu's do: NHWC float32 in [-1, 1], resized so the
 short side is `size` (bilinear), optionally colour-jittered, center-cropped,
@@ -16,26 +18,92 @@ optionally flipped. The differences are in decoding and resizing:
   from Pillow's on a fraction of a percent of the pixels, exact where no
   resize happens.
 
-random.Random(seed) drives shuffling, h_flip and color_jitter, drawn in
-lora_tpu's order, so the same seed gives the same batches. The native
-resize (lora_tpu's LORA_TPU_NATIVE_IMGOPS=1) and the PTI/TI datasets are
-not ported yet (ROADMAP Slice 4).
+random.Random(seed) drives shuffling, h_flip, color_jitter, the
+inpainting holes, the caption templates and the stochastic attributes,
+drawn in lora_tpu's order, so the same seed gives the same batches.
+Mask-captioned PTI data ({i}.src.jpg beside {i}.mask.png) is JPEG and so
+needs Pillow; face-segmentation masks that are missing are written as gray
+PNGs (data/preprocess.py, data/png.py). The native resize (lora_tpu's
+LORA_TPU_NATIVE_IMGOPS=1) is not ported yet (ROADMAP Slice 4).
 """
 
 from __future__ import annotations
 
 import collections
+import glob
 import random
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .png import _PNG_SIGNATURE, _png_decode, png_size
+from .png import _PNG_SIGNATURE, _png_bytes, _png_decode, png_size
 
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png")
+
+# the caption templates of textual inversion, filled with the token map's
+# value (lora_tpu/data/dataset.py:28-87)
+OBJECT_TEMPLATE = [
+    "a photo of a {}",
+    "a rendering of a {}",
+    "a cropped photo of the {}",
+    "the photo of a {}",
+    "a photo of a clean {}",
+    "a photo of a dirty {}",
+    "a dark photo of the {}",
+    "a photo of my {}",
+    "a photo of the cool {}",
+    "a close-up photo of a {}",
+    "a bright photo of the {}",
+    "a cropped photo of a {}",
+    "a photo of the {}",
+    "a good photo of the {}",
+    "a photo of one {}",
+    "a close-up photo of the {}",
+    "a rendition of the {}",
+    "a photo of the clean {}",
+    "a rendition of a {}",
+    "a photo of a nice {}",
+    "a good photo of a {}",
+    "a photo of the nice {}",
+    "a photo of the small {}",
+    "a photo of the weird {}",
+    "a photo of the large {}",
+    "a photo of a cool {}",
+    "a photo of a small {}",
+]
+
+STYLE_TEMPLATE = [
+    "a painting in the style of {}",
+    "a rendering in the style of {}",
+    "a cropped painting in the style of {}",
+    "the painting in the style of {}",
+    "a clean painting in the style of {}",
+    "a dirty painting in the style of {}",
+    "a dark painting in the style of {}",
+    "a picture in the style of {}",
+    "a cool painting in the style of {}",
+    "a close-up painting in the style of {}",
+    "a bright painting in the style of {}",
+    "a cropped painting in the style of {}",
+    "a good painting in the style of {}",
+    "a close-up painting in the style of {}",
+    "a rendition in the style of {}",
+    "a nice painting in the style of {}",
+    "a small painting in the style of {}",
+    "a weird painting in the style of {}",
+    "a large painting in the style of {}",
+]
+
+NULL_TEMPLATE = ["{}"]
+
+TEMPLATE_MAP = {
+    "object": OBJECT_TEMPLATE,
+    "style": STYLE_TEMPLATE,
+    "null": NULL_TEMPLATE,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -154,14 +222,185 @@ def load_image_norm(path_or_pixels: Union[str, Path, np.ndarray], size: int,
     return arr * 2.0 - 1.0
 
 
+def _get_cutout_holes(height, width, rng: random.Random, min_holes=8,
+                      max_holes=32, min_height=16, max_height=128,
+                      min_width=16, max_width=128):
+    """Random (x1, y1, x2, y2) holes, their extents clamped to the image
+    (lora_tpu/data/dataset.py:175-193)."""
+    max_height = min(max_height, height)
+    max_width = min(max_width, width)
+    min_height = min(min_height, max_height)
+    min_width = min(min_width, max_width)
+    holes = []
+    for _ in range(rng.randint(min_holes, max_holes)):
+        hh = rng.randint(min_height, max_height)
+        hw = rng.randint(min_width, max_width)
+        y1 = rng.randint(0, height - hh)
+        x1 = rng.randint(0, width - hw)
+        holes.append((x1, y1, x1 + hw, y1 + hh))
+    return holes
+
+
+def generate_random_mask(image: np.ndarray, rng: random.Random):
+    """image: (H, W, C) in [-1, 1] -> (mask (H, W, 1) in {0, 1}, the masked
+    image); a quarter of the masks cover everything
+    (lora_tpu/data/dataset.py:196-206)."""
+    h, w = image.shape[:2]
+    mask = np.zeros((h, w, 1), np.float32)
+    for (x1, y1, x2, y2) in _get_cutout_holes(h, w, rng):
+        mask[y1:y2, x1:x2] = 1.0
+    if rng.uniform(0, 1) < 0.25:
+        mask.fill(1.0)
+    masked = image * (mask < 0.5)
+    return mask, masked
+
+
 # ---------------------------------------------------------------------------
-# dataset
+# datasets
 # ---------------------------------------------------------------------------
 
 def _image_files(root: Path, skip_masks: bool = False):
     return sorted(str(p) for p in root.iterdir()
                   if p.suffix.lower() in IMAGE_SUFFIXES
                   and not (skip_masks and p.name.endswith(".mask.png")))
+
+
+def _rgb(pixels: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 with C 1 or 3 -> (H, W, 3), Pillow's
+    convert("RGB")."""
+    return np.repeat(pixels, 3, axis=-1) if pixels.shape[-1] == 1 else pixels
+
+
+class PivotalTuningDataset:
+    """Captioned instances for pivotal tuning, lora_tpu's
+    PivotalTuningDataset (lora_tpu/data/dataset.py:209-334): captions from
+    a template bank, the file names, or caption.txt beside {i}.src.jpg /
+    {i}.mask.png pairs (use_mask_captioned_data, which needs Pillow for
+    the JPEGs); token_map replacement; face-segmentation masks
+    ({i}.mask.png, written as gray PNGs where missing); inpainting holes.
+    Each example draws, in this order, the colour jitter, the holes and
+    the fill-all, the template and the flip; a flip turns the image, the
+    mask and both inpainting arrays."""
+
+    def __init__(
+        self,
+        instance_data_root: str,
+        tokenizer,
+        token_map: Optional[dict] = None,
+        use_template: Optional[str] = None,
+        size: int = 512,
+        h_flip: bool = True,
+        color_jitter: bool = False,
+        resize: bool = True,
+        use_mask_captioned_data: bool = False,
+        use_face_segmentation_condition: bool = False,
+        train_inpainting: bool = False,
+        blur_amount: int = 70,
+        seed: int = 0,
+    ):
+        self.size = size
+        self.tokenizer = tokenizer
+        self.resize = resize
+        self.train_inpainting = train_inpainting
+        self.rng = random.Random(seed)
+
+        root = Path(instance_data_root)
+        if not root.exists():
+            raise ValueError("Instance images root doesn't exists.")
+        assert not (use_mask_captioned_data and use_template), \
+            "Can't use both mask caption data and template."
+
+        self.instance_images_path: List[str] = []
+        self.mask_path: List[str] = []
+
+        if use_mask_captioned_data:
+            for f in sorted(glob.glob(str(root) + "/*src.jpg")):
+                idx = int(Path(f).stem.split(".")[0])
+                mpath = f"{root}/{idx}.mask.png"
+                if Path(mpath).exists():
+                    self.instance_images_path.append(f)
+                    self.mask_path.append(mpath)
+            with open(f"{root}/caption.txt") as fh:
+                self.captions = fh.readlines()
+        else:
+            candidates = set(
+                glob.glob(str(root) + "/*.jpg")
+                + glob.glob(str(root) + "/*.png")
+                + glob.glob(str(root) + "/*.jpeg")
+            ) - set(glob.glob(str(root) + "/*mask.png"))
+            self.instance_images_path = sorted(candidates)
+            self.captions = [Path(x).name.split(".")[0]
+                             for x in self.instance_images_path]
+
+        assert self.instance_images_path, \
+            "No images found in the instance data root."
+
+        self.use_mask = (use_face_segmentation_condition
+                         or use_mask_captioned_data)
+        if use_face_segmentation_condition:
+            n = len(self.instance_images_path)
+            if any(not Path(f"{root}/{i}.mask.png").exists()
+                   for i in range(n)):
+                from .preprocess import face_mask_google_mediapipe
+
+                masks = face_mask_google_mediapipe(
+                    [_rgb(read_image(f)) for f in self.instance_images_path],
+                    blur_amount=blur_amount)
+                for i, m in enumerate(masks):
+                    with open(f"{root}/{i}.mask.png", "wb") as fh:
+                        fh.write(_png_bytes(m))
+            self.mask_path = [f"{root}/{i}.mask.png" for i in range(n)]
+
+        self.num_instance_images = len(self.instance_images_path)
+        self.token_map = token_map
+        self.use_template = use_template
+        self.templates = TEMPLATE_MAP[use_template] if use_template else None
+        self.h_flip = h_flip
+        self.color_jitter = color_jitter
+        self.blur_amount = blur_amount
+        self._length = self.num_instance_images
+
+    def __len__(self):
+        return self._length
+
+    def __getitem__(self, index) -> Dict[str, np.ndarray]:
+        example: Dict[str, np.ndarray] = {}
+        i = index % self.num_instance_images
+        img = load_image_norm(self.instance_images_path[i], self.size,
+                              self.resize, self.color_jitter, self.rng)
+        example["instance_images"] = img
+
+        if self.train_inpainting:
+            m, masked = generate_random_mask(img, self.rng)
+            example["instance_masks"] = m
+            example["instance_masked_images"] = masked
+
+        if self.use_template:
+            assert self.token_map is not None
+            input_tok = list(self.token_map.values())[0]
+            text = self.rng.choice(self.templates).format(input_tok)
+        else:
+            text = self.captions[i].strip()
+            if self.token_map is not None:
+                for token, value in self.token_map.items():
+                    text = text.replace(token, value)
+
+        if self.use_mask:
+            # the image's transform, then * 0.5 + 1.0, one channel
+            mask = load_image_norm(self.mask_path[i], self.size,
+                                   self.resize) * 0.5 + 1.0
+            example["mask"] = mask[..., :1]
+
+        if self.h_flip and self.rng.random() > 0.5:
+            for key in ("instance_images", "mask", "instance_masks",
+                        "instance_masked_images"):
+                if key in example:
+                    example[key] = example[key][:, ::-1]
+
+        example["text"] = text
+        example["instance_prompt_ids"] = self.tokenizer(
+            [text])["input_ids"][0]
+        return example
 
 
 class DreamBoothDataset:
@@ -237,6 +476,32 @@ class DreamBoothDataset:
                 ex["class_geometry"] = self._geometry(cpath)
             ex["class_prompt_ids"] = self.tokenizer(
                 [self.class_prompt])["input_ids"][0]
+        return ex
+
+
+class DreamBoothTiDataset(DreamBoothDataset):
+    """The legacy TI+LoRA trainer's dataset, lora_tpu's DreamBoothTiDataset
+    (lora_tpu/data/dataset.py:508-535): captions from the template bank
+    around the placeholder token, with stochastic attributes (a random
+    subset, shuffled, comma-joined after the token)."""
+
+    def __init__(self, *args, placeholder_token: str = "<s>",
+                 learnable_property: str = "object",
+                 stochastic_attribute: Optional[str] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.placeholder_token = placeholder_token
+        self.templates = TEMPLATE_MAP[learnable_property]
+        self.stochastic_attribute = (
+            stochastic_attribute.split(",") if stochastic_attribute else [])
+
+    def __getitem__(self, index):
+        ex = super().__getitem__(index)
+        attrs = [a for a in self.stochastic_attribute
+                 if self.rng.random() < 0.5]
+        self.rng.shuffle(attrs)
+        text = self.rng.choice(self.templates).format(
+            ", ".join([self.placeholder_token] + attrs))
+        ex["instance_prompt_ids"] = self.tokenizer([text])["input_ids"][0]
         return ex
 
 
@@ -332,7 +597,10 @@ def data_loader(dataset, batch_size: int, shuffle: bool = True,
                 num_workers: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Endless batch iterator, lora_tpu's data_loader. With
     prior_preservation, instance and class halves are concatenated
-    [instance | class] and "is_instance" marks the rows.
+    [instance | class] and "is_instance" marks the rows. Pixel masks
+    ("mask", ones for the class rows) and inpainting arrays
+    ("mask_values", "masked_image_values") are stacked when the examples
+    carry them.
     process_index/count shard the sample stream per process. num_workers > 0
     decodes samples on a thread pool with one batch of lookahead; the
     augmentation draws then interleave across threads, so set
@@ -375,6 +643,18 @@ def data_loader(dataset, batch_size: int, shuffle: bool = True,
                 geom = np.concatenate(
                     [geom, np.stack([c["class_geometry"] for c in chunk])])
             batch["time_ids_geom"] = geom.astype(np.float32)
+        if "mask" in chunk[0]:
+            batch["mask"] = np.stack(
+                [c["mask"] for c in chunk]).astype(np.float32)
+            if prior_preservation:
+                batch["mask"] = np.concatenate(
+                    [batch["mask"], np.ones_like(batch["mask"])])
+        if "instance_masks" in chunk[0]:
+            batch["mask_values"] = np.stack(
+                [c["instance_masks"] for c in chunk]).astype(np.float32)
+            batch["masked_image_values"] = np.stack(
+                [c["instance_masked_images"] for c in chunk]
+            ).astype(np.float32)
         return batch
 
     if num_workers <= 0:

@@ -3,7 +3,8 @@ Pillow (the GPU machines this port targets have none): the serving path's
 images (serve.py) and the trainer's instance and class images
 (data/dataset.py, training/dreambooth.py).
 
-_png_bytes writes an 8-bit RGB PNG; _png_decode reads the PNGs Pillow's
+_png_bytes writes an 8-bit RGB PNG, or an 8-bit gray one (colour type 0)
+of a 2-D array (the trainer's face masks); _png_decode reads the PNGs Pillow's
 convert("RGB") reads, apart from 16-bit and interlaced files, which raise
 a ValueError naming the case; png_size reads a file's size from its IHDR
 chunk alone.
@@ -19,17 +20,19 @@ import numpy as np
 
 
 def _png_bytes(rgb: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of a (H, W, 3) uint8 array: one IDAT, filter 0 on
-    every row."""
-    h, w, _ = rgb.shape
+    """An 8-bit PNG of a uint8 array: RGB (colour type 2) of (H, W, 3),
+    gray (colour type 0, Pillow's mode "L") of (H, W). One IDAT, filter 0
+    on every row."""
+    gray = rgb.ndim == 2
+    h, w = rgb.shape[:2]
     raw = np.concatenate(
-        [np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+        [np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if gray else 2, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + chunk(b"IEND", b""))

@@ -165,9 +165,11 @@ def test_lora_file_parses_and_writes_identically(tmp_path, cast_fp16):
 def test_port_imports_no_jax():
     modules = ["lora_tpu_torch", "lora_tpu_torch.convert",
                "lora_tpu_torch.cli._fire", "lora_tpu_torch.cli.lora_db",
+               "lora_tpu_torch.cli.lora_pti", "lora_tpu_torch.cli.lora_ti",
                "lora_tpu_torch.core.lora", "lora_tpu_torch.core.quantize",
                "lora_tpu_torch.core.save", "lora_tpu_torch.core.sites",
                "lora_tpu_torch.data.dataset", "lora_tpu_torch.data.png",
+               "lora_tpu_torch.data.preprocess",
                "lora_tpu_torch.data.tokenizer",
                "lora_tpu_torch.formats.pt_io",
                "lora_tpu_torch.formats.reader",
@@ -187,6 +189,8 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.training.dreambooth",
                "lora_tpu_torch.training.loss",
                "lora_tpu_torch.training.optim",
+               "lora_tpu_torch.training.pti",
+               "lora_tpu_torch.training.ti_legacy",
                "lora_tpu_torch.training.train_step",
                "lora_tpu_torch.utils.metrics",
                "lora_tpu_torch.utils.profiling"]

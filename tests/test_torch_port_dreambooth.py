@@ -104,27 +104,27 @@ def write_images(d, n, seed):
     return str(d)
 
 
-def base_params():
+def base_params(unet_cfg=TINY_UNET):
     """Numpy params of the tiny UNet, CLIP and VAE (the port's init)."""
     pipe = StableDiffusionPipeline.random_init(
-        torch.Generator().manual_seed(0), "cpu", unet_cfg=TINY_UNET,
+        torch.Generator().manual_seed(0), "cpu", unet_cfg=unet_cfg,
         text_cfg=TINY_TEXT, vae_cfg=TINY_VAE)
     return tuple({k: v.numpy() for k, v in m.state_dict().items()}
                  for m in (pipe.unet, pipe.text_encoder, pipe.vae))
 
 
-def jax_pipe(params):
+def jax_pipe(params, unet_cfg=TINY_UNET):
     unet_p, text_p, vae_p = params
     return JPipe(unet_params={k: jnp.asarray(v) for k, v in unet_p.items()},
                  text_params={k: jnp.asarray(v) for k, v in text_p.items()},
                  vae_params={k: jnp.asarray(v) for k, v in vae_p.items()},
                  tokenizer=JTokenizer(vocab_size=TINY_TEXT.vocab_size),
-                 unet_cfg=TINY_UNET, text_cfg=TINY_TEXT, vae_cfg=TINY_VAE)
+                 unet_cfg=unet_cfg, text_cfg=TINY_TEXT, vae_cfg=TINY_VAE)
 
 
-def port_pipe(params):
+def port_pipe(params, unet_cfg=TINY_UNET):
     modules = []
-    for cls, cfg, p in ((UNet, TINY_UNET, params[0]),
+    for cls, cfg, p in ((UNet, unet_cfg, params[0]),
                         (CLIPTextModel, TINY_TEXT, params[1]),
                         (VAE, TINY_VAE, params[2])):
         m = cls(cfg, device="cpu")

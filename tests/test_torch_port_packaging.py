@@ -55,9 +55,9 @@ def test_wheel_carries_the_kernel_sources(tmp_path):
 def test_port_wheel_stands_alone(tmp_path):
     """`pip wheel` of lora_tpu_torch/ alone (its own pyproject.toml) builds
     offline a wheel that requires torch and numpy, not jax; whose console
-    scripts start the port's server and its DreamBooth trainer; that carries
-    every package of the port and every csrc source (the blockwise-int8
-    Adam's among them), and nothing of lora_tpu."""
+    scripts start the port's server and its DreamBooth, PTI and TI
+    trainers; that carries every package of the port and every csrc source
+    (the blockwise-int8 Adam's among them), and nothing of lora_tpu."""
     pkg = os.path.join(REPO, "lora_tpu_torch")
     src = tmp_path / "lora_tpu_torch"
     shutil.copytree(pkg, src, ignore=shutil.ignore_patterns(
@@ -81,6 +81,8 @@ def test_port_wheel_stands_alone(tmp_path):
     scripts = zf.read(f"{info}/entry_points.txt").decode()
     assert "lora_serve_torch = lora_tpu_torch.serve:main" in scripts
     assert "lora_db_torch = lora_tpu_torch.cli.lora_db:main" in scripts
+    assert "lora_pti_torch = lora_tpu_torch.cli.lora_pti:main" in scripts
+    assert "lora_ti_torch = lora_tpu_torch.cli.lora_ti:main" in scripts
     assert "lora_tpu." not in scripts, scripts
     assert not {n for n in names if n.startswith("lora_tpu/")}
     packages = {os.path.relpath(d, REPO) for d, _, files in os.walk(pkg)

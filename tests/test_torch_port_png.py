@@ -232,6 +232,33 @@ def test_round_trips_the_port_encoder():
     np.testing.assert_array_equal(got, want.astype(np.float32) / 127.5 - 1)
 
 
+def test_gray_png_round_trips_and_pillow_reads_it_as_mode_l(Image):
+    """A 2-D uint8 array is written as an 8-bit gray PNG (colour type 0):
+    _png_decode gives it back replicated to RGB, data/dataset.py's
+    read_image keeps its one channel, and Pillow opens it as mode "L"
+    with the same bytes."""
+    rng = np.random.default_rng(15)
+    for h, w in ((1, 1), (37, 64), (64, 37)):
+        gray = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        data = t_serve._png_bytes(gray)
+        assert data[25] == 0 and data[24] == 8  # IHDR colour type, depth
+        np.testing.assert_array_equal(
+            t_serve._png_decode(data), np.repeat(gray[..., None], 3, -1))
+        with Image.open(io.BytesIO(data)) as img:
+            assert img.mode == "L" and img.size == (w, h)
+            np.testing.assert_array_equal(np.asarray(img), gray)
+
+
+def test_gray_png_file_reads_as_one_channel(tmp_path):
+    from lora_tpu_torch.data.dataset import read_image
+
+    gray = np.random.default_rng(16).integers(0, 256, (9, 11),
+                                              dtype=np.uint8)
+    path = tmp_path / "m.png"
+    path.write_bytes(t_serve._png_bytes(gray))
+    np.testing.assert_array_equal(read_image(str(path)), gray[..., None])
+
+
 def test_refusals_name_the_case():
     rng = np.random.default_rng(14)
     rgb = rng.integers(0, 256, (4, 5, 3))

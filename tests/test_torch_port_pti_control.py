@@ -1,0 +1,167 @@
+"""The port's pivotal tuning trainer alone (lora_tpu_torch/training/pti.py)
+on the tiny CPU pipeline: preemption by SIGTERM sent from a step hook at
+micro-step k (no timer) in inversion, which stops before tuning and writes
+no final artifact, and in tuning, which keeps its step_* save and writes
+no final artifact; every refusal (SDXL, a device mesh, unknown LoRA
+targets, LoCon with the extended targets, unsorted placeholder tokens, a
+token already in the tokenizer, a multi-token initializer, unequal token
+and initializer counts); and the wandb-gated eval, which waits for
+utils/eval.py."""
+
+import dataclasses
+import os
+import signal
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from lora_tpu_torch.data.png import _png_bytes  # noqa: E402
+from lora_tpu_torch.models.config import (  # noqa: E402
+    TINY_TEXT,
+    TINY_UNET,
+    TINY_VAE,
+)
+from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from lora_tpu_torch.training import pti as t_pti  # noqa: E402
+
+SIZE = 64
+BASE = dict(resolution=SIZE, lora_rank=2, max_train_steps_ti=3,
+            max_train_steps_tuning=3, gradient_accumulation_steps=2,
+            save_steps=100, seed=0, placeholder_tokens="<s1>|<s2>",
+            use_template="object", train_text_encoder=False)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny_pipe():
+    return StableDiffusionPipeline.random_init(
+        torch.Generator().manual_seed(0), "cpu", unet_cfg=TINY_UNET,
+        text_cfg=TINY_TEXT, vae_cfg=TINY_VAE)
+
+
+@pytest.fixture(scope="module")
+def inst(tmp_path_factory):
+    d = tmp_path_factory.mktemp("inst")
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        (d / f"img_{i}.png").write_bytes(_png_bytes(
+            rng.integers(0, 255, (SIZE, SIZE, 3), dtype=np.uint8)))
+    return str(d)
+
+
+def preempt_at(monkeypatch, module, k):
+    """SIGTERM to this process after the k-th micro-step of the run (the
+    trainer's guard turns it into a flag it reads before the next one)."""
+    real = module.make_train_step
+    calls = [0]
+
+    def make_train_step(**kw):
+        step = real(**kw)
+
+        def hooked(*a, **kw2):
+            loss = step(*a, **kw2)
+            calls[0] += 1
+            if calls[0] == k:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return loss
+
+        return hooked
+
+    monkeypatch.setattr(module, "make_train_step", make_train_step)
+    return calls
+
+
+def test_preempted_in_inversion(inst, tmp_path, monkeypatch):
+    """SIGTERM after micro-step 3 (step 1 done, step 2 half way): the
+    inversion's rows saved as step_inv_1, no tuning, no final artifact."""
+    calls = preempt_at(monkeypatch, t_pti, 3)
+    out = tmp_path / "out"
+    res = t_pti.train_pti(tiny_pipe(), t_pti.PTIConfig(
+        **BASE, instance_data_dir=inst, output_dir=str(out)))
+    assert res["preempted"] and calls[0] == 3
+    assert "lora_unet" not in res["trainable"]
+    assert sorted(os.listdir(out)) == ["metrics.jsonl",
+                                       "step_inv_1.safetensors"]
+
+
+def test_preempted_in_tuning(inst, tmp_path, monkeypatch):
+    """SIGTERM after the 6 inversion micro-steps and 3 of tuning: the
+    tuning's step_1 save, no final artifact."""
+    calls = preempt_at(monkeypatch, t_pti, 6 + 3)
+    out = tmp_path / "out"
+    res = t_pti.train_pti(tiny_pipe(), t_pti.PTIConfig(
+        **BASE, instance_data_dir=inst, output_dir=str(out)))
+    assert res["preempted"] and calls[0] == 9
+    assert "lora_unet" in res["trainable"]
+    assert sorted(os.listdir(out)) == ["metrics.jsonl", "step_1.safetensors"]
+
+
+def test_refusals(inst, tmp_path):
+    cfg = t_pti.PTIConfig(**BASE, instance_data_dir=inst,
+                          output_dir=str(tmp_path / "o"))
+    xl = types.SimpleNamespace(unet=types.SimpleNamespace(
+        cfg=dataclasses.replace(TINY_UNET, addition_embed_type="text_time")))
+    with pytest.raises(NotImplementedError, match="Slice 6"):
+        t_pti.train_pti(xl, cfg)
+    pipe = tiny_pipe()
+    for bad in ({"data_parallel": True}, {"fsdp": 2},
+                {"tensor_parallel": 2}):
+        with pytest.raises(NotImplementedError, match="Slice 7"):
+            t_pti.train_pti(pipe, dataclasses.replace(cfg, **bad))
+    for bad, match in (
+            ({"lora_targets": "everything"}, "default\\|extended\\|locon"),
+            ({"lora_targets": "locon", "use_extended_lora": True},
+             "conflicts"),
+            ({"placeholder_tokens": "<s2>|<s1>"}, "should be sorted"),
+            ({"initializer_tokens": "dog"}, "Unequal"),
+            ({"initializer_tokens": "<zero>|big dog"}, "single token")):
+        with pytest.raises(ValueError, match=match):
+            t_pti.train_pti(tiny_pipe(), dataclasses.replace(cfg, **bad))
+    pipe = tiny_pipe()
+    pipe.tokenizer.add_tokens("<s1>")
+    with pytest.raises(ValueError, match="already contains the token <s1>"):
+        t_pti.train_pti(pipe, cfg)
+
+
+def test_setup_ti_rows_and_table(tmp_path):
+    """<rand-sigma> from the generator, <zero>, a token's row; the table
+    grows with zero rows to the new ids."""
+    pipe = tiny_pipe()
+    table = pipe.text_encoder.get_parameter(
+        "text_model.embeddings.token_embedding.weight").detach().clone()
+    gen = torch.Generator().manual_seed(5)
+    ids, rows = t_pti.setup_ti(pipe, ["<a>", "<b>", "<c>"],
+                               ["<rand-0.5>", "<zero>", "dog"], gen)
+    want0 = torch.randn(table.shape[1],
+                        generator=torch.Generator().manual_seed(5)) * 0.5
+    torch.testing.assert_close(rows[0], want0, rtol=0, atol=0)
+    assert torch.equal(rows[1], torch.zeros_like(rows[1]))
+    dog = pipe.tokenizer.encode("dog")
+    assert torch.equal(rows[2], table[dog[0]])
+    assert ids.tolist() == [TINY_TEXT.vocab_size + i for i in range(3)]
+    grown = pipe.text_encoder.get_parameter(
+        "text_model.embeddings.token_embedding.weight")
+    assert grown.shape[0] == TINY_TEXT.vocab_size + 3
+    assert torch.equal(grown[:table.shape[0]], table)
+    assert not grown[table.shape[0]:].any()
+
+
+def test_wandb_eval_is_skipped_naming_slice_5(inst, tmp_path, capsys):
+    res = t_pti.train_pti(tiny_pipe(), t_pti.PTIConfig(**dict(
+        BASE, max_train_steps_ti=1, max_train_steps_tuning=1,
+        gradient_accumulation_steps=1, save_steps=1, log_wandb=True),
+        instance_data_dir=inst, output_dir=str(tmp_path / "o")))
+    assert not res["preempted"]
+    outp = capsys.readouterr().out
+    assert "eval skipped:" in outp and "Slice 5" in outp
+    assert {"step_1.safetensors", "step_inv_1.safetensors",
+            "final_lora.safetensors"} <= set(os.listdir(tmp_path / "o"))
