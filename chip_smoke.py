@@ -66,9 +66,15 @@
                                         # processes under a timeout, 13
                                         # (with its own flash checks at
                                         # phase 13's shapes)
+    python3 chip_smoke.py --sdxl        # phases 1, 2 (the forward and int8
+                                        # sources only), the tf32x3 forward's
+                                        # and the f32 int8 kernel's first
+                                        # calls in child processes, 14 (with
+                                        # its own flash and int8 checks at
+                                        # phase 14's shapes)
 
-Phases, each printing its own lines (about 10 minutes on one H100, most of
-it the build of the kernels):
+Phases, each printing its own lines (about 12 minutes on one H100, a third
+of it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_fwd_tf32x3.cu, flash_bwd.cu,
@@ -297,6 +303,42 @@ it the build of the kernels):
      process, 1 + 1 steps. Every flash forward call of 13b-13d is
      recorded and must be at a checked shape; each flash row of the
      kernels line gains the "pti" and "pti_bf16" launches.
+  14. sdxl: SDXL serving at full width (models/config.py SDXL_UNET,
+     SDXL_TEXT, SDXL_TEXT2, SDXL_VAE, the published
+     stabilityai/stable-diffusion-xl-base-1.0 configs) and 1024x1024, random
+     weights from the seed. 14a: the bf16 pipeline's parameters and weight
+     bytes per model. 14b: the forward kernels against their plain versions
+     at the SDXL self-attention levels (H 10, T = S = 4096 and H 20,
+     T = S = 1024, D 64), timed at batch 2 in bf16 (wgmma) and f32
+     (tf32x3), untimed in bf16 at batch 4; one UNet call at batch 2 with
+     flash on against off (relative L2 within SDXL_FLASH_REL_L2), its
+     flash launches by level (10 at T = 4096, 60 at T = 1024) and the
+     timed columns summed over them, and one call under torch.profiler.
+     14c: a txt2img request, 2 prompts, 20 DDIM
+     steps, CFG 5.0: 70 wgmma flash launches per UNet call, its wall time
+     and peak memory. 14e: a PipelineServer on localhost (max_batch 1):
+     one txt2img, one img2img and one blend-inpaint (euler_a) request over
+     HTTP, 10 steps (8 at strength 0.8), each answered with a 1024x1024
+     PNG, counted alone. 14f: a LyCORIS-XL LoHa file (the UNet's and
+     te2's default sites) and a kohya-XL file (rank 4 over the UNet's,
+     te1's and te2's) from the seed, each through patch_pipe and
+     tune_lora_scale(0.7) and one UNet call moving against the bare one;
+     then the kohya-XL file folded by collapse_lora(0.7): the UNet call,
+     te1's and te2's parts of the context and the pooled embedding within
+     SDXL_COLLAPSE_REL_L2 of the patched pipe's (bf16), where alpha 1.0 is
+     at least twice as far. 14g: that pipeline quantize_base()d in bf16
+     (as `serve --quantize` builds it) behind a PipelineServer: one
+     txt2img request over HTTP, 10 steps, 70 wgmma flash launches per UNet
+     call and exactly the wgmma int8 launches its weights imply. 14d: the
+     pipeline from the same seed in f32 with quantize_base() (UNet, te1
+     and the VAE int8, te2 float): a UNet call's and a te1 encode's int8
+     launches, all wgmma_f32, te2's none; then one prompt, 4 steps: 70
+     tf32x3 flash launches per UNet call and exactly the int8 launches the
+     weights imply. Every flash and int8 call of 14c-14g is recorded and
+     checked against its plain version (the GEGLU projection at 64x64
+     timed in f32 and bf16); each flash forward and int8 row of the
+     kernels line gains the "sdxl" and "sdxl_f32" launches and the SDXL
+     levels' times.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -307,9 +349,11 @@ launch counts, errors, times, bounds and library times.
 from __future__ import annotations
 
 import base64
+import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -683,14 +727,18 @@ def _row_key(row):
 
 
 @contextlib.contextmanager
-def recording_flash_shapes(seen: set):
+def recording_flash_shapes(seen):
     """Adds _flash_key of every flash forward call made inside on CUDA
-    tensors to `seen` (through the route lookup flash_fwd makes; the wrapper
-    and its counts are unchanged)."""
+    tensors to `seen`, a set (or counts it, in a collections.Counter),
+    through the route lookup flash_fwd makes; the wrapper and its counts
+    are unchanged."""
     route = fa._fwd_route
 
     def recorded(q, k, v):
-        seen.add(_flash_key(q, k, v))
+        if isinstance(seen, collections.Counter):
+            seen[_flash_key(q, k, v)] += 1
+        else:
+            seen.add(_flash_key(q, k, v))
         return route(q, k, v)
 
     fa._fwd_route = recorded
@@ -2455,13 +2503,47 @@ def _mode_inputs(batch: int, gen):
     return image, mask
 
 
-def _check_images(images, n: int, what: str) -> None:
-    if images.shape != (n, 512, 512, 3):
+def _check_images(images, n: int, what: str, size: int = 512) -> None:
+    if images.shape != (n, size, size, 3):
         raise AssertionError(f"{what}: images have shape {images.shape}")
     if not (np.isfinite(images).all() and images.min() >= 0.0
             and images.max() <= 1.0):
         raise AssertionError(f"{what}: images are not finite values in "
                              f"[0, 1]")
+
+
+def counted_request(report: dict, tag: str, name: str, calls: int, fn,
+                    per_call: int = ROUTED_PER_UNET_CALL,
+                    route: str = "wgmma", int8_want=lambda: 0,
+                    int8_route: str = "wgmma", totals=None):
+    """fn() as one counted request of `calls` UNet calls (the counts set to
+    0 just before it, read just after): its wall time, peak memory and
+    launches by kernel go to report[name]. It must launch `per_call` flash
+    forwards of `route` per UNet call and int8_want() int8 matmuls of
+    `int8_route` (asked after it), else an AssertionError. `totals` (by
+    wrapper name, "flash_fwd" / "int8_matmul") gains the launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    fwd = dict(fa.flash_fwd.launches_by_kernel)
+    int8 = dict(i8.int8_matmul.launches_by_kernel)
+    report[name] = {"wall_s": time.perf_counter() - t0, "unet_calls": calls,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "flash_fwd": fwd, "int8_matmul": int8}
+    log(f"{tag}: {name}: " + json.dumps(report[name]))
+    if fwd != _only(route, per_call * calls):
+        raise AssertionError(f"{name}: flash_fwd launched {fwd}, not "
+                             f"{per_call} {route} per UNet call x {calls}")
+    if int8 != _only(int8_route, int8_want(), i8.int8_matmul):
+        raise AssertionError(f"{name}: int8_matmul launched {int8}, not "
+                             f"{int8_want()} {int8_route}")
+    for wrapper, total in (totals or {}).items():
+        for k in total:
+            total[k] += report[name][wrapper][k]
+    return out
 
 
 def phase_modes(smi: str):
@@ -2492,31 +2574,12 @@ def phase_modes(smi: str):
     image, mask = _mode_inputs(len(PROMPTS),
                                torch.Generator("cuda").manual_seed(SEED + 8))
     fwd_total = dict.fromkeys(fa.flash_fwd.launches_by_kernel, 0)
+    int8_total = dict.fromkeys(i8.int8_matmul.launches_by_kernel, 0)
     report = {}
-
-    def counted(name, calls, fn, int8_want=lambda: 0):
-        """fn() as one counted request of `calls` UNet calls; int8_want():
-        the int8 launches it must have made (all wgmma), asked after it."""
-        _zero_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        fwd = dict(fa.flash_fwd.launches_by_kernel)
-        int8 = dict(i8.int8_matmul.launches_by_kernel)
-        report[name] = {"wall_s": wall, "unet_calls": calls,
-                        "flash_fwd": fwd, "int8_matmul": int8}
-        log(f"modes: {name}: " + json.dumps(report[name]))
-        if fwd != _only("wgmma", ROUTED_PER_UNET_CALL * calls):
-            raise AssertionError(
-                f"{name}: flash_fwd launched {fwd}, not "
-                f"{ROUTED_PER_UNET_CALL} wgmma per UNet call x {calls}")
-        if int8 != _only("wgmma", int8_want(), i8.int8_matmul):
-            raise AssertionError(f"{name}: int8_matmul launched {int8}, not "
-                                 f"{int8_want()} wgmma")
-        for k in fwd_total:
-            fwd_total[k] += fwd[k]
-        return out
+    # each request of `calls` UNet calls: 15 wgmma flash launches each
+    counted = functools.partial(
+        counted_request, report, "modes",
+        totals={"flash_fwd": fwd_total, "int8_matmul": int8_total})
 
     def gen(offset):
         return torch.Generator("cuda").manual_seed(SEED + offset)
@@ -2597,7 +2660,6 @@ def phase_modes(smi: str):
                    strength=MODE_STRENGTH)
         torch.cuda.synchronize()
         report["http warmup"] = {"wall_s": time.perf_counter() - t0}
-        int8_total = dict.fromkeys(i8.int8_matmul.launches_by_kernel, 0)
         for mode in ("img2img", "inpaint"):
             payload = {"mode": mode, "prompt": PROMPTS, "image": image_png,
                        "steps": STEPS, "guidance": 7.5,
@@ -2616,8 +2678,6 @@ def phase_modes(smi: str):
             report[name].update(clip_encodes=encodes[0],
                                 latency_ms=body["latency_ms"],
                                 batched_with=body["batched_with"])
-            for k in int8_total:
-                int8_total[k] += report[name]["int8_matmul"][k]
             if len(body["images"]) != len(PROMPTS):
                 raise AssertionError(f"{name}: {len(body['images'])} images")
             for b64 in body["images"]:
@@ -3000,30 +3060,9 @@ def phase_adapters(smi: str):
             generator=torch.Generator("cuda").manual_seed(SEED),
             device="cuda", dtype=dtype)
 
-    def counted(name, calls, fn, int8_want=lambda: 0):
-        """fn() as one counted request of `calls` UNet calls: ROUTED_PER_
-        UNET_CALL wgmma flash launches each, and int8_want() wgmma int8
-        launches (asked after it)."""
-        _zero_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        fwd = dict(fa.flash_fwd.launches_by_kernel)
-        int8 = dict(i8.int8_matmul.launches_by_kernel)
-        report[name] = {"wall_s": time.perf_counter() - t0,
-                        "flash_fwd": fwd, "int8_matmul": int8}
-        log(f"adapters: {name}: " + json.dumps(report[name]))
-        if fwd != _only("wgmma", ROUTED_PER_UNET_CALL * calls):
-            raise AssertionError(f"{name}: flash_fwd launched {fwd}, not "
-                                 f"{ROUTED_PER_UNET_CALL} wgmma x {calls}")
-        if int8 != _only("wgmma", int8_want(), i8.int8_matmul):
-            raise AssertionError(f"{name}: int8_matmul launched {int8}, not "
-                                 f"{int8_want()} wgmma")
-        for k in fwd_total:
-            fwd_total[k] += fwd[k]
-        for k in int8_total:
-            int8_total[k] += int8[k]
-        return out
+    counted = functools.partial(
+        counted_request, report, "adapters",
+        totals={"flash_fwd": fwd_total, "int8_matmul": int8_total})
 
     with tempfile.TemporaryDirectory() as tmp:
         k_path, l_path, l0_path = (os.path.join(tmp, n) for n in (
@@ -4088,6 +4127,556 @@ def _added_launches(a: dict, b: dict) -> dict:
                                             "flash_bwd_dkv")}
 
 
+# phase 14: SDXL serving at full width, 1024x1024
+# the two self-attention levels of the SDXL UNet at 1024x1024 (128x128
+# latents; none at the first level): (heads, T = S, D), 640 channels at
+# 64x64 and 1280 at 32x32, head dim 64
+SDXL_ATTN_LEVELS = ((10, 4096, 64), (20, 1024, 64))
+# routed self-attentions per SDXL UNet call at 1024px by level (T), by
+# models/structure.py: at 64x64 down_blocks.1 (2 x 2) and up_blocks.1
+# (3 x 2); at 32x32 down_blocks.2 (2 x 10), the mid block (10) and
+# up_blocks.0 (3 x 10)
+SDXL_LAUNCHES_BY_LEVEL = {4096: 10, 1024: 60}
+SDXL_ROUTED_PER_UNET_CALL = sum(SDXL_LAUNCHES_BY_LEVEL.values())  # 70
+SDXL_SIZE = 1024
+SDXL_PROMPTS = ["a photo of an astronaut riding a horse",
+                "a watercolor of a lighthouse at dawn"]
+SDXL_STEPS = 20            # 14c: bf16 txt2img, 2 prompts, CFG 5.0
+SDXL_F32_STEPS = 4         # 14d: f32 + quantize_base, 1 prompt
+SDXL_HTTP_STEPS = 10       # 14e: each HTTP request (image modes: 8 at 0.8)
+SDXL_CFG = 5.0
+SDXL_RANK = 4              # 14f: the kohya-XL and LyCORIS-XL files
+SDXL_ALPHA = 0.7
+# the kohya-XL file's up factors (std). At 4x this the random UNet turns
+# chaotic: its output moves far between the flash and the plain path, in
+# f32 as in bf16, and no collapse check holds
+SDXL_UP_STD = 0.05
+# the timed int8 shapes (M, K, N, dtype): the GEGLU projection at 64x64
+# (2 x 4096 rows of 640 channels to 2 x 2560), f32 x (14d) and bf16 x (14g)
+SDXL_INT8_TIMED = ((2 * 4096, 640, 5120, "float32"),
+                   (2 * 4096, 640, 5120, "bfloat16"))
+# relative L2 of one bf16 SDXL UNet call at batch 2 through the flash kernel
+# against the same call through the plain attention path. Both round P to
+# bf16 before P.V and store O in bf16 (2^-8 = 3.9e-3 relative), summing in
+# other orders; those differences pass through 70 transformer blocks and 23
+# resnets to the output. A few parts in 100 bound that (phase 7's limit for
+# the gradient, GRAD_REL_L2_TOL); a wrong head, row or tile in any block
+# moves the output by O(1).
+SDXL_FLASH_REL_L2 = GRAD_REL_L2_TOL
+# 14f, bf16: the kohya-XL file at SDXL_ALPHA (W x + a (up down x)) against
+# collapse_lora(SDXL_ALPHA) ((W + a up down) x, rounded to bf16 once more):
+# the UNet call at batch 2 and each text encoder's part of the encoding, by
+# relative L2. The fold moves each weight by up to half a bf16 step (2^-9
+# relative), as much as the flash and the plain path differ by (the patched
+# call through both is printed beside it); a collapse at the wrong alpha or
+# without an encoder moves them by the adapter's whole share, which the
+# check requires to be at least twice the limit
+SDXL_COLLAPSE_REL_L2 = 3e-2
+
+
+def sdxl_flash_rows(gen) -> list:
+    """14b: the forward kernels against their plain versions at the SDXL
+    levels: timed at batch 2 (one prompt under CFG: 14d-14f), bf16 and
+    f32; untimed in bf16 at batch 4 (14c's two prompts under CFG)."""
+    rows = []
+    for B, dtype, timed in ((2, torch.bfloat16, True),
+                            (2, torch.float32, True),
+                            (4, torch.bfloat16, False)):
+        for H, T, D in SDXL_ATTN_LEVELS:
+            rows.append(check_kernel(B, H, T, T, D, dtype, gen,
+                                     timed=timed))
+    return rows
+
+
+def _sdxl_unet_inputs(pipe, batch: int, gen):
+    """Random latents (batch, 128, 128, 4), timesteps, context and text_time
+    rows for one SDXL UNet call, in the pipe's dtype."""
+    cfg = pipe.unet.cfg
+    lat = torch.randn((batch, SDXL_SIZE // 8, SDXL_SIZE // 8,
+                       cfg.in_channels), generator=gen, device="cuda")
+    ctx = torch.randn((batch, 77, cfg.cross_attention_dim), generator=gen,
+                      device="cuda")
+    pooled = torch.randn((batch, pipe.text_encoder_2.cfg.projection_dim),
+                         generator=gen, device="cuda")
+    return (lat.to(pipe.dtype), torch.full((batch,), 501, device="cuda"),
+            ctx.to(pipe.dtype),
+            {"text_embeds": pooled.to(pipe.dtype),
+             "time_ids": pipe._time_ids(batch, SDXL_SIZE, SDXL_SIZE)})
+
+
+def _sdxl_unet(pipe, inputs, lora=None) -> torch.Tensor:
+    lat, t, ctx, cond = inputs
+    with torch.inference_mode():
+        return pipe.unet(lat, t, ctx, lora=lora, added_cond=cond)
+
+
+def sdxl_flash_call_sums(rows, calls: collections.Counter) -> dict:
+    """The flash launches of one bf16 UNet call at batch 2 by level, which
+    must be SDXL_LAUNCHES_BY_LEVEL, and the sums over them of each timed
+    column of 14b's batch-2 rows: bf16, and f32 (the same layers)."""
+    by_level = collections.Counter()
+    for key, n in calls.items():
+        by_level[key[2]] += n
+    if dict(by_level) != SDXL_LAUNCHES_BY_LEVEL:
+        raise AssertionError(f"a UNet call launched flash_fwd {dict(by_level)}"
+                             f" times by T, not {SDXL_LAUNCHES_BY_LEVEL}")
+    sums = {"launches_by_T": dict(by_level)}
+    for dtype, keys in (("bfloat16", FLASH_SUM_KEYS),
+                        ("float32", FLASH_F32_SUM_KEYS)):
+        level = {r["T"]: r for r in rows
+                 if r["dtype"] == dtype and r["B"] == 2 and "ms" in r}
+        sums[dtype] = {k: sum(n * level[T][k] for T, n in by_level.items())
+                       for k in keys}
+    log("sdxl: flash per UNet call (batch 2): " + json.dumps(sums))
+    return sums
+
+
+def phase_sdxl(smi: str) -> dict:
+    """Phase 14: SDXL serving at full width and 1024x1024. 14a random SDXL
+    weights from the seed (bf16); 14b the flash forward kernels at the
+    SDXL levels against their plain versions, one UNet call with flash on
+    against off, its launches by level, one profiled; 14c bf16 txt2img;
+    14e HTTP (txt2img, img2img, blend inpaint); 14f a LyCORIS-XL (LoHa)
+    and a kohya-XL file, the latter collapsed; 14g the bf16 pipe quantized
+    over HTTP; 14d f32 with quantize_base. Every flash forward and int8
+    call of 14c-14g is recorded and checked against its plain version.
+    Returns the launches by path and kernel and the timed rows."""
+    from lora_tpu_torch.ops.attention import (
+        set_use_memory_efficient_attention,
+    )
+    from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 14)
+    # 14a
+    t0 = time.perf_counter()
+    pipe = StableDiffusionXLPipeline.random_init(
+        torch.Generator("cuda").manual_seed(SEED), "cuda",
+        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    modules = {**{m: pipe._module(m) for m in pipe._MODELS},
+               "vae": pipe.vae}
+    sizes = {m: {"params": sum(t.numel() for t in mod.parameters()),
+                 "bytes": _param_bytes(mod)} for m, mod in modules.items()}
+    log("sdxl: 14a: " + json.dumps({
+        "init_s": time.perf_counter() - t0, "by_model": sizes,
+        "params": sum(s["params"] for s in sizes.values()),
+        "weight_bytes": sum(s["bytes"] for s in sizes.values())}))
+    out = {"sizes": sizes}
+
+    # 14b
+    rows = sdxl_flash_rows(gen)
+    inputs = _sdxl_unet_inputs(pipe, 2, gen)
+    _sdxl_unet(pipe, inputs)  # first use: cuDNN plans, allocator
+    with recording_flash_shapes(collections.Counter()) as calls:
+        flash_on = counted_request({}, "sdxl", "14b flash on", 1,
+                                   lambda: _sdxl_unet(pipe, inputs),
+                                   per_call=SDXL_ROUTED_PER_UNET_CALL)
+    out["flash_per_unet_call"] = sdxl_flash_call_sums(rows, calls)
+    set_use_memory_efficient_attention(False)
+    try:
+        _zero_counts()
+        flash_off = _sdxl_unet(pipe, inputs)
+        torch.cuda.synchronize()
+        off_launches = fa.flash_fwd.launches
+    finally:
+        set_use_memory_efficient_attention(True)
+    rel = ((flash_on.float() - flash_off.float()).norm()
+           / flash_off.float().norm()).item()
+    profile = profile_step(lambda: _sdxl_unet(pipe, inputs))
+    out["unet_call"] = {"flash_vs_plain_rel_l2": rel,
+                        "limit": SDXL_FLASH_REL_L2,
+                        "plain_path_flash_launches": off_launches,
+                        **{k: profile[k] for k in ("wall_ms", "device_ms",
+                                                   "launches", "busy_share",
+                                                   "by_class")}}
+    log("sdxl: 14b UNet call (batch 2): " + json.dumps(out["unet_call"]))
+    if off_launches or not (np.isfinite(rel) and rel <= SDXL_FLASH_REL_L2):
+        raise AssertionError(f"the SDXL UNet call through flash is {rel} "
+                             f"(relative L2) from the plain path, limit "
+                             f"{SDXL_FLASH_REL_L2} ({off_launches} flash "
+                             f"launches with flash off)")
+    del flash_on, flash_off
+
+    report = {}
+    with recording_flash_shapes(set()) as flash_seen, \
+            recording_int8_shapes(set()) as int8_seen:
+        # 14c: a bf16 txt2img request, 2 prompts, 1024x1024, CFG 5.0
+        size = dict(height=SDXL_SIZE, width=SDXL_SIZE)
+        pipe(SDXL_PROMPTS, num_inference_steps=2, guidance_scale=SDXL_CFG,
+             generator=torch.Generator("cuda").manual_seed(SEED + 1), **size)
+        images = counted_request(
+            report, "sdxl", "14c txt2img bf16", SDXL_STEPS,
+            lambda: pipe(SDXL_PROMPTS, num_inference_steps=SDXL_STEPS,
+                         guidance_scale=SDXL_CFG,
+                         generator=torch.Generator("cuda").manual_seed(
+                             SEED + 1), **size),
+            per_call=SDXL_ROUTED_PER_UNET_CALL)
+        _check_images(images, len(SDXL_PROMPTS), "14c", SDXL_SIZE)
+        # 14e: the bf16 pipe behind a PipelineServer over HTTP
+        out["http"] = _sdxl_http(pipe, report, images[0])
+        # 14f: a kohya-XL and a LyCORIS-XL file
+        out["adapters"] = _sdxl_adapters(pipe, report, inputs, gen)
+        # 14g: the bf16 pipe quantized, as `serve --quantize` builds it
+        out["int8_bf16"] = _sdxl_int8_http(pipe, report)
+        del pipe, images, inputs
+        torch.cuda.empty_cache()
+        # 14d: f32 with int8 weights
+        out["f32"] = _sdxl_f32(report, gen)
+    unchecked = flash_seen - {_row_key(r) for r in rows}
+    if unchecked:
+        raise AssertionError(f"phase 14 ran flash_fwd at shapes or layouts "
+                             f"14b did not check: {sorted(unchecked)}")
+    # every int8 shape 14d and 14g ran, against the plain version
+    if not set(SDXL_INT8_TIMED) <= int8_seen:
+        raise AssertionError(f"14d and 14g ran no int8 call at "
+                             f"{set(SDXL_INT8_TIMED) - int8_seen}")
+    int8_rows = [check_int8(M, K, N, getattr(torch, dt), gen,
+                            timed=(M, K, N, dt) in SDXL_INT8_TIMED)
+                 for M, K, N, dt in sorted(int8_seen)]
+    log(f"sdxl: flash_fwd ran {len(flash_seen)} shapes and layouts, "
+        f"int8_matmul {len(int8_seen)} shapes, each checked against its "
+        f"plain version")
+    launches = {"sdxl": {"flash_fwd": dict.fromkeys(
+        fa.flash_fwd.launches_by_kernel, 0),
+        "int8_matmul": dict.fromkeys(i8.int8_matmul.launches_by_kernel, 0)},
+        "sdxl_f32": {"flash_fwd": dict.fromkeys(
+            fa.flash_fwd.launches_by_kernel, 0),
+            "int8_matmul": dict.fromkeys(
+                i8.int8_matmul.launches_by_kernel, 0)}}
+    for name, r in report.items():
+        path = launches["sdxl_f32" if "f32" in name else "sdxl"]
+        for wrapper, counts in path.items():
+            for k in counts:
+                counts[k] += r[wrapper][k]
+    out.update(rows=rows, int8_rows=int8_rows, requests=report,
+               launches=launches)
+    log("sdxl: " + json.dumps({"requests": report, "launches": launches,
+                               "card": smi}))
+    return out
+
+
+def _sdxl_http(pipe, report: dict, image) -> dict:
+    """14e: one txt2img, one img2img and one blend-inpaint request over HTTP
+    to a PipelineServer (max_batch 1: one prompt under CFG, the UNet at
+    batch 2), each answered with one 1024x1024 PNG; every flash launch
+    wgmma."""
+    from lora_tpu_torch import serve
+
+    image_png = serve._png_b64(image)
+    mask = np.zeros((SDXL_SIZE, SDXL_SIZE, 3), np.float32)
+    mask[SDXL_SIZE // 4:3 * SDXL_SIZE // 4,
+         SDXL_SIZE // 4:3 * SDXL_SIZE // 4] = 1.0  # repaint the centre
+    base = {"prompt": SDXL_PROMPTS[0], "steps": SDXL_HTTP_STEPS,
+            "guidance": SDXL_CFG, "height": SDXL_SIZE, "width": SDXL_SIZE,
+            "seed": 3}
+    blend_calls = int(SDXL_HTTP_STEPS * MODE_STRENGTH)
+    requests = (("txt2img", {}, SDXL_HTTP_STEPS),
+                ("img2img", {"image": image_png,
+                             "strength": MODE_STRENGTH}, blend_calls),
+                ("inpaint", {"image": image_png,
+                             "mask": serve._png_b64(mask),
+                             "strength": MODE_STRENGTH,
+                             "scheduler": "euler_a"}, blend_calls))
+    srv = serve.PipelineServer(pipe, port=0, max_batch=1).start()
+    out = {}
+    try:
+        if srv._nine_channel():
+            raise AssertionError("an SDXL pipe took the 9-channel route")
+        for mode, extra, calls in requests:
+            name = f"14e http {mode}"
+            body = counted_request(
+                report, "sdxl", name, calls,
+                lambda: _http(srv.port, "/generate",
+                              {**base, "mode": mode, **extra})[1],
+                per_call=SDXL_ROUTED_PER_UNET_CALL)
+            _check_pngs(body["images"], 1, SDXL_SIZE)
+            report[name]["latency_ms"] = body["latency_ms"]
+            out[mode] = body["latency_ms"]
+        if srv.drain(timeout=60) is not True:
+            raise AssertionError("the server did not drain")
+    finally:
+        srv.stop()
+    return out
+
+
+def _sdxl_adapter_files(pipe, root: str, gen):
+    """K, a kohya-XL file (rank SDXL_RANK over the UNet's, te1's and te2's
+    default LoRA sites, random up factors of SDXL_UP_STD), and L, a
+    LyCORIS-XL file of LoHa modules (rank SDXL_RANK, alpha 1) on the same
+    UNet and te2 sites, written from the seed."""
+    from lora_tpu_torch.core.lora import init_lora
+    from lora_tpu_torch.core.sites import text_encoder_lora_sites
+    from lora_tpu_torch.formats.kohya import _xl_index, save_kohya_xl
+    from lora_tpu_torch.formats.reader import save_file
+
+    sites = {"unet": pipe.unet_sites(),
+             "text_encoder": text_encoder_lora_sites(pipe.text_encoder.cfg),
+             "text_encoder_2": text_encoder_lora_sites(
+                 pipe.text_encoder_2.cfg)}
+    trees = {}
+    for model, s in sites.items():
+        tree = init_lora(s, r=SDXL_RANK, generator=gen, device="cuda")
+        for e in tree["sites"].values():
+            e["up"] = SDXL_UP_STD * torch.randn(e["up"].shape, generator=gen,
+                                                device="cuda")
+        trees[model] = tree
+    k_path = os.path.join(root, "kohya_xl.safetensors")
+    save_kohya_xl(k_path, unet_cfg=pipe.unet.cfg,
+                  lora_unet=trees["unet"], unet_sites=sites["unet"],
+                  lora_text=trees["text_encoder"],
+                  text_sites=sites["text_encoder"],
+                  lora_text2=trees["text_encoder_2"],
+                  text2_sites=sites["text_encoder_2"])
+    tensors = {}
+    for model in ("unet", "text_encoder_2"):
+        for key, s in _xl_index(model, sites[model], pipe.unet.cfg).items():
+            for side, n in (("w1", s.out_dim), ("w2", s.out_dim)):
+                tensors[f"{key}.hada_{side}_a"] = _file_array(
+                    0.1 * torch.randn((n, SDXL_RANK), generator=gen,
+                                      device="cuda"))
+                tensors[f"{key}.hada_{side}_b"] = _file_array(
+                    0.1 * torch.randn((SDXL_RANK, s.in_dim), generator=gen,
+                                      device="cuda"))
+            tensors[f"{key}.alpha"] = np.asarray(1.0, np.float16)
+    l_path = os.path.join(root, "lycoris_xl.safetensors")
+    save_file(tensors, l_path)
+    return k_path, l_path
+
+
+def _sdxl_adapters(pipe, report: dict, inputs, gen) -> dict:
+    """14f: L, then K, each through patch_pipe, tune_lora_scale(SDXL_ALPHA)
+    and one UNet call at batch 2 (70 wgmma flash launches) that moves
+    against the bare one; te1's and te2's halves of the context move with
+    K, te2's alone with L. Then K folded by collapse_lora(SDXL_ALPHA): the
+    UNet call, te1's and te2's halves of the context and the pooled
+    embedding against the patched ones within SDXL_COLLAPSE_REL_L2, where
+    the same at alpha 1.0 is at least twice as far; the patched UNet call
+    through the plain attention path within SDXL_FLASH_REL_L2."""
+    from lora_tpu_torch.ops.attention import (
+        set_use_memory_efficient_attention,
+    )
+
+    out = {}
+    bare = _sdxl_unet(pipe, inputs)
+    d1 = pipe.text_encoder.cfg.hidden_size
+
+    def encode():  # te1's and te2's parts of the context, the pooled row
+        ctx, pooled = pipe.encode_prompt_xl(SDXL_PROMPTS[:1])
+        return {"te1": ctx[..., :d1], "te2": ctx[..., d1:], "pooled": pooled}
+
+    enc0 = encode()
+    with tempfile.TemporaryDirectory(prefix="sdxl_") as root:
+        k_path, l_path = _sdxl_adapter_files(pipe, root, gen)
+        for name, path in (("lycoris_xl", l_path), ("kohya_xl", k_path)):
+            pipe.remove_lora()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.patch_pipe(path)
+            pipe.tune_lora_scale(SDXL_ALPHA)
+            torch.cuda.synchronize()
+            patch_s = time.perf_counter() - t0
+            patched = counted_request(
+                report, "sdxl", f"14f unet {name}", 1,
+                lambda: _sdxl_unet(pipe, inputs, pipe.lora_unet),
+                per_call=SDXL_ROUTED_PER_UNET_CALL)
+            enc = encode()
+            moved = {"unet": (patched.float() - bare.float()).abs().max()
+                     .item(),
+                     **{k: (enc[k].float() - enc0[k].float()).abs().max()
+                        .item() for k in enc}}
+            out[name] = {"patch_s": patch_s, "moved": moved,
+                         "trees": [t is not None for t in (
+                             pipe.lora_unet, pipe.lora_text,
+                             pipe.lora_text2)]}
+            log(f"sdxl: 14f {name}: " + json.dumps(out[name]))
+            want_te1 = name == "kohya_xl"
+            if not (moved["unet"] > 0 and moved["te2"] > 0
+                    and (moved["te1"] > 0) == want_te1):
+                raise AssertionError(f"14f {name} moved {moved}")
+    # K through the plain attention path: the bf16 noise floor
+    set_use_memory_efficient_attention(False)
+    try:
+        plain = _sdxl_unet(pipe, inputs, pipe.lora_unet)
+    finally:
+        set_use_memory_efficient_attention(True)
+    # K at alpha 1.0: what a collapse at the wrong alpha would give
+    pipe.tune_lora_scale(1.0)
+    wrong = {"unet": _sdxl_unet(pipe, inputs, pipe.lora_unet), **encode()}
+    pipe.tune_lora_scale(SDXL_ALPHA)
+    want = {"unet": patched, **enc}
+    pipe.collapse_lora(SDXL_ALPHA)
+    if pipe.lora_unet is not None or pipe.lora_text is not None \
+            or pipe.lora_text2 is not None:
+        raise AssertionError("collapse_lora left an adapter behind")
+    folded = {"unet": _sdxl_unet(pipe, inputs), **encode()}
+    out["collapse"] = {
+        "alpha": SDXL_ALPHA, "limit": SDXL_COLLAPSE_REL_L2,
+        "unet_flash_vs_plain_rel_l2": _rel_l2(plain, patched),
+        "rel_l2": {k: _rel_l2(folded[k], v) for k, v in want.items()},
+        "alpha_1_rel_l2": {k: _rel_l2(wrong[k], v) for k, v in want.items()}}
+    log(f"sdxl: 14f collapse_lora({SDXL_ALPHA}) of the kohya-XL file "
+        f"against the patched pipe (bf16): " + json.dumps(out["collapse"]))
+    if not out["collapse"]["unet_flash_vs_plain_rel_l2"] <= SDXL_FLASH_REL_L2:
+        raise AssertionError(f"14f: the patched UNet call through flash is "
+                             f"{out['collapse']} from the plain path")
+    for k in want:
+        got, far = (out["collapse"][w][k] for w in ("rel_l2",
+                                                    "alpha_1_rel_l2"))
+        if not (got <= SDXL_COLLAPSE_REL_L2 and far >= 2 * SDXL_COLLAPSE_REL_L2):
+            raise AssertionError(
+                f"14f collapse: {k} is {got} (relative L2) from the patched "
+                f"pipe, limit {SDXL_COLLAPSE_REL_L2}; at alpha 1.0 {far}, "
+                f"which must be at least twice the limit")
+    return out
+
+
+def _sdxl_int8_weights(pipe) -> tuple:
+    """The 2-D int8 weights per call of each model of a quantized SDXL pipe
+    (te2 must have none) and the int8 launches of one te1 encode: te1 is
+    read at its penultimate layer, so its last layer never runs."""
+    per_call = {"unet": _int8_dense(pipe.unet),
+                "te1": _int8_dense(pipe.text_encoder),
+                "te2": _int8_dense(pipe.text_encoder_2),
+                "vae_decode": _int8_dense(pipe.vae, "decoder.")}
+    if per_call["te2"] or not per_call["unet"]:
+        raise AssertionError(f"int8 weights per call {per_call}")
+    layers = pipe.text_encoder.cfg.num_hidden_layers
+    return per_call, per_call["te1"] * (layers - 1) // layers
+
+
+def _sdxl_int8_http(pipe, report: dict) -> dict:
+    """14g: the bf16 pipe (14f's adapter folded in) quantize_base()d, as
+    `serve --quantize` builds an SDXL directory (UNet, te1 and the VAE
+    int8, te2 bf16), behind a PipelineServer (max_batch 1): one txt2img
+    request over HTTP, SDXL_HTTP_STEPS steps, answered with a 1024x1024
+    PNG: 70 wgmma flash launches per UNet call and exactly the wgmma int8
+    launches of its UNet calls, te1 encodes and VAE decode."""
+    from lora_tpu_torch import serve
+
+    before = {m: _param_bytes(pipe._module(m)) for m in pipe._MODELS}
+    pipe.quantize_base()
+    torch.cuda.empty_cache()
+    after = {m: _param_bytes(pipe._module(m)) for m in pipe._MODELS}
+    per_call, te1_encode = _sdxl_int8_weights(pipe)
+    encodes = [0]  # encode_prompt_xl calls: one te1 encode each
+    encode_prompt_xl = pipe.encode_prompt_xl
+
+    def counted_encode(prompts):
+        encodes[0] += 1
+        return encode_prompt_xl(prompts)
+
+    pipe.encode_prompt_xl = counted_encode
+    srv = serve.PipelineServer(pipe, port=0, max_batch=1).start()
+    try:
+        name = "14g http txt2img int8"
+        body = counted_request(
+            report, "sdxl", name, SDXL_HTTP_STEPS,
+            lambda: _http(srv.port, "/generate", {
+                "prompt": SDXL_PROMPTS[0], "steps": SDXL_HTTP_STEPS,
+                "guidance": SDXL_CFG, "height": SDXL_SIZE,
+                "width": SDXL_SIZE, "seed": 3})[1],
+            per_call=SDXL_ROUTED_PER_UNET_CALL,
+            int8_want=lambda: (per_call["unet"] * SDXL_HTTP_STEPS
+                               + te1_encode * encodes[0]
+                               + per_call["vae_decode"]))
+        _check_pngs(body["images"], 1, SDXL_SIZE)
+        report[name].update(latency_ms=body["latency_ms"],
+                            te1_encodes=encodes[0])
+        if srv.drain(timeout=60) is not True:
+            raise AssertionError("the server did not drain")
+    finally:
+        srv.stop()
+        del pipe.encode_prompt_xl
+    out = {"param_bytes": before, "param_bytes_int8": after,
+           "int8_weights": per_call, "te1_encode": te1_encode,
+           "latency_ms": body["latency_ms"]}
+    log("sdxl: 14g: " + json.dumps(out))
+    return out
+
+
+def _sdxl_f32(report: dict, gen) -> dict:
+    """14d: a random SDXL in f32 with quantize_base() (UNet, te1, VAE int8;
+    te2 float): one UNet call's and one te1 encode's int8 launches (every
+    2-D int8 weight once, all wgmma_f32), te2's none; then a txt2img
+    request, 1 prompt, 1024x1024, SDXL_F32_STEPS steps, CFG 5.0: 70
+    tf32x3 flash launches per UNet call and exactly the int8 launches of
+    its UNet calls, two te1 encodes and the VAE decode."""
+    from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline
+
+    pipe = StableDiffusionXLPipeline.random_init(
+        torch.Generator("cuda").manual_seed(SEED), "cuda",
+        dtype=torch.float32)
+    before = {m: _param_bytes(pipe._module(m)) for m in pipe._MODELS}
+    pipe.quantize_base()
+    torch.cuda.empty_cache()
+    after = {m: _param_bytes(pipe._module(m)) for m in pipe._MODELS}
+    per_call, te1_encode = _sdxl_int8_weights(pipe)
+    inputs = _sdxl_unet_inputs(pipe, 2, gen)
+    _sdxl_unet(pipe, inputs)  # first use
+    kw = dict(per_call=SDXL_ROUTED_PER_UNET_CALL, route="tf32x3",
+              int8_route="wgmma_f32")
+    counted_request({}, "sdxl", "14d unet call f32 int8", 1,
+                    lambda: _sdxl_unet(pipe, inputs),
+                    int8_want=lambda: per_call["unet"], **kw)
+    counted_request({}, "sdxl", "14d te1 + te2 encode f32 int8", 0,
+                    lambda: pipe.encode_prompt_xl(SDXL_PROMPTS[:1]),
+                    int8_want=lambda: te1_encode, **kw)
+    out = {"param_bytes": before, "param_bytes_int8": after,
+           "int8_weights": per_call, "int8_per_unet_call": per_call["unet"],
+           "int8_per_encode": te1_encode}
+    log("sdxl: 14d: " + json.dumps(out))
+    images = counted_request(
+        report, "sdxl", "14d txt2img f32 int8", SDXL_F32_STEPS,
+        lambda: pipe(SDXL_PROMPTS[:1], num_inference_steps=SDXL_F32_STEPS,
+                     guidance_scale=SDXL_CFG, height=SDXL_SIZE,
+                     width=SDXL_SIZE,
+                     generator=torch.Generator("cuda").manual_seed(
+                         SEED + 1)),
+        int8_want=lambda: (per_call["unet"] * SDXL_F32_STEPS
+                           + 2 * te1_encode + per_call["vae_decode"]),
+        **kw)
+    _check_images(images, 1, "14d", SDXL_SIZE)
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def add_sdxl_launches(kernels: list, sdxl: dict) -> None:
+    """Each flash forward and int8 row of the kernels line gains phase 14's
+    launches of its kernel ("sdxl": 14c, 14e, 14f, 14g in bf16;
+    "sdxl_f32": 14d), each flash forward row the SDXL levels' timed rows of
+    14b through its kernel (batch 2) and each wgmma int8 row its timed
+    GEGLU projection."""
+    routes = {**{n: r for n, r in FLASH_ROW_ROUTES.items()
+                 if r[0] == "flash_fwd"},
+              "int8_matmul": ("int8_matmul", "wgmma"),
+              "int8_matmul_wgmma_f32": ("int8_matmul", "wgmma_f32"),
+              "int8_matmul_mma": ("int8_matmul", "mma")}
+    timed = {"tf32x3": "float32", "wgmma": "bfloat16"}
+    for row in kernels:
+        if row["name"] not in routes:
+            continue
+        wrapper, route = routes[row["name"]]
+        for path, launches in sdxl["launches"].items():
+            n = launches.get(wrapper, {}).get(route, 0)
+            row["launches"] += n
+            row["launches_by_path"][path] = n
+        if wrapper == "flash_fwd" and route in timed:
+            row["sdxl_levels_b2"] = [
+                {k: r[k] for k in ("H", "T", "D", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "err_o")}
+                for r in sdxl["rows"]
+                if "ms" in r and r["dtype"] == timed[route]]
+        if wrapper == "int8_matmul" and route in WGMMA_ROUTE.values():
+            dtype = "float32" if route == "wgmma_f32" else "bfloat16"
+            r = next(r for r in sdxl["int8_rows"]
+                     if "ms" in r and r["dtype"] == dtype)
+            row["sdxl_geglu_64x64"] = {k: r[k] for k in (
+                "M", "K", "N", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "rel")}
+
+
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
     """Every flash forward call and int8 call recorded on the main paths was
     checked against its plain version: its shapes (and for flash, dtype and
@@ -4245,6 +4834,7 @@ def main() -> int:
     check_recorded(flash_seen, rows, seen, int8_rows)
     trainer = phase_trainer(smi, rows, bwd_rows)
     pti = phase_pti(smi, rows, bwd_rows)
+    sdxl = phase_sdxl(smi)
     # the trainer's launches by wrapper: f32 (12c and 12d), bf16 (12e)
     trainer_f32 = _added_launches(trainer["counted"]["launches"],
                                   trainer["resumed"]["launches"])
@@ -4798,6 +5388,7 @@ def main() -> int:
     })
     kernels.append(adam8bit_kernel_row(trainer))
     add_pti_launches(kernels, pti)
+    add_sdxl_launches(kernels, sdxl)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -4863,6 +5454,26 @@ def main_pti() -> int:
     return 0
 
 
+def main_sdxl() -> int:
+    """Phases 1, 2 (the three forward sources and the three int8 sources),
+    the tf32x3 forward's and the f32 int8 wgmma kernel's first calls in
+    child processes, and 14 (with its own flash and int8 checks at phase
+    14's shapes); then phase 14's launches by path and kernel."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
+                 "int8_matmul", "int8_matmul_wgmma",
+                 "int8_matmul_wgmma_f32"])
+    tf32x3_fwd_probe()
+    int8_f32_probe()
+    sdxl = phase_sdxl(smi)
+    log("sdxl launches: " + json.dumps(sdxl["launches"]))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] in (["--int8"], ["--int8-tiles"]):
         sys.exit(main_int8(sys.argv[1] == "--int8-tiles"))
@@ -4878,7 +5489,10 @@ if __name__ == "__main__":
         sys.exit(main_train())
     if sys.argv[1:] == ["--pti"]:
         sys.exit(main_pti())
+    if sys.argv[1:] == ["--sdxl"]:
+        sys.exit(main_sdxl())
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
-                 f"--flash-bwd | --modes | --adapters | --train | --pti]")
+                 f"--flash-bwd | --modes | --adapters | --train | --pti | "
+                 f"--sdxl]")
     sys.exit(main())

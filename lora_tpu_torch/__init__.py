@@ -45,9 +45,19 @@ of training/optim.py, the int8 one a hand-written CUDA kernel):
 
 Serving also takes diffusers-layout checkpoints
 (StableDiffusionPipeline.from_pretrained), an int8 base
-(pipe.quantize_base()) and an HTTP server (serve.py, txt2img):
+(pipe.quantize_base()) and an HTTP server (serve.py, txt2img, img2img,
+inpainting):
 
     python -m lora_tpu_torch.serve --model DIR --quantize
+
+and SDXL (pipelines/sdxl.py: two text encoders, the text_time UNet,
+kohya-XL and LyCORIS-XL adapters; the server picks it for a directory with
+text_encoder_2/):
+
+    from lora_tpu_torch import StableDiffusionXLPipeline
+
+    pipe = StableDiffusionXLPipeline.from_pretrained(DIR, dtype=torch.bfloat16)
+    images = pipe(["a photo of a dog"], generator=torch.Generator("cuda"))
 
 The UNet's spatial self-attention runs through hand-written CUDA
 flash-attention kernels (ops/csrc/flash_fwd.cu, and flash_bwd.cu for the
@@ -97,3 +107,17 @@ from .core.sites import (  # noqa: F401
     unet_locon_sites,
     unet_lora_sites,
 )
+
+
+def __getattr__(name):
+    # the pipelines load lazily, as in lora_tpu, so `import lora_tpu_torch`
+    # stays cheap
+    if name == "StableDiffusionPipeline":
+        from .pipelines.sd import StableDiffusionPipeline
+
+        return StableDiffusionPipeline
+    if name == "StableDiffusionXLPipeline":
+        from .pipelines.sdxl import StableDiffusionXLPipeline
+
+        return StableDiffusionXLPipeline
+    raise AttributeError(name)

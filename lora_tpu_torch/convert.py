@@ -12,11 +12,14 @@ layout, so a state dict is the same names with the arrays as tensors:
     trainable = trainable_from_jax(jax_trainable_tree)   # leaves require grad
 
 Inputs are numpy arrays (np.asarray on the JAX leaves); bfloat16 arrays keep
-their bits. This module imports no jax.
+their bits. A whole JAX pipeline (SD or SDXL: its params, configs and LoRA
+trees, te2's too) becomes the port's with `pipeline_from_jax`. This module
+imports no jax.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -111,3 +114,44 @@ def trainable_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: trainable_to_numpy(v) for k, v in tree.items()}
     return tree
+
+
+def pipeline_from_jax(jpipe, tokenizer, *, device="cpu",
+                      dtype: Optional[torch.dtype] = None):
+    """lora_tpu's StableDiffusionPipeline or StableDiffusionXLPipeline (read
+    by attribute: *_params, *_cfg, lora_unet, lora_text, lora_text2) as the
+    port's, on `device`, holding the same weights (cast to `dtype` when
+    given) and LoRA trees, with the port tokenizer `tokenizer`."""
+    from .models import config
+    from .models.clip import CLIPTextModel
+    from .models.unet import UNet
+    from .models.vae import VAE
+    from .pipelines.sd import StableDiffusionPipeline
+    from .pipelines.sdxl import StableDiffusionXLPipeline
+
+    def module(cls, jcfg, params, cfg_cls):
+        m = cls(cfg_cls(**dataclasses.asdict(jcfg)), device="meta",
+                dtype=dtype or torch.float32)
+        m.load_state_dict(state_dict_from_jax(
+            {k: np.asarray(v) for k, v in params.items()}, device=device,
+            dtype=dtype), strict=True, assign=True)
+        return m
+
+    unet = module(UNet, jpipe.unet_cfg, jpipe.unet_params, config.UNetConfig)
+    text = module(CLIPTextModel, jpipe.text_cfg, jpipe.text_params,
+                  config.CLIPTextConfig)
+    vae = module(VAE, jpipe.vae_cfg, jpipe.vae_params, config.VAEConfig)
+    xl = getattr(jpipe, "text2_params", None) is not None
+    if xl:
+        pipe = StableDiffusionXLPipeline(
+            unet, text, module(CLIPTextModel, jpipe.text2_cfg,
+                               jpipe.text2_params, config.CLIPTextConfig),
+            vae, tokenizer)
+    else:
+        pipe = StableDiffusionPipeline(unet, text, vae, tokenizer)
+    for attr in ("lora_unet", "lora_text") + (("lora_text2",) if xl else ()):
+        tree = getattr(jpipe, attr, None)
+        if tree is not None:
+            setattr(pipe, attr, lora_from_jax(tree, device=device,
+                                              dtype=dtype))
+    return pipe

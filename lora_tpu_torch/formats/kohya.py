@@ -17,8 +17,10 @@ other decomposition; LoHa/LoKr/IA3/... files load through
 formats/lycoris.py, which patch_pipe dispatches to.
 
 The folds run in torch, in f32 (TF32 off), on the device the tree is loaded
-to. The SDXL layout (lora_te1_/lora_te2_, LDM unet names) is not ported
-(ROADMAP Slice 6).
+to. SDXL files (save_kohya_xl / load_kohya_xl, the counterpart of the SDXL
+half) name their text modules lora_te1_ / lora_te2_ and their UNet modules
+by the original LDM layout (input_blocks / middle_block / output_blocks,
+`unet_key_map`), as kohya's SDXL trainer writes them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import torch
 
 from ..core.lora import LoraTree, f32_products, lora_from_pairs, lora_to_pairs
 from ..core.sites import Site
+from ..models import structure
+from ..models.config import UNetConfig
 from .reader import SafetensorsFile, save_file
 
 _PREFIX = {"unet": "lora_unet", "text_encoder": "lora_te"}
@@ -107,16 +111,70 @@ def _compose_cp_mid(base: str, site: Site, mid: torch.Tensor,
         return torch.einsum("rskh,sc->rckh", mid, down[:, :, 0, 0])
 
 
-def _check_prefixes(groups, prefixes, what: str) -> None:
+def _check_prefixes(groups, prefixes, what: str,
+                    hint: str = " (SDXL/unsupported model?)") -> None:
     """Every module must sit under one of `prefixes` (an SDXL lora_te1_ /
     lora_te2_ module would otherwise be skipped by every model pass)."""
     foreign = [b for b in groups
                if not any(b.startswith(p + "_") for p in prefixes)]
     if foreign:
         raise ValueError(
-            f"{what} file has modules under unknown prefixes "
-            f"(SDXL/unsupported model?): {sorted(foreign)[:5]}"
-            f"{'...' if len(foreign) > 5 else ''}")
+            f"{what} file has modules under unknown prefixes{hint}: "
+            f"{sorted(foreign)[:5]}{'...' if len(foreign) > 5 else ''}")
+
+
+def _read_groups(path: str) -> Dict[str, Dict[str, np.ndarray]]:
+    """A kohya file's tensors grouped per module base; a key that is not a
+    factor weight or an `.alpha`, or a module with other sub-tensors than
+    lora_up / lora_down / lora_mid / alpha, raises."""
+    with SafetensorsFile(path) as f:
+        groups: Dict[str, Dict[str, np.ndarray]] = {}
+        for k in f.keys():
+            base, _, leaf = k.rpartition(".")
+            if leaf == "weight":
+                base, _, which = base.rpartition(".")
+                groups.setdefault(base, {})[which] = f.get_tensor(k)
+            elif leaf == "alpha":
+                groups.setdefault(base, {})["alpha"] = f.get_tensor(k)
+            else:
+                raise ValueError(f"unrecognized kohya key {k!r}")
+    # a known site can still carry sub-tensors this loader does not
+    # implement: LoCon's CP lora_mid is folded below, anything else
+    # (LoHa/LoKr factors, ...) is refused
+    for base, g in groups.items():
+        extra = sorted(set(g) - {"lora_up", "lora_down", "lora_mid",
+                                 "alpha"})
+        if extra:
+            raise ValueError(
+                f"kohya module {base!r} has unsupported sub-tensors "
+                f"{extra} (LyCORIS decomposition?); refusing a partial load")
+    return groups
+
+
+def _load_trees(groups, models, what: str, hint: str, dtype,
+                device) -> Dict[str, Optional[LoraTree]]:
+    """{model: tree or None} for `models`, (model, prefix, index, sites)
+    each: None where the sites are not given or no module of the file
+    matches them; a module under the model's prefix outside `index`
+    raises."""
+    out = {}
+    for model, prefix, index, sites in models:
+        if sites is None:
+            out[model] = None
+            continue
+        present = {b: g for b, g in groups.items() if b in index}
+        if not present:
+            out[model] = None
+            continue
+        unknown = [b for b in groups
+                   if b.startswith(prefix + "_") and b not in index]
+        if unknown:
+            raise ValueError(
+                f"{what} file has {model} modules outside the known site "
+                f"set{hint}: {sorted(unknown)[:5]}"
+                f"{'...' if len(unknown) > 5 else ''}")
+        out[model] = _tree_from_groups(present, index, sites, dtype, device)
+    return out
 
 
 def load_kohya(
@@ -133,49 +191,15 @@ def load_kohya(
     LoCon files load fully against the LoCon site supersets, CP convs
     included. Unknown keys (modules outside the given site sets, or
     LoHa/LoKr factor tensors) raise with the key names, so a partial load
-    cannot pass silently."""
-    with SafetensorsFile(path) as f:
-        groups: Dict[str, Dict[str, np.ndarray]] = {}
-        for k in f.keys():
-            base, _, leaf = k.rpartition(".")
-            if leaf == "weight":
-                base, _, which = base.rpartition(".")
-                groups.setdefault(base, {})[which] = f.get_tensor(k)
-            elif leaf == "alpha":
-                groups.setdefault(base, {})["alpha"] = f.get_tensor(k)
-            else:
-                raise ValueError(f"unrecognized kohya key {k!r}")
-
-    # a known site can still carry sub-tensors this loader does not
-    # implement: LoCon's CP lora_mid is folded below, anything else
-    # (LoHa/LoKr factors, ...) is refused
-    for base, g in groups.items():
-        extra = sorted(set(g) - {"lora_up", "lora_down", "lora_mid",
-                                 "alpha"})
-        if extra:
-            raise ValueError(
-                f"kohya module {base!r} has unsupported sub-tensors "
-                f"{extra} (LyCORIS decomposition?); refusing a partial load")
+    cannot pass silently; so does an SDXL file (load_kohya_xl)."""
+    groups = _read_groups(path)
     _check_prefixes(groups, _PREFIX.values(), "kohya")
-
-    out = {}
-    for model, sites in (("unet", unet_sites), ("text_encoder", text_sites)):
-        if sites is None:
-            out[model] = None
-            continue
-        index = _site_index(model, sites)
-        present = {b: g for b, g in groups.items() if b in index}
-        if not present:
-            out[model] = None
-            continue
-        unknown = [b for b in groups
-                   if b.startswith(_PREFIX[model] + "_") and b not in index]
-        if unknown:
-            raise ValueError(
-                f"kohya file has {model} modules outside the known site set "
-                f"(LoCon/unsupported targets?): {sorted(unknown)[:5]}"
-                f"{'...' if len(unknown) > 5 else ''}")
-        out[model] = _tree_from_groups(present, index, sites, dtype, device)
+    out = _load_trees(
+        groups, [(model, _PREFIX[model],
+                  None if sites is None else _site_index(model, sites), sites)
+                 for model, sites in (("unet", unet_sites),
+                                      ("text_encoder", text_sites))],
+        "kohya", " (LoCon/unsupported targets?)", dtype, device)
     return out["unet"], out["text_encoder"]
 
 
@@ -205,3 +229,164 @@ def _tree_from_groups(present: Dict[str, Dict[str, np.ndarray]],
         pairs.append(_factored_pair(base, s, present[base], device))
         matched.append(s)
     return lora_from_pairs(pairs, matched, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# SDXL: lora_te1_ / lora_te2_ text prefixes and LDM unet module names
+# ---------------------------------------------------------------------------
+
+_PREFIX_XL = {"unet": "lora_unet", "text_encoder": "lora_te1",
+              "text_encoder_2": "lora_te2"}
+
+
+_RESNET_UNET = {
+    "norm1": "in_layers.0",
+    "conv1": "in_layers.2",
+    "time_emb_proj": "emb_layers.1",
+    "norm2": "out_layers.0",
+    "conv2": "out_layers.3",
+    "conv_shortcut": "skip_connection",
+}
+
+
+def unet_key_map(cfg: UNetConfig) -> Dict[str, str]:
+    """diffusers module path -> LDM module path (the CompVis layout, the
+    counterpart of lora_tpu/formats/ckpt_export.py's map, generated from
+    the config by models/structure.py), for every UNet module with
+    weights but the transformers' insides (a Transformer2DModel maps as a
+    whole: its sub-paths are the same in both layouts)."""
+    m = {
+        "conv_in": "input_blocks.0.0",
+        "time_embedding.linear_1": "time_embed.0",
+        "time_embedding.linear_2": "time_embed.2",
+        "conv_norm_out": "out.0",
+        "conv_out": "out.2",
+    }
+
+    def resnet(src, dst):
+        for a, b in _RESNET_UNET.items():
+            m[f"{src}.{a}"] = f"{dst}.{b}"
+
+    idx = 1
+    for i, block in enumerate(structure.down_blocks(cfg)):
+        for j in range(len(block.resnets)):
+            resnet(f"down_blocks.{i}.resnets.{j}", f"input_blocks.{idx}.0")
+            if block.attentions[j] is not None:
+                m[f"down_blocks.{i}.attentions.{j}"] = f"input_blocks.{idx}.1"
+            idx += 1
+        if block.has_downsample:
+            m[f"down_blocks.{i}.downsamplers.0.conv"] = \
+                f"input_blocks.{idx}.0.op"
+            idx += 1
+
+    resnet("mid_block.resnets.0", "middle_block.0")
+    m["mid_block.attentions.0"] = "middle_block.1"
+    resnet("mid_block.resnets.1", "middle_block.2")
+
+    idx = 0
+    for i, block in enumerate(structure.up_blocks(cfg)):
+        for j in range(len(block.resnets)):
+            resnet(f"up_blocks.{i}.resnets.{j}", f"output_blocks.{idx}.0")
+            has_attn = block.attentions[j] is not None
+            if has_attn:
+                m[f"up_blocks.{i}.attentions.{j}"] = f"output_blocks.{idx}.1"
+            if j == len(block.resnets) - 1 and block.has_upsample:
+                sub = 2 if has_attn else 1
+                m[f"up_blocks.{i}.upsamplers.0.conv"] = \
+                    f"output_blocks.{idx}.{sub}.conv"
+            idx += 1
+    return m
+
+
+def _xl_unet_index(sites: Sequence[Site], cfg) -> Dict[str, Site]:
+    """kohya module base -> UNet site under the LDM module names (sd-scripts
+    trains its own LDM-layout SDXL UNet), from the config's diffusers ->
+    LDM map, so the block indices follow each block's transformer depth."""
+    km = sorted(unet_key_map(cfg).items(), key=lambda kv: -len(kv[0]))
+    idx: Dict[str, Site] = {}
+    for s in sites:
+        for src, dst in km:
+            if s.name == src or s.name.startswith(src + "."):
+                ldm = dst + s.name[len(src):]
+                break
+        else:
+            raise KeyError(f"no LDM name mapping for unet site {s.name!r}")
+        idx["lora_unet_" + ldm.replace(".", "_")] = s
+    return idx
+
+
+def _xl_index(model: str, sites: Sequence[Site], unet_cfg) -> Dict[str, Site]:
+    if model == "unet":
+        return _xl_unet_index(sites, unet_cfg)
+    return {_PREFIX_XL[model] + "_" + s.name.replace(".", "_"): s
+            for s in sites}
+
+
+def save_kohya_xl(
+    path: str,
+    *,
+    unet_cfg,
+    lora_unet: Optional[LoraTree] = None,
+    unet_sites: Optional[Sequence[Site]] = None,
+    lora_text: Optional[LoraTree] = None,
+    text_sites: Optional[Sequence[Site]] = None,
+    lora_text2: Optional[LoraTree] = None,
+    text2_sites: Optional[Sequence[Site]] = None,
+    dtype=np.float16,
+) -> None:
+    """The SDXL kohya schema (webui loads it): LDM UNet names, lora_te1_ /
+    lora_te2_ text-encoder prefixes; alpha and the up fold as save_kohya."""
+    tensors: Dict[str, np.ndarray] = {}
+    for model, lora, sites in (("unet", lora_unet, unet_sites),
+                               ("text_encoder", lora_text, text_sites),
+                               ("text_encoder_2", lora_text2, text2_sites)):
+        if lora is None:
+            continue
+        by_name = {s.name: k
+                   for k, s in _xl_index(model, sites, unet_cfg).items()}
+        for site, (up, down) in zip(sites, lora_to_pairs(lora, sites)):
+            base = by_name[site.name]
+            tensors[base + ".lora_down.weight"] = down.astype(dtype)
+            tensors[base + ".lora_up.weight"] = up.astype(dtype)
+            tensors[base + ".alpha"] = np.asarray(float(down.shape[0]),
+                                                  dtype)
+    save_file(tensors, path, {"library": "lora_tpu"})
+
+
+def is_kohya_xl(keys) -> bool:
+    """Whether any key carries an SDXL marker: a te1 / te2 prefix or an LDM
+    UNet block name (SD-1.x kohya UNet keys use diffusers paths)."""
+    for k in keys:
+        if k.startswith(("lora_te1_", "lora_te2_")):
+            return True
+        if k.startswith(("lora_unet_input_blocks_",
+                         "lora_unet_middle_block_",
+                         "lora_unet_output_blocks_")):
+            return True
+    return False
+
+
+def load_kohya_xl(
+    path: str,
+    *,
+    unet_cfg,
+    unet_sites: Optional[Sequence[Site]] = None,
+    text_sites: Optional[Sequence[Site]] = None,
+    text2_sites: Optional[Sequence[Site]] = None,
+    dtype=torch.float32,
+    device="cpu",
+) -> Tuple[Optional[LoraTree], Optional[LoraTree], Optional[LoraTree]]:
+    """(lora_unet, lora_te1, lora_te2) of an SDXL kohya file, on `device`
+    in `dtype`, with load_kohya's refusals: unknown sub-tensors, unknown
+    prefixes and modules outside the given site sets raise."""
+    groups = _read_groups(path)
+    _check_prefixes(groups, _PREFIX_XL.values(), "SDXL kohya", hint="")
+    out = _load_trees(
+        groups, [(model, _PREFIX_XL[model],
+                  None if sites is None else _xl_index(model, sites,
+                                                       unet_cfg), sites)
+                 for model, sites in (("unet", unet_sites),
+                                      ("text_encoder", text_sites),
+                                      ("text_encoder_2", text2_sites))],
+        "SDXL kohya", "", dtype, device)
+    return out["unet"], out["text_encoder"], out["text_encoder_2"]

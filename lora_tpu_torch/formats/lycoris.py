@@ -32,8 +32,9 @@ Everything is composed in torch, in f32, on the device the base params
 live on (the card's are bf16, which numpy cannot hold), with TF32 off for
 the products (core/lora.f32_products). IA3, DoRA, OFT, BOFT and GLoRA read
 the base weight: an int8 (quantized) weight holds codes, not values, so
-those modules refuse it; load them before quantize_base. The SDXL loader
-is not ported (ROADMAP Slice 6).
+those modules refuse it; load them before quantize_base. load_lycoris_xl
+reads the SDXL key layout (formats/kohya.py `_xl_index`) with the same
+per-module dispatch.
 """
 
 from __future__ import annotations
@@ -47,11 +48,13 @@ from ..core.lora import LoraTree, f32_products
 from ..core.sites import Site
 from .kohya import (
     _PREFIX,
+    _PREFIX_XL,
     _alpha,
     _check_prefixes,
     _f32,
     _factored_pair,
     _site_index,
+    _xl_index,
 )
 from .reader import SafetensorsFile
 
@@ -443,6 +446,40 @@ def load_lycoris(
             model, _PREFIX[model], groups, _site_index(model, sites), sites,
             params, dtype, device)
     return out["unet"], out["text_encoder"]
+
+
+def load_lycoris_xl(
+    path: str,
+    *,
+    unet_cfg,
+    unet_sites: Optional[Sequence[Site]] = None,
+    text_sites: Optional[Sequence[Site]] = None,
+    text2_sites: Optional[Sequence[Site]] = None,
+    unet_params: Optional[Dict[str, torch.Tensor]] = None,
+    text_params: Optional[Dict[str, torch.Tensor]] = None,
+    text2_params: Optional[Dict[str, torch.Tensor]] = None,
+    dtype=torch.float32,
+    device="cpu",
+) -> Tuple[Optional[LoraTree], Optional[LoraTree], Optional[LoraTree]]:
+    """(lora_unet, lora_te1, lora_te2) of an SDXL LyCORIS file: load_lycoris
+    over the SDXL kohya layout (LDM UNet names, lora_te1_ / lora_te2_
+    prefixes), with its refusals; IA3, DoRA, OFT, BOFT and GLoRA modules
+    need the matching float `*_params`."""
+    with SafetensorsFile(path) as f:
+        groups = _parse_groups(f)
+    _check_prefixes(groups, _PREFIX_XL.values(), "SDXL LyCORIS", hint="")
+    out = {}
+    for model, sites, params in (("unet", unet_sites, unet_params),
+                                 ("text_encoder", text_sites, text_params),
+                                 ("text_encoder_2", text2_sites,
+                                  text2_params)):
+        if sites is None:
+            out[model] = None
+            continue
+        out[model] = _load_model_groups(
+            model, _PREFIX_XL[model], groups,
+            _xl_index(model, sites, unet_cfg), sites, params, dtype, device)
+    return out["unet"], out["text_encoder"], out["text_encoder_2"]
 
 
 def _load_model_groups(model, prefix, groups, index, sites, params, dtype,

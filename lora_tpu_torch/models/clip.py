@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from ..core.quantize import dequantize_weight
 from ..ops.attention import attention
 from .config import CLIPTextConfig
 from .layers import Initializer, ParamModule, Params, dense, gelu, layer_norm
@@ -81,7 +82,8 @@ def clip_text_forward(
     conditioning consumes. penultimate=True returns the second-to-last
     layer's state without the final norm (clip skip 2). pooled_eos_id
     returns (hidden, pooled): the final-normed state at each row's first
-    eos, through text_projection when the config has one."""
+    eos, through text_projection when the config has one (dequantized if
+    int8, where lora_tpu reads the int8 codes as they are)."""
     B, T = input_ids.shape
     d = cfg.hidden_size
     h = cfg.num_attention_heads
@@ -129,7 +131,8 @@ def clip_text_forward(
     eos_pos = (input_ids == pooled_eos_id).int().argmax(dim=-1)
     pooled = final[torch.arange(B, device=final.device), eos_pos]
     if "text_projection.weight" in params:
-        pooled = pooled @ params["text_projection.weight"].to(pooled.dtype).T
+        pooled = pooled @ dequantize_weight(
+            params, "text_projection.weight", pooled.dtype).T
     return hidden, pooled
 
 

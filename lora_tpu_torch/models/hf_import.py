@@ -244,8 +244,9 @@ def _text_config_dict(t: CLIPTextConfig) -> dict:
 
 def save_pipeline_params(pipe, path: str, fp16: bool = False) -> None:
     """Export a pipeline to a diffusers-layout directory (safetensors
-    weights + config.json per model, scheduler_config.json) that
-    load_pipeline_params and the JAX package's loader read back."""
+    weights + config.json per model, scheduler_config.json; an SDXL pipe's
+    text_encoder_2/ too) that load_pipeline_params and the JAX package's
+    loader read back."""
     from ..formats.reader import save_file
 
     os.makedirs(path, exist_ok=True)
@@ -256,7 +257,7 @@ def save_pipeline_params(pipe, path: str, fp16: bool = False) -> None:
         os.makedirs(d, exist_ok=True)
         sd = {k: v.detach().float().cpu().numpy().astype(dt)
               for k, v in module.state_dict().items()}
-        fname = ("model.safetensors" if sub == "text_encoder"
+        fname = ("model.safetensors" if sub.startswith("text_encoder")
                  else "diffusion_pytorch_model.safetensors")
         save_file(sd, os.path.join(d, fname))
         with open(os.path.join(d, "config.json"), "w") as f:
@@ -266,6 +267,10 @@ def save_pipeline_params(pipe, path: str, fp16: bool = False) -> None:
     dump("vae", pipe.vae, _vae_config_dict(pipe.vae.cfg))
     dump("text_encoder", pipe.text_encoder,
          _text_config_dict(pipe.text_encoder.cfg))
+    if getattr(pipe, "text_encoder_2", None) is not None:
+        # SDXL's second encoder, under text_encoder_2/ as diffusers saves it
+        dump("text_encoder_2", pipe.text_encoder_2,
+             _text_config_dict(pipe.text_encoder_2.cfg))
     sd_dir = os.path.join(path, "scheduler")
     os.makedirs(sd_dir, exist_ok=True)
     s = pipe.schedule

@@ -1,19 +1,19 @@
-"""UNet2DCondition (SD-1.x / SD-2.x topologies) in PyTorch.
+"""UNet2DCondition (SD-1.x / SD-2.x / SDXL topologies) in PyTorch.
 
 The counterpart of lora_tpu/models/unet.py. Param names match the HF
 diffusers state_dict; structure comes from models/structure.py. LoRA rides
 through every dense/conv via the lora tree (models/layers.py). The public
 layout is NHWC, as in the JAX package; inside, activations are NCHW with the
-channels_last memory format that the NHWC input already has.
-
-SDXL's "text_time" additional conditioning lands with the SDXL slice and
-raises until then.
+channels_last memory format that the NHWC input already has. SDXL's
+"text_time" micro-conditioning (cfg.addition_embed_type) adds the
+add_embedding MLP over [te2's pooled embed | sinusoidal time_ids], summed
+into the timestep embedding.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -34,13 +34,6 @@ from .layers import (
     timestep_embedding,
     upsample_nearest_2x,
 )
-
-
-def _check_cfg(cfg: UNetConfig) -> None:
-    if cfg.addition_embed_type is not None:
-        raise NotImplementedError(
-            f"addition_embed_type={cfg.addition_embed_type!r} (SDXL "
-            "micro-conditioning) is not ported yet (ROADMAP Queue A, SDXL)")
 
 
 # ---------------------------------------------------------------------------
@@ -85,13 +78,17 @@ def _init_transformer(ini: Initializer, prefix: str, spec: structure.AttnSpec):
 def init_unet(cfg: UNetConfig, generator: Optional[torch.Generator], *,
               device, dtype=torch.float32) -> Params:
     """Random-init params (uninitialised when generator is None)."""
-    _check_cfg(cfg)
     ini = Initializer(generator, device, dtype)
     c0 = cfg.block_out_channels[0]
     temb = structure.time_embed_dim(cfg)
     ini.conv("conv_in", cfg.in_channels, c0)
     ini.lin("time_embedding.linear_1", c0, temb)
     ini.lin("time_embedding.linear_2", temb, temb)
+    if cfg.addition_embed_type == "text_time":
+        # SDXL micro-conditioning MLP over [pooled text | sinus(time_ids)]
+        ini.lin("add_embedding.linear_1",
+                cfg.projection_class_embeddings_input_dim, temb)
+        ini.lin("add_embedding.linear_2", temb, temb)
 
     for i, block in enumerate(structure.down_blocks(cfg)):
         pre = f"down_blocks.{i}"
@@ -202,14 +199,26 @@ def unet_forward(
     cfg: UNetConfig,
     lora=None,
     remat: bool = False,
+    added_cond: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Noise prediction (B, H, W, Cout), NHWC.
 
     remat=True is gradient checkpointing: each resnet and transformer block
     keeps only its inputs for the backward and recomputes the rest there
     (torch.utils.checkpoint, non-reentrant), as jax.checkpoint does in the
-    JAX package (lora_tpu/models/unet.py:247-253)."""
-    _check_cfg(cfg)
+    JAX package (lora_tpu/models/unet.py:247-253).
+
+    added_cond (SDXL, cfg.addition_embed_type == "text_time"):
+    {"text_embeds": (B, pooled_dim), "time_ids": (B, 6)}, te2's pooled
+    embedding and the original-size / crop / target-size ids, embedded and
+    summed into the timestep embedding; required iff the config declares
+    addition_embed_type."""
+    if (added_cond is None) != (cfg.addition_embed_type is None):
+        raise ValueError(
+            f"added_cond must be passed iff the config declares "
+            f"addition_embed_type (got added_cond="
+            f"{'set' if added_cond is not None else 'None'} with "
+            f"addition_embed_type={cfg.addition_embed_type!r})")
     resnet_fn, transformer_fn = _resnet, _transformer
     if remat:
         # only the activations go through checkpoint's arguments: it walks
@@ -232,6 +241,19 @@ def unet_forward(
         freq_shift=cfg.freq_shift).to(dt)
     temb = dense(params, "time_embedding.linear_1", temb)
     temb = dense(params, "time_embedding.linear_2", silu(temb))
+    if added_cond is not None:
+        # six time_ids, each a sinusoidal embedding in the timesteps'
+        # [cos | sin] layout, flattened after the pooled text embed, then a
+        # 2-layer MLP summed into temb before any block reads it
+        time_ids = added_cond["time_ids"]
+        t_emb = timestep_embedding(
+            time_ids.reshape(-1), cfg.addition_time_embed_dim,
+            flip_sin_to_cos=cfg.flip_sin_to_cos,
+            freq_shift=cfg.freq_shift).reshape(time_ids.shape[0], -1)
+        add = torch.cat([added_cond["text_embeds"].to(dt), t_emb.to(dt)],
+                        dim=-1)
+        add = dense(params, "add_embedding.linear_1", add)
+        temb = temb + dense(params, "add_embedding.linear_2", silu(add))
 
     h = conv2d(params, "conv_in", sample.permute(0, 3, 1, 2), padding=(1, 1))
     skips: List[torch.Tensor] = [h]
@@ -287,6 +309,7 @@ class UNet(ParamModule):
         self.cfg = cfg
 
     def forward(self, sample, timesteps, encoder_hidden_states, lora=None,
-                remat: bool = False):
+                remat: bool = False, added_cond=None):
         return unet_forward(self.flat_params(), sample, timesteps,
-                            encoder_hidden_states, self.cfg, lora, remat)
+                            encoder_hidden_states, self.cfg, lora, remat,
+                            added_cond)

@@ -89,7 +89,28 @@ def _float_param(module: torch.nn.Module) -> torch.Tensor:
     return next(t for t in module.parameters() if t.is_floating_point())
 
 
+def _module_from(cls_, cfg, params, dtype) -> torch.nn.Module:
+    """A model module holding loaded `params` (built on the meta device,
+    then the tensors assigned: no second copy of the weights)."""
+    m = cls_(cfg, device="meta", dtype=dtype)
+    m.load_state_dict(params, strict=True, assign=True)
+    return m
+
+
+def _check_device(path: str, device) -> None:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"from_pretrained({path!r}) loads onto device={device!r} (the "
+            f"default) and no CUDA device is available; pass device='cpu' "
+            f"to load on the CPU")
+
+
 class StableDiffusionPipeline:
+    # the models whose params LyCORIS base deltas may change, and each text
+    # model's LoRA attribute (the server's embed key reads them)
+    _MODELS = ("unet", "text_encoder")
+    _TEXT_LORAS = (("text_encoder", "lora_text"),)
+
     def __init__(self, unet: UNet, text_encoder: CLIPTextModel, vae: VAE,
                  tokenizer: CLIPTokenizer,
                  schedule: Optional[schedulers.NoiseSchedule] = None):
@@ -142,21 +163,12 @@ class StableDiffusionPipeline:
         (data/tokenizer.py)."""
         from ..models.hf_import import load_pipeline_params, load_scheduler_config
 
-        if torch.device(device).type == "cuda" and \
-                not torch.cuda.is_available():
-            raise RuntimeError(
-                f"from_pretrained({path!r}) loads onto device={device!r} "
-                f"(the default) and no CUDA device is available; pass "
-                f"device='cpu' to load on the CPU")
-
+        _check_device(path, device)
         unet_p, text_p, vae_p, cfgs = load_pipeline_params(path, dtype, device)
-        modules = []
-        for cls_, cfg, params in ((UNet, cfgs[0], unet_p),
-                                  (CLIPTextModel, cfgs[1], text_p),
-                                  (VAE, cfgs[2], vae_p)):
-            m = cls_(cfg, device="meta", dtype=dtype)
-            m.load_state_dict(params, strict=True, assign=True)
-            modules.append(m)
+        modules = [_module_from(cls_, cfg, params, dtype)
+                   for cls_, cfg, params in ((UNet, cfgs[0], unet_p),
+                                             (CLIPTextModel, cfgs[1], text_p),
+                                             (VAE, cfgs[2], vae_p))]
         return cls(*modules,
                    tokenizer or default_tokenizer(
                        path, vocab_size=cfgs[1].vocab_size,
@@ -230,7 +242,9 @@ class StableDiffusionPipeline:
             self.lora_text = lt
 
     def _module(self, model: str) -> torch.nn.Module:
-        return {"unet": self.unet, "text_encoder": self.text_encoder}[model]
+        if model not in self._MODELS:
+            raise KeyError(f"no model {model!r} in this pipeline")
+        return getattr(self, model)
 
     def _install_base_deltas(self, model: str, tree: Optional[dict]):
         """Pop a LyCORIS tree's `param_deltas`, record clones of the params
@@ -307,21 +321,23 @@ class StableDiffusionPipeline:
     def tune_lora_scale(self, alpha: float,
                         text_alpha: Optional[float] = None) -> None:
         """The LoRAs' scale, and the base deltas re-applied at it (the text
-        encoder's at `text_alpha` when given)."""
+        encoders' at `text_alpha` when given)."""
         text_alpha = alpha if text_alpha is None else text_alpha
         if self.lora_unet is not None:
             self.lora_unet = lora_core.tune_lora_scale(self.lora_unet, alpha)
-        if self.lora_text is not None:
-            self.lora_text = lora_core.tune_lora_scale(self.lora_text,
-                                                       text_alpha)
         self._apply_base_deltas("unet", alpha)
-        self._apply_base_deltas("text_encoder", text_alpha)
+        for model, attr in self._TEXT_LORAS:
+            if getattr(self, attr) is not None:
+                setattr(self, attr, lora_core.tune_lora_scale(
+                    getattr(self, attr), text_alpha))
+            self._apply_base_deltas(model, text_alpha)
 
     def remove_lora(self) -> None:
         """The reference's monkeypatch_remove_lora (lora.py:812-847); base
         deltas are restored."""
         self.lora_unet = None
-        self.lora_text = None
+        for _, attr in self._TEXT_LORAS:
+            setattr(self, attr, None)
         self._clear_base_deltas()
         self.adapter_generation += 1
 
@@ -331,10 +347,12 @@ class StableDiffusionPipeline:
         deltas at the same alpha, whose restore record is dropped. Delta
         entries fold as stored (in the pipeline's dtype). An int8 base
         raises: collapse before quantize_base."""
-        for module, lora in ((self.unet, self.lora_unet),
-                             (self.text_encoder, self.lora_text)):
+        loras = {"unet": self.lora_unet,
+                 **{m: getattr(self, a) for m, a in self._TEXT_LORAS}}
+        for model, lora in loras.items():
             if lora is None:
                 continue
+            module = self._module(model)
             params = module.flat_params()
             for k, v in lora_core.collapse_lora(params, lora, alpha).items():
                 if v is not params[k]:
@@ -427,11 +445,21 @@ class StableDiffusionPipeline:
         `step_noise`. lora_idx routes each prompt through its own adapter
         of a stacked LoRA. prompt_embeds (and, with CFG,
         negative_prompt_embeds) replace the prompt strings."""
-        use_cfg = guidance_scale > 1.0
-        ts, sigmas = self._scheduler_arrays(scheduler, num_inference_steps)
         text_emb, uncond, B = self._resolve_cond(
-            prompt, negative_prompt, use_cfg, prompt_embeds,
+            prompt, negative_prompt, guidance_scale > 1.0, prompt_embeds,
             negative_prompt_embeds)
+        return self._txt2img(
+            text_emb, uncond, B, None, num_inference_steps, guidance_scale,
+            height, width, generator, latents, scheduler, lora_idx,
+            return_latents, step_noise)
+
+    def _txt2img(self, text_emb, uncond, B: int, added_cond,
+                 num_inference_steps: int, guidance_scale: float,
+                 height: int, width: int, generator, latents, scheduler: str,
+                 lora_idx, return_latents: bool, step_noise):
+        """txt2img from resolved conditioning (and, for SDXL, the
+        text_time rows in `added_cond`)."""
+        ts, sigmas = self._scheduler_arrays(scheduler, num_inference_steps)
         if latents is None:
             if generator is None:
                 raise ValueError("pass generator= (or latents=)")
@@ -446,7 +474,7 @@ class StableDiffusionPipeline:
         latents = self._denoise(
             latents, text_emb, uncond, guidance_scale, num_inference_steps,
             ts, method, sigmas, lora_idx=lora_idx, generator=generator,
-            step_noise=step_noise)
+            step_noise=step_noise, added_cond=added_cond)
         images = self._decode(latents)
         if return_latents:
             return images, latents
@@ -481,7 +509,8 @@ class StableDiffusionPipeline:
                  method: str = "ddim", sigmas: Optional[np.ndarray] = None,
                  lora_idx=None, extra_channels=None, blend=None,
                  generator: Optional[torch.Generator] = None,
-                 step_noise: Optional[Sequence[torch.Tensor]] = None):
+                 step_noise: Optional[Sequence[torch.Tensor]] = None,
+                 added_cond: Optional[Dict[str, torch.Tensor]] = None):
         """The denoising loop, lora_tpu's _denoise_loop: `method` is ddim |
         pndm | euler | euler_a | dpm++ over the timesteps `ts` (and, for the
         Euler pair, `sigmas`, one longer). CFG batches uncond before cond.
@@ -491,7 +520,9 @@ class StableDiffusionPipeline:
         (mask == 0) is overwritten with z0 renoised to the stepped-to level
         by the one fixed noise draw, and the last step blends z0 itself, so
         the kept region's final latents equal z0. euler_a's per-step noise
-        comes from `step_noise` when given, else from `generator`. The
+        comes from `step_noise` when given, else from `generator`.
+        added_cond: SDXL's text_time rows ({"text_embeds", "time_ids"} on
+        the device), stacked uncond before cond under CFG as ctx is. The
         tables are uploaded once; no step reads a value back to the
         host."""
         if method not in SCHEDULERS.values():
@@ -525,7 +556,8 @@ class StableDiffusionPipeline:
                 inp = torch.cat([inp, extra_channels], dim=-1)
             model_in = torch.cat([inp, inp]) if use_cfg else inp
             out = unet_forward(params, model_in, t.expand(n_in), ctx,
-                               self.unet.cfg, lora=lora)
+                               self.unet.cfg, lora=lora,
+                               added_cond=added_cond)
             if use_cfg:
                 u, c = out[:B], out[B:]
                 out = u + guidance_scale * (c - u)
@@ -641,11 +673,19 @@ class StableDiffusionPipeline:
         it to the step the strength starts at (the last int(S * strength)
         of the S DDIM steps), then denoise. The posterior noise and the
         init noise are drawn from `generator` in that order, or given."""
-        use_cfg = guidance_scale > 1.0
         text_emb, uncond, B = self._resolve_cond(
-            prompt, negative_prompt, use_cfg, prompt_embeds,
+            prompt, negative_prompt, guidance_scale > 1.0, prompt_embeds,
             negative_prompt_embeds)
-        image = self._image_input(init_image)
+        return self._img2img(
+            text_emb, uncond, B, None, self._image_input(init_image),
+            strength, num_inference_steps, guidance_scale, generator,
+            lora_idx, posterior_noise, init_noise)
+
+    def _img2img(self, text_emb, uncond, B: int, added_cond, image,
+                 strength: float, num_inference_steps: int,
+                 guidance_scale: float, generator, lora_idx, posterior_noise,
+                 init_noise) -> np.ndarray:
+        """img2img from resolved conditioning and a checked image."""
         ts = schedulers.ddim_timesteps(self.schedule, num_inference_steps)
         ts = ts[_strength_start(num_inference_steps, strength):]
         if len(ts) == 0:
@@ -658,7 +698,8 @@ class StableDiffusionPipeline:
             self.schedule.to(z.device), z, noise,
             torch.full((B,), int(ts[0]), device=z.device))
         latents = self._denoise(z, text_emb, uncond, guidance_scale,
-                                num_inference_steps, ts, lora_idx=lora_idx)
+                                num_inference_steps, ts, lora_idx=lora_idx,
+                                added_cond=added_cond)
         return self._decode(latents)
 
     @torch.inference_mode()
@@ -739,6 +780,22 @@ class StableDiffusionPipeline:
             raise ValueError(
                 "inpaint_blend() is the technique for plain checkpoints; a "
                 "9-channel inpainting UNet should use inpaint()")
+        text_emb, uncond, B = self._resolve_cond(
+            prompt, negative_prompt, guidance_scale > 1.0, prompt_embeds,
+            negative_prompt_embeds)
+        return self._inpaint_blend(
+            text_emb, uncond, B, None, self._image_input(image), mask,
+            strength, num_inference_steps, guidance_scale, generator,
+            scheduler, lora_idx, posterior_noise, init_noise, step_noise,
+            return_latents)
+
+    def _inpaint_blend(self, text_emb, uncond, B: int, added_cond, image,
+                       mask, strength: float, num_inference_steps: int,
+                       guidance_scale: float, generator, scheduler: str,
+                       lora_idx, posterior_noise, init_noise, step_noise,
+                       return_latents: bool):
+        """Latent-blend inpainting from resolved conditioning and a checked
+        image."""
         ts, sigmas = self._scheduler_arrays(scheduler, num_inference_steps)
         method = SCHEDULERS[scheduler]
         if method == "pndm":
@@ -751,11 +808,6 @@ class StableDiffusionPipeline:
             raise ValueError(
                 f"strength={strength} leaves zero denoising steps at "
                 f"num_inference_steps={num_inference_steps}")
-        use_cfg = guidance_scale > 1.0
-        text_emb, uncond, B = self._resolve_cond(
-            prompt, negative_prompt, use_cfg, prompt_embeds,
-            negative_prompt_embeds)
-        image = self._image_input(image)
         mask = torch.as_tensor(mask, device=self.device)
         z0 = self._encode_image(image, generator, posterior_noise)
         h, w = z0.shape[1:3]
@@ -774,7 +826,7 @@ class StableDiffusionPipeline:
             latents, text_emb, uncond, guidance_scale, num_inference_steps,
             ts, method, sigmas, lora_idx=lora_idx,
             blend=(mask_small, z0.float(), noise0), generator=generator,
-            step_noise=step_noise)
+            step_noise=step_noise, added_cond=added_cond)
         images = self._decode(latents)
         if return_latents:
             return images, latents, z0

@@ -50,8 +50,12 @@ VAE posterior sample and the init noise; euler_a's step noise, also in
 txt2img) is drawn batch-wide from the FIRST member's seed, so it is
 reproducible per (seed, batch composition). PNGs are decoded on zlib
 (data/png.py _png_decode: 8-bit and palette/gray below 8 bits,
-non-interlaced; a 16-bit or interlaced PNG is a 400 that names the case). SDXL pipelines (Slice 6)
-are refused at construction.
+non-interlaced; a 16-bit or interlaced PNG is a 400 that names the case).
+
+SDXL pipelines (pipelines/sdxl.py) serve through the same endpoint: the
+embed cache stores (context, te2 pooled) pairs, the embed key also covers
+te2's LoRA and base deltas, and mode="inpaint" always takes latent
+blending (there is no 9-channel SDXL UNet).
 """
 
 from __future__ import annotations
@@ -215,11 +219,10 @@ class PipelineServer:
                  max_batch: int = 8, batch_window_ms: float = 25.0,
                  embed_cache_size: int = 256, max_queue: int = 32,
                  batch_buckets: Optional[tuple] = None):
-        if hasattr(pipe, "encode_prompt_xl"):
-            raise NotImplementedError(
-                "SDXL pipelines are not ported yet (ROADMAP Queue A, "
-                "Slice 6: SDXL)")
         self.pipe = pipe
+        # SDXL pipes condition on (context, te2 pooled) pairs: the embed
+        # cache stores the pair per prompt and the pipe call takes both
+        self._is_xl = hasattr(pipe, "encode_prompt_xl")
         self.lock = threading.Lock()
         self.max_batch = max_batch
         self.batch_window = batch_window_ms / 1000.0
@@ -369,8 +372,10 @@ class PipelineServer:
                 "batched_with": pending.batched_with}
 
     def _nine_channel(self) -> bool:
+        """A 9-channel inpainting UNet (never SDXL: it inpaints by latent
+        blending)."""
         cfg = self.pipe.unet.cfg
-        return cfg.in_channels != cfg.out_channels
+        return not self._is_xl and cfg.in_channels != cfg.out_channels
 
     def _check_image_mode(self, pending: "_Pending") -> None:
         """Reject at admit (400) what the checkpoint or the routed pipeline
@@ -528,13 +533,18 @@ class PipelineServer:
                   file=sys.stderr)
             traceback.print_exc(file=sys.stderr)
 
-    def _cached_embeds(self, texts: list, alpha) -> torch.Tensor:
+    def _cached_embeds(self, texts: list, alpha):
         """Encode `texts`, serving repeats from the LRU cache (caller holds
-        the pipe lock and has already applied `alpha`)."""
+        the pipe lock and has already applied `alpha`): the stacked
+        embeddings, or for SDXL the stacked (context, pooled) pair."""
         missing = [t for t in dict.fromkeys(texts)
                    if (t, alpha) not in self._embeds]
         if missing:
-            fresh = self.pipe.encode_prompt(missing)
+            if self._is_xl:
+                ctx, pooled = self.pipe.encode_prompt_xl(missing)
+                fresh = list(zip(ctx, pooled))
+            else:
+                fresh = self.pipe.encode_prompt(missing)
             for t, e in zip(missing, fresh):
                 self._embeds[(t, alpha)] = e
         self.embed_cache_misses += len(missing)
@@ -545,6 +555,8 @@ class PipelineServer:
             rows.append(self._embeds[(t, alpha)])
         while len(self._embeds) > self._embed_cache_size:
             self._embeds.popitem(last=False)
+        if self._is_xl:
+            return tuple(torch.stack(part) for part in zip(*rows))
         return torch.stack(rows)
 
     def _embed_key_alpha(self):
@@ -555,19 +567,21 @@ class PipelineServer:
         scale, which may have been tuned before the server started): the
         text LoRA's scale, and the alpha the text encoder's LyCORIS base
         deltas were last applied at (a file of norm modules alone leaves
-        no text LoRA, yet its embeddings follow alpha). Without either the
-        embeddings do not depend on alpha: one entry per text. Unlike
-        lora_tpu, which tracks the last request's alpha from an assumed
-        1.0, this key holds whatever scale the pipe was given. Caller holds
-        the pipe lock."""
+        no text LoRA, yet its embeddings follow alpha), for each text
+        encoder (SDXL: te1 and te2). Without any, the embeddings do not
+        depend on alpha: one entry per text. Unlike lora_tpu, which tracks
+        the last request's alpha from an assumed 1.0, this key holds
+        whatever scale the pipe was given. Caller holds the pipe lock."""
         gen = self.pipe.adapter_generation
-        lora = self.pipe.lora_text
-        scale = None if lora is None else tuple(
-            lora["scale"].reshape(-1).tolist())
-        base = self.pipe.base_delta_alpha("text_encoder")
-        if scale is None and base is None:
+        parts = []
+        for model, attr in self.pipe._TEXT_LORAS:
+            lora = getattr(self.pipe, attr)
+            parts += [None if lora is None else tuple(
+                lora["scale"].reshape(-1).tolist()),
+                self.pipe.base_delta_alpha(model)]
+        if all(p is None for p in parts):
             return gen, None
-        return gen, (scale, base)
+        return gen, tuple(parts)
 
     def _assemble_rows(self, group: list):
         """Flatten a coalesced group into device-batch rows: (prompts padded
@@ -770,7 +784,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m lora_tpu_torch.serve",
         description="Serve txt2img, img2img and inpainting from a "
-                    "diffusers-layout SD checkpoint.")
+                    "diffusers-layout SD or SDXL checkpoint.")
     ap.add_argument("--model", required=True)
     ap.add_argument("--lora", default=None)
     ap.add_argument("--port", type=int, default=8500)
@@ -818,14 +832,15 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error(f"--device {args.device}: CUDA is not available on this "
                  "host")
+    # an SDXL directory carries a second text encoder: serve it with the
+    # dual-encoder pipeline
     if os.path.isdir(os.path.join(args.model, "text_encoder_2")):
-        ap.error(f"{args.model} is an SDXL checkpoint: not ported yet "
-                 "(ROADMAP Queue A, Slice 6: SDXL)")
+        from .pipelines.sdxl import StableDiffusionXLPipeline as Pipe
+    else:
+        from .pipelines.sd import StableDiffusionPipeline as Pipe
 
-    from .pipelines.sd import StableDiffusionPipeline
-
-    pipe = StableDiffusionPipeline.from_pretrained(
-        args.model, dtype=torch.bfloat16, device=device)
+    pipe = Pipe.from_pretrained(args.model, dtype=torch.bfloat16,
+                                device=device)
     if args.lora:
         pipe.patch_pipe(args.lora)
     if args.quantize:

@@ -171,6 +171,8 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.data.dataset", "lora_tpu_torch.data.png",
                "lora_tpu_torch.data.preprocess",
                "lora_tpu_torch.data.tokenizer",
+               "lora_tpu_torch.formats.kohya",
+               "lora_tpu_torch.formats.lycoris",
                "lora_tpu_torch.formats.pt_io",
                "lora_tpu_torch.formats.reader",
                "lora_tpu_torch.formats.safetensors_io",
@@ -184,7 +186,8 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.ops.flash_attention",
                "lora_tpu_torch.ops.int8_matmul",
                "lora_tpu_torch.ops.adam8bit",
-               "lora_tpu_torch.pipelines.sd", "lora_tpu_torch.serve",
+               "lora_tpu_torch.pipelines.sd",
+               "lora_tpu_torch.pipelines.sdxl", "lora_tpu_torch.serve",
                "lora_tpu_torch.training.checkpoint",
                "lora_tpu_torch.training.dreambooth",
                "lora_tpu_torch.training.loss",

@@ -130,9 +130,16 @@ def test_unet_state_dict_keys_are_the_flat_names(unet_params):
         assert tuple(v.shape) == tuple(jp[k].shape), k
 
 
-def test_sdxl_text_time_raises():
-    with pytest.raises(NotImplementedError, match="SDXL"):
-        UNet(cfgs.TINY_XL_UNET, device="cpu")
+def test_sdxl_text_time_raises(unet_params):
+    """The SDXL text_time UNet builds (it raised before SDXL was ported):
+    lora_tpu's parameter names and shapes, add_embedding included."""
+    jp = unet_params("TINY_XL_UNET")
+    unet = UNet(cfgs.TINY_XL_UNET, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    assert sorted(unet.state_dict()) == sorted(jp)
+    assert "add_embedding.linear_1.weight" in jp
+    for k, v in unet.state_dict().items():
+        assert tuple(v.shape) == tuple(jp[k].shape), k
 
 
 @pytest.mark.parametrize("cfg_name,mode", [("TINY_TEXT", "last"),

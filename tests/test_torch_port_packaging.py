@@ -57,7 +57,8 @@ def test_port_wheel_stands_alone(tmp_path):
     offline a wheel that requires torch and numpy, not jax; whose console
     scripts start the port's server and its DreamBooth, PTI and TI
     trainers; that carries every package of the port and every csrc source
-    (the blockwise-int8 Adam's among them), and nothing of lora_tpu."""
+    (the blockwise-int8 Adam's among them), the SDXL pipeline, and nothing
+    of lora_tpu."""
     pkg = os.path.join(REPO, "lora_tpu_torch")
     src = tmp_path / "lora_tpu_torch"
     shutil.copytree(pkg, src, ignore=shutil.ignore_patterns(
@@ -93,6 +94,7 @@ def test_port_wheel_stands_alone(tmp_path):
                if n.endswith((".cu", ".cuh"))}
     assert sources <= names, sorted(sources - names)
     assert "lora_tpu_torch/ops/csrc/adam8bit.cu" in names
+    assert "lora_tpu_torch/pipelines/sdxl.py" in names
     assert {n.split("/")[0] for n in names} == {"lora_tpu_torch", info}
 
 

@@ -7,7 +7,9 @@ rejections lora_tpu makes at admit, the embed cache, warmup, shedding
 before the PNG decode), every sampler served and an unknown one refused at
 admit, HTTP pixels equal to a direct pipeline call, the quantized pipeline
 against lora_tpu's, the stdlib PNG encoder against lora_tpu's Pillow one,
-and main()'s argument validation."""
+SDXL pipelines (the embed cache of (context, pooled) pairs, te2's adapter
+in the embed key, inpainting by latent blending, main() serving an SDXL
+directory), and main()'s argument validation."""
 
 import base64
 import io
@@ -36,8 +38,12 @@ from lora_tpu_torch.models.config import (  # noqa: E402
     TINY_TEXT,
     TINY_UNET,
     TINY_VAE,
+    TINY_XL_TEXT,
+    TINY_XL_TEXT2,
+    TINY_XL_UNET,
 )
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline  # noqa: E402
 from lora_tpu_torch.serve import (  # noqa: E402
     PipelineServer,
     SchedulerDown,
@@ -872,11 +878,166 @@ def test_nine_channel_checkpoint_rejects_txt2img():
         srv.stop()
 
 
+def _tiny_xl_pipe(seed=0):
+    return StableDiffusionXLPipeline.random_init(
+        torch.Generator().manual_seed(seed), "cpu", unet_cfg=TINY_XL_UNET,
+        text_cfg=TINY_XL_TEXT, text2_cfg=TINY_XL_TEXT2, vae_cfg=TINY_VAE)
+
+
 def test_sdxl_pipeline_refused():
-    pipe = _tiny_pipe()
-    pipe.encode_prompt_xl = lambda prompts: None
-    with pytest.raises(NotImplementedError, match="Slice 6"):
-        PipelineServer(pipe, port=0)
+    """An SDXL pipe is served (it was refused before SDXL was ported): an
+    HTTP generate returns the PNGs of the pipe called directly with the
+    seed's latents and the (context, pooled) pairs, CFG 5.0."""
+    pipe = _tiny_xl_pipe()
+    srv = PipelineServer(pipe, port=0).start()
+    try:
+        prompts = ["an xl parity probe", "a second row"]
+        out, status = _post(srv, {"prompt": prompts, "steps": 2,
+                                  "guidance": 5.0, "height": 64,
+                                  "width": 64, "seed": 13})
+        assert status == 200
+    finally:
+        srv.stop()
+    lat = pipe.prepare_latents(2, 64, 64, torch.Generator().manual_seed(13))
+    # the cache encodes the shared negative prompt once, in a batch of one
+    neg = tuple(torch.cat([e, e]) for e in pipe.encode_prompt_xl([""]))
+    direct = pipe(None, num_inference_steps=2, guidance_scale=5.0,
+                  height=64, width=64, latents=lat,
+                  prompt_embeds=pipe.encode_prompt_xl(prompts),
+                  negative_prompt_embeds=neg)
+    assert out["images"] == [t_serve._png_b64(im) for im in direct]
+
+
+def test_xl_pipeline_serving():
+    """tests/test_serve.py's counterpart: the embed cache stores (context,
+    pooled) pairs, CFG negatives flow through, and a repeat is served
+    from the cache with the same pixels."""
+    srv = PipelineServer(_tiny_xl_pipe(), port=0).start()
+    req = {"prompt": "a tiny xl tree", "steps": 2, "height": 64,
+           "width": 64, "seed": 1, "guidance": 5.0}
+    try:
+        out, status = _post(srv, req)
+        assert status == 200 and len(out["images"]) == 1
+        assert base64.b64decode(out["images"][0])[:8] == b"\x89PNG\r\n\x1a\n"
+        entry = srv._embeds[("a tiny xl tree", srv._embed_key_alpha())]
+        assert [tuple(e.shape) for e in entry] == [
+            (77, TINY_XL_TEXT.hidden_size + TINY_XL_TEXT2.hidden_size),
+            (TINY_XL_TEXT2.projection_dim,)]
+        misses = srv.embed_cache_misses
+        out2, _ = _post(srv, req)
+        assert out2["images"] == out["images"]
+        assert srv.embed_cache_misses == misses and srv.embed_cache_hits > 0
+    finally:
+        srv.stop()
+
+
+def test_xl_te2_lora_keys_embed_cache(tmp_path):
+    """A te2-only kohya-XL file (lora_text stays None) puts te2's scale in
+    the embed key: repeats at one alpha hit, an alpha change misses and
+    re-encodes, and alpha 0 gives the unpatched render's pixels."""
+    from lora_tpu_torch.core.sites import text_encoder_lora_sites
+    from lora_tpu_torch.formats.kohya import save_kohya_xl
+
+    pipe = _tiny_xl_pipe()
+    t2 = text_encoder_lora_sites(TINY_XL_TEXT2)
+    lt2 = init_lora(t2, r=2, generator=torch.Generator().manual_seed(5),
+                    device="cpu")
+    for e in lt2["sites"].values():
+        e["up"] = e["up"] + 0.1
+    path = str(tmp_path / "te2only.safetensors")
+    save_kohya_xl(path, unet_cfg=TINY_XL_UNET, lora_text2=lt2,
+                  text2_sites=t2, dtype=np.float32)
+    srv = PipelineServer(pipe, port=0).start()
+    req = {"prompt": "an xl probe", "steps": 2, "height": 64, "width": 64,
+           "seed": 2, "alpha": 1.0}
+    try:
+        base_out, _ = _post(srv, req)
+        assert srv._embed_key_alpha()[1] is None
+        with srv.lock:
+            pipe.patch_pipe(path)
+        assert pipe.lora_text is None and pipe.lora_unet is None
+        assert pipe.lora_text2 is not None
+        out1, _ = _post(srv, req)
+        assert out1["images"] != base_out["images"]  # te2's LoRA is live
+        m0 = srv.embed_cache_misses
+        out1b, _ = _post(srv, req)
+        assert srv.embed_cache_misses == m0
+        assert out1b["images"] == out1["images"]
+        out0, _ = _post(srv, dict(req, alpha=0.0))
+        assert srv.embed_cache_misses > m0
+        assert out0["images"] == base_out["images"]
+    finally:
+        srv.stop()
+
+
+def test_xl_inpaint_serving_routes_blend():
+    """An SDXL inpaint request takes latent blending (there is no 9-channel
+    SDXL UNet): the pixels of pipe.inpaint with the seed's generator."""
+    pipe = _tiny_xl_pipe()
+    srv = PipelineServer(pipe, port=0)
+    try:
+        assert srv._is_xl and not srv._nine_channel()
+        out = srv.generate({"mode": "inpaint", "prompt": "a dog",
+                            "image": _image_png(), "mask": _mask_png(),
+                            "steps": 2, "guidance": 5.0, "seed": 1,
+                            "scheduler": "euler_a"})
+        img2 = srv.generate({"mode": "img2img", "prompt": "a dog",
+                             "image": _image_png(), "steps": 2,
+                             "guidance": 5.0, "seed": 1})
+    finally:
+        srv.stop()
+    assert len(out["images"]) == 1 and len(img2["images"]) == 1
+    image = torch.from_numpy(t_serve._b64_to_image(_image_png(), 1))
+    mask = torch.from_numpy(t_serve._b64_to_mask(_mask_png(), 1, (64, 64)))
+    direct = pipe.inpaint("a dog", image, mask, num_inference_steps=2,
+                          scheduler="euler_a",
+                          generator=torch.Generator().manual_seed(1))
+    assert out["images"] == [t_serve._png_b64(im) for im in direct]
+
+
+def test_main_serves_an_sdxl_directory(tmp_path, monkeypatch):
+    """main() on a diffusers-layout SDXL directory (text_encoder_2/) loads
+    the SDXL pipeline in bf16 and answers a request over HTTP, then drains
+    on SIGTERM."""
+    import signal
+
+    from lora_tpu_torch.models.hf_import import save_pipeline_params
+
+    save_pipeline_params(_tiny_xl_pipe(), str(tmp_path))
+    monkeypatch.setenv("LORA_TPU_ALLOW_HASHED_TOKENIZER", "1")
+    handlers, started, got = {}, threading.Event(), {}
+    monkeypatch.setattr(signal, "signal",
+                        lambda sig, fn: handlers.__setitem__(sig, fn))
+    start = PipelineServer.start
+
+    def recorded_start(self):
+        got["srv"] = self
+        started.set()
+        return start(self)
+
+    monkeypatch.setattr(PipelineServer, "start", recorded_start)
+
+    def client():
+        try:
+            started.wait(120)
+            srv = got["srv"]
+            time.sleep(0.2)
+            got["out"] = _post(srv, {"prompt": "an xl main probe",
+                                     "steps": 2, "height": 64, "width": 64,
+                                     "guidance": 5.0})
+        finally:
+            handlers[signal.SIGTERM]()
+
+    th = threading.Thread(target=client)
+    th.start()
+    t_serve.main(["--model", str(tmp_path), "--device", "cpu", "--port",
+                  "0", "--no_warmup", "--max_batch", "1"])
+    th.join(60)
+    srv = got["srv"]
+    assert isinstance(srv.pipe, StableDiffusionXLPipeline)
+    assert srv.pipe.dtype == torch.bfloat16
+    out, status = got["out"]
+    assert status == 200 and len(out["images"]) == 1
 
 
 def _crash_after_one(srv):
@@ -1073,8 +1234,9 @@ def test_png_encoder_matches_jax_pillow_png():
 
 
 def test_main_validates_arguments(tmp_path, monkeypatch, capsys):
-    """Malformed flags, a missing device and an SDXL checkpoint exit 2
-    before any model loads."""
+    """Malformed flags and a missing device exit 2 before any model loads;
+    an SDXL checkpoint (text_encoder_2/) no longer exits 2: it goes to the
+    SDXL pipeline's loader."""
     cases = [
         (["--model", "/nonexistent", "--batch_buckets", "1, x"],
          "comma-separated ints"),
@@ -1096,6 +1258,14 @@ def test_main_validates_arguments(tmp_path, monkeypatch, capsys):
     assert ei.value.code == 2
     assert "CUDA is not available" in capsys.readouterr().err
     (tmp_path / "text_encoder_2").mkdir()
-    with pytest.raises(SystemExit) as ei:
+    loaded = []
+
+    def load(path, **kw):
+        loaded.append((path, kw))
+        raise FileNotFoundError("stop after the loader was chosen")
+
+    monkeypatch.setattr(StableDiffusionXLPipeline, "from_pretrained", load)
+    with pytest.raises(FileNotFoundError, match="loader was chosen"):
         t_serve.main(["--model", str(tmp_path), "--device", "cpu"])
-    assert ei.value.code == 2 and "SDXL" in capsys.readouterr().err
+    assert loaded == [(str(tmp_path), {"dtype": torch.bfloat16,
+                                       "device": torch.device("cpu")})]
