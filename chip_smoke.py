@@ -72,9 +72,15 @@
                                         # calls in child processes, 14 (with
                                         # its own flash and int8 checks at
                                         # phase 14's shapes)
+    python3 chip_smoke.py --sdxl-train  # phases 1, 2 (the forward sources,
+                                        # the bf16 and f32 D <= 96 backward
+                                        # sources and flash_bwd.cu), those
+                                        # kernels' first calls in child
+                                        # processes, 15 (with its own flash
+                                        # checks at phase 15's shapes)
 
-Phases, each printing its own lines (about 12 minutes on one H100, a third
-of it the build of the kernels):
+Phases, each printing its own lines (about 13 minutes on one H100, a
+quarter of it the build of the kernels):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_fwd_tf32x3.cu, flash_bwd.cu,
@@ -339,6 +345,37 @@ of it the build of the kernels):
      timed in f32 and bf16); each flash forward and int8 row of the
      kernels line gains the "sdxl" and "sdxl_f32" launches and the SDXL
      levels' times.
+  15. sdxl train: SDXL training at full width and 1024x1024, random
+     weights from the seed. 15c: the dQ and dK/dV kernels at the SDXL
+     levels at batch 1 (H 10, T = S = 4096 and H 20, T = S = 1024, D 64)
+     against their plain versions, bf16 (wgmma) and f32 (tf32x3), timed
+     (device time by CUDA-graph replay, the mma kernels on the same
+     inputs, SDPA's backward, the FLOP bounds), with their sums over one
+     training step (10 launches at T = 4096, 60 at 1024); the forward
+     kernels at batch 1 the same way. 15a: bench.py's SDXL step
+     (xl_train_cached_bs1_1024): a rank-8 LoRA on the UNet's default
+     sites, cached (1, 128, 128, 4) latents, the (1, 77, 2048) context
+     and (1, 1280) pooled row of one prompt through both text encoders,
+     the training-size time_ids, AdamW 1e-4; in bf16 its LoRA gradient
+     through the kernels against the plain attention path (limit as
+     phase 7's) and with gradient checkpointing against without; then 2
+     warm-up and 5 timed steps without and with checkpointing: the median
+     step (CUDA events), the peak memory, one step under torch.profiler,
+     and each step's flash launches by kernel and level (70 forward, 140
+     with checkpointing, 70 dQ and 70 dK/dV: 10 at T = 4096 and 60 at
+     1024, all wgmma; no int8). 15d: the bf16 pipeline written as an fp16
+     diffusers directory and three instance PNGs (1024^2, 1280x1024,
+     1024x1536); lora_db's command line on it in this process, the
+     recipe's flags (bf16, both text encoders, gradient checkpointing,
+     rank 8, kohya-XL output), 4 steps at 1024px with the native resize
+     (LORA_TPU_TORCH_NATIVE_IMGOPS=1, built from native/imgops.c): every
+     launch counted, every image through the native resize, the file
+     kohya-XL with te1's and te2's modules, through patch_pipe and one
+     1024px UNet call with it. 15b: the same step in f32 (tf32x3; a step
+     without checkpointing that does not fit is recorded as such). Every
+     flash forward call of 15a, 15b and 15d is recorded and must be at a
+     shape 15c checked; each flash row of the kernels line gains the
+     "sdxl_train" and "sdxl_train_f32" launches and its 15c times.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -4677,6 +4714,526 @@ def add_sdxl_launches(kernels: list, sdxl: dict) -> None:
                 "bound_by", "library_ms", "rel")}
 
 
+# phase 15: SDXL training at full width, 1024x1024
+SDXL_TRAIN_RANK = 8  # bench.py's xl_train_cached_bs1_1024 (and 15d's)
+SDXL_TRAIN_WARMUP, SDXL_TRAIN_STEPS = 2, 5  # 15a / 15b, each mode
+SDXL_TIME_IDS = (1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0)
+SDXL_DB_STEPS = 4  # 15d: lora_db steps
+# 15d's instance PNGs (h, w): one at the training size, two that the native
+# resize scales down and crops (portrait and landscape)
+SDXL_DB_IMAGES = ((1024, 1024), (1280, 1024), (1024, 1536))
+FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+@contextlib.contextmanager
+def counting_bwd_levels(counter: collections.Counter):
+    """Counts every dQ and dK/dV kernel launch made inside by (wrapper
+    name, T) in `counter`, through the launch helpers the wrappers call
+    once per launch (`_dq_launch`, `_dkv_launch`); the wrappers and their
+    counts are unchanged."""
+    real = {"flash_bwd_dq": fa._dq_launch, "flash_bwd_dkv": fa._dkv_launch}
+
+    def counted(name):
+        def call(route, q, *a, **kw):
+            counter[(name, q.shape[2])] += 1
+            return real[name](route, q, *a, **kw)
+        return call
+
+    fa._dq_launch = counted("flash_bwd_dq")
+    fa._dkv_launch = counted("flash_bwd_dkv")
+    try:
+        yield counter
+    finally:
+        fa._dq_launch = real["flash_bwd_dq"]
+        fa._dkv_launch = real["flash_bwd_dkv"]
+
+
+def _sdxl_step_want(dt, remat: bool) -> dict:
+    """The flash launches of one SDXL training step by wrapper: by kernel
+    (all wgmma in bf16, tf32x3 in f32: D = 64) and by level (T), the
+    forward twice under gradient checkpointing."""
+    route = "wgmma" if dt == torch.bfloat16 else "tf32x3"
+    k = 2 if remat else 1
+    return {
+        "flash_fwd": _only(route, k * SDXL_ROUTED_PER_UNET_CALL),
+        "flash_bwd_dq": _only(route, SDXL_ROUTED_PER_UNET_CALL,
+                              fa.flash_bwd_dq),
+        "flash_bwd_dkv": _only(route, SDXL_ROUTED_PER_UNET_CALL,
+                               fa.flash_bwd_dkv),
+        "fwd_by_T": {T: k * n for T, n in SDXL_LAUNCHES_BY_LEVEL.items()},
+        "bwd_by_T": {(w, T): n for w in ("flash_bwd_dq", "flash_bwd_dkv")
+                     for T, n in SDXL_LAUNCHES_BY_LEVEL.items()},
+        "int8": 0}
+
+
+def _by_T(calls: collections.Counter) -> dict:
+    out = collections.Counter()
+    for key, n in calls.items():
+        out[key[2]] += n
+    return dict(out)
+
+
+def _sdxl_train_batch(pipe, gen):
+    """15a's cached batch: (1, 128, 128, 4) latents from the generator, one
+    prompt through both text encoders as the trainer's text cache encodes
+    it (te2's ids derived from te1's), the training-size time_ids."""
+    from lora_tpu_torch.models.clip import dual_encode
+    from lora_tpu_torch.training.loss import ids2_from_ids
+
+    eos = int(pipe.tokenizer.eos_token_id)
+    ids = torch.tensor(pipe.tokenizer(["a photo of sks dog"])["input_ids"],
+                       device="cuda")
+    with torch.inference_mode():
+        ctx, pooled = dual_encode(
+            pipe.text_encoder.flat_params(),
+            pipe.text_encoder_2.flat_params(), ids, ids2_from_ids(ids, eos),
+            pipe.text_encoder.cfg, pipe.text_encoder_2.cfg, dtype=pipe.dtype,
+            eos_id=eos)
+    return {"latents": torch.randn((1, SDXL_SIZE // 8, SDXL_SIZE // 8, 4),
+                                   generator=gen, device="cuda"
+                                   ).to(pipe.dtype),
+            "encoder_hidden_states": ctx.clone(),
+            "add_text_embeds": pooled.clone(),
+            "add_time_ids": torch.tensor([SDXL_TIME_IDS], device="cuda")}
+
+
+def _sdxl_make_step(optimizer, remat: bool, dtype):
+    from lora_tpu_torch.models.config import (
+        SDXL_TEXT,
+        SDXL_TEXT2,
+        SDXL_UNET,
+        SDXL_VAE,
+    )
+    from lora_tpu_torch.models.schedulers import make_schedule
+    from lora_tpu_torch.training.loss import LossConfig
+    from lora_tpu_torch.training.train_step import make_train_step
+
+    return make_train_step(
+        unet_cfg=SDXL_UNET, text_cfg=SDXL_TEXT, vae_cfg=SDXL_VAE,
+        sched=make_schedule(),
+        loss_cfg=LossConfig(cached_latents=True,
+                            gradient_checkpointing=remat),
+        optimizer=optimizer, dtype=dtype, text2_cfg=SDXL_TEXT2)
+
+
+def _sdxl_lora(gen):
+    """The rank-8 LoRA on the SDXL UNet's default sites, its up factors
+    0.05 std (nonzero: every leaf takes a gradient), f32 leaves that
+    require grad."""
+    from lora_tpu_torch.core.lora import init_lora
+    from lora_tpu_torch.core.sites import unet_lora_sites
+    from lora_tpu_torch.models.config import SDXL_UNET
+    from lora_tpu_torch.training.train_step import make_trainable
+
+    lora = init_lora(unet_lora_sites(SDXL_UNET), r=SDXL_TRAIN_RANK,
+                     generator=gen, device="cuda")
+    for entry in lora["sites"].values():
+        entry["up"] = 0.05 * torch.randn(entry["up"].shape, generator=gen,
+                                         device="cuda")
+    return make_trainable({"lora_unet": lora})
+
+
+def sdxl_grad_check(unet, trainable, batch, dt, gen) -> dict:
+    """The LoRA gradient of one SDXL step through the kernels against the
+    plain attention path (lr 0: the leaves stay), limits as phase 7's;
+    in bf16 also with gradient checkpointing against without."""
+    from lora_tpu_torch.ops.attention import set_use_memory_efficient_attention
+    from lora_tpu_torch.training.optim import make_optimizer, tree_leaves
+
+    leaves = tree_leaves(trainable)
+    base = (unet.flat_params(), {}, {}, {})
+    draws = {"noise": torch.randn(tuple(batch["latents"].shape),
+                                  generator=gen, device="cuda").to(dt),
+             "timesteps": torch.tensor([500], device="cuda")}
+
+    def loss_and_grad(remat):
+        opt = make_optimizer(trainable, {"lora_unet": 0.0},
+                             weight_decay=0.0, max_grad_norm=None)
+        captured = []
+        opt.step = lambda: captured.append(torch.cat(
+            [x.grad.flatten() for x in leaves]))
+        before = _counts()
+        loss = _sdxl_make_step(opt, remat, dt)(trainable, base, batch,
+                                                **draws)
+        torch.cuda.synchronize()
+        for x in leaves:
+            x.grad = None
+        return (loss.float().item(), captured[0],
+                tuple(a - b for a, b in zip(_counts(), before)))
+
+    def both(remat):  # through the kernels, then the plain path
+        kernels = loss_and_grad(remat)
+        set_use_memory_efficient_attention(False)
+        try:
+            return kernels, loss_and_grad(remat)
+        finally:
+            set_use_memory_efficient_attention(True)
+
+    bf16 = dt == torch.bfloat16
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = both(False)
+    rel = ((g_k - g_p).norm() / g_p.norm()).item()
+    tol = GRAD_REL_L2_TOL if bf16 else GRAD_F32_REL_L2_TOL
+    row = {"dtype": str(dt).replace("torch.", ""), "remat": False,
+           "loss_kernels": loss_k, "loss_plain": loss_p,
+           "grad_rel_l2_kernels_vs_plain": rel, "grad_norm": g_k.norm().item(),
+           "launches_kernels": n_k, "launches_plain": n_p,
+           "limits": {"grad_rel_l2": tol, "remat_loss_rtol": REMAT_LOSS_RTOL}}
+    n = SDXL_ROUTED_PER_UNET_CALL
+    ok = (n_k == (n, n, n) and n_p == (0, 0, 0)
+          and np.isfinite(rel) and rel <= tol)
+    if bf16:
+        loss_r, g_r, n_r = loss_and_grad(True)
+        rel_r = ((g_r - g_k).norm() / g_k.norm()).item()
+        row.update(loss_remat=loss_r, grad_rel_l2_remat_vs_kernels=rel_r,
+                   launches_remat=n_r)
+        ok = ok and n_r == (2 * n, n, n) and abs(loss_r - loss_k) <= \
+            REMAT_LOSS_RTOL * abs(loss_k) and np.isfinite(rel_r) and \
+            rel_r <= GRAD_REL_L2_TOL
+    log("sdxl train: grad: " + json.dumps(row))
+    if not ok:
+        raise AssertionError(f"the SDXL LoRA gradient through the kernels "
+                             f"is off the plain path's, or the launches are "
+                             f"not {n} forward, dQ and dK/dV: "
+                             f"{row}")
+    return row
+
+
+def sdxl_train_steps(unet, trainable, batch, dt, remat: bool, gen) -> dict:
+    """SDXL_TRAIN_WARMUP + SDXL_TRAIN_STEPS steps of the bench.py SDXL step
+    (AdamW 1e-4, clip 1.0) in `dt`: the median step by CUDA events, the
+    peak memory over the timed steps, and each timed step's flash launches
+    by kernel and level (counted from 0 just before it), which must be
+    _sdxl_step_want's, with no int8 launch."""
+    from lora_tpu_torch.training.optim import make_optimizer
+
+    step = _sdxl_make_step(make_optimizer(trainable, {"lora_unet": 1e-4}),
+                           remat, dt)
+    base = (unet.flat_params(), {}, {}, {})
+    want = _sdxl_step_want(dt, remat)
+    losses, events = [], []
+    what = f"{str(dt).replace('torch.', '')} remat={remat}"
+    for _ in range(SDXL_TRAIN_WARMUP):
+        losses.append(step(trainable, base, batch, gen))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SDXL_TRAIN_STEPS):
+        _zero_counts()
+        fwd_calls, bwd_calls = collections.Counter(), collections.Counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with recording_flash_shapes(fwd_calls), \
+                counting_bwd_levels(bwd_calls):
+            start.record()
+            losses.append(step(trainable, base, batch, gen))
+            end.record()
+        events.append((start, end))
+        got = {"flash_fwd": dict(fa.flash_fwd.launches_by_kernel),
+               "flash_bwd_dq": dict(fa.flash_bwd_dq.launches_by_kernel),
+               "flash_bwd_dkv": dict(fa.flash_bwd_dkv.launches_by_kernel),
+               "fwd_by_T": _by_T(fwd_calls), "bwd_by_T": dict(bwd_calls),
+               "int8": i8.int8_matmul.launches}
+        if got != want:
+            raise AssertionError(f"an SDXL training step ({what}) "
+                                 f"launched {got}, not {want}")
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite SDXL loss ({what}): "
+                             f"{losses.tolist()}")
+    out = {"remat": remat, "warmup": SDXL_TRAIN_WARMUP,
+           "timed_steps": SDXL_TRAIN_STEPS, "step_ms": step_ms,
+           "step_ms_median": statistics.median(step_ms),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": [round(x, 6) for x in losses.tolist()],
+           "launches_per_step": {k: v for k, v in want.items()
+                                 if k.startswith("flash")},
+           "fwd_by_T_per_step": want["fwd_by_T"]}
+    out["profile"] = {k: v for k, v in profile_step(
+        lambda: step(trainable, base, batch, gen)).items() if k != "top"}
+    log(f"sdxl train: {what}: " + json.dumps(out))
+    return out
+
+
+def sdxl_kernel_rows(gen) -> tuple:
+    """15c: the dQ and dK/dV kernels at the SDXL levels at batch 1 (the
+    training step's) against their plain versions, timed (with the mma
+    kernels on the same inputs, SDPA's backward and the bounds), bf16 and
+    f32; and the forward kernels at batch 1, timed, against theirs."""
+    fwd, bwd = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for H, T, D in SDXL_ATTN_LEVELS:
+            fwd.append(check_kernel(1, H, T, T, D, dtype, gen))
+            bwd.append(check_bwd_kernels(1, H, T, T, D, dtype, gen))
+    sums = {}
+    for dtype in ("bfloat16", "float32"):
+        keys = BWD_SUM_KEYS if dtype == "bfloat16" else BWD_F32_SUM_KEYS
+        rows = {r["T"]: r for r in bwd if r["dtype"] == dtype}
+        sums[dtype] = {k: sum(n * rows[T][k]
+                              for T, n in SDXL_LAUNCHES_BY_LEVEL.items())
+                       for k in keys}
+    log("sdxl train: 15c backward per training step: " + json.dumps(sums))
+    return fwd, bwd, sums
+
+
+def phase_sdxl_train(smi: str) -> dict:
+    """Phase 15: SDXL training at full width and 1024x1024. 15c the
+    backward (and forward) kernels at the SDXL levels at batch 1; 15a the
+    bench.py SDXL step in bf16 (a random SDXL pipeline from the seed:
+    rank-8 LoRA on the UNet's default sites, cached latents and
+    conditioning) with and without gradient checkpointing, its LoRA
+    gradient against the plain attention path; 15d lora_db on an SDXL
+    directory (bf16, both text encoders, gradient checkpointing, the
+    native resize) and its kohya-XL file through patch_pipe; 15b the step
+    in f32 (tf32x3). Every flash call of 15a, 15b and 15d is recorded and
+    checked against its plain version. Returns the launches by path and
+    the rows."""
+    from lora_tpu_torch.models.config import SDXL_TEXT2, SDXL_UNET
+    from lora_tpu_torch.models.unet import UNet
+    from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline
+    from lora_tpu_torch.training.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 15)
+    fwd_rows, bwd_rows, sums = sdxl_kernel_rows(gen)
+    out = {"fwd_rows": fwd_rows, "bwd_rows": bwd_rows,
+           "bwd_per_training_step": sums}
+    seen = set()
+    t0 = time.perf_counter()
+    pipe = StableDiffusionXLPipeline.random_init(
+        torch.Generator("cuda").manual_seed(SEED), "cuda",
+        dtype=torch.bfloat16)
+    batch = _sdxl_train_batch(pipe, gen)
+    trainable = _sdxl_lora(gen)
+    n_params = sum(x.numel() for x in tree_leaves(trainable))
+    log(f"sdxl train: 15a: bf16 pipeline and rank-{SDXL_TRAIN_RANK} LoRA "
+        f"({n_params} params) in {time.perf_counter() - t0:.1f} s")
+    with recording_flash_shapes(seen):
+        out["grad_bf16"] = sdxl_grad_check(pipe.unet, trainable, batch,
+                                           torch.bfloat16, gen)
+        out["bf16"] = [sdxl_train_steps(pipe.unet, trainable, batch,
+                                        torch.bfloat16, remat, gen)
+                       for remat in (False, True)]
+        out["db"] = _sdxl_lora_db(pipe, gen)
+    del pipe, batch, trainable
+    torch.cuda.empty_cache()
+    # 15b: f32, the UNet alone (the conditioning from 15a's encoders is
+    # not needed: f32 draws of the same shapes)
+    unet = UNet(SDXL_UNET, device="cuda", dtype=torch.float32,
+                generator=torch.Generator("cuda").manual_seed(SEED))
+    batch = {"latents": torch.randn((1, SDXL_SIZE // 8, SDXL_SIZE // 8, 4),
+                                    generator=gen, device="cuda"),
+             "encoder_hidden_states": torch.randn(
+                 (1, 77, SDXL_UNET.cross_attention_dim), generator=gen,
+                 device="cuda"),
+             "add_text_embeds": torch.randn((1, SDXL_TEXT2.projection_dim),
+                                            generator=gen, device="cuda"),
+             "add_time_ids": torch.tensor([SDXL_TIME_IDS], device="cuda")}
+    trainable = _sdxl_lora(gen)
+    with recording_flash_shapes(seen):
+        out["grad_f32"] = sdxl_grad_check(unet, trainable, batch,
+                                          torch.float32, gen)
+        out["f32"] = [sdxl_train_steps(unet, trainable, batch,
+                                       torch.float32, remat, gen)
+                      for remat in (False, True)]
+    del unet, batch, trainable
+    torch.cuda.empty_cache()
+    unchecked = seen - {_row_key(r) for r in fwd_rows}
+    if unchecked:
+        raise AssertionError(f"phase 15 ran flash_fwd at shapes or layouts "
+                             f"15c did not check: {sorted(unchecked)}")
+    # the launches of the counted main-path runs: 15a's and 15d's (bf16),
+    # 15b's (f32) timed steps
+    paths = {p: {w: dict.fromkeys(getattr(fa, w).launches_by_kernel, 0)
+                 for w in FLASH_WRAPPERS}
+             for p in ("sdxl_train", "sdxl_train_f32")}
+    for path, runs in (("sdxl_train", out["bf16"]),
+                       ("sdxl_train_f32", out["f32"])):
+        for r in runs:
+            for w, counts in r["launches_per_step"].items():
+                for k, n in counts.items():
+                    paths[path][w][k] += n * r["timed_steps"]
+    for w, counts in out["db"]["launches"].items():
+        if w in FLASH_WRAPPERS:
+            for k, n in counts.items():
+                paths["sdxl_train"][w][k] += n
+    out["launches"] = paths
+    log("sdxl train: " + json.dumps({
+        "phase_s": time.perf_counter() - t_phase,
+        "launches": paths, "card": smi,
+        "step_ms_median": {f"{r_dt}_remat={r['remat']}": r["step_ms_median"]
+                           for r_dt in ("bf16", "f32") for r in out[r_dt]},
+        "peak_mem_gib": {f"{r_dt}_remat={r['remat']}": r["peak_mem_gib"]
+                         for r_dt in ("bf16", "f32") for r in out[r_dt]}}))
+    return out
+
+
+def _sdxl_db_inputs(pipe, root: str):
+    """15d's inputs: the bf16 pipeline written as an fp16 diffusers
+    directory (no CLIP vocabulary: the hashed tokenizer, opted in) and
+    SDXL_DB_IMAGES as PNGs from the seed."""
+    from lora_tpu_torch.data.png import _png_bytes
+    from lora_tpu_torch.models.hf_import import save_pipeline_params
+
+    t0 = time.perf_counter()
+    model = os.path.join(root, "model")
+    save_pipeline_params(pipe, model, fp16=True)
+    inst = os.path.join(root, "instance")
+    os.makedirs(inst)
+    rng = np.random.default_rng(SEED + 15)
+    for i, (h, w) in enumerate(SDXL_DB_IMAGES):
+        yy, xx = np.mgrid[0:h, 0:w]
+        rgb = np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1),
+                        (xx + yy) % 256], -1) + rng.integers(-20, 20,
+                                                             (h, w, 3))
+        with open(os.path.join(inst, f"{i}.png"), "wb") as f:
+            f.write(_png_bytes(np.clip(rgb, 0, 255).astype(np.uint8)))
+    os.environ["LORA_TPU_ALLOW_HASHED_TOKENIZER"] = "1"
+    log(f"sdxl train: 15d: inputs {model} (fp16) and {len(SDXL_DB_IMAGES)} "
+        f"PNGs {SDXL_DB_IMAGES} in {time.perf_counter() - t0:.1f} s")
+    return model, inst
+
+
+def _sdxl_lora_db(pipe, gen) -> dict:
+    """15d: lora_db's command line (cli._fire on cli.lora_db.train: what
+    `python -m lora_tpu_torch.cli.lora_db` runs, in this process so the
+    counts can be read) on an SDXL directory, the recipe's flags
+    (recipes/run_lora_db_xl.sh: bf16, both text encoders, gradient
+    checkpointing, rank 8), SDXL_DB_STEPS steps at 1024px with
+    LORA_TPU_TORCH_NATIVE_IMGOPS=1: each step's launches, every image
+    through the native resize (built from native/imgops.c at first use),
+    the kohya-XL file through patch_pipe and one 1024px UNet call with
+    it."""
+    from lora_tpu_torch.cli import _fire, lora_db
+    from lora_tpu_torch.data.dataset import NATIVE_IMGOPS_ENV
+    from lora_tpu_torch.formats.kohya import is_kohya_xl
+    from lora_tpu_torch.formats.reader import SafetensorsFile
+    from lora_tpu_torch.native import build as native
+
+    with tempfile.TemporaryDirectory(prefix="lora_db_xl_") as root:
+        model, inst = _sdxl_db_inputs(pipe, root)
+        run = os.path.join(root, "run")
+        argv = ["--pretrained_model_name_or_path", model,
+                "--instance_data_dir", inst,
+                "--instance_prompt", "a photo of sks dog",
+                "--output_dir", run, "--resolution", str(SDXL_SIZE),
+                "--train_batch_size", "1", "--mixed_precision", "bf16",
+                "--train_text_encoder", "--gradient_checkpointing",
+                "--lora_rank", str(SDXL_TRAIN_RANK),
+                "--learning_rate", "1e-4", "--learning_rate_text", "5e-5",
+                "--max_train_steps", str(SDXL_DB_STEPS), "--save_steps", "0",
+                "--output_format", "safe", "--seed", str(SEED)]
+        resized = []
+        real_resize = native.resize_crop_normalize
+
+        def counted_resize(pixels, size):
+            resized.append(tuple(pixels.shape))
+            return real_resize(pixels, size)
+
+        os.environ[NATIVE_IMGOPS_ENV] = "1"
+        native.resize_crop_normalize = counted_resize
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_trainer_counts()
+        t0 = time.perf_counter()
+        try:
+            with timing_trainer_steps({}) as rec:
+                res = _fire.fire(lora_db.train, argv)
+            torch.cuda.synchronize()
+        finally:
+            native.resize_crop_normalize = real_resize
+            del os.environ[NATIVE_IMGOPS_ENV]
+        wall = time.perf_counter() - t0
+        got = _launches()
+        _check_trainer_result(res, SDXL_DB_STEPS, "15d")
+        want = _sdxl_step_want(torch.bfloat16, True)
+        want = {w: _scaled(want[w], SDXL_DB_STEPS) for w in FLASH_WRAPPERS}
+        if {w: got[w] for w in FLASH_WRAPPERS} != want or \
+                got["adam8bit"] or i8.int8_matmul.launches:
+            raise AssertionError(f"15d launched {got} (int8 "
+                                 f"{i8.int8_matmul.launches}), not {want}")
+        lib = native.build()  # the library the run loaded, built above
+        if len(resized) < SDXL_DB_STEPS or native._lib is None:
+            raise AssertionError(f"15d: {len(resized)} images through the "
+                                 f"native resize, library {lib} not loaded")
+        files = sorted(os.listdir(run))
+        path = os.path.join(run, "lora_weight.safetensors")
+        if files != ["lora_weight.safetensors", "metrics.jsonl"]:
+            raise AssertionError(f"15d wrote {files}")
+        with SafetensorsFile(path) as f:
+            keys = list(f.keys())
+        prefixes = {p: sum(k.startswith(p) for k in keys)
+                    for p in ("lora_unet_", "lora_te1_", "lora_te2_")}
+        if not is_kohya_xl(keys) or not all(prefixes.values()):
+            raise AssertionError(f"15d's file is not kohya-XL with every "
+                                 f"model: {prefixes}")
+        step_ms = _step_ms(rec, 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the file on the 15a pipeline (the directory's weights): one UNet
+        # call at 1024px, batch 1, with and without it
+        inputs = _sdxl_unet_inputs(pipe, 1, gen)
+        bare = _sdxl_unet(pipe, inputs)
+        t1 = time.perf_counter()
+        pipe.patch_pipe(path)
+        patch_s = time.perf_counter() - t1
+        with_file = _sdxl_unet(pipe, inputs, pipe.lora_unet)
+        pipe.remove_lora()
+        moved = (with_file.float() - bare.float()).abs().max().item()
+        if not torch.isfinite(with_file).all() or moved == 0.0:
+            raise AssertionError(f"15d: the UNet call with the kohya-XL file "
+                                 f"is not finite or equals the bare call "
+                                 f"(max |diff| {moved})")
+        records = _metrics(os.path.join(run, "metrics.jsonl"))
+    out = {"steps": res["steps"], "wall_s": wall,
+           "steps_per_sec": res["steps_per_sec"],
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "peak_mem_gib": peak, "final_loss": res["final_loss"],
+           "losses": {r["step"]: r["loss"] for r in records if "step" in r},
+           "launches": got, "native_resizes": len(resized),
+           "native_input_shapes": sorted(set(resized)),
+           "native_library": os.path.basename(lib),
+           "file_modules": prefixes,
+           "patch_pipe_s": patch_s, "unet_max_abs_change": moved}
+    log("sdxl train: 15d: " + json.dumps(out))
+    return out
+
+
+def add_sdxl_train_launches(kernels: list, st: dict) -> None:
+    """Each flash row of the kernels line gains phase 15's launches of its
+    kernel ("sdxl_train": 15a's timed bf16 steps and 15d; "sdxl_train_f32":
+    15b's), and each row of a kernel that ran at the SDXL levels its timed
+    15c rows there (batch 1)."""
+    for row in kernels:
+        if row["name"] not in FLASH_ROW_ROUTES:
+            continue
+        wrapper, route = FLASH_ROW_ROUTES[row["name"]]
+        for path, launches in st["launches"].items():
+            n = launches[wrapper][route]
+            row["launches"] += n
+            row["launches_by_path"][path] = n
+        if wrapper == "flash_fwd":
+            rows, keys = st["fwd_rows"], ("ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "err_o")
+            ran = [r for r in rows if r["kernel"] == [route]]
+        else:
+            p = "dq_" if wrapper == "flash_bwd_dq" else "dkv_"
+            rkey = "dq_route" if wrapper == "flash_bwd_dq" else "route"
+            keys = tuple(p + k for k in ("ms", "device_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "prev_ms", "prev_device_ms")) + (
+                "library_ms", "library_device_ms", "exp_floor_ms")
+            ran = [r for r in st["bwd_rows"] if r[rkey] == route]
+            if route == "mma":  # called directly on the routed inputs
+                ran, keys = st["bwd_rows"], tuple(
+                    p + k for k in ("prev_ms", "prev_device_ms", "plain_ms"))
+        if ran:
+            row["sdxl_levels_b1"] = [
+                {"H": r["H"], "T": r["T"], "D": r["D"], "dtype": r["dtype"],
+                 **{k: r[k] for k in keys if k in r}} for r in ran]
+
+
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
     """Every flash forward call and int8 call recorded on the main paths was
     checked against its plain version: its shapes (and for flash, dtype and
@@ -4835,6 +5392,7 @@ def main() -> int:
     trainer = phase_trainer(smi, rows, bwd_rows)
     pti = phase_pti(smi, rows, bwd_rows)
     sdxl = phase_sdxl(smi)
+    sdxl_train = phase_sdxl_train(smi)
     # the trainer's launches by wrapper: f32 (12c and 12d), bf16 (12e)
     trainer_f32 = _added_launches(trainer["counted"]["launches"],
                                   trainer["resumed"]["launches"])
@@ -5389,6 +5947,7 @@ def main() -> int:
     kernels.append(adam8bit_kernel_row(trainer))
     add_pti_launches(kernels, pti)
     add_sdxl_launches(kernels, sdxl)
+    add_sdxl_train_launches(kernels, sdxl_train)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -5474,6 +6033,32 @@ def main_sdxl() -> int:
     return 0
 
 
+def main_sdxl_train() -> int:
+    """Phases 1, 2 (the forward and the bf16 and f32 D <= 96 backward
+    sources, and flash_bwd.cu for the mma kernels beside them), those
+    kernels' first calls in child processes, and 15 (with its own flash
+    checks at phase 15's shapes); then the flash rows of phase 15."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
+                 "flash_bwd", "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dq_tf32x3"])
+    tf32x3_fwd_probe()
+    dq_probe()
+    dkv_probe()
+    tf32x3_dq_probe()
+    tf32x3_probe()
+    st = phase_sdxl_train(smi)
+    rows = [{"name": n, "launches": 0, "launches_by_path": {}}
+            for n in FLASH_ROW_ROUTES]
+    add_sdxl_train_launches(rows, st)
+    log("sdxl train kernels: " + json.dumps(rows))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] in (["--int8"], ["--int8-tiles"]):
         sys.exit(main_int8(sys.argv[1] == "--int8-tiles"))
@@ -5491,8 +6076,10 @@ if __name__ == "__main__":
         sys.exit(main_pti())
     if sys.argv[1:] == ["--sdxl"]:
         sys.exit(main_sdxl())
+    if sys.argv[1:] == ["--sdxl-train"]:
+        sys.exit(main_sdxl_train())
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
                  f"--flash-bwd | --modes | --adapters | --train | --pti | "
-                 f"--sdxl]")
+                 f"--sdxl | --sdxl-train]")
     sys.exit(main())

@@ -6,7 +6,9 @@ lora_tpu/cli/lora_db.py:
         --output_dir OUT [--device cpu] [--any DreamBoothConfig field]
 
 (installed as the console script lora_db_torch). DIR is a diffusers-layout
-SD-1.x / SD-2.x directory; training runs on the card unless --device cpu.
+SD-1.x / SD-2.x directory, or an SDXL one (with text_encoder_2/), which
+trains the XL way and writes kohya-XL files (--output_format safe);
+training runs on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import torch
 
 from ..pipelines.sd import StableDiffusionPipeline
+from ..pipelines.sdxl import StableDiffusionXLPipeline
 from ..training.dreambooth import DreamBoothConfig, train_dreambooth
 from ._fire import coerce_kwargs_to_dataclass, fire
 
@@ -24,18 +27,16 @@ def train(pretrained_model_name_or_path: str = "",
           mixed_precision: str = None, device: str = "cuda", **kwargs):
     """Load the pipeline (bf16 with mixed_precision="bf16", else f32) on
     `device` and run train_dreambooth with the other flags as
-    DreamBoothConfig fields; returns its result dict."""
-    if os.path.isdir(os.path.join(pretrained_model_name_or_path,
-                                  "text_encoder_2")):
-        raise NotImplementedError(
-            f"{pretrained_model_name_or_path} is an SDXL checkpoint "
-            "(text_encoder_2/): SDXL training is not ported yet (ROADMAP "
-            "Slice 6)")
+    DreamBoothConfig fields; returns its result dict. A directory with
+    text_encoder_2/ loads as StableDiffusionXLPipeline."""
     dtype = torch.bfloat16 if mixed_precision == "bf16" else torch.float32
     kwargs = coerce_kwargs_to_dataclass(DreamBoothConfig, kwargs)
     cfg = DreamBoothConfig(mixed_precision=mixed_precision, **kwargs)
-    pipe = StableDiffusionPipeline.from_pretrained(
-        pretrained_model_name_or_path, dtype=dtype, device=device)
+    pipe_cls = (StableDiffusionXLPipeline if os.path.isdir(os.path.join(
+        pretrained_model_name_or_path, "text_encoder_2"))
+        else StableDiffusionPipeline)
+    pipe = pipe_cls.from_pretrained(pretrained_model_name_or_path,
+                                    dtype=dtype, device=device)
     return train_dreambooth(pipe, cfg)
 
 

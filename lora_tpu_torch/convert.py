@@ -85,9 +85,10 @@ def lora_from_jax(tree: dict, *, device="cpu",
 
 def trainable_from_jax(tree: dict, *, device="cpu") -> dict:
     """A JAX trainable tree ({"lora_unet": LoraTree, "lora_text": LoraTree,
-    "ti": {"embeds": (K, D)}}, numpy leaves) -> the port's, in the same
-    layout: float32 leaf tensors that require grad (the LoRA scale
-    included, as jax.grad differentiates every leaf)."""
+    "lora_text2": LoraTree (SDXL's te2), "ti": {"embeds": (K, D)}}, numpy
+    leaves) -> the port's, in the same layout: float32 leaf tensors that
+    require grad (the LoRA scale included, as jax.grad differentiates every
+    leaf)."""
     def leaf(a):
         return to_torch(a, device, torch.float32).requires_grad_(True)
 

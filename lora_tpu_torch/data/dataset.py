@@ -23,14 +23,20 @@ inpainting holes, the caption templates and the stochastic attributes,
 drawn in lora_tpu's order, so the same seed gives the same batches.
 Mask-captioned PTI data ({i}.src.jpg beside {i}.mask.png) is JPEG and so
 needs Pillow; face-segmentation masks that are missing are written as gray
-PNGs (data/preprocess.py, data/png.py). The native resize (lora_tpu's
-LORA_TPU_NATIVE_IMGOPS=1) is not ported yet (ROADMAP Slice 4).
+PNGs (data/preprocess.py, data/png.py).
+
+With LORA_TPU_TORCH_NATIVE_IMGOPS=1 an image that is resized and not
+colour-jittered goes through native/imgops.c instead (lora_tpu's
+LORA_TPU_NATIVE_IMGOPS=1 path): resize, crop and normalization fused in
+one pass, bilinear without antialiasing. It is built at first use, and a
+failed build raises.
 """
 
 from __future__ import annotations
 
 import collections
 import glob
+import os
 import random
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple, Union
@@ -42,6 +48,8 @@ import torch.nn.functional as F
 from .png import _PNG_SIGNATURE, _png_bytes, _png_decode, png_size
 
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png")
+# "1" sends load_image_norm's resize through native/imgops.c
+NATIVE_IMGOPS_ENV = "LORA_TPU_TORCH_NATIVE_IMGOPS"
 
 # the caption templates of textual inversion, filled with the token map's
 # value (lora_tpu/data/dataset.py:28-87)
@@ -213,6 +221,11 @@ def load_image_norm(path_or_pixels: Union[str, Path, np.ndarray], size: int,
     float32 in [-1, 1]."""
     arr = (read_image(path_or_pixels)
            if isinstance(path_or_pixels, (str, Path)) else path_or_pixels)
+    if (resize and not color_jitter
+            and os.environ.get(NATIVE_IMGOPS_ENV) == "1"):
+        from ..native.build import resize_crop_normalize
+
+        return resize_crop_normalize(arr, size)
     if resize:
         arr = _resize_short(arr, size)
     arr = np.asarray(arr, np.float32) / 255.0

@@ -9,7 +9,7 @@ grown table by the pipeline.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -134,6 +134,25 @@ def clip_text_forward(
         pooled = pooled @ dequantize_weight(
             params, "text_projection.weight", pooled.dtype).T
     return hidden, pooled
+
+
+def dual_encode(text_params, text2_params, ids1: torch.Tensor,
+                ids2: torch.Tensor, text_cfg: CLIPTextConfig,
+                text2_cfg: CLIPTextConfig, lora1=None, lora2=None,
+                dtype=torch.float32, eos_id: int = 49407
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SDXL's conditioning from both encoders' token ids (flat params):
+    (context (B, T, d1 + d2), pooled (B, projection_dim)), te1's and te2's
+    penultimate states joined on the last axis (te2's cast to te1's dtype)
+    and te2's projected pooled state at each row's first `eos_id`. The
+    pipeline's prompts and the trainer's loss and text cache all encode
+    through it."""
+    h1 = clip_text_forward(text_params, ids1, text_cfg, lora=lora1,
+                           dtype=dtype, penultimate=True)
+    h2, pooled = clip_text_forward(text2_params, ids2, text2_cfg, lora=lora2,
+                                   dtype=dtype, penultimate=True,
+                                   pooled_eos_id=eos_id)
+    return torch.cat([h1, h2.to(h1.dtype)], dim=-1), pooled
 
 
 class CLIPTextModel(ParamModule):

@@ -33,8 +33,14 @@ from ..formats.kohya import load_kohya_xl
 from ..formats.lycoris import is_lycoris, load_lycoris_xl
 from ..formats.safetensors_io import SafetensorsFile
 from ..models import schedulers
-from ..models.clip import CLIPTextModel
-from ..models.config import SDXL_TEXT, SDXL_TEXT2, SDXL_UNET, SDXL_VAE
+from ..models.clip import CLIPTextModel, dual_encode
+from ..models.config import (
+    CLIPTextConfig,
+    SDXL_TEXT,
+    SDXL_TEXT2,
+    SDXL_UNET,
+    SDXL_VAE,
+)
 from ..models.unet import UNet
 from ..models.vae import VAE
 from .sd import StableDiffusionPipeline, _check_device, _module_from
@@ -154,12 +160,11 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
             return torch.tensor(self.tokenizer(prompt, **kw)["input_ids"],
                                 dtype=torch.long, device=self.device)
 
-        h1 = self.text_encoder(ids(), lora=self.lora_text, dtype=self.dtype,
-                               penultimate=True)
-        h2, pooled = self.text_encoder_2(
-            ids(pad_token_id=0), lora=self.lora_text2, dtype=self.dtype,
-            penultimate=True, pooled_eos_id=int(self.tokenizer.eos_token_id))
-        return torch.cat([h1, h2.to(h1.dtype)], dim=-1), pooled
+        return dual_encode(
+            self.text_encoder.flat_params(),
+            self.text_encoder_2.flat_params(), ids(), ids(pad_token_id=0),
+            self.text_encoder.cfg, self.text_encoder_2.cfg, self.lora_text,
+            self.lora_text2, self.dtype, int(self.tokenizer.eos_token_id))
 
     def _time_ids(self, rows: int, height: int, width: int,
                   original_size=None, crops_coords_top_left=(0, 0),

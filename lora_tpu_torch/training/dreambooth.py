@@ -5,16 +5,21 @@ latents and text embeddings, resume from .pt adapters or from a full train
 state, preemption on SIGTERM, and periodic and final saves in the .pt and
 safetensors forms (the kohya schema for lora_targets="locon").
 
-Random draws come from torch.Generators: the LoRA init from seed and
-seed + 1, the cached-latent encode from seed + 99, the steps from seed + 7
-(one generator the step draws from, saved in the train state), the class
-images from seed + 1000 + s. The host reads the loss only where lora_tpu
-does, at step 1 and every 10th step; in between nothing waits for the
-device.
+SDXL pipelines (pipelines/sdxl.py) train the XL way: both text encoders
+(a LoRA on te2 beside te1's when the text encoder trains), the text_time
+conditioning with per-image original-size and crop rows from the dataset
+(the constant training-size row with cached latents), and artifacts in
+the kohya-XL schema only.
 
-Not ported yet: SDXL pipelines (ROADMAP Slice 6) and device meshes
-(fsdp / tensor_parallel, ROADMAP Slice 7); both raise. data_parallel on one
-device is no mesh, as in lora_tpu.
+Random draws come from torch.Generators: the LoRA init from seed, seed + 1
+(te1) and seed + 2 (te2), the cached-latent encode from seed + 99, the
+steps from seed + 7 (one generator the step draws from, saved in the train
+state), the class images from seed + 1000 + s. The host reads the loss
+only where lora_tpu does, at step 1 and every 10th step; in between
+nothing waits for the device.
+
+Not ported yet: device meshes (fsdp / tensor_parallel, ROADMAP Slice 7);
+they raise. data_parallel on one device is no mesh, as in lora_tpu.
 """
 
 from __future__ import annotations
@@ -46,16 +51,16 @@ from ..data.dataset import (
 )
 from ..data.png import _png_bytes
 from ..formats import pt_io
-from ..formats.kohya import save_kohya
+from ..formats.kohya import save_kohya, save_kohya_xl
 from ..formats.safetensors_io import (
     UNET_DEFAULT_TARGET_REPLACE,
     UNET_EXTENDED_TARGET_REPLACE,
 )
-from ..models.clip import clip_text_forward
+from ..models.clip import clip_text_forward, dual_encode
 from ..models.vae import vae_encode
 from ..utils.metrics import MetricsLogger
 from .checkpoint import PreemptionGuard, load_train_state, save_train_state
-from .loss import LossConfig
+from .loss import LossConfig, ids2_from_ids
 from .optim import make_lr_schedule, make_optimizer
 from .train_step import make_train_step, make_trainable
 
@@ -139,6 +144,32 @@ def generate_class_images(pipe, cfg: DreamBoothConfig) -> None:
                 f.write(_png_bytes((imgs[j] * 255).astype(np.uint8)))
 
 
+def _is_xl(pipe) -> bool:
+    return pipe.unet.cfg.addition_embed_type == "text_time"
+
+
+def _check_xl(cfg: DreamBoothConfig) -> None:
+    """lora_tpu's refusals of an SDXL run."""
+    if cfg.output_format != "safe":
+        raise ValueError(
+            "SDXL training saves in the kohya-XL schema only; set "
+            "output_format='safe' (the reference's indexed format has no "
+            "second text encoder)")
+    if cfg.resume_unet or cfg.resume_text_encoder:
+        raise ValueError(
+            "SDXL training does not support .pt adapter resume; use "
+            "save_train_state/resume_state for run continuation")
+
+
+def _text2_sites(pipe, cfg: DreamBoothConfig):
+    """te2's sites of an SDXL pipe (None otherwise), as te1's are chosen."""
+    if not _is_xl(pipe):
+        return None
+    t2cfg = pipe.text_encoder_2.cfg
+    return (text_encoder_locon_sites(t2cfg) if cfg.lora_targets == "locon"
+            else text_encoder_lora_sites(t2cfg))
+
+
 def _sites(pipe, cfg: DreamBoothConfig):
     """(UNet sites, text-encoder sites) of cfg.lora_targets, with
     lora_tpu's refusals."""
@@ -164,10 +195,6 @@ def _sites(pipe, cfg: DreamBoothConfig):
 
 
 def _check_unported(pipe, cfg: DreamBoothConfig) -> None:
-    if pipe.unet.cfg.addition_embed_type == "text_time":
-        raise NotImplementedError(
-            "SDXL DreamBooth training (text_time conditioning, dual text "
-            "encoders) is not ported yet (ROADMAP Slice 6)")
     if cfg.fsdp > 1 or cfg.tensor_parallel > 1:
         raise NotImplementedError(
             f"fsdp={cfg.fsdp} / tensor_parallel={cfg.tensor_parallel}: a "
@@ -235,6 +262,9 @@ def _cached_loader(inst, cls_items, cfg, batch_size, device, ids_on_host):
 
 
 def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
+    is_xl = _is_xl(pipe)
+    if is_xl:
+        _check_xl(cfg)
     _check_unported(pipe, cfg)
     os.makedirs(cfg.output_dir, exist_ok=True)
     device = pipe.device
@@ -249,6 +279,7 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     batch_size = cfg.train_batch_size  # one process, no mesh: dp = 1
 
     usites, tsites = _sites(pipe, cfg)
+    tsites2 = _text2_sites(pipe, cfg)
     trainable = {"lora_unet": lora_core.init_lora(
         usites, r=cfg.lora_rank,
         generator=torch.Generator(device).manual_seed(cfg.seed),
@@ -265,6 +296,11 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
             trainable["lora_text"] = lora_core.lora_from_flat(
                 pt_io.load_lora_pt(cfg.resume_text_encoder), tsites,
                 device=device)
+        if is_xl:
+            trainable["lora_text2"] = lora_core.init_lora(
+                tsites2, r=cfg.lora_rank,
+                generator=torch.Generator(device).manual_seed(cfg.seed + 2),
+                device=device)
     make_trainable(trainable)
 
     ds = DreamBoothDataset(
@@ -278,6 +314,10 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
         color_jitter=cfg.color_jitter,
         h_flip=cfg.h_flip,
         seed=cfg.seed,
+        # SDXL: each image's [orig_h, orig_w, crop_top, crop_left] for the
+        # text_time rows (cached latents fix the augmentation at cache time
+        # and take the constant training-size row)
+        return_geometry=is_xl and not cfg.cached_latents,
     )
     # frozen-text fast path: the prompts are fixed, so their embeddings are
     # constants, encoded once and CLIP leaves the loop
@@ -304,9 +344,10 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
         cfg.lr_scheduler, cfg.learning_rate * lr_scale, cfg.max_train_steps,
         cfg.lr_warmup_steps)}
     if cfg.train_text_encoder:
-        lrs["lora_text"] = make_lr_schedule(
-            cfg.lr_scheduler, cfg.learning_rate_text * lr_scale,
-            cfg.max_train_steps, cfg.lr_warmup_steps)
+        for group in ("lora_text",) + (("lora_text2",) if is_xl else ()):
+            lrs[group] = make_lr_schedule(
+                cfg.lr_scheduler, cfg.learning_rate_text * lr_scale,
+                cfg.max_train_steps, cfg.lr_warmup_steps)
     opt = make_optimizer(trainable, lrs,
                          weight_decay=cfg.adam_weight_decay,
                          max_grad_norm=cfg.max_grad_norm,
@@ -318,18 +359,29 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
         prior_loss_weight=cfg.prior_loss_weight,
         gradient_checkpointing=cfg.gradient_checkpointing,
     )
+    eos = int(pipe.tokenizer.eos_token_id)
     step_fn = make_train_step(
         unet_cfg=pipe.unet.cfg, text_cfg=pipe.text_encoder.cfg,
         vae_cfg=pipe.vae.cfg, sched=pipe.schedule, loss_cfg=loss_cfg,
-        optimizer=opt, dtype=dtype)
-    base = (pipe.unet.flat_params(), pipe.text_encoder.flat_params(),
-            pipe.vae.flat_params())
+        optimizer=opt, dtype=dtype,
+        text2_cfg=pipe.text_encoder_2.cfg if is_xl else None,
+        eos_id=eos if is_xl else None)
+    base = ((pipe.unet.flat_params(), pipe.text_encoder.flat_params())
+            + ((pipe.text_encoder_2.flat_params(),) if is_xl else ())
+            + (pipe.vae.flat_params(),))
 
     @torch.no_grad()
     def save(step_tag: str, final=False):
         name = "lora_weight" if final else f"lora_weight_s{step_tag}"
         path = os.path.join(cfg.output_dir, name)
         lu, lt = trainable.get("lora_unet"), trainable.get("lora_text")
+        if is_xl:
+            save_kohya_xl(path + ".safetensors", unet_cfg=pipe.unet.cfg,
+                          lora_unet=lu, unet_sites=usites, lora_text=lt,
+                          text_sites=tsites,
+                          lora_text2=trainable.get("lora_text2"),
+                          text2_sites=tsites2)
+            return
         if cfg.lora_targets == "locon":
             save_kohya(path + ".safetensors", lora_unet=lu, unet_sites=usites,
                        lora_text=lt, text_sites=tsites)
@@ -348,14 +400,40 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
 
     text_emb_cache = {}
 
-    def embed_ids(ids_np: np.ndarray) -> torch.Tensor:
+    @torch.no_grad()
+    def encode_rows(ids_np: np.ndarray):
+        ids = torch.from_numpy(ids_np).to(device)
+        if is_xl:  # (context, te2's pooled rows), both cached
+            return dual_encode(
+                base[1], base[2], ids, ids2_from_ids(ids, eos),
+                pipe.text_encoder.cfg, pipe.text_encoder_2.cfg, None, None,
+                dtype, eos)
+        return clip_text_forward(base[1], ids, pipe.text_encoder.cfg, None,
+                                 dtype=dtype)
+
+    def embed_ids(ids_np: np.ndarray):
         key = ids_np.tobytes()
         if key not in text_emb_cache:
-            with torch.no_grad():
-                text_emb_cache[key] = clip_text_forward(
-                    base[1], torch.from_numpy(ids_np).to(device),
-                    pipe.text_encoder.cfg, None, dtype=dtype)
+            text_emb_cache[key] = encode_rows(ids_np)
         return text_emb_cache[key]
+
+    const_time_ids = {}
+
+    def add_time_ids(batch) -> torch.Tensor:
+        """SDXL's (B, 6) text_time rows: each image's original size and
+        crop corner from the dataset and the training size, or without
+        geometry (cached latents) the constant training-size row."""
+        geom = batch.pop("time_ids_geom", None)
+        res = float(cfg.resolution)
+        if geom is not None:
+            return torch.cat([geom.float(), geom.new_full(
+                (geom.shape[0], 2), res, dtype=torch.float32)], dim=1)
+        n = batch["latents" if cfg.cached_latents else "pixel_values"
+                  ].shape[0]
+        if n not in const_time_ids:  # uploaded once per batch size
+            const_time_ids[n] = torch.tensor(
+                [[res, res, 0.0, 0.0, res, res]] * n, device=device)
+        return const_time_ids[n]
 
     rng = torch.Generator(device).manual_seed(cfg.seed + 7)
     state_path = os.path.join(cfg.output_dir, "train_state.safetensors")
@@ -384,8 +462,14 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
                     break
                 batch = next(loader)
                 if cache_text:
-                    batch["encoder_hidden_states"] = embed_ids(
-                        batch.pop("input_ids"))
+                    emb = embed_ids(batch.pop("input_ids"))
+                    if is_xl:
+                        (batch["encoder_hidden_states"],
+                         batch["add_text_embeds"]) = emb
+                    else:
+                        batch["encoder_hidden_states"] = emb
+                if is_xl:
+                    batch["add_time_ids"] = add_time_ids(batch)
                 loss = step_fn(trainable, base, batch, generator=rng)
                 if micro == start_step * ga:
                     if device.type == "cuda":

@@ -6,7 +6,12 @@ reaches only them:
 
     trainable = {"lora_unet": LoraTree | None,
                  "lora_text": LoraTree | None,
+                 "lora_text2": LoraTree | None,   # SDXL's te2
                  "ti": {"embeds": (K, D)} | None}
+
+SDXL (a UNet config with text_time conditioning) conditions on both text
+encoders (models/clip.py dual_encode) and on the text_time rows: te2's
+pooled embedding and the batch's "add_time_ids".
 
 Random draws (posterior noise of the VAE, diffusion noise, timesteps, the
 LoRA dropout seed) come from an explicit torch.Generator, in that order.
@@ -23,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 from ..models import schedulers
-from ..models.clip import clip_text_forward
+from ..models.clip import clip_text_forward, dual_encode
 from ..models.config import CLIPTextConfig, UNetConfig, VAEConfig
 from ..models.unet import unet_forward
 from ..models.vae import vae_encode
@@ -50,6 +55,16 @@ def _resize_mask_nearest(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return mask[:, ys.to(mask.device)][:, :, xs.to(mask.device)]
 
 
+def ids2_from_ids(ids: torch.Tensor, eos_id: int) -> torch.Tensor:
+    """SDXL te2's token ids from te1's: both tokenizers share the BPE
+    vocabulary and differ only in padding (te1 pads with EOS, te2 with id
+    0). BPE never emits EOS inside the text, so every position after the
+    first EOS is padding and becomes 0."""
+    is_eos = (ids == eos_id).long()
+    after = torch.cumsum(is_eos, dim=-1) - is_eos
+    return torch.where(after > 0, torch.zeros_like(ids), ids)
+
+
 def loss_step(
     trainable: Dict,
     batch: Dict[str, torch.Tensor],
@@ -70,6 +85,9 @@ def loss_step(
     vae_noise: Optional[torch.Tensor] = None,
     masked_vae_noise: Optional[torch.Tensor] = None,
     dropout_seed: Optional[int] = None,
+    text2_params=None,
+    text2_cfg: Optional[CLIPTextConfig] = None,
+    eos_id: Optional[int] = None,
 ) -> torch.Tensor:
     """The scalar f32 loss; differentiable in the trainable leaves.
 
@@ -77,11 +95,11 @@ def loss_step(
     (cached) or "pixel_values"; "encoder_hidden_states" (precomputed) or
     "input_ids"; optionally "mask" (pixel space), "is_instance", and for
     inpainting "masked_image_latents" + "mask_values" (cached) or
-    "masked_image_values" + "mask_values"."""
-    if unet_cfg.addition_embed_type == "text_time":
-        raise NotImplementedError(
-            "SDXL training (text_time conditioning) is not ported yet "
-            "(ROADMAP Slice 6)")
+    "masked_image_values" + "mask_values". SDXL also reads "add_time_ids"
+    (B, 6), and with "encoder_hidden_states" its "add_text_embeds" (te2's
+    pooled rows); te2's ids are "input_ids_2", else derived from
+    "input_ids" (ids2_from_ids). text2_params, text2_cfg and eos_id are
+    te2's and the tokenizer's, for SDXL."""
     ref = batch.get("latents", batch.get("pixel_values"))
     device = ref.device
 
@@ -121,10 +139,26 @@ def loss_step(
 
     lora_text = trainable.get("lora_text")
     ti = trainable.get("ti")
+    xl = unet_cfg.addition_embed_type == "text_time"
+    pooled = None
     if "encoder_hidden_states" in batch:
         # precomputed text embeddings (only valid when neither the text LoRA
-        # nor TI trains): CLIP leaves the hot loop, as VAE caching does
+        # nor TI trains): CLIP leaves the hot loop, as VAE caching does. For
+        # SDXL the cache also holds te2's pooled rows
         encoder_hidden = batch["encoder_hidden_states"].to(dtype)
+        if xl:
+            pooled = batch["add_text_embeds"].to(dtype)
+    elif xl:
+        if ti is not None:
+            raise ValueError("textual inversion is not supported for SDXL "
+                             "training (dual-tokenizer TI is out of scope)")
+        ids = batch["input_ids"]
+        ids2 = batch.get("input_ids_2")
+        if ids2 is None:
+            ids2 = ids2_from_ids(ids, eos_id)
+        encoder_hidden, pooled = dual_encode(
+            text_params, text2_params, ids, ids2, text_cfg, text2_cfg,
+            lora_text, trainable.get("lora_text2"), dtype, eos_id)
     else:
         encoder_hidden = clip_text_forward(
             text_params, batch["input_ids"], text_cfg, lora=lora_text,
@@ -140,9 +174,14 @@ def loss_step(
                 0, 2**31 - 1, (1,), generator=generator, device=device).item())
         lora_unet = {**lora_unet, "rng": dropout_seed,
                      "dropout_p": cfg.lora_dropout_p}
+    added_cond = None
+    if xl:
+        added_cond = {"text_embeds": pooled.to(dtype),
+                      "time_ids": batch["add_time_ids"].to(dtype)}
     model_pred = unet_forward(unet_params, model_input, timesteps,
                               encoder_hidden, unet_cfg, lora=lora_unet,
-                              remat=cfg.gradient_checkpointing)
+                              remat=cfg.gradient_checkpointing,
+                              added_cond=added_cond)
 
     if sched.prediction_type == "epsilon":
         target = noise

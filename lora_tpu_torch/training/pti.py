@@ -22,10 +22,12 @@ phases from seed + 7. The host reads the loss only where lora_tpu does, at
 step 1 and every 20th step of each phase; in between nothing waits for the
 device.
 
-Not ported yet: SDXL pipelines (ROADMAP Slice 6), device meshes
-(data_parallel, fsdp, tensor_parallel: ROADMAP Slice 7) and the
-wandb-gated CLIP-alignment eval, which needs utils/eval.py (ROADMAP
-Slice 5); the first two raise, the eval prints "eval skipped:".
+On an SDXL pipeline it ends where lora_tpu's does: the first inversion
+step raises the loss's ValueError (textual inversion is not supported for
+SDXL training). Not ported yet: device meshes (data_parallel, fsdp,
+tensor_parallel: ROADMAP Slice 7), which raise, and the wandb-gated
+CLIP-alignment eval, which needs utils/eval.py (ROADMAP Slice 5) and
+prints "eval skipped:".
 """
 
 from __future__ import annotations
@@ -257,10 +259,6 @@ def _check_unported(pipe, cfg: PTIConfig) -> None:
         raise ValueError("use_extended_lora conflicts with "
                          "lora_targets='locon' (locon already covers the "
                          "extended conv sites); pass exactly one")
-    if pipe.unet.cfg.addition_embed_type == "text_time":
-        raise NotImplementedError(
-            "SDXL pivotal tuning (text_time conditioning, dual text "
-            "encoders) is not ported yet (ROADMAP Slice 6)")
     if cfg.data_parallel or cfg.fsdp > 1 or cfg.tensor_parallel > 1:
         raise NotImplementedError(
             f"data_parallel={cfg.data_parallel} / fsdp={cfg.fsdp} / "

@@ -31,24 +31,32 @@ def make_train_step(
     ti_ids: Optional[torch.Tensor] = None,
     dtype=torch.float32,
     mesh=None,
+    text2_cfg=None,
+    eos_id: Optional[int] = None,
 ) -> Callable:
     """Returns step(trainable, base, batch, generator=None, **draws) ->
     loss, with base = (unet_params, text_params, vae_params) flat dicts
-    ({} for a model the batch does not need) and draws the explicit random
-    draws loss_step takes (noise=, timesteps=, ...). SDXL (a UNet config
-    with text_time conditioning) raises in loss_step."""
+    ({} for a model the batch does not need), or (unet_params, text_params,
+    text2_params, vae_params) when text2_cfg is given (SDXL, with the
+    tokenizer's eos_id), and draws the explicit random draws loss_step
+    takes (noise=, timesteps=, ...)."""
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (data / FSDP parallel training) is not ported yet "
             "(ROADMAP Slice 7)")
 
     def step(trainable, base, batch, generator=None, **draws):
-        unet_p, text_p, vae_p = base
+        if text2_cfg is not None:
+            unet_p, text_p, text2_p, vae_p = base
+        else:
+            (unet_p, text_p, vae_p), text2_p = base, None
         loss = loss_step(
             trainable, batch, generator,
             unet_params=unet_p, text_params=text_p, vae_params=vae_p,
             unet_cfg=unet_cfg, text_cfg=text_cfg, vae_cfg=vae_cfg,
-            sched=sched, cfg=loss_cfg, ti_ids=ti_ids, dtype=dtype, **draws)
+            sched=sched, cfg=loss_cfg, ti_ids=ti_ids, dtype=dtype,
+            text2_params=text2_p, text2_cfg=text2_cfg, eos_id=eos_id,
+            **draws)
         loss.backward()
         optimizer.step()
         return loss.detach()

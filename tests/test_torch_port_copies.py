@@ -182,6 +182,7 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.models.schedulers",
                "lora_tpu_torch.models.structure",
                "lora_tpu_torch.models.unet", "lora_tpu_torch.models.vae",
+               "lora_tpu_torch.native", "lora_tpu_torch.native.build",
                "lora_tpu_torch.ops.attention", "lora_tpu_torch.ops.build",
                "lora_tpu_torch.ops.flash_attention",
                "lora_tpu_torch.ops.int8_matmul",

@@ -12,7 +12,7 @@ or a flag. Checked: the final LoRA trees within 1e-4 relative L2, the same
 metrics.jsonl steps with losses within 1e-4, and the same artifact names,
 keys and metadata with tensors within fp16 rounding. Then, port alone: a
 preemption (SIGTERM from a step hook) and a resume give the bits of a
-straight run, and the unported paths raise.
+straight run, the unported paths raise, and an SDXL pipe trains.
 
 Cases here: uncached with the text encoder and prior preservation, and
 cached latents; tests/test_torch_port_dreambooth_optim.py runs
@@ -25,7 +25,6 @@ import json
 import os
 import shutil
 import signal
-import types
 
 import numpy as np
 import pytest
@@ -57,7 +56,15 @@ from lora_tpu_torch.formats import pt_io as t_pt  # noqa: E402
 from lora_tpu_torch.models.clip import CLIPTextModel  # noqa: E402
 from lora_tpu_torch.models.unet import UNet  # noqa: E402
 from lora_tpu_torch.models.vae import VAE  # noqa: E402
+from lora_tpu_torch.models.config import (  # noqa: E402
+    TINY_XL_TEXT,
+    TINY_XL_TEXT2,
+    TINY_XL_UNET,
+)
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from lora_tpu_torch.pipelines.sdxl import (  # noqa: E402
+    StableDiffusionXLPipeline,
+)
 from lora_tpu_torch.training import dreambooth as t_db  # noqa: E402
 from lora_tpu_torch.training import optim as t_optim  # noqa: E402
 
@@ -394,12 +401,17 @@ def test_unported_paths_and_bad_flags_raise(params, tmp_path):
     inst = write_images(tmp_path / "inst", 1, 4)
     cfg = t_db.DreamBoothConfig(**dict(BASE, instance_data_dir=inst,
                                        output_dir=str(tmp_path / "o")))
-    xl = types.SimpleNamespace(
-        unet=types.SimpleNamespace(cfg=dataclasses.replace(
-            TINY_UNET, addition_embed_type="text_time")),
-        device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="Slice 6"):
+    # SDXL trains the XL way, in the kohya-XL schema only (lora_tpu's
+    # refusal of the indexed formats)
+    xl = StableDiffusionXLPipeline.random_init(
+        torch.Generator().manual_seed(0), "cpu", unet_cfg=TINY_XL_UNET,
+        text_cfg=TINY_XL_TEXT, text2_cfg=TINY_XL_TEXT2, vae_cfg=TINY_VAE)
+    with pytest.raises(ValueError, match="kohya-XL schema only"):
         t_db.train_dreambooth(xl, cfg)
+    res = t_db.train_dreambooth(xl, dataclasses.replace(
+        cfg, output_format="safe", max_train_steps=1,
+        output_dir=str(tmp_path / "xl")))
+    assert res["steps"] == 1 and np.isfinite(res["final_loss"])
     pipe = port_pipe(params)
     for bad in ({"fsdp": 2}, {"tensor_parallel": 2}):
         with pytest.raises(NotImplementedError, match="Slice 7"):

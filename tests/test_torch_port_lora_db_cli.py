@@ -1,7 +1,7 @@
 """The port's DreamBooth command line (lora_tpu_torch/cli/lora_db.py):
 --help, a 2-step run on the CPU through `python -m` on a tiny diffusers
 directory written by models/hf_import.save_pipeline_params, the card as
-the default device, and the SDXL refusal."""
+the default device, and an SDXL directory, which trains the XL way."""
 
 import json
 import os
@@ -15,20 +15,37 @@ torch = pytest.importorskip("torch")
 
 from lora_tpu_torch.cli import lora_db  # noqa: E402
 from lora_tpu_torch.data.png import _png_bytes  # noqa: E402
+from lora_tpu_torch.formats.kohya import is_kohya_xl  # noqa: E402
 from lora_tpu_torch.formats.reader import load_file  # noqa: E402
 from lora_tpu_torch.models.config import (  # noqa: E402
     TINY_TEXT,
     TINY_UNET,
     TINY_VAE,
+    TINY_XL_TEXT,
+    TINY_XL_TEXT2,
+    TINY_XL_UNET,
 )
 from lora_tpu_torch.models.hf_import import save_pipeline_params  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from lora_tpu_torch.pipelines.sdxl import (  # noqa: E402
+    StableDiffusionXLPipeline,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the tiny directory has no CLIP vocabulary: from_pretrained needs the
 # opt-in to the hashed tokenizer (data/tokenizer.py)
 ENV = dict(os.environ, LORA_TPU_ALLOW_HASHED_TOKENIZER="1",
            PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny CPU shapes gain nothing from intra-op threads, which
+    oversubscribe the cores beside other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -95,10 +112,41 @@ def test_unknown_flag_and_defaults(model_dir, tmp_path, monkeypatch):
                           output_dir=str(tmp_path / "o"))
 
 
-def test_sdxl_directory_is_refused(tmp_path):
-    (tmp_path / "text_encoder_2").mkdir()
-    with pytest.raises(NotImplementedError, match="Slice 6"):
-        lora_db.train(str(tmp_path), device="cpu")
+def test_sdxl_directory_is_refused(model_dir, tmp_path, monkeypatch):
+    """A directory with text_encoder_2/ trains the XL way: te1 and te2 with
+    gradient checkpointing, a kohya-XL file that the SDXL pipe loaded from
+    the same directory patches (and the indexed formats refused, as
+    lora_tpu refuses them)."""
+    xl_dir = tmp_path / "xl"
+    save_pipeline_params(StableDiffusionXLPipeline.random_init(
+        torch.Generator().manual_seed(0), "cpu", unet_cfg=TINY_XL_UNET,
+        text_cfg=TINY_XL_TEXT, text2_cfg=TINY_XL_TEXT2, vae_cfg=TINY_VAE),
+        str(xl_dir))
+    monkeypatch.setenv("LORA_TPU_ALLOW_HASHED_TOKENIZER", "1")
+    flags = dict(instance_data_dir=str(model_dir / "inst"),
+                 instance_prompt="a photo of sks dog", resolution=64,
+                 lora_rank=2, max_train_steps=2, save_steps=0)
+    with pytest.raises(ValueError, match="kohya-XL schema only"):
+        lora_db.train(str(xl_dir), device="cpu",
+                      output_dir=str(tmp_path / "refused"), **flags)
+    out = tmp_path / "out"
+    res = lora_db.train(str(xl_dir), device="cpu", output_dir=str(out),
+                        output_format="safe", train_text_encoder=True,
+                        gradient_checkpointing=True, **flags)
+    assert res["steps"] == 2 and np.isfinite(res["final_loss"])
+    assert sorted(res["trainable"]) == ["lora_text", "lora_text2",
+                                        "lora_unet"]
+    assert sorted(os.listdir(out)) == ["lora_weight.safetensors",
+                                       "metrics.jsonl"]
+    keys = list(load_file(str(out / "lora_weight.safetensors"))[0])
+    assert is_kohya_xl(keys)
+    for prefix in ("lora_unet_input_blocks_", "lora_te1_", "lora_te2_"):
+        assert any(k.startswith(prefix) for k in keys), prefix
+    pipe = StableDiffusionXLPipeline.from_pretrained(str(xl_dir),
+                                                     device="cpu")
+    pipe.patch_pipe(str(out / "lora_weight.safetensors"))
+    assert all(getattr(pipe, a) is not None
+               for a in ("lora_unet", "lora_text", "lora_text2"))
 
 
 def test_metrics_logger_and_profiling(tmp_path, capsys):

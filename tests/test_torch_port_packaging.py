@@ -45,6 +45,7 @@ def test_wheel_carries_the_kernel_sources(tmp_path):
     assert any(n.endswith("flash_fwd_wgmma.cu") for n in sources)
     assert sources <= names, sorted(sources - names)
     assert "lora_tpu_torch/ops/build.py" in names
+    assert "lora_tpu_torch/native/imgops.c" in names
     # what a wheel build writes beside its setup.py (other tests running
     # at the same time may add caches to the repository root)
     made = set(os.listdir(REPO)) - set(before)
@@ -57,8 +58,8 @@ def test_port_wheel_stands_alone(tmp_path):
     offline a wheel that requires torch and numpy, not jax; whose console
     scripts start the port's server and its DreamBooth, PTI and TI
     trainers; that carries every package of the port and every csrc source
-    (the blockwise-int8 Adam's among them), the SDXL pipeline, and nothing
-    of lora_tpu."""
+    (the blockwise-int8 Adam's among them), the SDXL pipeline, the native
+    resize's C source, and nothing of lora_tpu."""
     pkg = os.path.join(REPO, "lora_tpu_torch")
     src = tmp_path / "lora_tpu_torch"
     shutil.copytree(pkg, src, ignore=shutil.ignore_patterns(
@@ -95,6 +96,7 @@ def test_port_wheel_stands_alone(tmp_path):
     assert sources <= names, sorted(sources - names)
     assert "lora_tpu_torch/ops/csrc/adam8bit.cu" in names
     assert "lora_tpu_torch/pipelines/sdxl.py" in names
+    assert "lora_tpu_torch/native/imgops.c" in names
     assert {n.split("/")[0] for n in names} == {"lora_tpu_torch", info}
 
 

@@ -88,6 +88,17 @@ class JaxChain:
         return k
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny CPU shapes gain nothing from intra-op threads, and with
+    several test processes on the cores those threads oversubscribe them
+    (several times slower); restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def hand_in_jax_draws(monkeypatch, module, seed, vae_cfg=TINY_VAE):
     """The trainer `module` (training/pti.py or training/ti_legacy.py) gets
     lora_tpu's draws: setup_ti's <rand-sigma> rows, cache_latents' VAE

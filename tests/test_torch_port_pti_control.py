@@ -2,16 +2,15 @@
 on the tiny CPU pipeline: preemption by SIGTERM sent from a step hook at
 micro-step k (no timer) in inversion, which stops before tuning and writes
 no final artifact, and in tuning, which keeps its step_* save and writes
-no final artifact; every refusal (SDXL, a device mesh, unknown LoRA
-targets, LoCon with the extended targets, unsorted placeholder tokens, a
-token already in the tokenizer, a multi-token initializer, unequal token
-and initializer counts); and the wandb-gated eval, which waits for
-utils/eval.py."""
+no final artifact; every refusal (SDXL, with lora_tpu's error, a device
+mesh, unknown LoRA targets, LoCon with the extended targets, unsorted
+placeholder tokens, a token already in the tokenizer, a multi-token
+initializer, unequal token and initializer counts); and the wandb-gated
+eval, which waits for utils/eval.py."""
 
 import dataclasses
 import os
 import signal
-import types
 
 import numpy as np
 import pytest
@@ -23,8 +22,14 @@ from lora_tpu_torch.models.config import (  # noqa: E402
     TINY_TEXT,
     TINY_UNET,
     TINY_VAE,
+    TINY_XL_TEXT,
+    TINY_XL_TEXT2,
+    TINY_XL_UNET,
 )
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from lora_tpu_torch.pipelines.sdxl import (  # noqa: E402
+    StableDiffusionXLPipeline,
+)
 from lora_tpu_torch.training import pti as t_pti  # noqa: E402
 
 SIZE = 64
@@ -108,9 +113,14 @@ def test_preempted_in_tuning(inst, tmp_path, monkeypatch):
 def test_refusals(inst, tmp_path):
     cfg = t_pti.PTIConfig(**BASE, instance_data_dir=inst,
                           output_dir=str(tmp_path / "o"))
-    xl = types.SimpleNamespace(unet=types.SimpleNamespace(
-        cfg=dataclasses.replace(TINY_UNET, addition_embed_type="text_time")))
-    with pytest.raises(NotImplementedError, match="Slice 6"):
+    # SDXL ends where lora_tpu's train_pti ends: the first inversion step
+    # raises the loss's error
+    xl = StableDiffusionXLPipeline.random_init(
+        torch.Generator().manual_seed(0), "cpu", unet_cfg=TINY_XL_UNET,
+        text_cfg=TINY_XL_TEXT, text2_cfg=TINY_XL_TEXT2, vae_cfg=TINY_VAE)
+    with pytest.raises(ValueError, match="^textual inversion is not "
+                       "supported for SDXL training \\(dual-tokenizer TI is "
+                       "out of scope\\)$"):
         t_pti.train_pti(xl, cfg)
     pipe = tiny_pipe()
     for bad in ({"data_parallel": True}, {"fsdp": 2},

@@ -23,16 +23,13 @@ from lora_tpu.core.sites import (  # noqa: E402
     unet_lora_sites,
 )
 from lora_tpu.models import schedulers as j_sched  # noqa: E402
-from lora_tpu.models.clip import init_clip_text  # noqa: E402
 from lora_tpu.models.config import TINY_TEXT, TINY_UNET, TINY_VAE  # noqa: E402
-from lora_tpu.models.unet import init_unet  # noqa: E402
-from lora_tpu.models.vae import init_vae  # noqa: E402
 from lora_tpu.training import loss as j_loss  # noqa: E402
-from lora_tpu_torch.convert import (  # noqa: E402
-    state_dict_from_jax,
-    trainable_from_jax,
-)
+from lora_tpu_torch.convert import trainable_from_jax  # noqa: E402
 from lora_tpu_torch.models import schedulers as t_sched  # noqa: E402
+from lora_tpu_torch.models.clip import CLIPTextModel  # noqa: E402
+from lora_tpu_torch.models.unet import UNet  # noqa: E402
+from lora_tpu_torch.models.vae import VAE  # noqa: E402
 from lora_tpu_torch.training import loss as t_loss  # noqa: E402
 
 TI_IDS = np.array([998, 999], np.int32)
@@ -41,6 +38,17 @@ TI_IDS = np.array([998, 999], np.int32)
 # their group's largest entry
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny CPU shapes gain nothing from intra-op threads, and with
+    several test processes on the cores those threads oversubscribe them
+    (several times slower); restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_lora(sites, seed, r=2, scale=0.8):
@@ -72,15 +80,22 @@ def jax_draws(rng, lat_shape, t_hi, dtype=jnp.float32):
     }
 
 
+def _port_init(cls, cfg, seed):
+    """The port's flat params of a tiny model from a seed (lora_tpu's
+    distributions) and the same arrays for lora_tpu: lora_tpu's own init
+    runs op by op here, ~35 s for the three models."""
+    tp = cls(cfg, device="cpu",
+             generator=torch.Generator().manual_seed(seed)).flat_params()
+    return {k: jnp.asarray(v.numpy()) for k, v in tp.items()}, tp
+
+
 @pytest.fixture(scope="module")
 def bases():
     """(JAX params, the port's flat dicts) for the tiny UNet, CLIP, VAE."""
-    jp = (init_unet(TINY_UNET, jax.random.PRNGKey(0)),
-          init_clip_text(TINY_TEXT, jax.random.PRNGKey(1)),
-          init_vae(TINY_VAE, jax.random.PRNGKey(2)))
-    tp = tuple(state_dict_from_jax({k: np.asarray(v) for k, v in p.items()})
-               for p in jp)
-    return jp, tp
+    pairs = [_port_init(UNet, TINY_UNET, 0), _port_init(CLIPTextModel,
+                                                        TINY_TEXT, 1),
+             _port_init(VAE, TINY_VAE, 2)]
+    return tuple(j for j, _ in pairs), tuple(t for _, t in pairs)
 
 
 def _batch(case, bsz):
@@ -192,8 +207,7 @@ def test_inpainting_inputs_match_jax(bases):
     """The 9-channel inpainting input (noisy | mask | masked latents),
     cached, on a UNet with in_channels 9."""
     cfg_unet = dataclasses.replace(TINY_UNET, in_channels=9)
-    ju = init_unet(cfg_unet, jax.random.PRNGKey(4))
-    tu = state_dict_from_jax({k: np.asarray(v) for k, v in ju.items()})
+    ju, tu = _port_init(UNet, cfg_unet, 4)
     (_, jt, jv), (_, tt, tv) = bases
     rng_np = np.random.default_rng(5)
     batch = {
@@ -268,12 +282,34 @@ def test_get_velocity_matches_jax():
 
 
 def test_sdxl_loss_raises(bases):
-    from lora_tpu_torch.models.config import TINY_XL_UNET
+    """SDXL's text_time UNet trains: the loss from cached latents and
+    precomputed conditioning (context, te2's pooled rows, time_ids) is
+    lora_tpu's (tests/test_torch_port_sdxl_train*.py hold the rest)."""
+    from lora_tpu.models.config import TINY_XL_UNET
 
-    _, (tu, tt, tv) = bases
-    with pytest.raises(NotImplementedError, match="Slice 6"):
-        t_loss.loss_step(
-            {}, {"latents": torch.zeros(1, 8, 8, 4)}, None, unet_params=tu,
-            text_params=tt, vae_params=tv, unet_cfg=TINY_XL_UNET,
-            text_cfg=TINY_TEXT, vae_cfg=TINY_VAE,
-            sched=t_sched.make_schedule(), cfg=t_loss.LossConfig())
+    (_, jt, jv), (_, tt, tv) = bases
+    ju, tu = _port_init(UNet, TINY_XL_UNET, 5)
+    rng_np = np.random.default_rng(6)
+    batch = {
+        "latents": rng_np.standard_normal((2, 8, 8, 4)).astype(np.float32),
+        "encoder_hidden_states": rng_np.standard_normal(
+            (2, 7, TINY_XL_UNET.cross_attention_dim)).astype(np.float32),
+        "add_text_embeds": rng_np.standard_normal((2, 28)).astype(
+            np.float32),
+        "add_time_ids": np.array([[64, 64, 0, 0, 64, 64],
+                                  [80, 120, 0, 16, 64, 64]], np.float32)}
+    rng = jax.random.PRNGKey(9)
+    draws = jax_draws(rng, (2, 8, 8, 4), 1000)
+    want = jax.jit(lambda b: j_loss.loss_step(
+        {}, b, rng, unet_params=ju, text_params=jt, vae_params=jv,
+        unet_cfg=TINY_XL_UNET, text_cfg=TINY_TEXT, vae_cfg=TINY_VAE,
+        sched=j_sched.make_schedule(), cfg=j_loss.LossConfig()))(
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    got = t_loss.loss_step(
+        {}, {k: torch.from_numpy(v) for k, v in batch.items()}, None,
+        unet_params=tu, text_params=tt, vae_params=tv,
+        unet_cfg=TINY_XL_UNET, text_cfg=TINY_TEXT, vae_cfg=TINY_VAE,
+        sched=t_sched.make_schedule(), cfg=t_loss.LossConfig(),
+        noise=torch.from_numpy(np.array(draws["noise"])),
+        timesteps=torch.from_numpy(np.array(draws["timesteps"])))
+    np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL)
