@@ -78,6 +78,13 @@
                                         # kernels' first calls in child
                                         # processes, 15 (with its own flash
                                         # checks at phase 15's shapes)
+    python3 chip_smoke.py --tools       # phases 1, 2 (flash_fwd.cu and
+                                        # flash_fwd_wgmma.cu only), 16
+                                        # (writing its own SDXL directory),
+                                        # then phase 3's bf16 calls at
+                                        # batch 4 and 2, every shape phase
+                                        # 16 ran checked against them, and
+                                        # the flash_fwd row
 
 Phases, each printing its own lines (about 13 minutes on one H100, a
 quarter of it the build of the kernels):
@@ -377,6 +384,34 @@ quarter of it the build of the kernels):
      shape 15c checked; each flash row of the kernels line gains the
      "sdxl_train" and "sdxl_train_f32" launches and its 15c times.
 
+  16. tools: the adapter tooling at full width, random weights from the
+     seed. 16a: an SD-1.5 base and a tuned copy that adds a known rank-4
+     delta at every default UNet and text site, both written in f32;
+     `lora_distill` (its command line) at clamp 1.0 on the card and with
+     --device cpu: per site up @ down within DISTILL_REL_L2 of the delta
+     (the saved trees and the fp16 file), the card's within
+     DISTILL_DEVICE_REL_L2 of the CPU's; seconds per site and in total.
+     16b: a random kohya-XL file of rank 4 over the SDXL UNet's, te1's and
+     te2's default sites, `lora_distill --from_lora` against phase 15's
+     SDXL directory (--tools: one written from the seed the same way):
+     a kohya-XL file whose up @ down, loaded back, is within
+     DISTILL_REL_L2 of the input's at every site. 16c: `lora_add` on two
+     rank-4 files with TI rows: lpl (the fp16 merge, TI passed through),
+     ljl (ranks summed, tokens renamed), upl into a directory (its bf16
+     UNet call at batch 4 against the patched pipe's at 0.7 within
+     TOOLS_COLLAPSE_REL_L2, the bare call at least twice as far; 15 wgmma
+     flash launches a call) and upl-ckpt-v2 (params_from_ckpt gives the
+     collapsed fp16 params exactly; the A1111 embedding). 16d:
+     `LoRAManager` over both files on the bf16 pipeline: a counted
+     2-prompt 512px request of STEPS steps with the manager's prompts (15
+     wgmma launches a UNet call), tune([1, 0]) against file 1 alone. 16e:
+     `evaluate_pipe` (2 prompts, 10 steps) scored by a random CLIP
+     ViT-L/14 tower and an SD-1.5 text model with a projection on the
+     card: finite scores in [-1, 1], 15 wgmma launches a UNet call, the
+     tower on the card within VISION_DEVICE_REL_L2 of the CPU's. Every
+     flash call of 16c-16e is recorded and must be at a checked shape;
+     the flash_fwd row of the kernels line gains the "tools" launches.
+
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
 line from nvidia-smi, and the one before that lists the kernels with their
@@ -393,6 +428,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -4976,7 +5012,7 @@ def sdxl_kernel_rows(gen) -> tuple:
     return fwd, bwd, sums
 
 
-def phase_sdxl_train(smi: str) -> dict:
+def phase_sdxl_train(smi: str, model_dir=None) -> dict:
     """Phase 15: SDXL training at full width and 1024x1024. 15c the
     backward (and forward) kernels at the SDXL levels at batch 1; 15a the
     bench.py SDXL step in bf16 (a random SDXL pipeline from the seed:
@@ -4987,7 +5023,8 @@ def phase_sdxl_train(smi: str) -> dict:
     native resize) and its kohya-XL file through patch_pipe; 15b the step
     in f32 (tf32x3). Every flash call of 15a, 15b and 15d is recorded and
     checked against its plain version. Returns the launches by path and
-    the rows."""
+    the rows. 15d's SDXL directory is written to `model_dir` where given
+    (phase 16b reads it), else beside its other inputs."""
     from lora_tpu_torch.models.config import SDXL_TEXT2, SDXL_UNET
     from lora_tpu_torch.models.unet import UNet
     from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline
@@ -5014,7 +5051,7 @@ def phase_sdxl_train(smi: str) -> dict:
         out["bf16"] = [sdxl_train_steps(pipe.unet, trainable, batch,
                                         torch.bfloat16, remat, gen)
                        for remat in (False, True)]
-        out["db"] = _sdxl_lora_db(pipe, gen)
+        out["db"] = _sdxl_lora_db(pipe, gen, model_dir)
     del pipe, batch, trainable
     torch.cuda.empty_cache()
     # 15b: f32, the UNet alone (the conditioning from 15a's encoders is
@@ -5068,15 +5105,16 @@ def phase_sdxl_train(smi: str) -> dict:
     return out
 
 
-def _sdxl_db_inputs(pipe, root: str):
+def _sdxl_db_inputs(pipe, root: str, model=None):
     """15d's inputs: the bf16 pipeline written as an fp16 diffusers
-    directory (no CLIP vocabulary: the hashed tokenizer, opted in) and
-    SDXL_DB_IMAGES as PNGs from the seed."""
+    directory (no CLIP vocabulary: the hashed tokenizer, opted in), to
+    `model` where given, else under `root`, and SDXL_DB_IMAGES as PNGs from
+    the seed."""
     from lora_tpu_torch.data.png import _png_bytes
     from lora_tpu_torch.models.hf_import import save_pipeline_params
 
     t0 = time.perf_counter()
-    model = os.path.join(root, "model")
+    model = model or os.path.join(root, "model")
     save_pipeline_params(pipe, model, fp16=True)
     inst = os.path.join(root, "instance")
     os.makedirs(inst)
@@ -5094,7 +5132,7 @@ def _sdxl_db_inputs(pipe, root: str):
     return model, inst
 
 
-def _sdxl_lora_db(pipe, gen) -> dict:
+def _sdxl_lora_db(pipe, gen, model_dir=None) -> dict:
     """15d: lora_db's command line (cli._fire on cli.lora_db.train: what
     `python -m lora_tpu_torch.cli.lora_db` runs, in this process so the
     counts can be read) on an SDXL directory, the recipe's flags
@@ -5111,7 +5149,7 @@ def _sdxl_lora_db(pipe, gen) -> dict:
     from lora_tpu_torch.native import build as native
 
     with tempfile.TemporaryDirectory(prefix="lora_db_xl_") as root:
-        model, inst = _sdxl_db_inputs(pipe, root)
+        model, inst = _sdxl_db_inputs(pipe, root, model_dir)
         run = os.path.join(root, "run")
         argv = ["--pretrained_model_name_or_path", model,
                 "--instance_data_dir", inst,
@@ -5232,6 +5270,569 @@ def add_sdxl_train_launches(kernels: list, st: dict) -> None:
             row["sdxl_levels_b1"] = [
                 {"H": r["H"], "T": r["T"], "D": r["D"], "dtype": r["dtype"],
                  **{k: r[k] for k in keys if k in r}} for r in ran]
+
+
+# phase 16: the adapter tooling at full width (lora_distill, lora_add,
+# LoRAManager, evaluate_pipe)
+TOOLS_RANK = 4          # 16a's delta, 16b's and 16c's files
+TOOLS_UP_STD = 0.05     # their up factors (down: init_lora's N(0, 1/r))
+TOOLS_ALPHA = 0.7       # 16c's upl and upl-ckpt-v2 merging ratio
+TOOLS_EVAL = {"n_test": 2, "n_step": 10}  # 16e's evaluate_pipe
+# 16a, per site: up @ down of the distilled factors (f32, before the file's
+# fp16) against the known rank-4 delta by relative L2. At clamp 1.0 a
+# rank-4 residual is recovered to the f32 rounding of W + delta - W
+# (~1e-7 of the delta here); the file's fp16 factors round each by up to
+# 2^-11, ~4e-4 relative on their product. A wrong site, rank or clamp
+# misses by O(1)
+DISTILL_REL_L2 = 1e-3
+# 16a: the card's products against the same call with --device cpu: both
+# factor the f32 residual's Gram matrix in f64 (core/svd.py), summing in
+# another order
+DISTILL_DEVICE_REL_L2 = 1e-4
+# 16c and 16d, bf16 UNet call at batch 4: (W + a up down) x rounded to bf16
+# once more against W x + a (up down x) (the collapsed directory read back
+# in bf16 against the patched pipe), and the manager's joined LoRA gated
+# to file 1 against file 1 alone. As SDXL_COLLAPSE_REL_L2: the fold moves
+# each weight by up to half a bf16 step, which the 16 transformers and 22
+# resnets carry to the output; a fold without the adapter misses by the
+# adapter's share, which must be at least twice the limit
+TOOLS_COLLAPSE_REL_L2 = 3e-2
+# 16e: CLIP ViT-L/14's pooled state on the card (f32, TF32 off) against the
+# same forward on the CPU: f32 sums in other orders through 24 layers; a
+# wrong head, patch or token moves it by O(1)
+VISION_DEVICE_REL_L2 = 1e-4
+TOOLS_PROMPTS = ("a photo of <1> next to <2>", "<2> in the style of <1>")
+
+
+def _tools_lora_file(path: str, gen, tokens) -> None:
+    """A rank-TOOLS_RANK LoRA over SD-1.5's default UNet and text sites (up
+    factors N(0, TOOLS_UP_STD), downs init_lora's) and one TI row per
+    token, in fp16 as the trainers save it."""
+    from lora_tpu_torch.core.lora import init_lora, lora_to_pairs
+    from lora_tpu_torch.core.sites import (
+        text_encoder_lora_sites,
+        unet_lora_sites,
+    )
+    from lora_tpu_torch.formats.safetensors_io import (
+        TEXT_ENCODER_DEFAULT_TARGET_REPLACE,
+        UNET_DEFAULT_TARGET_REPLACE,
+        save_safeloras_with_embeds,
+    )
+    from lora_tpu_torch.models.config import SD15_TEXT, SD15_UNET
+
+    modelmap = {}
+    for model, sites, target in (
+            ("unet", unet_lora_sites(SD15_UNET), UNET_DEFAULT_TARGET_REPLACE),
+            ("text_encoder", text_encoder_lora_sites(SD15_TEXT),
+             TEXT_ENCODER_DEFAULT_TARGET_REPLACE)):
+        lora = init_lora(sites, r=TOOLS_RANK, generator=gen, device="cuda")
+        for e in lora["sites"].values():
+            e["up"] = TOOLS_UP_STD * torch.randn(e["up"].shape,
+                                                 generator=gen, device="cuda")
+        modelmap[model] = (lora_to_pairs(lora, sites), target)
+    embeds = {t: torch.randn((SD15_TEXT.hidden_size,), generator=gen,
+                             device="cuda").cpu().numpy() for t in tokens}
+    save_safeloras_with_embeds(modelmap, embeds, path, cast_fp16=True)
+
+
+def _products(tree, sites) -> dict:
+    """{site: up @ down} of a LoRA tree, f32 on the card (TF32 off)."""
+    out = {}
+    for s in sites:
+        e = tree["sites"][s.name]
+        up, down = (e[k].to("cuda", torch.float32) for k in ("up", "down"))
+        out[s.name] = up.reshape(up.shape[0], -1) @ down.reshape(
+            down.shape[0], -1)
+    return out
+
+
+def _worst_rel(got: dict, want: dict) -> tuple:
+    """(largest relative L2 over the sites, its site)."""
+    errs = {k: _rel_l2(got[k], want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+@contextlib.contextmanager
+def _distill_recorded(rec: dict):
+    """Records, for each lora_distill call inside, the LoRA trees and sites
+    its saver is given (under rec["trees"]) and the seconds of its
+    svd_distill calls on the card, synchronized (rec["svd_s"])."""
+    from lora_tpu_torch.cli import lora_distill
+    from lora_tpu_torch.formats import kohya
+
+    real = {"svd_distill": lora_distill.svd_distill,
+            "save_all": lora_distill.save_all,
+            "save_kohya_xl": kohya.save_kohya_xl}
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["svd_distill"](*a, **kw)
+        torch.cuda.synchronize()
+        rec["svd_s"] = rec.get("svd_s", 0.0) + time.perf_counter() - t0
+        return out
+
+    def saver(name):
+        def save(path, *a, **kw):
+            rec["trees"] = {k: v for k, v in kw.items()
+                            if k.startswith(("lora_", "unet_sites",
+                                             "text_sites", "text2_sites"))}
+            return real[name](path, *a, **kw)
+        return save
+
+    lora_distill.svd_distill = timed
+    lora_distill.save_all = saver("save_all")
+    kohya.save_kohya_xl = saver("save_kohya_xl")
+    try:
+        yield rec
+    finally:
+        lora_distill.svd_distill = real["svd_distill"]
+        lora_distill.save_all = real["save_all"]
+        kohya.save_kohya_xl = real["save_kohya_xl"]
+
+
+def _tools_distill_sd(root: str, gen) -> dict:
+    """16a: a random SD-1.5 base and a tuned copy that adds a known rank-4
+    delta at every default UNet and text site, both written in f32;
+    lora_distill on them at clamp 1.0 on the card and with --device cpu."""
+    from lora_tpu_torch.cli import _fire, lora_distill
+    from lora_tpu_torch.core.lora import init_lora
+    from lora_tpu_torch.formats.safetensors_io import load_safeloras
+    from lora_tpu_torch.models.hf_import import save_pipeline_params
+    from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
+
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline.random_init(
+        torch.Generator("cuda").manual_seed(SEED), "cuda")
+    base, tuned = (os.path.join(root, n) for n in ("base", "tuned"))
+    save_pipeline_params(pipe, base)
+    deltas = {}
+    for module, sites in ((pipe.unet, pipe.unet_sites()),
+                          (pipe.text_encoder, pipe.text_sites())):
+        lora = init_lora(sites, r=TOOLS_RANK, generator=gen, device="cuda")
+        params = module.flat_params()
+        for s in sites:
+            e = lora["sites"][s.name]
+            e["up"] = TOOLS_UP_STD * torch.randn(e["up"].shape,
+                                                 generator=gen, device="cuda")
+            deltas[s.name] = e["up"] @ e["down"]
+            module.set_param(s.name + ".weight",
+                             params[s.name + ".weight"] + deltas[s.name])
+    save_pipeline_params(pipe, tuned)
+    sites = pipe.unet_sites() + pipe.text_sites()
+    del pipe
+    torch.cuda.empty_cache()
+    out = {"dirs_s": time.perf_counter() - t0, "sites": len(sites),
+           "dir_gib": sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, fs in os.walk(base) for f in fs) / 2**30}
+    products = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(root, f"distilled_{device}.safetensors")
+        argv = [tuned, base, "--rank", str(TOOLS_RANK), "--clamp_quantile",
+                "1.0", "--save_path", path, "--device", device]
+        with _distill_recorded({}) as rec:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _fire.fire(lora_distill.svd_distill_cli, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        trees = rec["trees"]
+        products[device] = {
+            **_products(trees["lora_unet"], trees["unet_sites"]),
+            **_products(trees["lora_text"], trees["text_sites"])}
+        out[device] = {"wall_s": wall, "svd_s": rec["svd_s"],
+                       "svd_s_per_site": rec["svd_s"] / len(sites)}
+        loras = load_safeloras(path)
+        file_products = {}
+        for model, ss in (("unet", trees["unet_sites"]),
+                          ("text_encoder", trees["text_sites"])):
+            flat, ranks, _ = loras[model]
+            if len(flat) != 2 * len(ss) or set(ranks) != {TOOLS_RANK}:
+                raise AssertionError(f"16a: the {device} file holds "
+                                     f"{len(flat) // 2} {model} pairs of "
+                                     f"ranks {set(ranks)}")
+            for s, up, down in zip(ss, flat[::2], flat[1::2]):
+                up, down = (torch.from_numpy(np.array(a)).to(
+                    "cuda", torch.float32) for a in (up, down))
+                file_products[s.name] = (up.reshape(up.shape[0], -1)
+                                         @ down.reshape(down.shape[0], -1))
+        out[device]["rel_l2_vs_delta"], worst = _worst_rel(products[device],
+                                                           deltas)
+        out[device]["file_rel_l2_vs_delta"], _ = _worst_rel(file_products,
+                                                            deltas)
+        if not (out[device]["rel_l2_vs_delta"] <= DISTILL_REL_L2
+                and out[device]["file_rel_l2_vs_delta"] <= DISTILL_REL_L2):
+            raise AssertionError(f"16a: the {device} distillation misses the "
+                                 f"delta (worst at {worst}): {out[device]}")
+    out["card_vs_cpu_rel_l2"], worst = _worst_rel(products["cuda"],
+                                                  products["cpu"])
+    log("tools: 16a: " + json.dumps(out))
+    if not out["card_vs_cpu_rel_l2"] <= DISTILL_DEVICE_REL_L2:
+        raise AssertionError(f"16a: the card's products differ from the "
+                             f"CPU's by {out['card_vs_cpu_rel_l2']} at "
+                             f"{worst}")
+    shutil.rmtree(tuned)
+    return out
+
+
+def _tools_distill_xl(root: str, xl_dir, gen) -> dict:
+    """16b: a random kohya-XL file of rank 4 over the UNet's, te1's and
+    te2's default sites, through lora_distill --from_lora against an SDXL
+    directory (`xl_dir`, else one written here from the seed as phase 15
+    writes its own) on the card: a kohya-XL file whose up @ down, loaded
+    back, equals the input's at every site."""
+    from lora_tpu_torch.cli import _fire, lora_distill
+    from lora_tpu_torch.core.lora import init_lora
+    from lora_tpu_torch.core.sites import (
+        text_encoder_lora_sites,
+        unet_lora_sites,
+    )
+    from lora_tpu_torch.formats.kohya import (
+        is_kohya_xl,
+        load_kohya_xl,
+        save_kohya_xl,
+    )
+    from lora_tpu_torch.formats.reader import SafetensorsFile
+    from lora_tpu_torch.models.config import SDXL_TEXT, SDXL_TEXT2, SDXL_UNET
+    from lora_tpu_torch.models.hf_import import save_pipeline_params
+    from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline
+
+    t0 = time.perf_counter()
+    if xl_dir is None:
+        xl_dir = os.path.join(root, "sdxl")
+        pipe = StableDiffusionXLPipeline.random_init(
+            torch.Generator("cuda").manual_seed(SEED), "cuda",
+            dtype=torch.bfloat16)
+        save_pipeline_params(pipe, xl_dir, fp16=True)
+        del pipe
+        torch.cuda.empty_cache()
+    ucfg = SDXL_UNET
+    sites = {"unet": unet_lora_sites(SDXL_UNET),
+             "text_encoder": text_encoder_lora_sites(SDXL_TEXT),
+             "text_encoder_2": text_encoder_lora_sites(SDXL_TEXT2)}
+    trees = {}
+    for model, s in sites.items():
+        tree = init_lora(s, r=TOOLS_RANK, generator=gen, device="cuda")
+        for e in tree["sites"].values():
+            e["up"] = TOOLS_UP_STD * torch.randn(e["up"].shape, generator=gen,
+                                                 device="cuda")
+        trees[model] = tree
+    src = os.path.join(root, "kohya_xl_in.safetensors")
+    save_kohya_xl(src, unet_cfg=ucfg, lora_unet=trees["unet"],
+                  unet_sites=sites["unet"], lora_text=trees["text_encoder"],
+                  text_sites=sites["text_encoder"],
+                  lora_text2=trees["text_encoder_2"],
+                  text2_sites=sites["text_encoder_2"])
+    out = {"inputs_s": time.perf_counter() - t0,
+           "sites": {m: len(s) for m, s in sites.items()}}
+    dst = os.path.join(root, "kohya_xl_out.safetensors")
+    argv = [src, xl_dir, "--rank", str(TOOLS_RANK), "--clamp_quantile", "1.0",
+            "--from_lora", "--save_path", dst, "--device", "cuda"]
+    with _distill_recorded({}) as rec:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _fire.fire(lora_distill.svd_distill_cli, argv)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t1
+    n = sum(out["sites"].values())
+    out.update(svd_s=rec["svd_s"], svd_s_per_site=rec["svd_s"] / n)
+    with SafetensorsFile(dst) as f:
+        keys = list(f.keys())
+    prefixes = {p: sum(k.startswith(p) and k.endswith(".lora_up.weight")
+                       for k in keys)
+                for p in ("lora_unet_", "lora_te1_", "lora_te2_")}
+    if not is_kohya_xl(keys) or list(prefixes.values()) != [
+            len(sites[m]) for m in sites]:
+        raise AssertionError(f"16b wrote {prefixes} modules, not one per "
+                             f"site of {out['sites']}")
+    kw = dict(unet_cfg=ucfg, unet_sites=sites["unet"],
+              text_sites=sites["text_encoder"],
+              text2_sites=sites["text_encoder_2"], device="cuda")
+    got, want = load_kohya_xl(dst, **kw), load_kohya_xl(src, **kw)
+    out["rel_l2"] = {}
+    for model, g, w in zip(sites, got, want):
+        out["rel_l2"][model], worst = _worst_rel(
+            _products(g, sites[model]), _products(w, sites[model]))
+        if not out["rel_l2"][model] <= DISTILL_REL_L2:
+            raise AssertionError(f"16b: {model}'s distilled up @ down is "
+                                 f"{out['rel_l2'][model]} from the input's "
+                                 f"at {worst}")
+    log("tools: 16b: " + json.dumps(out))
+    return out
+
+
+def _tools_unet_check(a, b, bare, what: str) -> dict:
+    """rel L2 of two bf16 UNet outputs with an adapter, which must be within
+    TOOLS_COLLAPSE_REL_L2, and of the first against the call without it
+    (the adapter's share), which must be at least twice the limit."""
+    out = {"rel_l2": _rel_l2(a, b), "rel_l2_to_bare": _rel_l2(a, bare)}
+    if not (out["rel_l2"] <= TOOLS_COLLAPSE_REL_L2
+            and out["rel_l2_to_bare"] >= 2 * TOOLS_COLLAPSE_REL_L2):
+        raise AssertionError(f"{what}: {out} (limit "
+                             f"{TOOLS_COLLAPSE_REL_L2})")
+    return out
+
+
+def _tools_lora_add(root: str, base: str, files, gen) -> dict:
+    """16c: lora_add's four modes at full SD-1.5 width on the two files."""
+    from lora_tpu_torch.cli import _fire, lora_add
+    from lora_tpu_torch.formats import ckpt_export
+    from lora_tpu_torch.formats.reader import load_file
+    from lora_tpu_torch.models.config import SD15_UNET, SD15_VAE
+    from lora_tpu_torch.models.hf_import import load_pipeline_params
+    from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
+
+    def add(*argv):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _fire.fire(lora_add.add, list(argv))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    out = {}
+    (t1, m1), (t2, m2) = (load_file(f) for f in files)
+    lpl = os.path.join(root, "lpl.safetensors")
+    out["lpl_s"] = add(*files, lpl, "--alpha_1", "0.5", "--alpha_2", "0.5",
+                       "--device", "cuda")
+    got, meta = load_file(lpl)
+    if set(got) != set(t1) | set(t2) or meta != {**m1, **m2}:
+        raise AssertionError(f"16c lpl: keys {sorted(set(got) ^ set(t1))}")
+    for k, v in got.items():
+        if k.startswith("<"):  # a TI row, passed through
+            want = t1[k] if k in t1 else t2[k]
+        else:
+            want = (0.5 * t1[k].astype(np.float32)
+                    + 0.5 * t2[k].astype(np.float32)).astype(np.float16)
+        if v.dtype != want.dtype or not np.array_equal(v, want):
+            raise AssertionError(f"16c lpl: {k} is not the merge")
+    ljl = os.path.join(root, "ljl.safetensors")
+    out["ljl_s"] = add(*files, ljl, "--mode", "ljl", "--device", "cuda")
+    got, meta = load_file(ljl)
+    embeds = sorted(k for k, v in meta.items() if v == "<embed>")
+    ranks = {v for k, v in meta.items() if k.endswith(":rank")}
+    if embeds != ["<s0-0>", "<s0-1>", "<s1-0>"] or \
+            ranks != {str(2 * TOOLS_RANK)} or not np.array_equal(
+                got["unet:0:down"], np.concatenate([t1["unet:0:down"],
+                                                    t2["unet:0:down"]])):
+        raise AssertionError(f"16c ljl: embeds {embeds}, ranks {ranks}")
+
+    upl = os.path.join(root, "upl")
+    out["upl_s"] = add(base, files[0], upl, "--alpha_1", str(TOOLS_ALPHA),
+                       "--mode", "upl", "--device", "cuda")
+    collapsed = StableDiffusionPipeline.from_pretrained(
+        upl, dtype=torch.bfloat16, device="cuda",
+        require_real_tokenizer=False)
+    patched = StableDiffusionPipeline.from_pretrained(
+        base, dtype=torch.bfloat16, device="cuda",
+        require_real_tokenizer=False)
+    patched.patch_pipe(files[0])
+    inputs = _unet_inputs(torch.bfloat16, gen)
+    _zero_counts()
+    folded = _unet_out(collapsed, inputs, None)
+    patched.tune_lora_scale(TOOLS_ALPHA)
+    at_alpha = _unet_out(patched, inputs, patched.lora_unet)
+    patched.tune_lora_scale(1.0)
+    file1 = _unet_out(patched, inputs, patched.lora_unet)
+    bare = _unet_out(patched, inputs, None)
+    torch.cuda.synchronize()
+    fwd = dict(fa.flash_fwd.launches_by_kernel)
+    if fwd != _only("wgmma", 4 * ROUTED_PER_UNET_CALL):
+        raise AssertionError(f"16c: four UNet calls launched {fwd}")
+    out["upl_unet"] = _tools_unet_check(folded, at_alpha, bare,
+                                        "16c: the collapsed UNet call")
+    out["upl_unet"]["flash_fwd"] = fwd
+    del collapsed
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(root, "model.ckpt")
+    out["upl_ckpt_v2_s"] = add(base, files[0], ckpt, "--alpha_1",
+                               str(TOOLS_ALPHA), "--mode", "upl-ckpt-v2",
+                               "--device", "cuda")
+    t3 = time.perf_counter()
+    got = ckpt_export.params_from_ckpt(ckpt, SD15_UNET, SD15_VAE)
+    out["params_from_ckpt_s"] = time.perf_counter() - t3
+    want = load_pipeline_params(upl)[:3]
+    table = "text_model.embeddings.token_embedding.weight"
+    vocab = got[1][table].shape[0]
+    for g, w in zip(got, want):
+        w = {k: (v[:vocab] if k == table else v) for k, v in w.items()}
+        bad = sorted(k for k in w if k not in g or not torch.equal(
+            g[k], w[k].half().float()))
+        if bad or set(g) != set(w):
+            raise AssertionError(f"16c: params_from_ckpt differs from the "
+                                 f"collapsed fp16 params at {bad[:5]}")
+    a1111 = torch.load(ckpt[:-5] + ".pt", weights_only=True)
+    rows = a1111["string_to_param"]["*"]
+    if a1111["string_to_token"]["*"].item() != 265 or not np.array_equal(
+            rows.numpy(), np.stack([t1["<t1>"], t1["<t2>"]])):
+        raise AssertionError(f"16c: the A1111 embedding is {a1111}")
+    out["ckpt_gib"] = os.path.getsize(ckpt) / 2**30
+    log("tools: 16c: " + json.dumps(out))
+    shutil.rmtree(upl)
+    os.remove(ckpt)
+    return out, patched, inputs, (file1, bare)
+
+
+def _tools_manager(pipe, files, inputs, calls, report: dict) -> tuple:
+    """16d: LoRAManager over the two files on the bf16 pipeline (16c's
+    patched one, its LoRA removed): a counted 2-prompt 512px request with
+    the manager's prompts, and tune([1, 0]) against file 1 alone (`calls`:
+    16c's UNet calls with file 1 at scale 1 and without an adapter)."""
+    from lora_tpu_torch.lora_manager import LoRAManager
+
+    pipe.remove_lora()
+    t0 = time.perf_counter()
+    manager = LoRAManager(list(files), pipe)
+    out = {"manager_s": time.perf_counter() - t0,
+           "ranklist": manager.ranklist,
+           "token_size_list": manager.token_size_list,
+           "prompts": [manager.prompt(p) for p in TOOLS_PROMPTS]}
+    if manager.ranklist != [TOOLS_RANK] * 2 or \
+            manager.token_size_list != [2, 1]:
+        raise AssertionError(f"16d: the manager joined {out}")
+    images = counted_request(
+        report, "tools", "16d_manager_request", STEPS,
+        lambda: pipe(out["prompts"], num_inference_steps=STEPS,
+                     guidance_scale=7.5, height=512, width=512,
+                     generator=torch.Generator("cuda").manual_seed(SEED)))
+    _check_images(images, len(TOOLS_PROMPTS), "16d")
+    manager.tune([1.0, 0.0])
+    out["tune_1_0"] = _tools_unet_check(
+        _unet_out(pipe, inputs, pipe.lora_unet), *calls, "16d: tune([1, 0])")
+    out.update(wall_s=report["16d_manager_request"]["wall_s"],
+               flash_fwd=report["16d_manager_request"]["flash_fwd"])
+    log("tools: 16d: " + json.dumps(out))
+    return manager, images
+
+
+def _tools_eval(pipe, manager, images, report: dict, gen) -> dict:
+    """16e: evaluate_pipe on the manager's bf16 pipeline with the in-port
+    scorer: a random CLIP ViT-L/14 tower and an SD-1.5 CLIP text model with
+    a projection, f32 on the card; the targets 16d's images. Then the
+    tower's pooled state on the card against the same forward on the
+    CPU."""
+    from lora_tpu_torch.models.clip import init_clip_text
+    from lora_tpu_torch.models.clip_vision import (
+        CLIP_VIT_L14_VISION,
+        clip_vision_forward,
+        init_clip_vision,
+        preprocess_images,
+    )
+    from lora_tpu_torch.models.config import SD15_TEXT
+    from lora_tpu_torch.utils.eval import evaluate_pipe, to_uint8
+
+    vis = CLIP_VIT_L14_VISION
+    params = {**init_clip_vision(vis, gen, device="cuda"),
+              **init_clip_text(SD15_TEXT, gen, device="cuda")}
+    params["text_projection.weight"] = 0.02 * torch.randn(
+        (vis.projection_dim, SD15_TEXT.hidden_size), generator=gen,
+        device="cuda")
+    sets = {"params": params, "vision_cfg": vis, "text_cfg": SD15_TEXT,
+            "tokenizer": pipe.tokenizer}
+    targets = [to_uint8(im) for im in images]
+    n = TOOLS_EVAL["n_test"] * TOOLS_EVAL["n_step"]
+    scores = counted_request(
+        report, "tools", "16e_evaluate_pipe", n,
+        lambda: evaluate_pipe(pipe, targets, class_token="dog",
+                              learnt_token=manager.prompt("<1>"),
+                              clip_model_sets=sets, **TOOLS_EVAL))
+    out = {"scores": scores, "wall_s": report["16e_evaluate_pipe"]["wall_s"],
+           "flash_fwd": report["16e_evaluate_pipe"]["flash_fwd"]}
+    if scores["n_images"] != TOOLS_EVAL["n_test"] or not all(
+            np.isfinite(scores[k]) and -1.0 <= scores[k] <= 1.0
+            for k in ("text_alignment_avg", "image_alignment_avg")):
+        raise AssertionError(f"16e: scores {scores}")
+    px = preprocess_images(targets, vis.image_size, "cuda")
+    with torch.inference_mode():
+        out["vision_ms"] = _time_ms(
+            lambda: clip_vision_forward(params, px, vis), iters=5, warmup=1)
+        card = clip_vision_forward(params, px, vis)
+        cpu = clip_vision_forward({k: v.cpu() for k, v in params.items()},
+                                  px.cpu(), vis)
+    out["vision_card_vs_cpu_rel_l2"] = _rel_l2(card.cpu(), cpu)
+    log("tools: 16e: " + json.dumps(out))
+    if not out["vision_card_vs_cpu_rel_l2"] <= VISION_DEVICE_REL_L2:
+        raise AssertionError(f"16e: the ViT-L/14 forward on the card is "
+                             f"{out['vision_card_vs_cpu_rel_l2']} from the "
+                             f"CPU's")
+    return out
+
+
+def phase_tools(smi: str, xl_dir=None) -> dict:
+    """Phase 16: the adapter tooling at full width, random weights from the
+    seed: 16a lora_distill on SD-1.5 directories (card and CPU), 16b
+    lora_distill --from_lora on SDXL (`xl_dir`: phase 15's directory where
+    the run has it), 16c lora_add's four modes, 16d LoRAManager on a bf16
+    pipeline, 16e evaluate_pipe with a ViT-L/14 tower. Returns each part's
+    report, the counted flash launches of 16c-16e, and the flash shapes
+    they ran (to be checked against phase 3's)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 16)
+    report, out, seen = {}, {}, set()
+    with tempfile.TemporaryDirectory(prefix="tools_") as root:
+        t0 = time.perf_counter()
+        out["16a"] = _tools_distill_sd(root, gen)
+        out["16a"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["16b"] = _tools_distill_xl(root, xl_dir, gen)
+        out["16b"]["part_s"] = time.perf_counter() - t0
+        base = os.path.join(root, "base")
+        files = [os.path.join(root, n) for n in ("one.safetensors",
+                                                  "two.safetensors")]
+        for path, tokens in zip(files, (("<t1>", "<t2>"), ("<t3>",))):
+            _tools_lora_file(path, gen, tokens)
+        with recording_flash_shapes(seen):
+            t0 = time.perf_counter()
+            out["16c"], pipe, inputs, calls = _tools_lora_add(
+                root, base, files, gen)
+            out["16c"]["part_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            manager, images = _tools_manager(pipe, files, inputs, calls,
+                                             report)
+            out["16d"] = report["16d_manager_request"]
+            out["16d"]["part_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["16e"] = _tools_eval(pipe, manager, images, report, gen)
+            out["16e"]["part_s"] = time.perf_counter() - t0
+    del pipe
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(fa.flash_fwd.launches_by_kernel, 0)
+    for part in (out["16c"]["upl_unet"]["flash_fwd"],
+                 report["16d_manager_request"]["flash_fwd"],
+                 report["16e_evaluate_pipe"]["flash_fwd"]):
+        for k, n in part.items():
+            launches[k] += n
+    out.update(launches=launches, seen=seen,
+               phase_s=time.perf_counter() - t_phase)
+    log("tools: " + json.dumps({
+        "phase_s": out["phase_s"], "launches": launches, "card": smi,
+        "part_s": {p: out[p]["part_s"] for p in ("16a", "16b", "16c", "16d",
+                                                 "16e")}}))
+    return out
+
+
+def add_tools_launches(kernels: list, tools: dict) -> None:
+    """Each flash forward row of the kernels line gains phase 16's counted
+    launches of its kernel ("tools": 16c's four UNet calls, 16d's request
+    and 16e's generation)."""
+    for row in kernels:
+        wrapper, route = FLASH_ROW_ROUTES.get(row["name"], (None, None))
+        if wrapper == "flash_fwd":
+            n = tools["launches"][route]
+            row["launches"] += n
+            row["launches_by_path"]["tools"] = n
+
+
+def check_tools_shapes(tools: dict, rows) -> None:
+    """Every flash forward call phase 16 made was at a shape and layout a
+    row of `rows` checked against its plain version."""
+    unchecked = tools["seen"] - {_row_key(r) for r in rows}
+    if unchecked:
+        raise AssertionError(f"phase 16 ran flash_fwd at shapes or layouts "
+                             f"no check covered: {sorted(unchecked)}")
+    log(f"tools: flash_fwd ran {len(tools['seen'])} shapes and layouts, "
+        f"each checked")
 
 
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
@@ -5392,7 +5993,15 @@ def main() -> int:
     trainer = phase_trainer(smi, rows, bwd_rows)
     pti = phase_pti(smi, rows, bwd_rows)
     sdxl = phase_sdxl(smi)
-    sdxl_train = phase_sdxl_train(smi)
+    # phase 15's SDXL directory outlives it: phase 16b distills against it
+    xl_root = tempfile.mkdtemp(prefix="sdxl_model_")
+    try:
+        xl_dir = os.path.join(xl_root, "model")
+        sdxl_train = phase_sdxl_train(smi, xl_dir)
+        tools = phase_tools(smi, xl_dir)
+    finally:
+        shutil.rmtree(xl_root, ignore_errors=True)
+    check_tools_shapes(tools, rows)
     # the trainer's launches by wrapper: f32 (12c and 12d), bf16 (12e)
     trainer_f32 = _added_launches(trainer["counted"]["launches"],
                                   trainer["resumed"]["launches"])
@@ -5948,6 +6557,7 @@ def main() -> int:
     add_pti_launches(kernels, pti)
     add_sdxl_launches(kernels, sdxl)
     add_sdxl_train_launches(kernels, sdxl_train)
+    add_tools_launches(kernels, tools)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -6059,6 +6669,38 @@ def main_sdxl_train() -> int:
     return 0
 
 
+def main_tools() -> int:
+    """Phases 1, 2 (flash_fwd_wgmma.cu, which phase 16 runs, and
+    flash_fwd.cu, which phase 3 calls beside it) and 16; then phase 3's
+    bf16 UNet calls at batch 4 and 2 (batch 4 at T = 4096 timed), every
+    flash shape phase 16 ran checked against them, and the kernels line's
+    flash_fwd row with phase 16's launches."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_wgmma"])
+    tools = phase_tools(smi)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    rows = [check_kernel(B, 8, T, T, D, torch.bfloat16, gen,
+                         timed=(B, T) == (4, SD15_ATTN_SHAPES[0][0]))
+            for B in (4, 2) for T, D in SD15_ATTN_SHAPES]
+    check_tools_shapes(tools, rows)
+    fwd = rows[0]
+    row = {"name": "flash_fwd", "route": "cuda",
+           "source": "lora_tpu_torch/ops/csrc/flash_fwd_wgmma.cu",
+           "replaces": "lora_tpu/ops/flash_attention.py:104",
+           "launches": 0, "launches_by_path": {},
+           "max_abs_err": max(r["err_o"] for r in rows),
+           **{k: fwd[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms",
+                                  "exp_floor_ms")}}
+    add_tools_launches([row], tools)
+    log(json.dumps({"kernels": [row]}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] in (["--int8"], ["--int8-tiles"]):
         sys.exit(main_int8(sys.argv[1] == "--int8-tiles"))
@@ -6078,8 +6720,10 @@ if __name__ == "__main__":
         sys.exit(main_sdxl())
     if sys.argv[1:] == ["--sdxl-train"]:
         sys.exit(main_sdxl_train())
+    if sys.argv[1:] == ["--tools"]:
+        sys.exit(main_tools())
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
                  f"--flash-bwd | --modes | --adapters | --train | --pti | "
-                 f"--sdxl | --sdxl-train]")
+                 f"--sdxl | --sdxl-train | --tools]")
     sys.exit(main())

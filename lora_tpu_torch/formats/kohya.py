@@ -20,7 +20,7 @@ The folds run in torch, in f32 (TF32 off), on the device the tree is loaded
 to. SDXL files (save_kohya_xl / load_kohya_xl, the counterpart of the SDXL
 half) name their text modules lora_te1_ / lora_te2_ and their UNet modules
 by the original LDM layout (input_blocks / middle_block / output_blocks,
-`unet_key_map`), as kohya's SDXL trainer writes them.
+formats/ckpt_export.py `unet_key_map`), as kohya's SDXL trainer writes them.
 """
 
 from __future__ import annotations
@@ -32,8 +32,7 @@ import torch
 
 from ..core.lora import LoraTree, f32_products, lora_from_pairs, lora_to_pairs
 from ..core.sites import Site
-from ..models import structure
-from ..models.config import UNetConfig
+from .ckpt_export import unet_key_map
 from .reader import SafetensorsFile, save_file
 
 _PREFIX = {"unet": "lora_unet", "text_encoder": "lora_te"}
@@ -237,65 +236,6 @@ def _tree_from_groups(present: Dict[str, Dict[str, np.ndarray]],
 
 _PREFIX_XL = {"unet": "lora_unet", "text_encoder": "lora_te1",
               "text_encoder_2": "lora_te2"}
-
-
-_RESNET_UNET = {
-    "norm1": "in_layers.0",
-    "conv1": "in_layers.2",
-    "time_emb_proj": "emb_layers.1",
-    "norm2": "out_layers.0",
-    "conv2": "out_layers.3",
-    "conv_shortcut": "skip_connection",
-}
-
-
-def unet_key_map(cfg: UNetConfig) -> Dict[str, str]:
-    """diffusers module path -> LDM module path (the CompVis layout, the
-    counterpart of lora_tpu/formats/ckpt_export.py's map, generated from
-    the config by models/structure.py), for every UNet module with
-    weights but the transformers' insides (a Transformer2DModel maps as a
-    whole: its sub-paths are the same in both layouts)."""
-    m = {
-        "conv_in": "input_blocks.0.0",
-        "time_embedding.linear_1": "time_embed.0",
-        "time_embedding.linear_2": "time_embed.2",
-        "conv_norm_out": "out.0",
-        "conv_out": "out.2",
-    }
-
-    def resnet(src, dst):
-        for a, b in _RESNET_UNET.items():
-            m[f"{src}.{a}"] = f"{dst}.{b}"
-
-    idx = 1
-    for i, block in enumerate(structure.down_blocks(cfg)):
-        for j in range(len(block.resnets)):
-            resnet(f"down_blocks.{i}.resnets.{j}", f"input_blocks.{idx}.0")
-            if block.attentions[j] is not None:
-                m[f"down_blocks.{i}.attentions.{j}"] = f"input_blocks.{idx}.1"
-            idx += 1
-        if block.has_downsample:
-            m[f"down_blocks.{i}.downsamplers.0.conv"] = \
-                f"input_blocks.{idx}.0.op"
-            idx += 1
-
-    resnet("mid_block.resnets.0", "middle_block.0")
-    m["mid_block.attentions.0"] = "middle_block.1"
-    resnet("mid_block.resnets.1", "middle_block.2")
-
-    idx = 0
-    for i, block in enumerate(structure.up_blocks(cfg)):
-        for j in range(len(block.resnets)):
-            resnet(f"up_blocks.{i}.resnets.{j}", f"output_blocks.{idx}.0")
-            has_attn = block.attentions[j] is not None
-            if has_attn:
-                m[f"up_blocks.{i}.attentions.{j}"] = f"output_blocks.{idx}.1"
-            if j == len(block.resnets) - 1 and block.has_upsample:
-                sub = 2 if has_attn else 1
-                m[f"up_blocks.{i}.upsamplers.0.conv"] = \
-                    f"output_blocks.{idx}.{sub}.conv"
-            idx += 1
-    return m
 
 
 def _xl_unet_index(sites: Sequence[Site], cfg) -> Dict[str, Site]:

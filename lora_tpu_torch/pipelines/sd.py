@@ -91,8 +91,15 @@ def _float_param(module: torch.nn.Module) -> torch.Tensor:
 
 def _module_from(cls_, cfg, params, dtype) -> torch.nn.Module:
     """A model module holding loaded `params` (built on the meta device,
-    then the tensors assigned: no second copy of the weights)."""
+    then the tensors assigned: no second copy of the weights). A token table
+    longer than the config's vocabulary (the TI rows that `lora_add --mode
+    upl` folds into the directory) is taken at its length."""
     m = cls_(cfg, device="meta", dtype=dtype)
+    table = params.get(_TOKEN_TABLE)
+    if table is not None:
+        rows, width = m.get_parameter(_TOKEN_TABLE).shape
+        if table.shape[0] > rows and table.shape[1] == width:
+            m.set_param(_TOKEN_TABLE, torch.empty_like(table, device="meta"))
     m.load_state_dict(params, strict=True, assign=True)
     return m
 
@@ -297,13 +304,23 @@ class StableDiffusionPipeline:
         rec = (self.base_deltas or {}).get(model)
         return None if rec is None else rec["alpha"]
 
-    def apply_ti(self, embeds: Dict[str, np.ndarray]) -> List[str]:
-        """Add TI tokens to the tokenizer (a token already there keeps its
-        id) and write their rows into the token table, grown as needed (the
-        reference's apply_learned_embed_in_clip, lora.py:899-942)."""
+    def apply_ti(self, embeds: Dict[str, np.ndarray],
+                 idempotent: bool = True) -> List[str]:
+        """Add TI tokens to the tokenizer and write their rows into the
+        token table, grown as needed (the reference's
+        apply_learned_embed_in_clip, lora.py:899-942). Returns the tokens
+        written. A token already in the tokenizer keeps its id; with
+        idempotent=False it is renamed instead, its last character
+        replaced by "-1>", "-2>", ... on the name so far until the
+        tokenizer takes it, as lora_tpu renames it."""
         applied = []
         for token, vec in embeds.items():
-            self.tokenizer.add_tokens(token)
+            n_added = self.tokenizer.add_tokens(token)
+            i = 1
+            while n_added == 0 and not idempotent:
+                token = f"{token[:-1]}-{i}>"
+                n_added = self.tokenizer.add_tokens(token)
+                i += 1
             tok_id = self.tokenizer.convert_tokens_to_ids(token)
             table = self.text_encoder.get_parameter(_TOKEN_TABLE).detach()
             if tok_id >= table.shape[0]:

@@ -24,10 +24,11 @@ device.
 
 On an SDXL pipeline it ends where lora_tpu's does: the first inversion
 step raises the loss's ValueError (textual inversion is not supported for
-SDXL training). Not ported yet: device meshes (data_parallel, fsdp,
-tensor_parallel: ROADMAP Slice 7), which raise, and the wandb-gated
-CLIP-alignment eval, which needs utils/eval.py (ROADMAP Slice 5) and
-prints "eval skipped:".
+SDXL training). With log_wandb, each save step of tuning runs lora_tpu's
+CLIP-alignment eval (eval_at_save, utils/eval.py) and logs it as
+phase="eval"; a failing eval prints "eval skipped:" and training goes on.
+Not ported yet: device meshes (data_parallel, fsdp, tensor_parallel:
+ROADMAP Slice 7), which raise.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from ..data.dataset import (
     data_loader,
     device_prefetch,
     prefetch,
+    read_image,
 )
 from ..formats.kohya import save_kohya
 from ..formats.pt_io import save_a1111_multi_embedding
@@ -281,6 +283,40 @@ def _sites(pipe, cfg: PTIConfig):
             targets)
 
 
+def eval_at_save(pipe, trainable: dict, embeds: Optional[dict],
+                 instance_data_dir: str, class_token: str,
+                 learnt_token: str) -> dict:
+    """lora_tpu's eval at a save step (lora_tpu/training/pti.py:467-492):
+    evaluate_pipe (4 prompts, 20 steps) with the step's LoRAs and TI rows,
+    scored against the instance images (PNG, and JPEG where Pillow is
+    installed) by the CLIP of prepare_clip_model_sets, where there is one.
+    lora_tpu evaluates on a shallow copy of its pipeline; this pipeline
+    holds modules, so the LoRA trees, the token table and the adapter
+    generation it changes are put back, the same tensors, before it
+    returns or raises."""
+    from ..utils.eval import evaluate_pipe, prepare_clip_model_sets
+
+    targets = [read_image(os.path.join(instance_data_dir, f))
+               for f in sorted(os.listdir(instance_data_dir))
+               if f.lower().endswith((".png", ".jpg", ".jpeg"))]
+    saved = (pipe.lora_unet, pipe.lora_text,
+             pipe.text_encoder.get_parameter(_TOKEN_TABLE),
+             pipe.adapter_generation)
+    try:
+        pipe.lora_unet = trainable.get("lora_unet")
+        pipe.lora_text = trainable.get("lora_text")
+        if embeds:
+            pipe.apply_ti(embeds)
+        return evaluate_pipe(pipe, targets, class_token=class_token,
+                             learnt_token=learnt_token,
+                             clip_model_sets=prepare_clip_model_sets(),
+                             n_test=4, n_step=20)
+    finally:
+        pipe.lora_unet, pipe.lora_text, table, pipe.adapter_generation = \
+            saved
+        pipe.text_encoder.set_param(_TOKEN_TABLE, table)
+
+
 def train_pti(pipe, cfg: PTIConfig) -> dict:
     _check_unported(pipe, cfg)
     locon = cfg.lora_targets == "locon"
@@ -476,9 +512,16 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
                          target_replace_module_text=set(
                              cfg.lora_clip_target_modules))
             if cfg.log_wandb and name is None:
-                # lora_tpu's CLIP-alignment eval at the save steps
-                print("eval skipped: the CLIP-alignment eval needs "
-                      "utils/eval.py, not ported yet (ROADMAP Slice 5)")
+                # the CLIP-alignment eval at the save steps
+                # (cli_lora_pti.py:527-539); it must never end training
+                try:
+                    scores = eval_at_save(
+                        pipe, tr, emb, cfg.instance_data_dir,
+                        "".join(initializer_tokens),
+                        "".join(placeholder_tokens))
+                    log.log(phase="eval", step=step, **scores)
+                except Exception as e:
+                    print(f"eval skipped: {e}")
 
         loss_cfg = LossConfig(
             cached_latents=cfg.cached_latents,

@@ -166,17 +166,26 @@ def test_port_imports_no_jax():
     modules = ["lora_tpu_torch", "lora_tpu_torch.convert",
                "lora_tpu_torch.cli._fire", "lora_tpu_torch.cli.lora_db",
                "lora_tpu_torch.cli.lora_pti", "lora_tpu_torch.cli.lora_ti",
+               "lora_tpu_torch.cli.lora_add",
+               "lora_tpu_torch.cli.lora_distill",
+               "lora_tpu_torch.cli.pt_to_safetensors",
+               "lora_tpu_torch.cli.kohya_convert",
+               "lora_tpu_torch.lora_manager",
                "lora_tpu_torch.core.lora", "lora_tpu_torch.core.quantize",
                "lora_tpu_torch.core.save", "lora_tpu_torch.core.sites",
+               "lora_tpu_torch.core.svd",
                "lora_tpu_torch.data.dataset", "lora_tpu_torch.data.png",
                "lora_tpu_torch.data.preprocess",
                "lora_tpu_torch.data.tokenizer",
+               "lora_tpu_torch.formats.ckpt_export",
                "lora_tpu_torch.formats.kohya",
                "lora_tpu_torch.formats.lycoris",
                "lora_tpu_torch.formats.pt_io",
                "lora_tpu_torch.formats.reader",
                "lora_tpu_torch.formats.safetensors_io",
-               "lora_tpu_torch.models.clip", "lora_tpu_torch.models.config",
+               "lora_tpu_torch.models.clip",
+               "lora_tpu_torch.models.clip_vision",
+               "lora_tpu_torch.models.config",
                "lora_tpu_torch.models.hf_import",
                "lora_tpu_torch.models.layers",
                "lora_tpu_torch.models.schedulers",
@@ -196,16 +205,18 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.training.pti",
                "lora_tpu_torch.training.ti_legacy",
                "lora_tpu_torch.training.train_step",
+               "lora_tpu_torch.utils.eval",
                "lora_tpu_torch.utils.metrics",
                "lora_tpu_torch.utils.profiling"]
-    # ... and none imports Pillow at import time (the card's machine has
-    # none; the dataset imports it only for a JPEG)
+    # ... and none imports Pillow or transformers at import time (the
+    # card's machine has neither; the dataset imports Pillow only for a
+    # JPEG, utils/eval.py transformers only for a local CLIP checkpoint)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'lora_tpu',\n"
-            "                                    'PIL'))\n"
+            "                                    'PIL', 'transformers'))\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -56,10 +56,11 @@ def test_wheel_carries_the_kernel_sources(tmp_path):
 def test_port_wheel_stands_alone(tmp_path):
     """`pip wheel` of lora_tpu_torch/ alone (its own pyproject.toml) builds
     offline a wheel that requires torch and numpy, not jax; whose console
-    scripts start the port's server and its DreamBooth, PTI and TI
-    trainers; that carries every package of the port and every csrc source
-    (the blockwise-int8 Adam's among them), the SDXL pipeline, the native
-    resize's C source, and nothing of lora_tpu."""
+    scripts start the port's server, its DreamBooth, PTI and TI trainers
+    and its lora_add, lora_distill and kohya-converter tools; that carries
+    every package of the port and every csrc source (the blockwise-int8
+    Adam's among them), the SDXL pipeline, the native resize's C source,
+    and nothing of lora_tpu."""
     pkg = os.path.join(REPO, "lora_tpu_torch")
     src = tmp_path / "lora_tpu_torch"
     shutil.copytree(pkg, src, ignore=shutil.ignore_patterns(
@@ -85,6 +86,11 @@ def test_port_wheel_stands_alone(tmp_path):
     assert "lora_db_torch = lora_tpu_torch.cli.lora_db:main" in scripts
     assert "lora_pti_torch = lora_tpu_torch.cli.lora_pti:main" in scripts
     assert "lora_ti_torch = lora_tpu_torch.cli.lora_ti:main" in scripts
+    assert "lora_add_torch = lora_tpu_torch.cli.lora_add:main" in scripts
+    assert ("lora_distill_torch = lora_tpu_torch.cli.lora_distill:main"
+            in scripts)
+    assert ("lora_kohya_torch = lora_tpu_torch.cli.kohya_convert:main"
+            in scripts)
     assert "lora_tpu." not in scripts, scripts
     assert not {n for n in names if n.startswith("lora_tpu/")}
     packages = {os.path.relpath(d, REPO) for d, _, files in os.walk(pkg)

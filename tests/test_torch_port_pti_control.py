@@ -6,9 +6,11 @@ no final artifact; every refusal (SDXL, with lora_tpu's error, a device
 mesh, unknown LoRA targets, LoCon with the extended targets, unsorted
 placeholder tokens, a token already in the tokenizer, a multi-token
 initializer, unequal token and initializer counts); and the wandb-gated
-eval, which waits for utils/eval.py."""
+eval at the tuning saves, which leaves the training pipe and the steps as
+they were."""
 
 import dataclasses
+import json
 import os
 import signal
 
@@ -31,6 +33,7 @@ from lora_tpu_torch.pipelines.sdxl import (  # noqa: E402
     StableDiffusionXLPipeline,
 )
 from lora_tpu_torch.training import pti as t_pti  # noqa: E402
+from lora_tpu_torch.utils import eval as t_eval  # noqa: E402
 
 SIZE = 64
 BASE = dict(resolution=SIZE, lora_rank=2, max_train_steps_ti=3,
@@ -165,13 +168,73 @@ def test_setup_ti_rows_and_table(tmp_path):
     assert not grown[table.shape[0]:].any()
 
 
-def test_wandb_eval_is_skipped_naming_slice_5(inst, tmp_path, capsys):
-    res = t_pti.train_pti(tiny_pipe(), t_pti.PTIConfig(**dict(
-        BASE, max_train_steps_ti=1, max_train_steps_tuning=1,
-        gradient_accumulation_steps=1, save_steps=1, log_wandb=True),
-        instance_data_dir=inst, output_dir=str(tmp_path / "o")))
-    assert not res["preempted"]
-    outp = capsys.readouterr().out
-    assert "eval skipped:" in outp and "Slice 5" in outp
+def test_wandb_eval_is_skipped_naming_slice_5(inst, tmp_path, capsys,
+                                              monkeypatch):
+    """The wandb-gated eval runs at each tuning save (lora_tpu's, ported in
+    Slice 5): a phase="eval" line with the images' statistics, no "eval
+    skipped:", the training pipe's LoRA trees, token table, tokenizer and
+    adapter generation the same objects and bits after it as before, and
+    the step after it equal to a run without the eval."""
+    real = t_pti.eval_at_save
+    seen = []
+
+    def state(pipe):
+        table = pipe.text_encoder.get_parameter(t_pti._TOKEN_TABLE)
+        return (pipe.lora_unet, pipe.lora_text, table.detach().clone(),
+                dict(pipe.tokenizer.added_tokens), pipe.adapter_generation)
+
+    def checked(pipe, *a, **kw):
+        before = state(pipe)
+        out = real(pipe, *a, **kw)
+        after = state(pipe)
+        assert after[0] is before[0] and after[1] is before[1]
+        assert torch.equal(after[2], before[2])
+        assert after[3:] == before[3:]
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(t_pti, "eval_at_save", checked)
+    # the eval generates at the pipeline's default 512px, where the tiny
+    # UNet's plain attention over 4096 tokens takes seconds a call on the
+    # CPU: the pipeline is called at the training size here instead
+    real_eval = t_eval.evaluate_pipe
+
+    class AtSize:
+        def __init__(self, pipe):
+            self.pipe, self.device = pipe, pipe.device
+
+        def __call__(self, prompt, **kw):
+            return self.pipe(prompt, height=SIZE, width=SIZE, **kw)
+
+    monkeypatch.setattr(t_eval, "evaluate_pipe",
+                        lambda pipe, *a, **kw: real_eval(AtSize(pipe), *a,
+                                                         **kw))
+    runs = {}
+    for wandb in (True, False):
+        out = tmp_path / f"o_{wandb}"
+        runs[wandb] = t_pti.train_pti(tiny_pipe(), t_pti.PTIConfig(**dict(
+            BASE, max_train_steps_ti=1, max_train_steps_tuning=2,
+            gradient_accumulation_steps=1, save_steps=1, log_wandb=wandb,
+            continue_inversion=True),
+            instance_data_dir=inst, output_dir=str(out)))
+        assert not runs[wandb]["preempted"]
+    assert "eval skipped:" not in capsys.readouterr().out
+    assert len(seen) == 2
+    lines = [json.loads(line) for line in
+             open(tmp_path / "o_True" / "metrics.jsonl")]
+    evals = [r for r in lines if r.get("phase") == "eval"]
+    assert [r["step"] for r in evals] == [1, 2]
+    for r in evals:
+        assert r["n_images"] == 4
+        assert 0.0 <= r["gen_mean"] <= 255.0 and r["gen_std"] >= 0.0
+    assert not any(r.get("phase") == "eval" for r in
+                   map(json.loads, open(tmp_path / "o_False" /
+                                        "metrics.jsonl")))
     assert {"step_1.safetensors", "step_inv_1.safetensors",
-            "final_lora.safetensors"} <= set(os.listdir(tmp_path / "o"))
+            "final_lora.safetensors"} <= set(os.listdir(tmp_path / "o_True"))
+    with_eval, without = (runs[w]["trainable"] for w in (True, False))
+    for group in ("lora_unet", "ti"):
+        a, b = with_eval[group], without[group]
+        for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                        torch.utils._pytree.tree_leaves(b)):
+            assert torch.equal(x, y), group
