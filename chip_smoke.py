@@ -78,6 +78,15 @@
                                         # kernels' first calls in child
                                         # processes, 15 (with its own flash
                                         # checks at phase 15's shapes)
+    python3 chip_smoke.py --dist        # phases 1, 2 (the flash sources
+                                        # and adam8bit.cu), the tf32x3
+                                        # kernels' first calls in child
+                                        # processes, 17, and phase 17's
+                                        # launches by kernel
+    python3 chip_smoke.py --dist-cards  # on a host of 2, 4, ... cards:
+                                        # phases 1, 2 (the f32 flash
+                                        # sources) and 17e, one rank a card
+                                        # over NCCL
     python3 chip_smoke.py --tools       # phases 1, 2 (flash_fwd.cu and
                                         # flash_fwd_wgmma.cu only), 16
                                         # (writing its own SDXL directory),
@@ -86,8 +95,9 @@
                                         # 16 ran checked against them, and
                                         # the flash_fwd row
 
-Phases, each printing its own lines (about 13 minutes on one H100, a
-quarter of it the build of the kernels):
+Phases, each printing its own lines and the full run its phases' end
+times (about 14 minutes on one H100, a fifth of it the build of the
+kernels; a slow host takes up to half as long again):
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_fwd_tf32x3.cu, flash_bwd.cu,
@@ -411,6 +421,27 @@ quarter of it the build of the kernels):
      tower on the card within VISION_DEVICE_REL_L2 of the CPU's. Every
      flash call of 16c-16e is recorded and must be at a checked shape;
      the flash_fwd row of the kernels line gains the "tools" launches.
+  17. dist: training across processes, on phase 12's inputs (random
+     SD-1.5 at full width, 512px, f32), through lora_launch_torch and the
+     lora_db CLI's main in each rank (`chip_smoke.py --dist-rank SPEC`,
+     which records each rank's per-step losses, step times, gradient
+     all-reduce times, launches and peak memory). 17a: one rank over NCCL
+     with --data_parallel, DIST_STEPS steps of 12c's run, against the same
+     run in this process: the same per-step losses and LoRA, every flash
+     launch through the tf32x3 kernels. 17b: two ranks sharing the card
+     over gloo, dp = 2 at train_batch_size 1 (cached latents, prior
+     preservation: rank 0 holds the instance rows, rank 1 the class rows,
+     the text encoder's LoRA too), against one process at 2: per-step
+     losses within DIST_LOSS_RTOL, the final LoRA within DIST_TREE_TOL of
+     its largest entry, the output directory rank 0's alone. 17c: fsdp = 2
+     on the two ranks, against the unsharded run the same way; each
+     rank's peak memory. 17d: SIGTERM to rank 1
+     alone after its first step: both ranks stop at the same step, rank 0
+     writes train_state.safetensors, and a resume from it runs the rest.
+     The flash rows and the adam8bit row gain the "dist" launches of every
+     rank. 17e (`--dist-cards` only, a host of N >= 2 cards): one rank a
+     card over NCCL, dp = N at train_batch_size 1 and dp = N / 2 x fsdp =
+     2 at 2, each against one process at the global batch N.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -429,6 +460,7 @@ import functools
 import json
 import os
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -991,25 +1023,63 @@ def flash_call_sums(rows) -> dict:
     return sums
 
 
+_PROBE_BATCH = None  # probes_together's list while its block runs
+PROBE_START_S = 60.0  # the start of probes started together, beside each
+# probe's own timeout
+
+
 def _probe(what: str, code: str, timeout_s: float) -> None:
     """A new kernel's first calls (`code`, checked against the plain
     version) in a child process under a timeout, so a kernel that hangs on
-    its mbarriers is killed rather than held to the run's limit."""
-    t0 = time.perf_counter()
+    its mbarriers is killed rather than held to the run's limit. Inside
+    probes_together the call only enrolls the probe."""
+    if _PROBE_BATCH is not None:
+        _PROBE_BATCH.append((what, code, timeout_s))
+        return
+    _run_probes([(what, code, timeout_s)], start_s=0.0)
+
+
+@contextlib.contextmanager
+def probes_together():
+    """The probes called in the block run at its end, their child
+    processes started together, each under its own timeout (plus
+    PROBE_START_S for the processes' start side by side)."""
+    global _PROBE_BATCH
+    _PROBE_BATCH = []
     try:
-        proc = subprocess.run([sys.executable, "-c", code],
-                              cwd=os.path.dirname(os.path.abspath(__file__)),
-                              capture_output=True, text=True,
-                              timeout=timeout_s)
-    except subprocess.TimeoutExpired as e:
-        raise AssertionError(f"the {what} kernel's first calls did not "
-                             f"finish in {timeout_s} s") from e
-    for line in (proc.stdout + proc.stderr).splitlines()[-20:]:
-        log(f"probe: {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"the {what} kernel's first calls failed "
-                             f"({proc.returncode})")
-    log(f"probe: {what} passed in {time.perf_counter() - t0:.1f} s")
+        yield
+        batch = _PROBE_BATCH
+    finally:
+        _PROBE_BATCH = None
+    _run_probes(batch, start_s=PROBE_START_S)
+
+
+def _run_probes(batch, start_s: float) -> None:
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [(what, timeout_s, subprocess.Popen(
+        [sys.executable, "-c", code], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for what, code, timeout_s in batch]
+    try:
+        for what, timeout_s, proc in procs:
+            left = timeout_s + start_s - (time.perf_counter() - t0)
+            try:
+                out, err = proc.communicate(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired as e:
+                raise AssertionError(f"the {what} kernel's first calls did "
+                                     f"not finish in {timeout_s} s") from e
+            for line in (out + err).splitlines()[-20:]:
+                log(f"probe: {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"the {what} kernel's first calls "
+                                     f"failed ({proc.returncode})")
+            log(f"probe: {what} passed in {time.perf_counter() - t0:.1f} s")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def int8_f32_probe(timeout_s: float = 60.0) -> None:
@@ -3451,13 +3521,18 @@ def _trainer_inputs(root: str):
 
 
 @contextlib.contextmanager
-def timing_trainer_steps(record: dict, trainer=None):
+def timing_trainer_steps(record: dict, trainer=None, progress=None,
+                         loop_peak=False):
     """Wraps a trainer module's step factory (make_train_step of
     training/dreambooth.py unless `trainer` names another): CUDA events
-    around each step (read after the run, so the loop gains no host sync)
-    and the optimizer it was built with. Each factory call (one per
-    training phase) starts a new list of events in record["phases"];
-    record["events"] is the latest."""
+    around each step (read after the run, so the loop gains no host sync),
+    each step's loss tensor (record["losses"]) and the optimizer it was
+    built with. Each factory call (one per training phase) starts a new
+    list of events in record["phases"]; record["events"] is the latest.
+    progress: a file that each step overwrites with the count of steps
+    made. loop_peak: at the first step, record["setup_peak_gib"] is the
+    peak memory so far and the peak is reset, so that the peak after the
+    run is the training loop's."""
     if trainer is None:
         from lora_tpu_torch.training import dreambooth as trainer
 
@@ -3470,12 +3545,21 @@ def timing_trainer_steps(record: dict, trainer=None):
         record.setdefault("phases", []).append(record["events"])
 
         def timed_step(*a, **kw2):
+            if loop_peak and "setup_peak_gib" not in record:
+                torch.cuda.synchronize()
+                record["setup_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                            / 2 ** 30)
+                torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             loss = step(*a, **kw2)
             end.record()
             record["events"].append((start, end))
+            record.setdefault("losses", []).append(loss)
+            if progress is not None:
+                with open(progress, "w") as f:
+                    f.write(str(len(record["losses"])))
             return loss
 
         return timed_step
@@ -3597,7 +3681,7 @@ def trainer_flash_rows(gen, fwd_rows=(), bwd_rows=()) -> list:
         ((2, torch.float32), (1, torch.bfloat16)), fwd_rows, bwd_rows)
 
 
-def phase_trainer(smi: str, fwd_rows=(), bwd_rows=()) -> dict:
+def phase_trainer(smi: str, fwd_rows=(), bwd_rows=(), root=None) -> dict:
     """Phase 12: 12a the blockwise-int8 Adam kernel against its plain
     version; 12b the inputs; 12c the counted run through
     cli.lora_db.train; 12d its resume; 12e bf16 with cached latents and
@@ -3605,7 +3689,8 @@ def phase_trainer(smi: str, fwd_rows=(), bwd_rows=()) -> dict:
     forward call of 12c-12e is recorded and must be at a shape checked
     against the plain version (fwd_rows: phase 3's, and this phase's
     own; bwd_rows: phase 4's, whose levels this phase does not check
-    again)."""
+    again). root: a directory that keeps the inputs and 12c's class
+    images for phase 17 (else a temporary one)."""
     from lora_tpu_torch.cli import lora_db
     from lora_tpu_torch.data.png import png_size
 
@@ -3616,7 +3701,10 @@ def phase_trainer(smi: str, fwd_rows=(), bwd_rows=()) -> dict:
                  for n in (n_unet, n_text) + ADAM8BIT_EXTRA_N]
     rows = trainer_flash_rows(gen, fwd_rows, bwd_rows)
     out = {"adam8bit_rows": adam_rows}
-    with tempfile.TemporaryDirectory(prefix="lora_db_") as root:
+    with contextlib.ExitStack() as stack:
+        if root is None:
+            root = stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="lora_db_"))
         pipe, model, inst = _trainer_inputs(root)
         common = dict(instance_data_dir=inst,
                       instance_prompt="a photo of sks dog", resolution=512,
@@ -3692,6 +3780,7 @@ def _trainer_runs(lora_db, pipe, model, root, common, png_size) -> dict:
         "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "losses": {r["step"]: r["loss"] for r in records if "step" in r},
+        "step_losses": [float(x) for x in rec["losses"]],
         "sps": {r["step"]: r["sps"] for r in records if "sps" in r},
         "launches": got,
         "launches_per_step": {k: {r: n / TRAINER_STEPS for r, n in v.items()}
@@ -5835,6 +5924,497 @@ def check_tools_shapes(tools: dict, rows) -> None:
         f"each checked")
 
 
+# phase 17: training across processes (parallel/mesh.py) through the
+# launcher and the lora_db CLI, on random full-width SD-1.5 weights at 512
+# px (phase 12's inputs). 17a: one rank over NCCL, DIST_STEPS steps of
+# 12c's run; 17b: two ranks sharing the card over gloo, dp = 2 at
+# train_batch_size 1, against one process at 2 (cached latents with prior
+# preservation: one rank holds only instance rows, the other only class
+# rows); 17c: fsdp = 2 on the two ranks against the unsharded run; 17d: a
+# SIGTERM to rank 1 alone, then a resume
+DIST_STEPS = 3
+DIST_FSDP_STEPS = 2
+DIST_PREEMPT_STEPS = 5  # the run the SIGTERM cuts short
+DIST_LOSS_RTOL = 1e-5
+DIST_TREE_TOL = 1e-4  # of the largest entry of the LoRA
+DIST_TIMEOUT_S = 600
+
+
+def _cli_args(flags: dict) -> list:
+    """DreamBoothConfig fields (and lora_db.train's) as lora_db flags."""
+    out = []
+    for k, v in flags.items():
+        out += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return out
+
+
+def dist_rank_worker(spec_path: str) -> int:
+    """One rank of phase 17, started by lora_launch_torch: for each run of
+    the spec, the lora_db CLI's main with the run's flags, in the
+    launcher's group; then RUN.rank{r}.json with the rank's per-step
+    losses, step times (CUDA events), gradient all-reduce times, flash and
+    adam8bit launches (counts from 0 at the run's start), peak memory and
+    steps, and from rank 0 the final trainable leaves in RUN.pt. Each
+    step also writes its count to RUN.rank{r}.progress (17d's SIGTERM
+    waits for it)."""
+    import gc
+
+    from lora_tpu_torch.cli import lora_db
+    from lora_tpu_torch.parallel import mesh as mesh_lib
+    from lora_tpu_torch.training import optim
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"rank{os.environ['RANK']}.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    mesh_lib.initialize_distributed_from_env()
+    rank = mesh_lib.rank()
+    reduce_ms, results = [], {}
+    real_mean, real_train = mesh_lib.Mesh.mean_grads, lora_db.train_dreambooth
+
+    def timed_mean(self, params, loss):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_mean(self, params, loss)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def captured(pipe, cfg):
+        results["res"] = real_train(pipe, cfg)
+        return results["res"]
+
+    mesh_lib.Mesh.mean_grads = timed_mean
+    lora_db.train_dreambooth = captured
+    # the group outlives each run's main(); it is left after the last
+    lora_db.finalize_distributed = lambda: None
+    for run in spec["runs"]:
+        out = run["out"]
+        reduce_ms.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_trainer_counts()
+        with timing_trainer_steps({}, progress=f"{out}.rank{rank}.progress",
+                                  loop_peak=True) as rec:
+            sys.argv = ["lora_db", *run["args"]]
+            lora_db.main()
+        torch.cuda.synchronize()
+        res = results.pop("res")
+        record = {"rank": rank, "world": mesh_lib.world_size(),
+                  "device": str(torch.cuda.current_device()),
+                  "losses": [float(x) for x in rec.get("losses", [])],
+                  "step_ms": _step_ms(rec, skip=0),
+                  "reduce_ms": list(reduce_ms), "launches": _launches(),
+                  **_peaks(rec), "steps": res["steps"],
+                  "preempted": res["preempted"]}
+        with open(f"{out}.rank{rank}.json", "w") as f:
+            json.dump(record, f)
+        if rank == 0:
+            torch.save([x.detach().cpu() for x in
+                        optim.tree_leaves(res["trainable"])], f"{out}.pt")
+        del res
+    mesh_lib.finalize_distributed()
+    return 0
+
+
+def _peaks(rec: dict) -> dict:
+    """The run's peak memory and its training loop's (GiB; see
+    timing_trainer_steps's loop_peak)."""
+    loop = torch.cuda.max_memory_allocated() / 2 ** 30
+    return {"peak_memory_gib": max(rec.get("setup_peak_gib", 0.0), loop),
+            "loop_peak_memory_gib": loop}
+
+
+def _dist_launch(root: str, name: str, nproc: int, runs: list,
+                 on_start=None) -> dict:
+    """lora_launch_torch --nproc N -- python chip_smoke.py --dist-rank
+    SPEC with these runs ([(tag, flags)]), from the repo root; the ranks'
+    records by run and rank. on_start(proc, spec_dir) runs while the
+    launch does."""
+    spec_dir = os.path.join(root, name)
+    os.makedirs(spec_dir)
+    spec = {"runs": [{"out": os.path.join(spec_dir, tag),
+                      "args": _cli_args(flags)} for tag, flags in runs]}
+    spec_path = os.path.join(spec_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "lora_tpu_torch.launch", "--nproc",
+           str(nproc), "--", sys.executable, os.path.join(here,
+                                                          "chip_smoke.py"),
+           "--dist-rank", spec_path]
+    t0 = time.perf_counter()
+    log_path = os.path.join(spec_dir, "launch.log")
+    with open(log_path, "w") as logf:
+        # a handshake or collective that hangs raises within the phase
+        proc = subprocess.Popen(cmd, cwd=here, stdout=logf,
+                                stderr=subprocess.STDOUT, text=True,
+                                env={**os.environ,
+                                     "LORA_TPU_TORCH_DIST_TIMEOUT_S": "300"})
+        try:
+            if on_start is not None:
+                on_start(proc, spec_dir)
+            proc.wait(timeout=DIST_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:  # the ranks run in sessions of their
+                # own: each is killed by the pid it wrote
+                for r in range(nproc):
+                    try:
+                        with open(os.path.join(spec_dir,
+                                               f"rank{r}.pid")) as f:
+                            os.kill(int(f.read()), signal.SIGKILL)
+                    except (OSError, ValueError):
+                        pass
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    for line in [ln for ln in lines if "joined a process group" in ln
+                 or "Preempted" in ln or "Resumed" in ln] + lines[-6:]:
+        log(f"dist {name}: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"17 {name}: lora_launch_torch exited "
+                             f"{proc.returncode}:\n" + "\n".join(lines[-40:]))
+    out = {"wall_s": wall, "log": lines}
+    for tag, _ in runs:
+        out[tag] = []
+        for r in range(nproc):
+            with open(os.path.join(spec_dir, f"{tag}.rank{r}.json")) as f:
+                out[tag].append(json.load(f))
+    return out
+
+
+def _dist_leaves(root: str, name: str, tag: str) -> list:
+    return torch.load(os.path.join(root, name, f"{tag}.pt"))
+
+
+def _ref_run(lora_db, model: str, flags: dict) -> dict:
+    """The one-process reference in this process: its per-step losses,
+    step times, launches, peak memory and final leaves."""
+    from lora_tpu_torch.training import optim
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_trainer_counts()
+    with timing_trainer_steps({}, loop_peak=True) as rec:
+        res = lora_db.train(model, device="cuda", **flags)
+    torch.cuda.synchronize()
+    return {"losses": [float(x) for x in rec["losses"]],
+            "step_ms": _step_ms(rec, skip=0), "launches": _launches(),
+            **_peaks(rec), "steps": res["steps"],
+            "leaves": [x.detach().cpu() for x in
+                       optim.tree_leaves(res["trainable"])]}
+
+
+def _same_run(what: str, got_losses, got_leaves, ref: dict) -> dict:
+    """Per-step losses within DIST_LOSS_RTOL and leaves within
+    DIST_TREE_TOL of the largest entry (where the reference has them);
+    the worst differences."""
+    if len(got_losses) != len(ref["losses"]):
+        raise AssertionError(f"{what}: {len(got_losses)} steps, the "
+                             f"reference {len(ref['losses'])}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got_losses,
+                                                        ref["losses"]))
+    tree = 0.0
+    if "leaves" in ref:
+        top = max(float(x.abs().max()) for x in ref["leaves"])
+        tree = max(float((a - b).abs().max()) for a, b in
+                   zip(got_leaves, ref["leaves"])) / top
+    if not (np.isfinite(got_losses).all() and loss_rel <= DIST_LOSS_RTOL
+            and tree <= DIST_TREE_TOL):
+        raise AssertionError(f"{what}: losses {got_losses} against "
+                             f"{ref['losses']} (worst relative "
+                             f"{loss_rel:.3g}), LoRA off by {tree:.3g} of "
+                             f"its largest entry")
+    return {"loss_rel": loss_rel,
+            "lora_rel": tree if "leaves" in ref else None}
+
+
+def _expect_dist_launches(what: str, got: dict, steps: int,
+                          adam: int = 0) -> None:
+    """Every flash launch of `steps` f32 steps through the tf32x3 kernels
+    (_per_step_want's routes)."""
+    dq, dkv, fwd = _per_step_want(torch.float32)
+    want = {"flash_fwd": _scaled(fwd, steps),
+            "flash_bwd_dq": _scaled(dq, steps),
+            "flash_bwd_dkv": _scaled(dkv, steps), "adam8bit": adam}
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, not {want}")
+
+
+def _preempt_rank1(proc, spec_dir: str, tag: str) -> None:
+    """SIGTERM to rank 1 alone once it has made a step of run `tag`."""
+    progress = os.path.join(spec_dir, f"{tag}.rank1.progress")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    while time.monotonic() < deadline and proc.poll() is None:
+        try:
+            with open(progress) as f:
+                done = int(f.read() or 0)
+        except (OSError, ValueError):
+            done = 0
+        if done >= 1:
+            with open(os.path.join(spec_dir, "rank1.pid")) as f:
+                os.kill(int(f.read()), signal.SIGTERM)
+            log(f"dist 17d: SIGTERM to rank 1 after its step {done}")
+            return
+        time.sleep(0.02)
+    raise AssertionError("17d: rank 1 made no step to preempt")
+
+
+def phase_dist(smi: str, trainer_root=None, ref_losses=None) -> dict:
+    """Phase 17 (see its note above): the launcher, the CLI and the mesh
+    on the card; every number from this run. trainer_root: phase 12's
+    directory, whose inputs and class images 17 reuses; ref_losses: 12c's
+    per-step losses, which 17a's are held to (without them 17a runs 12c's
+    flags in this process first)."""
+    from lora_tpu_torch.cli import lora_db
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="lora_dist_") as root:
+        if trainer_root is None:
+            pipe, model, inst = _trainer_inputs(root)
+            del pipe
+            torch.cuda.empty_cache()
+        else:
+            model = os.path.join(trainer_root, "model")
+            inst = os.path.join(trainer_root, "instance")
+            root = os.path.join(trainer_root, "dist")
+            os.makedirs(root)
+        cls = os.path.join(root if trainer_root is None else trainer_root,
+                           "class")
+        common = dict(instance_data_dir=inst,
+                      instance_prompt="a photo of sks dog", resolution=512,
+                      lora_rank=TRAINER_RANK, seed=SEED, learning_rate=1e-4)
+        prior = dict(with_prior_preservation=True, class_data_dir=cls,
+                     class_prompt="a photo of a dog",
+                     num_class_images=TRAINER_CLASS_IMAGES,
+                     sample_steps=TRAINER_SAMPLE_STEPS)
+        # 17a: 12c's run for DIST_STEPS steps as one rank of a group over
+        # NCCL, held to 12c's losses (or, alone, to the same run in this
+        # process first, which makes the class images)
+        flags_a = dict(common, **prior, train_text_encoder=True,
+                       use_8bit_adam=True, max_train_steps=DIST_STEPS,
+                       save_steps=TRAINER_SAVE_STEPS, save_train_state=True,
+                       output_format="both")
+        if ref_losses is None:
+            ref_a = _ref_run(lora_db, model, dict(
+                flags_a, output_dir=os.path.join(root, "ref_a")))
+        else:
+            ref_a = {"losses": list(ref_losses[:DIST_STEPS]),
+                     "step_ms": None}
+        a = _dist_launch(root, "17a", 1, [("a", dict(
+            flags_a, data_parallel=True, device="cuda",
+            pretrained_model_name_or_path=model,
+            output_dir=os.path.join(root, "a")))])
+        if not any("backend=nccl world_size=1" in ln for ln in a["log"]):
+            raise AssertionError("17a: the rank did not join over NCCL")
+        (ra,) = a["a"]
+        _expect_dist_launches("17a", ra["launches"], DIST_STEPS,
+                              adam=2 * DIST_STEPS)
+        out["17a"] = {"launch_wall_s": a["wall_s"], **_same_run(
+            "17a", ra["losses"], _dist_leaves(root, "17a", "a"), ref_a),
+            "losses": ra["losses"], "ref_losses": ref_a["losses"],
+            "ref": "12c" if ref_losses is not None else "this process",
+            "step_ms": ra["step_ms"], "ref_step_ms": ref_a["step_ms"],
+            "launches": ra["launches"],
+            "peak_memory_gib": ra["peak_memory_gib"],
+            "loop_peak_memory_gib": ra["loop_peak_memory_gib"]}
+        log("dist 17a: " + json.dumps(out["17a"]))
+        # 17b-17d: two ranks on the one card over gloo, in one launch
+        flags_b = dict(common, **prior, cached_latents=True,
+                       train_text_encoder=True, max_train_steps=DIST_STEPS,
+                       save_steps=0)
+        flags_c = dict(common, cached_latents=True,
+                       max_train_steps=DIST_FSDP_STEPS, save_steps=0)
+        flags_d = dict(common, cached_latents=True, data_parallel=True,
+                       max_train_steps=DIST_PREEMPT_STEPS, save_steps=0,
+                       preemption_sync_every=1)
+        ref_b = _ref_run(lora_db, model, dict(
+            flags_b, train_batch_size=2,
+            output_dir=os.path.join(root, "ref_b")))
+        ref_c = _ref_run(lora_db, model, dict(
+            flags_c, output_dir=os.path.join(root, "ref_c")))
+        cli = dict(device="cuda", pretrained_model_name_or_path=model)
+        pre_dir = os.path.join(root, "d_pre")
+        two = _dist_launch(root, "17bcd", 2, [
+            ("b", dict(flags_b, **cli, data_parallel=True,
+                       train_batch_size=1,
+                       output_dir=os.path.join(root, "b"))),
+            ("c", dict(flags_c, **cli, fsdp=2,
+                       output_dir=os.path.join(root, "c"))),
+            ("d_pre", dict(flags_d, **cli, output_dir=pre_dir)),
+            ("d_resume", dict(flags_d, **cli,
+                              output_dir=os.path.join(root, "d_resume"),
+                              resume_state=os.path.join(
+                                  pre_dir, "train_state.safetensors")))],
+            on_start=lambda proc, d: _preempt_rank1(proc, d, "d_pre"))
+        if not any("backend=gloo world_size=2 devices=['cuda:0', 'cuda:0']"
+                   in ln for ln in two["log"]):
+            raise AssertionError("17b: the ranks did not share the card "
+                                 "over gloo")
+        # 17b
+        rb = two["b"]
+        for r in rb:
+            _expect_dist_launches(f"17b rank {r['rank']}", r["launches"],
+                                  DIST_STEPS)
+        if rb[0]["losses"] != rb[1]["losses"]:
+            raise AssertionError(f"17b: the ranks' global losses differ: "
+                                 f"{rb[0]['losses']} {rb[1]['losses']}")
+        ref_files = sorted(os.listdir(os.path.join(root, "ref_b")))
+        got_files = sorted(os.listdir(os.path.join(root, "b")))
+        with open(os.path.join(root, "b", "metrics.jsonl")) as f:
+            got_lines = f.read().splitlines()
+        with open(os.path.join(root, "ref_b", "metrics.jsonl")) as f:
+            ref_lines = f.read().splitlines()
+        if got_files != ref_files or len(got_lines) != len(ref_lines):
+            raise AssertionError(f"17b: the output directory holds "
+                                 f"{got_files} and {len(got_lines)} metrics "
+                                 f"lines, one process wrote {ref_files} and "
+                                 f"{len(ref_lines)}")
+        out["17b"] = {**_same_run("17b", rb[0]["losses"],
+                                  _dist_leaves(root, "17bcd", "b"), ref_b),
+                      "losses": rb[0]["losses"],
+                      "ref_losses": ref_b["losses"],
+                      "step_ms": [r["step_ms"] for r in rb],
+                      "ref_step_ms": ref_b["step_ms"],
+                      "reduce_ms": [r["reduce_ms"] for r in rb],
+                      "peak_memory_gib": [r["peak_memory_gib"] for r in rb],
+                      "loop_peak_memory_gib": [r["loop_peak_memory_gib"]
+                                               for r in rb],
+                      "ref_loop_peak_memory_gib":
+                          ref_b["loop_peak_memory_gib"],
+                      "files": got_files}
+        log("dist 17b: " + json.dumps(out["17b"]))
+        # 17c
+        rc = two["c"]
+        for r in rc:
+            _expect_dist_launches(f"17c rank {r['rank']}", r["launches"],
+                                  DIST_FSDP_STEPS)
+        out["17c"] = {**_same_run("17c", rc[0]["losses"],
+                                  _dist_leaves(root, "17bcd", "c"), ref_c),
+                      "losses": rc[0]["losses"],
+                      "ref_losses": ref_c["losses"],
+                      "step_ms": [r["step_ms"] for r in rc],
+                      "ref_step_ms": ref_c["step_ms"],
+                      "peak_memory_gib": [r["peak_memory_gib"] for r in rc],
+                      "loop_peak_memory_gib": [r["loop_peak_memory_gib"]
+                                               for r in rc],
+                      "ref_peak_memory_gib": ref_c["peak_memory_gib"],
+                      "ref_loop_peak_memory_gib":
+                          ref_c["loop_peak_memory_gib"]}
+        log("dist 17c: " + json.dumps(out["17c"]))
+        # 17d
+        pre, resumed = two["d_pre"], two["d_resume"]
+        stops = {(r["steps"], r["preempted"]) for r in pre}
+        if len(stops) != 1 or not pre[0]["preempted"]:
+            raise AssertionError(f"17d: the ranks stopped at (steps, "
+                                 f"preempted) {sorted(stops)}")
+        stop = pre[0]["steps"]
+        made = sorted(os.listdir(pre_dir))
+        if "train_state.safetensors" not in made or any(
+                f.startswith("lora_weight.") for f in made):
+            raise AssertionError(f"17d: the preempted run wrote {made}")
+        ran = [len(r["losses"]) for r in resumed]
+        if any(r["steps"] != DIST_PREEMPT_STEPS or r["preempted"]
+               for r in resumed) or ran != [DIST_PREEMPT_STEPS - stop] * 2:
+            raise AssertionError(f"17d: the resume from step {stop} ran "
+                                 f"{ran} steps to "
+                                 f"{[r['steps'] for r in resumed]}")
+        out["17d"] = {"stopped_at": stop, "resumed_steps": ran[0],
+                      "files": made, "resumed_losses": resumed[0]["losses"]}
+        log("dist 17d: " + json.dumps(out["17d"]))
+        out["launches_wall_s"] = {"17a": a["wall_s"], "17bcd": two["wall_s"]}
+        # the flash and adam8bit launches of every rank of every run
+        runs = [ra] + [r for tag in ("b", "c", "d_pre", "d_resume")
+                       for r in two[tag]]
+        out["launches"] = {w: {k: sum(r["launches"][w][k] for r in runs)
+                               for k in ra["launches"][w]}
+                           for w in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+        out["launches"]["adam8bit"] = sum(r["launches"]["adam8bit"]
+                                          for r in runs)
+        log("dist launches: " + json.dumps(out["launches"]))
+    log(f"dist: {smi}")
+    return out
+
+
+def phase_dist_cards(smi: str) -> dict:
+    """17e, on every card of the host (N >= 2; not part of the full run):
+    lora_db over NCCL, one rank a card, dp = N at train_batch_size 1, and
+    dp = N / 2 x fsdp = 2 at train_batch_size 2 (the NCCL all-gather of
+    the sharded base), each against one process at the global batch N."""
+    from lora_tpu_torch.cli import lora_db
+
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        raise RuntimeError(f"17e needs an even number of cards, found {n}")
+    out = {"cards": n}
+    with tempfile.TemporaryDirectory(prefix="lora_dist_cards_") as root:
+        pipe, model, inst = _trainer_inputs(root)
+        del pipe
+        torch.cuda.empty_cache()
+        flags = dict(instance_data_dir=inst,
+                     instance_prompt="a photo of sks dog", resolution=512,
+                     lora_rank=TRAINER_RANK, seed=SEED, learning_rate=1e-4,
+                     cached_latents=True, train_text_encoder=True,
+                     max_train_steps=DIST_STEPS, save_steps=0)
+        ref = _ref_run(lora_db, model, dict(
+            flags, train_batch_size=n, output_dir=os.path.join(root, "ref")))
+        cli = dict(flags, device="cuda", pretrained_model_name_or_path=model,
+                   data_parallel=True)
+        runs = _dist_launch(root, "17e", n, [
+            ("dp", dict(cli, train_batch_size=1,
+                        output_dir=os.path.join(root, "dp"))),
+            ("fsdp", dict(cli, fsdp=2, train_batch_size=2,
+                          output_dir=os.path.join(root, "fsdp")))])
+        if not any(f"backend=nccl world_size={n}" in ln
+                   for ln in runs["log"]):
+            raise AssertionError("17e: the ranks did not join over NCCL")
+        for tag in ("dp", "fsdp"):
+            for r in runs[tag]:
+                _expect_dist_launches(f"17e {tag} rank {r['rank']}",
+                                      r["launches"], DIST_STEPS)
+            out[tag] = {
+                **_same_run(f"17e {tag}", runs[tag][0]["losses"],
+                            _dist_leaves(root, "17e", tag), ref),
+                "losses": runs[tag][0]["losses"],
+                "step_ms": [r["step_ms"] for r in runs[tag]],
+                "reduce_ms": [r["reduce_ms"] for r in runs[tag]],
+                "loop_peak_memory_gib": [r["loop_peak_memory_gib"]
+                                         for r in runs[tag]],
+                "peak_memory_gib": [r["peak_memory_gib"]
+                                    for r in runs[tag]]}
+            log(f"dist 17e {tag}: " + json.dumps(out[tag]))
+        out["ref"] = {"losses": ref["losses"], "step_ms": ref["step_ms"],
+                      "loop_peak_memory_gib": ref["loop_peak_memory_gib"],
+                      "peak_memory_gib": ref["peak_memory_gib"]}
+        out["wall_s"] = runs["wall_s"]
+        log("dist 17e ref: " + json.dumps(out["ref"]))
+    log(f"dist 17e: {smi}")
+    return out
+
+
+def add_dist_launches(kernels: list, dist: dict) -> None:
+    """Each flash row of the kernels line, and the adam8bit row, gains
+    phase 17's launches of its kernel, summed over every rank ("dist")."""
+    for row in kernels:
+        if row["name"] == "adam8bit":
+            n = dist["launches"]["adam8bit"]
+        elif row["name"] in FLASH_ROW_ROUTES:
+            wrapper, route = FLASH_ROW_ROUTES[row["name"]]
+            n = dist["launches"][wrapper][route]
+        else:
+            continue
+        row["launches"] += n
+        row["launches_by_path"]["dist"] = n
+
+
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
     """Every flash forward call and int8 call recorded on the main paths was
     checked against its plain version: its shapes (and for flash, dtype and
@@ -5961,20 +6541,29 @@ def main_int8(tiles: bool) -> int:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        log(f"time: {what} done at {time.perf_counter() - t0:.1f} s")
+
     smi = phase_device()
     phase_build()
-    int8_f32_probe()
-    tf32x3_fwd_probe()
-    dq_probe()
-    dkv_probe()
-    tf32x3_dq_probe()
-    tf32x3_probe()
-    tf32x3_wide_dq_probe()
-    tf32x3_wide_probe()
+    stamp("build")
+    with probes_together():
+        int8_f32_probe()
+        tf32x3_fwd_probe()
+        dq_probe()
+        dkv_probe()
+        tf32x3_dq_probe()
+        tf32x3_probe()
+        tf32x3_wide_dq_probe()
+        tf32x3_wide_probe()
+    stamp("probes")
     rows = phase_kernels()
     fwd_sums = flash_call_sums(rows)
     bwd_rows = phase_bwd_kernels()
     bwd_sums = bwd_step_sums(bwd_rows)
+    stamp("phases 3-4")
     with recording_flash_shapes(set()) as flash_seen:
         serve_fwd, bf16_request_s = phase_slice(smi)
         train_launches, train_fwd, train_dq, train_dkv = phase_train(smi)
@@ -5990,18 +6579,32 @@ def main() -> int:
             modes_fwd, modes_int8 = phase_modes(smi)
             adapters_fwd, adapters_f32, adapters_int8 = phase_adapters(smi)
     check_recorded(flash_seen, rows, seen, int8_rows)
-    trainer = phase_trainer(smi, rows, bwd_rows)
+    stamp("phases 5-11")
+    # phase 12's inputs and class images outlive it: phase 17 reuses them
+    sd_root = tempfile.mkdtemp(prefix="lora_db_")
+    trainer = phase_trainer(smi, rows, bwd_rows, sd_root)
+    stamp("phase 12")
     pti = phase_pti(smi, rows, bwd_rows)
+    stamp("phase 13")
     sdxl = phase_sdxl(smi)
+    stamp("phase 14")
     # phase 15's SDXL directory outlives it: phase 16b distills against it
     xl_root = tempfile.mkdtemp(prefix="sdxl_model_")
     try:
         xl_dir = os.path.join(xl_root, "model")
         sdxl_train = phase_sdxl_train(smi, xl_dir)
+        stamp("phase 15")
         tools = phase_tools(smi, xl_dir)
+        stamp("phase 16")
     finally:
         shutil.rmtree(xl_root, ignore_errors=True)
     check_tools_shapes(tools, rows)
+    try:
+        dist = phase_dist(smi, sd_root,
+                          trainer["counted"]["step_losses"])
+    finally:
+        shutil.rmtree(sd_root, ignore_errors=True)
+    stamp("phase 17")
     # the trainer's launches by wrapper: f32 (12c and 12d), bf16 (12e)
     trainer_f32 = _added_launches(trainer["counted"]["launches"],
                                   trainer["resumed"]["launches"])
@@ -6558,6 +7161,7 @@ def main() -> int:
     add_sdxl_launches(kernels, sdxl)
     add_sdxl_train_launches(kernels, sdxl_train)
     add_tools_launches(kernels, tools)
+    add_dist_launches(kernels, dist)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -6669,6 +7273,45 @@ def main_sdxl_train() -> int:
     return 0
 
 
+def main_dist() -> int:
+    """Phases 1, 2 (the flash sources and adam8bit.cu), the tf32x3
+    kernels' first calls in child processes, and 17; then phase 17's
+    launches by kernel."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_tf32x3", "flash_bwd",
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
+                 "flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3_wide",
+                 "adam8bit"])
+    with probes_together():
+        tf32x3_fwd_probe()
+        tf32x3_dq_probe()
+        tf32x3_probe()
+        tf32x3_wide_dq_probe()
+        tf32x3_wide_probe()
+    dist = phase_dist(smi)
+    log("dist launches: " + json.dumps(dist["launches"]))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_dist_cards() -> int:
+    """Phases 1, 2 (the f32 flash sources) and 17e on every card of the
+    host (four cards of one host, joined by NVLink, in the runs so far)."""
+    smi = phase_device()
+    phase_build(["flash_fwd", "flash_fwd_tf32x3", "flash_bwd",
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3_wide",
+                 "flash_bwd_dq_tf32x3", "flash_bwd_dq_tf32x3_wide"])
+    phase_dist_cards(smi)
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main_tools() -> int:
     """Phases 1, 2 (flash_fwd_wgmma.cu, which phase 16 runs, and
     flash_fwd.cu, which phase 3 calls beside it) and 16; then phase 3's
@@ -6722,8 +7365,15 @@ if __name__ == "__main__":
         sys.exit(main_sdxl_train())
     if sys.argv[1:] == ["--tools"]:
         sys.exit(main_tools())
+    if sys.argv[1:] == ["--dist"]:
+        sys.exit(main_dist())
+    if sys.argv[1:] == ["--dist-cards"]:
+        sys.exit(main_dist_cards())
+    if sys.argv[1:2] == ["--dist-rank"] and len(sys.argv) == 3:
+        sys.exit(dist_rank_worker(sys.argv[2]))
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
                  f"--flash-bwd | --modes | --adapters | --train | --pti | "
-                 f"--sdxl | --sdxl-train | --tools]")
+                 f"--sdxl | --sdxl-train | --tools | --dist | "
+                 f"--dist-cards]")
     sys.exit(main())

@@ -8,7 +8,9 @@ lora_tpu/cli/lora_db.py:
 (installed as the console script lora_db_torch). DIR is a diffusers-layout
 SD-1.x / SD-2.x directory, or an SDXL one (with text_encoder_2/), which
 trains the XL way and writes kohya-XL files (--output_format safe);
-training runs on the card unless --device cpu.
+training runs on the card unless --device cpu. Under lora_launch_torch it
+joins the process group first, and --data_parallel / --fsdp N train across
+the ranks, each on its own device (cuda means the rank's card).
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ import torch
 from ..pipelines.sd import StableDiffusionPipeline
 from ..pipelines.sdxl import StableDiffusionXLPipeline
 from ..training.dreambooth import DreamBoothConfig, train_dreambooth
+from ..parallel.mesh import (
+    finalize_distributed,
+    initialize_distributed_from_env,
+    rank_device,
+)
 from ._fire import coerce_kwargs_to_dataclass, fire
 
 
@@ -36,12 +43,18 @@ def train(pretrained_model_name_or_path: str = "",
         pretrained_model_name_or_path, "text_encoder_2"))
         else StableDiffusionPipeline)
     pipe = pipe_cls.from_pretrained(pretrained_model_name_or_path,
-                                    dtype=dtype, device=device)
+                                    dtype=dtype, device=rank_device(device))
     return train_dreambooth(pipe, cfg)
 
 
 def main():
-    fire(train)
+    # join a lora_launch_torch process group, if one is configured, before
+    # anything is loaded
+    initialize_distributed_from_env()
+    try:
+        fire(train)
+    finally:
+        finalize_distributed()
 
 
 if __name__ == "__main__":

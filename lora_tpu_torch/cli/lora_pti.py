@@ -17,6 +17,11 @@ import torch
 
 from ..pipelines.sd import StableDiffusionPipeline
 from ..training.pti import PTIConfig, train_pti
+from ..parallel.mesh import (
+    finalize_distributed,
+    initialize_distributed_from_env,
+    rank_device,
+)
 from ._fire import coerce_kwargs_to_dataclass, fire
 
 
@@ -28,12 +33,19 @@ def train(pretrained_model_name_or_path: str = "", device: str = "cuda",
     kwargs = coerce_kwargs_to_dataclass(PTIConfig, kwargs)
     cfg = PTIConfig(mixed_precision=mixed_precision, **kwargs)
     pipe = StableDiffusionPipeline.from_pretrained(
-        pretrained_model_name_or_path, dtype=dtype, device=device)
+        pretrained_model_name_or_path, dtype=dtype,
+        device=rank_device(device))
     return train_pti(pipe, cfg)
 
 
 def main():
-    fire(train)
+    # join a lora_launch_torch process group, if one is configured, before
+    # anything is loaded
+    initialize_distributed_from_env()
+    try:
+        fire(train)
+    finally:
+        finalize_distributed()
 
 
 if __name__ == "__main__":

@@ -15,6 +15,11 @@ import torch
 
 from ..pipelines.sd import StableDiffusionPipeline
 from ..training.ti_legacy import LegacyTiConfig, train_ti_lora_legacy
+from ..parallel.mesh import (
+    finalize_distributed,
+    initialize_distributed_from_env,
+    rank_device,
+)
 from ._fire import coerce_kwargs_to_dataclass, fire
 
 
@@ -26,12 +31,19 @@ def train(pretrained_model_name_or_path: str = "", device: str = "cuda",
     kwargs = coerce_kwargs_to_dataclass(LegacyTiConfig, kwargs)
     cfg = LegacyTiConfig(mixed_precision=mixed_precision, **kwargs)
     pipe = StableDiffusionPipeline.from_pretrained(
-        pretrained_model_name_or_path, dtype=dtype, device=device)
+        pretrained_model_name_or_path, dtype=dtype,
+        device=rank_device(device))
     return train_ti_lora_legacy(pipe, cfg)
 
 
 def main():
-    fire(train)
+    # join a lora_launch_torch process group, if one is configured, before
+    # anything is loaded
+    initialize_distributed_from_env()
+    try:
+        fire(train)
+    finally:
+        finalize_distributed()
 
 
 if __name__ == "__main__":

@@ -355,14 +355,23 @@ def _maybe_diag(h: torch.Tensor, entry: dict, channel_dim: int) -> torch.Tensor:
 
 
 def _dropout(d: torch.Tensor, generator: Optional[torch.Generator],
-             p: float) -> torch.Tensor:
+             p: float, rows: Optional[Tuple[int, int]] = None
+             ) -> torch.Tensor:
     """The JAX package's bypass dropout (lora_tpu/core/lora.py:381-383):
     keep each element with probability 1 - p and scale it by 1 / (1 - p).
     The mask comes from `generator` (one per site and step), so a
-    checkpointed recompute draws the same mask."""
+    checkpointed recompute draws the same mask. rows = (first, total): d
+    holds those rows of a batch of `total` (a data-parallel rank's block),
+    and the mask is the whole batch's, cut to them."""
     if generator is None or p <= 0.0:
         return d
-    keep = torch.rand(d.shape, generator=generator, device=d.device) < 1.0 - p
+    if rows is None:
+        keep = torch.rand(d.shape, generator=generator, device=d.device)
+    else:
+        first, total = rows
+        keep = torch.rand((total,) + tuple(d.shape[1:]), generator=generator,
+                          device=d.device)[first:first + d.shape[0]]
+    keep = keep < 1.0 - p
     return torch.where(keep, d / (1.0 - p), torch.zeros((), dtype=d.dtype,
                                                         device=d.device))
 
@@ -370,7 +379,9 @@ def _dropout(d: torch.Tensor, generator: Optional[torch.Generator],
 def lora_delta_dense(x: torch.Tensor, entry: dict, scale: torch.Tensor,
                      dropout_generator: Optional[torch.Generator] = None,
                      dropout_p: float = 0.0,
-                     idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     idx: Optional[torch.Tensor] = None,
+                     dropout_rows: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
     """scale * up(selector(down(x))) for a linear site. x: (..., in).
 
     Stacked adapters (up (K, out, r)) route each batch element through
@@ -379,7 +390,8 @@ def lora_delta_dense(x: torch.Tensor, entry: dict, scale: torch.Tensor,
     masks the bypass output before the scale."""
     dt = x.dtype
     if "delta" in entry:
-        d = _dropout(x @ entry["delta"].to(dt).T, dropout_generator, dropout_p)
+        d = _dropout(x @ entry["delta"].to(dt).T, dropout_generator, dropout_p,
+                     dropout_rows)
         return d * scale.to(dt)
     down, up = entry["down"], entry["up"]
     if up.ndim == 3:
@@ -393,7 +405,7 @@ def lora_delta_dense(x: torch.Tensor, entry: dict, scale: torch.Tensor,
         return d * s.reshape((-1,) + (1,) * (d.ndim - 1))
     h = x @ down.to(dt).T
     h = _maybe_diag(h, entry, -1)
-    d = _dropout(h @ up.to(dt).T, dropout_generator, dropout_p)
+    d = _dropout(h @ up.to(dt).T, dropout_generator, dropout_p, dropout_rows)
     return d * scale.to(dt)
 
 
@@ -401,7 +413,9 @@ def lora_delta_conv(x: torch.Tensor, entry: dict, scale: torch.Tensor,
                     stride: Tuple[int, int], padding: Tuple[int, int],
                     dropout_generator: Optional[torch.Generator] = None,
                     dropout_p: float = 0.0,
-                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    idx: Optional[torch.Tensor] = None,
+                    dropout_rows: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
     """Conv LoRA bypass: down conv in the site's geometry, then a 1x1 up
     conv. x: NCHW; kernels OIHW.
 
@@ -412,7 +426,8 @@ def lora_delta_conv(x: torch.Tensor, entry: dict, scale: torch.Tensor,
     dt = x.dtype
     if "delta" in entry:
         d = F.conv2d(x, entry["delta"].to(dt), stride=stride, padding=padding)
-        return _dropout(d, dropout_generator, dropout_p) * scale.to(dt)
+        return (_dropout(d, dropout_generator, dropout_p, dropout_rows)
+                * scale.to(dt))
     down, up = entry["down"], entry["up"]
     if up.ndim == 5:
         if idx is None:
@@ -431,5 +446,6 @@ def lora_delta_conv(x: torch.Tensor, entry: dict, scale: torch.Tensor,
         return d * s[:, None, None, None]
     dn = F.conv2d(x, down.to(dt), stride=stride, padding=padding)
     dn = _maybe_diag(dn, entry, 1)
-    d = _dropout(F.conv2d(dn, up.to(dt)), dropout_generator, dropout_p)
+    d = _dropout(F.conv2d(dn, up.to(dt)), dropout_generator, dropout_p,
+                 dropout_rows)
     return d * scale.to(dt)

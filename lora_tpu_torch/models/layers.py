@@ -13,7 +13,13 @@ functions pay no copy for it. Every dense/conv consults an optional LoRA
 tree (core/lora.py) by its own param name:
 
     lora = {"sites": {name: {"up", "down"[, "diag"]}}, "scale": tensor,
-            "dropout_p": float, "rng": int step seed | None}
+            "dropout_p": float, "rng": int step seed | None,
+            "rows": (first, total) | None}
+
+("rows": a data-parallel rank's block of the global batch, whose dropout
+masks are the global batch's, cut to the block.) The params may be any
+mapping: under FSDP (parallel/mesh.py ShardedParams) reading a weight
+gathers it.
 """
 
 from __future__ import annotations
@@ -148,14 +154,14 @@ def dense(p: Params, name: str, x: torch.Tensor, lora=None) -> torch.Tensor:
         y = int8_matmul(x, w, p[name + ".weight" + SCALE_SUFFIX])
         if b is not None:
             y = y + b.to(x.dtype)
-    else:
-        y = F.linear(x, dequantize_weight(p, name + ".weight", x.dtype),
-                     None if b is None else b.to(x.dtype))
+    else:  # a float weight (dequantize_weight's w.to(dtype)), read once
+        y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
     entry = _lora_entry(lora, name)
     if entry is not None:
         gen, drop = _lora_dropout(lora, name, x.device)
         y = y + lora_delta_dense(x, entry, lora["scale"], gen, drop,
-                                 idx=lora.get("idx"))
+                                 idx=lora.get("idx"),
+                                 dropout_rows=lora.get("rows"))
     return y
 
 
@@ -176,7 +182,8 @@ def conv2d(
     if entry is not None:
         gen, drop = _lora_dropout(lora, name, x.device)
         y = y + lora_delta_conv(x, entry, lora["scale"], stride, padding,
-                                gen, drop, idx=lora.get("idx"))
+                                gen, drop, idx=lora.get("idx"),
+                                dropout_rows=lora.get("rows"))
     return y
 
 

@@ -4,9 +4,10 @@ The C source is compiled with $CC (default cc) into a shared library with a
 plain C entry point and loaded with ctypes, as ops/build.py builds the CUDA
 kernels: no Python headers are needed. It is built at first use into
 ops/build.py's build_dir(), cached by a key over the source and the flags,
-and nothing is compiled at import. A failed build or load raises with the
-compiler's message: the caller asked for the native path, and there is no
-quiet fallback.
+under that directory's build lock (ops/build.py build_lock: one process
+compiles, the others wait and load), and nothing is compiled at import. A
+failed build or load raises with the compiler's message: the caller asked
+for the native path, and there is no quiet fallback.
 """
 
 from __future__ import annotations
@@ -36,14 +37,20 @@ def _key(cc: str) -> str:
 
 def build() -> str:
     """The library's path, compiling native/imgops.c first if needed."""
-    from ..ops.build import build_dir
+    from ..ops.build import build_dir, build_lock
 
     cc = os.environ.get("CC", "cc")
     out_dir = build_dir()
     path = os.path.join(out_dir, f"imgops_{_key(cc)}.so")
     if os.path.exists(path):
         return path
-    os.makedirs(out_dir, exist_ok=True)
+    with build_lock(out_dir):  # another process may have built it
+        if not os.path.exists(path):
+            _compile(cc, out_dir, path)
+    return path
+
+
+def _compile(cc: str, out_dir: str, path: str) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
@@ -62,7 +69,6 @@ def build() -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return path
 
 
 def load() -> ctypes.CDLL:

@@ -10,13 +10,18 @@ else, where the package directory cannot be written (an installed wheel),
 lora_tpu_torch/build under the user's cache directory. The first CUDA call
 of a kernel wrapper builds only the library it needs; build() with no
 arguments compiles them all, one nvcc process per source, all started
-together. Nothing is compiled at import, and a failed or impossible build
+together. Processes that share the build directory (the ranks of a
+process group at their first call) build under an flock on
+<build dir>/.build.lock: one compiles, the others wait and load its
+libraries. Nothing is compiled at import, and a failed or impossible build
 raises (CUDA tensors have no other path).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -48,6 +53,19 @@ def build_dir() -> str:
     cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
         os.path.expanduser("~"), ".cache")
     return os.path.join(cache, "lora_tpu_torch", "build")
+
+
+@contextlib.contextmanager
+def build_lock(out_dir: str):
+    """An exclusive flock on out_dir/.build.lock for the block: builds into
+    one directory from several processes run one at a time."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".build.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _find_nvcc() -> Optional[str]:
@@ -94,15 +112,23 @@ def build(stems: Optional[Iterable[str]] = None) -> Dict[str, str]:
     out_dir = build_dir()
     paths = {stem: os.path.join(out_dir, f"{stem}_{_key(src)}.so")
              for stem, src in sources.items()}
+    if all(os.path.exists(path) for path in paths.values()):
+        return paths
+    with build_lock(out_dir):  # another process may have built them
+        _build_missing(sources, paths, out_dir)
+    return paths
+
+
+def _build_missing(sources: Dict[str, str], paths: Dict[str, str],
+                   out_dir: str) -> None:
     todo = [stem for stem, path in paths.items() if not os.path.exists(path)]
     if not todo:
-        return paths
+        return
     nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (CUDA_HOME/bin/nvcc or PATH): the CUDA kernels "
             "cannot be built, and CUDA tensors have no other path")
-    os.makedirs(out_dir, exist_ok=True)
     tmps, procs = {}, {}
     try:
         for stem in todo:
@@ -130,7 +156,6 @@ def build(stems: Optional[Iterable[str]] = None) -> Dict[str, str]:
         for tmp in tmps.values():
             if os.path.exists(tmp):
                 os.remove(tmp)
-    return paths
 
 
 def load_library(stem: str) -> ctypes.CDLL:

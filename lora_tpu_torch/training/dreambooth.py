@@ -1,5 +1,5 @@
 """The DreamBooth-LoRA trainer, the counterpart of
-lora_tpu/training/dreambooth.py for one process: prior preservation with
+lora_tpu/training/dreambooth.py: prior preservation with
 class images generated on the fly, dual UNet / text learning rates, cached
 latents and text embeddings, resume from .pt adapters or from a full train
 state, preemption on SIGTERM, and periodic and final saves in the .pt and
@@ -18,12 +18,20 @@ state), the class images from seed + 1000 + s. The host reads the loss
 only where lora_tpu does, at step 1 and every 10th step; in between
 nothing waits for the device.
 
-Not ported yet: device meshes (fsdp / tensor_parallel, ROADMAP Slice 7);
-they raise. data_parallel on one device is no mesh, as in lora_tpu.
+Across processes (parallel/mesh.py; lora_launch_torch): data_parallel
+spreads the global batch (train_batch_size x dp) over the ranks, fsdp
+shards the frozen base (its full weights wait in host memory for the run).
+Every rank draws the same sample stream and random draws and keeps its
+block, so the run is one process's at the global batch. Only rank 0 writes
+(metrics, artifacts, train state, class images; the others wait at a
+barrier), and a SIGTERM to any rank stops all of them at the same step.
+With one rank data_parallel and fsdp are no mesh, as in lora_tpu;
+tensor_parallel > 1 raises (ROADMAP Slice 7b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -58,6 +66,7 @@ from ..formats.safetensors_io import (
 )
 from ..models.clip import clip_text_forward, dual_encode
 from ..models.vae import vae_encode
+from ..parallel import mesh as mesh_lib
 from ..utils.metrics import MetricsLogger
 from .checkpoint import PreemptionGuard, load_train_state, save_train_state
 from .loss import LossConfig, ids2_from_ids
@@ -106,10 +115,11 @@ class DreamBoothConfig:
     mixed_precision: Optional[str] = None  # None | "bf16"
     cached_latents: bool = False
     cache_text_embeddings: bool = True  # off when the text encoder trains
-    # mesh flags (lora_tpu's): data_parallel on one device is no mesh;
-    # fsdp / tensor_parallel > 1 are not ported yet (ROADMAP Slice 7)
+    # mesh flags (lora_tpu's, parallel/mesh.py): data_parallel and fsdp
+    # over the process group (no mesh on one rank); tensor_parallel > 1 is
+    # not ported (ROADMAP Slice 7b)
     data_parallel: bool = False
-    preemption_sync_every: int = 10  # multi-process only (Slice 7)
+    preemption_sync_every: int = 10  # multi-process only
     fsdp: int = 1
     tensor_parallel: int = 1
     scale_lr: bool = False   # lr *= ga * per-device batch * dp
@@ -194,16 +204,10 @@ def _sites(pipe, cfg: DreamBoothConfig):
                      f"got {cfg.lora_targets!r}")
 
 
-def _check_unported(pipe, cfg: DreamBoothConfig) -> None:
-    if cfg.fsdp > 1 or cfg.tensor_parallel > 1:
+def _check_unported(cfg: DreamBoothConfig) -> None:
+    if cfg.tensor_parallel > 1:
         raise NotImplementedError(
-            f"fsdp={cfg.fsdp} / tensor_parallel={cfg.tensor_parallel}: a "
-            "device mesh is not ported yet (ROADMAP Slice 7)")
-    if (cfg.data_parallel and pipe.device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "data_parallel over several GPUs is not ported yet (ROADMAP "
-            "Slice 7); on one device it is no mesh")
+            f"tensor_parallel={cfg.tensor_parallel}: {mesh_lib.NO_TP}")
 
 
 def _cached_latents(pipe, ds, cfg, dtype):
@@ -235,19 +239,27 @@ def _cached_latents(pipe, ds, cfg, dtype):
     return inst, cls_items
 
 
-def _cached_loader(inst, cls_items, cfg, batch_size, device, ids_on_host):
+def _cached_loader(inst, cls_items, cfg, batch_size, device, ids_on_host,
+                   shard=mesh_lib.BatchShard(0, 1)):
     """lora_tpu's cached-latent sample stream: random.Random(seed) picks
-    batch_size instance items (and as many class items), [instance |
-    class]."""
+    batch_size (global) instance items (and as many class items), [instance
+    | class]; every rank draws the same picks and keeps its block (shard:
+    the dp index and count), so with prior preservation on two ranks one
+    holds only instance rows and the other only class rows."""
     r = random.Random(cfg.seed)
+    rows = 2 * batch_size if cfg.with_prior_preservation else batch_size
+    per = rows // shard.count
+    own = slice(shard.index * per, (shard.index + 1) * per)
     is_inst = torch.cat([torch.ones(batch_size), torch.zeros(batch_size)]
-                        ).to(device) if cfg.with_prior_preservation else None
+                        )[own].to(device) if cfg.with_prior_preservation \
+        else None
     dev_ids = {}
     while True:
         picks = [inst[r.randrange(len(inst))] for _ in range(batch_size)]
         if cfg.with_prior_preservation:
             picks += [cls_items[r.randrange(len(cls_items))]
                       for _ in range(batch_size)]
+        picks = picks[own]
         ids = np.stack([i for _, i in picks])
         if not ids_on_host:  # each row layout uploaded once
             key = ids.tobytes()
@@ -265,18 +277,30 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     is_xl = _is_xl(pipe)
     if is_xl:
         _check_xl(cfg)
-    _check_unported(pipe, cfg)
+    _check_unported(cfg)
     os.makedirs(cfg.output_dir, exist_ok=True)
     device = pipe.device
     dtype = torch.bfloat16 if cfg.mixed_precision == "bf16" else torch.float32
-    log = MetricsLogger(os.path.join(cfg.output_dir, "metrics.jsonl"))
+    # only rank 0 writes to the shared output directory
+    main = mesh_lib.is_main_process()
+    log = MetricsLogger(os.path.join(cfg.output_dir, "metrics.jsonl")
+                        if main else None, echo=main)
 
     if cfg.with_prior_preservation:
         if not (cfg.class_data_dir and cfg.class_prompt):
             raise ValueError("with_prior_preservation needs class_data_dir "
                              "and class_prompt")
-        generate_class_images(pipe, cfg)
-    batch_size = cfg.train_batch_size  # one process, no mesh: dp = 1
+        if main:
+            generate_class_images(pipe, cfg)
+        # the other ranks wait for the files before building the dataset
+        mesh_lib.multihost_barrier("class_images")
+    mesh = mesh_lib.mesh_from_flags(cfg.data_parallel, cfg.fsdp,
+                                    cfg.tensor_parallel)
+    mesh_lib.warm_collectives(mesh)  # in lockstep, before the first step
+    dp = mesh_lib.data_parallel_size(mesh)
+    shard = mesh_lib.batch_sharding(mesh)
+    # per-chip batch semantics: every rank sees train_batch_size examples
+    batch_size = cfg.train_batch_size * dp
 
     usites, tsites = _sites(pipe, cfg)
     tsites2 = _text2_sites(pipe, cfg)
@@ -302,6 +326,7 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
                 generator=torch.Generator(device).manual_seed(cfg.seed + 2),
                 device=device)
     make_trainable(trainable)
+    mesh_lib.replicate_tree(trainable, mesh)
 
     ds = DreamBoothDataset(
         instance_data_root=cfg.instance_data_dir,
@@ -326,11 +351,13 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     if cfg.cached_latents:
         inst, cls_items = _cached_latents(pipe, ds, cfg, dtype)
         loader = _cached_loader(inst, cls_items, cfg, batch_size, device,
-                                ids_on_host=cache_text)
+                                ids_on_host=cache_text, shard=shard)
     else:
+        # each dp index loads its block from its shard of the sample stream
         host = prefetch(data_loader(
-            ds, batch_size, seed=cfg.seed,
+            ds, batch_size // dp, seed=cfg.seed,
             prior_preservation=cfg.with_prior_preservation,
+            process_index=shard.index, process_count=dp,
             num_workers=cfg.dataloader_num_workers))
         closers.append(host)
         loader = device_prefetch(
@@ -338,7 +365,7 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
             keep_on_host=("input_ids",) if cache_text else ())
     closers.append(loader)
 
-    lr_scale = (cfg.gradient_accumulation_steps * cfg.train_batch_size
+    lr_scale = (cfg.gradient_accumulation_steps * cfg.train_batch_size * dp
                 if cfg.scale_lr else 1)
     lrs = {"lora_unet": make_lr_schedule(
         cfg.lr_scheduler, cfg.learning_rate * lr_scale, cfg.max_train_steps,
@@ -363,15 +390,21 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     step_fn = make_train_step(
         unet_cfg=pipe.unet.cfg, text_cfg=pipe.text_encoder.cfg,
         vae_cfg=pipe.vae.cfg, sched=pipe.schedule, loss_cfg=loss_cfg,
-        optimizer=opt, dtype=dtype,
+        optimizer=opt, dtype=dtype, mesh=mesh,
         text2_cfg=pipe.text_encoder_2.cfg if is_xl else None,
         eos_id=eos if is_xl else None)
-    base = ((pipe.unet.flat_params(), pipe.text_encoder.flat_params())
-            + ((pipe.text_encoder_2.flat_params(),) if is_xl else ())
-            + (pipe.vae.flat_params(),))
+    modules = ((pipe.unet, pipe.text_encoder)
+               + ((pipe.text_encoder_2,) if is_xl else ()) + (pipe.vae,))
+    base = tuple(m.flat_params() for m in modules)
+    fsdp = mesh is not None and mesh.shape["fsdp"] > 1
+    if fsdp:
+        base = tuple(mesh_lib.shard_params(p, mesh, use_fsdp=True)
+                     for p in base)
 
     @torch.no_grad()
     def save(step_tag: str, final=False):
+        if not main:
+            return
         name = "lora_weight" if final else f"lora_weight_s{step_tag}"
         path = os.path.join(cfg.output_dir, name)
         lu, lt = trainable.get("lora_unet"), trainable.get("lora_text")
@@ -447,17 +480,24 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     global_step = start_step
     preempted = False
     loss = torch.tensor(float("nan"))  # defined even if the loop never runs
+    # every rank stops at the same step, whichever got the signal
+    stop = mesh_lib.PreemptionCoordinator(cfg.preemption_sync_every)
     try:
-        with PreemptionGuard() as guard:  # handler restored even on raise
+        with contextlib.ExitStack() as stack:
+            if fsdp:  # the device keeps the shards; the pipe's full weights
+                # wait on the host
+                stack.enter_context(mesh_lib.host_offloaded(modules))
+            guard = stack.enter_context(PreemptionGuard())
             for micro in range(start_step * ga, cfg.max_train_steps * ga):
-                if guard.should_stop:
+                if stop.should_stop(guard.should_stop, micro):
                     # checkpoint the full train state so resume_state goes
                     # on exactly here
-                    save_train_state(state_path, trainable, opt, global_step,
-                                     rng)
-                    save(f"preempt_{global_step}")
-                    print(f"Preempted at step {global_step}; train state "
-                          "saved")
+                    if main:
+                        save_train_state(state_path, trainable, opt,
+                                         global_step, rng)
+                        save(f"preempt_{global_step}")
+                        print(f"Preempted at step {global_step}; train "
+                              "state saved")
                     preempted = True
                     break
                 batch = next(loader)
@@ -491,14 +531,15 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
                     log.log(**kw)
                 if cfg.save_steps and global_step % cfg.save_steps == 0:
                     save(str(global_step))
-                    if cfg.save_train_state:
+                    if cfg.save_train_state and main:
                         save_train_state(state_path, trainable, opt,
                                          global_step, rng)
-                    with torch.no_grad():
-                        moved = sorted(lora_core.inspect_lora(
-                            trainable["lora_unet"]).items())[:4]
-                    print("moved:", json.dumps(
-                        {k: round(v[0], 6) for k, v in moved}))
+                    if main:
+                        with torch.no_grad():
+                            moved = sorted(lora_core.inspect_lora(
+                                trainable["lora_unet"]).items())[:4]
+                        print("moved:", json.dumps(
+                            {k: round(v[0], 6) for k, v in moved}))
     finally:
         for it in reversed(closers):  # ends the prefetch thread
             it.close()

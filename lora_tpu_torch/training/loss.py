@@ -18,6 +18,14 @@ LoRA dropout seed) come from an explicit torch.Generator, in that order.
 torch cannot give jax.random's bits, so a caller can hand any of them in
 instead (`noise=`, `timesteps=`, `vae_noise=`, `masked_vae_noise=`,
 `dropout_seed=`): the parity tests draw them with jax.random and pass them.
+
+Under a data-parallel mesh (parallel/mesh.py) each rank holds its block of
+the global batch. Every draw is the global batch's, from the same seeded
+generator on every rank (or handed in for the global batch), cut to the
+rank's rows, dropout masks included; the batch-wide reductions (the prior
+term's counts, the mask's peak) are global. The returned loss is then the
+rank's share: its mean over the dp ranks is the loss of the global batch,
+and so is its gradient (training/train_step.py averages both).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from ..models import schedulers
 from ..models.clip import clip_text_forward, dual_encode
 from ..models.config import CLIPTextConfig, UNetConfig, VAEConfig
 from ..models.unet import unet_forward
-from ..models.vae import vae_encode
+from ..models.vae import vae_encode_moments, vae_sample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +61,32 @@ def _resize_mask_nearest(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     ys = (torch.arange(h, dtype=torch.float32) * (H / h)).long()
     xs = (torch.arange(w, dtype=torch.float32) * (W / w)).long()
     return mask[:, ys.to(mask.device)][:, :, xs.to(mask.device)]
+
+
+def _rows(mesh, b: int):
+    """(first row, global rows) of this rank's block of b rows."""
+    if mesh is None or mesh.shape["dp"] == 1:
+        return 0, b
+    return mesh.coords["dp"] * b, mesh.shape["dp"] * b
+
+
+def _own(x: torch.Tensor, first: int, b: int, total: int) -> torch.Tensor:
+    """This rank's rows of a global-batch draw."""
+    return x if total == b else x[first:first + b]
+
+
+def _encode(vae_params, x, vae_cfg, generator, noise, first, total):
+    """vae_encode with the posterior noise drawn for the global batch."""
+    moments = vae_encode_moments(vae_params, x, vae_cfg)
+    b = x.shape[0]
+    if noise is None:
+        if generator is None:
+            raise ValueError("vae_sample needs a generator or the noise")
+        noise = torch.randn((total,) + tuple(moments.shape[1:-1])
+                            + (moments.shape[-1] // 2,), generator=generator,
+                            device=moments.device, dtype=moments.dtype)
+    return vae_sample(moments, None, _own(noise, first, b, total)
+                      ) * vae_cfg.scaling_factor
 
 
 def ids2_from_ids(ids: torch.Tensor, eos_id: int) -> torch.Tensor:
@@ -88,6 +122,7 @@ def loss_step(
     text2_params=None,
     text2_cfg: Optional[CLIPTextConfig] = None,
     eos_id: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """The scalar f32 loss; differentiable in the trainable leaves.
 
@@ -99,26 +134,32 @@ def loss_step(
     (B, 6), and with "encoder_hidden_states" its "add_text_embeds" (te2's
     pooled rows); te2's ids are "input_ids_2", else derived from
     "input_ids" (ids2_from_ids). text2_params, text2_cfg and eos_id are
-    te2's and the tokenizer's, for SDXL."""
+    te2's and the tokenizer's, for SDXL. mesh: a data-parallel
+    parallel.mesh.Mesh (see the module note); draws handed in are then the
+    global batch's."""
     ref = batch.get("latents", batch.get("pixel_values"))
     device = ref.device
+    bsz = ref.shape[0]
+    first, total = _rows(mesh, bsz)
 
     if cfg.cached_latents:
         latents = batch["latents"].to(dtype)
     else:
-        latents = vae_encode(vae_params, batch["pixel_values"].to(dtype),
-                             vae_cfg, generator, noise=vae_noise)
+        latents = _encode(vae_params, batch["pixel_values"].to(dtype),
+                          vae_cfg, generator, vae_noise, first, total)
 
     if noise is None:
-        noise = torch.randn(latents.shape, generator=generator,
-                            device=device, dtype=latents.dtype)
-    noise = noise.to(device=device, dtype=latents.dtype)
-    bsz = latents.shape[0]
+        noise = torch.randn((total,) + tuple(latents.shape[1:]),
+                            generator=generator, device=device,
+                            dtype=latents.dtype)
+    noise = _own(noise, first, bsz, total).to(device=device,
+                                               dtype=latents.dtype)
     t_hi = int(sched.num_train_timesteps * cfg.t_multiplier)
     if timesteps is None:
-        timesteps = torch.randint(0, t_hi, (bsz,), generator=generator,
+        timesteps = torch.randint(0, t_hi, (total,), generator=generator,
                                   device=device)
-    timesteps = timesteps.to(device=device, dtype=torch.long)
+    timesteps = _own(timesteps, first, bsz, total).to(device=device,
+                                                       dtype=torch.long)
 
     noisy = schedulers.add_noise(sched, latents, noise, timesteps)
 
@@ -127,9 +168,9 @@ def loss_step(
             masked_latents = batch["masked_image_latents"].to(dtype)
             mask_small = batch["mask_values"].to(dtype)
         else:
-            masked_latents = vae_encode(
+            masked_latents = _encode(
                 vae_params, batch["masked_image_values"].to(dtype), vae_cfg,
-                generator, noise=masked_vae_noise)
+                generator, masked_vae_noise, first, total)
             mask_small = _resize_mask_nearest(
                 batch["mask_values"].to(dtype), latents.shape[1],
                 latents.shape[2])
@@ -174,6 +215,8 @@ def loss_step(
                 0, 2**31 - 1, (1,), generator=generator, device=device).item())
         lora_unet = {**lora_unet, "rng": dropout_seed,
                      "dropout_p": cfg.lora_dropout_p}
+        if total != bsz:  # the global batch's masks, cut to these rows
+            lora_unet["rows"] = (first, total)
     added_cond = None
     if xl:
         added_cond = {"text_embeds": pooled.to(dtype),
@@ -196,7 +239,11 @@ def loss_step(
         mask = _resize_mask_nearest(batch["mask"].float(),
                                     model_pred.shape[1], model_pred.shape[2])
         mask = (mask + 0.01) ** cfg.mask_temperature
-        mask = mask / mask.max()
+        peak = mask.max()
+        if total != bsz:  # the global batch's peak
+            peak = mesh.all_reduce(peak.detach().clone(),
+                                   op=torch.distributed.ReduceOp.MAX)
+        mask = mask / peak
         model_pred = model_pred * mask.to(model_pred.dtype)
         target = target * mask.to(target.dtype)
 
@@ -205,16 +252,34 @@ def loss_step(
 
     if cfg.with_prior_preservation:
         return prior_preserving_reduce(per_example, batch.get("is_instance"),
-                                       cfg.prior_loss_weight)
+                                       cfg.prior_loss_weight, mesh)
     return per_example.mean()
 
 
 def prior_preserving_reduce(per_example: torch.Tensor,
                             is_instance: Optional[torch.Tensor],
-                            prior_loss_weight: float) -> torch.Tensor:
+                            prior_loss_weight: float,
+                            mesh=None) -> torch.Tensor:
     """instance.mean() + w * class.mean(). `is_instance` (1.0 for instance
     rows, 0.0 for class rows) carries the row layout; without it the batch
-    is split at its midpoint ([instance | class])."""
+    is split at its midpoint ([instance | class]).
+
+    Under a data-parallel mesh the counts are the global batch's (a rank
+    may hold only class rows) and the midpoint is the global batch's; the
+    rank returns dp times its share of the two sums, so that the mean over
+    the ranks is the global value."""
+    b = per_example.shape[0]
+    first, total = _rows(mesh, b)
+    if total != b:
+        if is_instance is not None:
+            m = is_instance.float()
+        else:
+            m = (torch.arange(first, first + b, device=per_example.device)
+                 < total // 2).float()
+        counts = mesh.all_reduce(torch.stack([m.sum(), (1.0 - m).sum()]))
+        share = ((per_example * m).sum() / counts[0] + prior_loss_weight
+                 * (per_example * (1.0 - m)).sum() / counts[1])
+        return share * mesh.shape["dp"]
     if is_instance is not None:
         m = is_instance.float()
         inst = (per_example * m).sum() / m.sum()

@@ -1,5 +1,5 @@
 """Pivotal tuning inversion, the two-phase trainer: the counterpart of
-lora_tpu/training/pti.py for one process.
+lora_tpu/training/pti.py.
 
 Phase 1, inversion (pti.py:383-411): only the TI rows of the placeholder
 tokens train; after each optimizer step the norm prior pulls each row's
@@ -27,8 +27,13 @@ step raises the loss's ValueError (textual inversion is not supported for
 SDXL training). With log_wandb, each save step of tuning runs lora_tpu's
 CLIP-alignment eval (eval_at_save, utils/eval.py) and logs it as
 phase="eval"; a failing eval prints "eval skipped:" and training goes on.
-Not ported yet: device meshes (data_parallel, fsdp, tensor_parallel:
-ROADMAP Slice 7), which raise.
+
+Across processes (parallel/mesh.py) data_parallel and fsdp work as in
+training/dreambooth.py: the TI rows' gradients are averaged over dp with
+the LoRA's, the norm prior runs on every rank and leaves the rows the same
+bits everywhere, only rank 0 writes (and evaluates), and a SIGTERM to any
+rank stops every rank at the same step. Under fsdp the pipe keeps its full
+weights beside the shards. tensor_parallel > 1 raises (ROADMAP Slice 7b).
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from ..formats.pt_io import save_a1111_multi_embedding
 from ..formats.safetensors_io import UNET_EXTENDED_TARGET_REPLACE
 from ..models.clip import apply_ti
 from ..models.vae import vae_encode
+from ..parallel import mesh as mesh_lib
 from ..utils.metrics import MetricsLogger
 from .checkpoint import PreemptionGuard
 from .loss import LossConfig, _resize_mask_nearest
@@ -124,11 +130,12 @@ class PTIConfig:
     max_grad_norm: float = 1.0
     out_name: str = "final_lora"
     mixed_precision: Optional[str] = None
-    # mesh flags (lora_tpu's): not ported yet (ROADMAP Slice 7)
+    # mesh flags (lora_tpu's, parallel/mesh.py); tensor_parallel > 1 is not
+    # ported (ROADMAP Slice 7b)
     data_parallel: bool = False
     fsdp: int = 1
     tensor_parallel: int = 1
-    preemption_sync_every: int = 10  # multi-process only (Slice 7)
+    preemption_sync_every: int = 10  # multi-process only
     log_wandb: bool = False
 
 
@@ -237,18 +244,23 @@ def cache_latents(pipe, dataset, generator: torch.Generator,
     return items
 
 
-def cached_loader(items, batch_size: int, seed: int = 0):
-    """Endless batches of `batch_size` cached items, shuffled each epoch
-    by random.Random(seed), repeated for datasets smaller than a batch
-    (lora_tpu/training/pti.py:198-218, one process)."""
+def cached_loader(items, batch_size: int, seed: int = 0,
+                  shard=mesh_lib.BatchShard(0, 1)):
+    """Endless batches of `batch_size` (global) cached items, shuffled each
+    epoch by random.Random(seed), repeated for datasets smaller than a
+    batch (lora_tpu/training/pti.py:198-218); every rank draws the same
+    stream and keeps its block (shard: the dp index and count)."""
     rng = random.Random(seed)
+    per = batch_size // shard.count
     while True:
         idxs = list(range(len(items)))
         rng.shuffle(idxs)
         while len(idxs) < batch_size:  # tiny datasets: repeat
             idxs = idxs + idxs
         for s in range(0, len(idxs) - batch_size + 1, batch_size):
-            chunk = [items[i] for i in idxs[s:s + batch_size]]
+            take = idxs[s:s + batch_size][shard.index * per:
+                                          (shard.index + 1) * per]
+            chunk = [items[i] for i in take]
             yield {key: torch.stack([c[key] for c in chunk])
                    for key in chunk[0]}
 
@@ -261,11 +273,9 @@ def _check_unported(pipe, cfg: PTIConfig) -> None:
         raise ValueError("use_extended_lora conflicts with "
                          "lora_targets='locon' (locon already covers the "
                          "extended conv sites); pass exactly one")
-    if cfg.data_parallel or cfg.fsdp > 1 or cfg.tensor_parallel > 1:
+    if cfg.tensor_parallel > 1:
         raise NotImplementedError(
-            f"data_parallel={cfg.data_parallel} / fsdp={cfg.fsdp} / "
-            f"tensor_parallel={cfg.tensor_parallel}: a device mesh is not "
-            "ported yet (ROADMAP Slice 7)")
+            f"tensor_parallel={cfg.tensor_parallel}: {mesh_lib.NO_TP}")
 
 
 def _sites(pipe, cfg: PTIConfig):
@@ -323,8 +333,11 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
     os.makedirs(cfg.output_dir, exist_ok=True)
     device = pipe.device
     dtype = torch.bfloat16 if cfg.mixed_precision == "bf16" else torch.float32
-    log = MetricsLogger(os.path.join(cfg.output_dir, "metrics.jsonl"),
-                        use_wandb=cfg.log_wandb)
+    # only rank 0 writes artifacts and metrics to the shared output dir
+    main = mesh_lib.is_main_process()
+    log = MetricsLogger(os.path.join(cfg.output_dir, "metrics.jsonl")
+                        if main else None, use_wandb=cfg.log_wandb and main,
+                        echo=main)
 
     def generator(offset):
         return torch.Generator(device).manual_seed(cfg.seed + offset)
@@ -333,8 +346,13 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
     ti_ids, ti_init = setup_ti(pipe, placeholder_tokens, initializer_tokens,
                                generator(0))
 
+    mesh = mesh_lib.mesh_from_flags(cfg.data_parallel, cfg.fsdp,
+                                    cfg.tensor_parallel)
+    mesh_lib.warm_collectives(mesh)  # in lockstep, before the first step
+    dp = mesh_lib.data_parallel_size(mesh)
+    shard = mesh_lib.batch_sharding(mesh)
     ga = cfg.gradient_accumulation_steps
-    batch_size = cfg.train_batch_size  # one process, no mesh: dp = 1
+    batch_size = cfg.train_batch_size * dp  # per-chip batch semantics
     lr_scale = ga * batch_size if cfg.scale_lr else 1
     unet_lr = cfg.learning_rate_unet * lr_scale
     text_lr = cfg.learning_rate_text * lr_scale
@@ -356,9 +374,12 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
     closers = []
     if cfg.cached_latents:
         items = cache_latents(pipe, dataset, generator(99), dtype)
-        loader = cached_loader(items, batch_size, cfg.seed)
+        loader = cached_loader(items, batch_size, cfg.seed, shard)
     else:
-        host = prefetch(data_loader(dataset, batch_size, seed=cfg.seed,
+        # each dp index loads its block from its shard of the sample stream
+        host = prefetch(data_loader(dataset, batch_size // dp, seed=cfg.seed,
+                                    process_index=shard.index,
+                                    process_count=dp,
                                     num_workers=cfg.dataloader_num_workers))
         closers.append(host)
         loader = device_prefetch(host, device=device)
@@ -368,8 +389,12 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
     rng = generator(7)
 
     def base_params():
-        return (pipe.unet.flat_params(), pipe.text_encoder.flat_params(),
+        base = (pipe.unet.flat_params(), pipe.text_encoder.flat_params(),
                 pipe.vae.flat_params())
+        if mesh is None:
+            return base
+        return tuple(mesh_lib.shard_params(p, mesh, use_fsdp=cfg.fsdp > 1)
+                     for p in base)
 
     base = base_params()
 
@@ -382,6 +407,7 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
         """steps optimizer steps of ga micro-steps; ti_lr_sched: the norm
         prior's schedule (inversion only)."""
         make_trainable(trainable)
+        mesh_lib.replicate_tree(trainable, mesh)
         opt = make_optimizer(
             trainable, lrs, weight_decay=cfg.weight_decay_lora,
             max_grad_norm=cfg.max_grad_norm if phase_name == "tune"
@@ -390,14 +416,16 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
             unet_cfg=pipe.unet.cfg, text_cfg=pipe.text_encoder.cfg,
             vae_cfg=pipe.vae.cfg, sched=pipe.schedule, loss_cfg=loss_cfg,
             optimizer=opt, ti_ids=ti_ids if "ti" in trainable else None,
-            dtype=dtype)
+            dtype=dtype, mesh=mesh)
         t0 = time.perf_counter()
         global_step = 0
         loss = torch.zeros(())
         preempted = False
+        # every rank stops at the same step, whichever got the signal
+        stop = mesh_lib.PreemptionCoordinator(cfg.preemption_sync_every)
         with PreemptionGuard() as guard:  # handler restored even on raise
             for micro in range(steps * ga):
-                if guard.should_stop:
+                if stop.should_stop(guard.should_stop, micro):
                     # SIGTERM: save the phase's adapters / rows and stop
                     save_fn(trainable, global_step)
                     preempted = True
@@ -440,6 +468,8 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
 
             @torch.no_grad()
             def save_inv(tr, step):
+                if not main:
+                    return
                 save_all(os.path.join(cfg.output_dir,
                                       f"step_inv_{step}.safetensors"),
                          embeds=embeds_dict(tr["ti"]["embeds"]),
@@ -490,6 +520,8 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
 
         @torch.no_grad()
         def save_tune(tr, step, name=None):
+            if not main:
+                return
             emb = (embeds_dict(tr["ti"]["embeds"] if "ti" in tr
                                else ti_embeds)
                    if placeholder_tokens else None)

@@ -14,6 +14,10 @@ Random draws come from torch.Generators on the pipeline's device: the
 <rand-sigma> row from seed, the UNet LoRA from seed + 1, the text LoRA from
 seed + 2, the steps from seed + 7. The host reads the loss at step 1 and
 every 20th step.
+
+Under a process group (lora_launch_torch), as in lora_tpu, it builds no
+mesh: every rank trains the same run on its device, only rank 0 writes,
+and a SIGTERM to any rank stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from ..core import lora as lora_core
 from ..core.save import save_all
 from ..core.sites import text_encoder_lora_sites, unet_lora_sites
+from ..parallel.mesh import PreemptionCoordinator, is_main_process
 from ..data.dataset import (
     DreamBoothTiDataset,
     data_loader,
@@ -76,7 +81,10 @@ def train_ti_lora_legacy(pipe, cfg: LegacyTiConfig) -> dict:
     os.makedirs(cfg.output_dir, exist_ok=True)
     device = pipe.device
     dtype = torch.bfloat16 if cfg.mixed_precision == "bf16" else torch.float32
-    log = MetricsLogger(os.path.join(cfg.output_dir, "metrics.jsonl"))
+    # only rank 0 writes artifacts and metrics to the shared output dir
+    main = is_main_process()
+    log = MetricsLogger(os.path.join(cfg.output_dir, "metrics.jsonl")
+                        if main else None, echo=main)
 
     def generator(offset):
         return torch.Generator(device).manual_seed(cfg.seed + offset)
@@ -138,6 +146,8 @@ def train_ti_lora_legacy(pipe, cfg: LegacyTiConfig) -> dict:
 
     @torch.no_grad()
     def save(tr, name):
+        if not main:
+            return
         embeds = {cfg.placeholder_token:
                   tr["ti"]["embeds"][0].float().cpu().numpy()}
         kw = dict(lora_unet=tr["lora_unet"], unet_sites=usites,
@@ -154,10 +164,11 @@ def train_ti_lora_legacy(pipe, cfg: LegacyTiConfig) -> dict:
     t0 = time.perf_counter()
     loss = torch.tensor(float("nan"))
     preempted = False
+    stop = PreemptionCoordinator()  # the same stop step on every rank
     try:
         with PreemptionGuard() as guard:
             for step in range(cfg.max_train_steps):
-                if guard.should_stop:
+                if stop.should_stop(guard.should_stop, step):
                     # SIGTERM: save the adapters and the row, stop cleanly
                     save(trainable, f"lora_ti_preempt_{step}")
                     preempted = True

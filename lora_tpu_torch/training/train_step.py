@@ -1,5 +1,5 @@
 """The train step factory, the counterpart of
-lora_tpu/training/train_step.py without a mesh.
+lora_tpu/training/train_step.py.
 
 One step is the loss and its gradients over the trainable leaves only (the
 frozen base params never require grad), then the optimizer's update. The
@@ -7,6 +7,12 @@ JAX step is a pure function returning (trainable, opt_state, loss); here
 the optimizer (training/optim.py) owns its state and updates the trainable
 leaves in place, so the step returns the loss alone: a 0-d f32 tensor on
 the device, not synchronised.
+
+Under a mesh (parallel/mesh.py) the batch is the rank's block of the global
+batch, and the trainable leaves' gradients and the loss are averaged over
+dp in one flat bucket before the optimizer (so before its global-norm clip
+and either low-memory Adam): lora_tpu's psum of the LoRA / TI gradients.
+The returned loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from ..models import schedulers
+from ..parallel.mesh import Mesh
 from .loss import LossConfig, loss_step
 from .optim import GroupedAdamW, tree_leaves
 
@@ -39,11 +46,12 @@ def make_train_step(
     ({} for a model the batch does not need), or (unet_params, text_params,
     text2_params, vae_params) when text2_cfg is given (SDXL, with the
     tokenizer's eos_id), and draws the explicit random draws loss_step
-    takes (noise=, timesteps=, ...)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (data / FSDP parallel training) is not ported yet "
-            "(ROADMAP Slice 7)")
+    takes (noise=, timesteps=, ...; under a mesh the global batch's). The
+    base may be sharded over the mesh's fsdp axis (mesh.shard_params)."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    dp = 1 if mesh is None else mesh.shape["dp"]
 
     def step(trainable, base, batch, generator=None, **draws):
         if text2_cfg is not None:
@@ -56,8 +64,10 @@ def make_train_step(
             unet_cfg=unet_cfg, text_cfg=text_cfg, vae_cfg=vae_cfg,
             sched=sched, cfg=loss_cfg, ti_ids=ti_ids, dtype=dtype,
             text2_params=text2_p, text2_cfg=text2_cfg, eos_id=eos_id,
-            **draws)
+            mesh=mesh, **draws)
         loss.backward()
+        if dp > 1:
+            loss = mesh.mean_grads(optimizer.params, loss)
         optimizer.step()
         return loss.detach()
 

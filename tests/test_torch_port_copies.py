@@ -170,7 +170,8 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.cli.lora_distill",
                "lora_tpu_torch.cli.pt_to_safetensors",
                "lora_tpu_torch.cli.kohya_convert",
-               "lora_tpu_torch.lora_manager",
+               "lora_tpu_torch.launch", "lora_tpu_torch.lora_manager",
+               "lora_tpu_torch.parallel", "lora_tpu_torch.parallel.mesh",
                "lora_tpu_torch.core.lora", "lora_tpu_torch.core.quantize",
                "lora_tpu_torch.core.save", "lora_tpu_torch.core.sites",
                "lora_tpu_torch.core.svd",

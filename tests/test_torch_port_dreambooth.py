@@ -413,9 +413,18 @@ def test_unported_paths_and_bad_flags_raise(params, tmp_path):
         output_dir=str(tmp_path / "xl")))
     assert res["steps"] == 1 and np.isfinite(res["final_loss"])
     pipe = port_pipe(params)
-    for bad in ({"fsdp": 2}, {"tensor_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="Slice 7"):
-            t_db.train_dreambooth(pipe, dataclasses.replace(cfg, **bad))
+    # fsdp on a 1-rank group is no mesh (lora_tpu's mesh_from_flags): it
+    # trains; tensor parallelism is Slice 7b's
+    from test_torch_port_mesh import one_rank_group
+
+    with one_rank_group(tmp_path):
+        res = t_db.train_dreambooth(pipe, dataclasses.replace(
+            cfg, fsdp=2, max_train_steps=1,
+            output_dir=str(tmp_path / "fsdp")))
+    assert res["steps"] == 1 and np.isfinite(res["final_loss"])
+    with pytest.raises(NotImplementedError, match="Slice 7b"):
+        t_db.train_dreambooth(pipe, dataclasses.replace(cfg,
+                                                        tensor_parallel=2))
     for bad, match in (({"lora_targets": "locon"}, "kohya schema"),
                        ({"lora_targets": "locon", "output_format": "safe",
                          "resume_unet": "x.pt"}, "resume"),

@@ -56,8 +56,9 @@ def test_wheel_carries_the_kernel_sources(tmp_path):
 def test_port_wheel_stands_alone(tmp_path):
     """`pip wheel` of lora_tpu_torch/ alone (its own pyproject.toml) builds
     offline a wheel that requires torch and numpy, not jax; whose console
-    scripts start the port's server, its DreamBooth, PTI and TI trainers
-    and its lora_add, lora_distill and kohya-converter tools; that carries
+    scripts start the port's server, its DreamBooth, PTI and TI trainers,
+    its lora_add, lora_distill and kohya-converter tools and its
+    multi-process launcher; that carries
     every package of the port and every csrc source (the blockwise-int8
     Adam's among them), the SDXL pipeline, the native resize's C source,
     and nothing of lora_tpu."""
@@ -91,6 +92,7 @@ def test_port_wheel_stands_alone(tmp_path):
             in scripts)
     assert ("lora_kohya_torch = lora_tpu_torch.cli.kohya_convert:main"
             in scripts)
+    assert "lora_launch_torch = lora_tpu_torch.launch:main" in scripts
     assert "lora_tpu." not in scripts, scripts
     assert not {n for n in names if n.startswith("lora_tpu/")}
     packages = {os.path.relpath(d, REPO) for d, _, files in os.walk(pkg)
@@ -102,6 +104,8 @@ def test_port_wheel_stands_alone(tmp_path):
     assert sources <= names, sorted(sources - names)
     assert "lora_tpu_torch/ops/csrc/adam8bit.cu" in names
     assert "lora_tpu_torch/pipelines/sdxl.py" in names
+    assert {"lora_tpu_torch/launch.py",
+            "lora_tpu_torch/parallel/mesh.py"} <= names
     assert "lora_tpu_torch/native/imgops.c" in names
     assert {n.split("/")[0] for n in names} == {"lora_tpu_torch", info}
 

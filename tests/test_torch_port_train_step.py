@@ -262,10 +262,42 @@ def test_train_step_matches_jax(base):
     assert moved > 1e-3  # the steps really moved the trees
 
 
-def test_train_step_mesh_raises():
+def test_train_step_mesh_raises(base, tmp_path):
+    """A mesh of a 1-rank gloo group gives the no-mesh step's losses and
+    leaves, bit for bit (tests/test_torch_port_mesh.py and
+    test_torch_port_dp.py hold 2-rank meshes against one process); an
+    object that is no parallel.mesh.Mesh raises TypeError."""
+    from lora_tpu_torch.parallel import mesh as mesh_lib
+
+    from test_torch_port_mesh import one_rank_group
+
+    _, (tu, tt, tv) = base
+    tree = {"lora_unet": random_lora(unet_lora_sites(TINY_UNET), 1),
+            "lora_text": random_lora(text_encoder_lora_sites(TINY_TEXT), 2)}
+    batch = _step_batch()
+    t_batch = {"latents": torch.from_numpy(batch["latents"]),
+               "input_ids": torch.from_numpy(batch["input_ids"]).long()}
+    runs = []
+    with one_rank_group(tmp_path):
+        for mesh in (None, mesh_lib.make_mesh(dp=1)):
+            t_tree = trainable_from_jax(tree)
+            step = t_ts.make_train_step(
+                unet_cfg=TINY_UNET, text_cfg=TINY_TEXT, vae_cfg=TINY_VAE,
+                sched=t_sched.make_schedule(), loss_cfg=t_loss.LossConfig(),
+                optimizer=t_optim.make_optimizer(
+                    t_tree, {"lora_unet": 1e-3, "lora_text": 5e-4}),
+                mesh=mesh)
+            losses = [step(t_tree, (tu, tt, tv), t_batch,
+                           torch.Generator().manual_seed(i)).item()
+                      for i in range(2)]
+            runs.append((losses, t_optim.tree_leaves(t_tree)))
+    (l0, t0), (l1, t1) = runs
+    assert l0 == l1
+    for a, b in zip(t0, t1):
+        assert torch.equal(a, b)
     opt = t_optim.make_optimizer(trainable_from_jax(_toy_trainable()),
                                  {"lora_unet": 1e-3})
-    with pytest.raises(NotImplementedError, match="Slice 7"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         t_ts.make_train_step(
             unet_cfg=TINY_UNET, text_cfg=TINY_TEXT, vae_cfg=TINY_VAE,
             sched=t_sched.make_schedule(), loss_cfg=t_loss.LossConfig(),
