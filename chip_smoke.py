@@ -438,10 +438,19 @@ kernels; a slow host takes up to half as long again):
      rank's peak memory. 17d: SIGTERM to rank 1
      alone after its first step: both ranks stop at the same step, rank 0
      writes train_state.safetensors, and a resume from it runs the rest.
-     The flash rows and the adam8bit row gain the "dist" launches of every
-     rank. 17e (`--dist-cards` only, a host of N >= 2 cards): one rank a
-     card over NCCL, dp = N at train_batch_size 1 and dp = N / 2 x fsdp =
-     2 at 2, each against one process at the global batch N.
+     17f: 17a's run with --tensor_parallel 2 on the two ranks (every
+     attention and FF block of the UNet and the text encoder split, 4
+     heads a rank; the VAE's one-head attention gathered): per-step losses
+     within DIST_TP_LOSS_RTOL of 12c's, each rank's flash launches counted
+     and every one at 4 heads, the forward, dQ and dK/dV kernels against
+     their plain versions at each of those shapes, each rank's step, its
+     tp all-reduces' count and host time a step, and its peak memory
+     against 17a's. The flash rows and the adam8bit row gain the "dist"
+     launches of every rank of 17a-17d and the "dist_tp" launches of
+     17f's. 17e (`--dist-cards` only, a host of N >= 2 cards): one rank a
+     card over NCCL, dp = N at train_batch_size 1, dp = N / 2 x fsdp = 2
+     at 2, dp = N / 2 x tp = 2 at 2 and (four cards) tp = 4 at 4, each
+     against one process at the global batch N.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -851,6 +860,38 @@ def recording_flash_shapes(seen):
         yield seen
     finally:
         fa._fwd_route = route
+
+
+@contextlib.contextmanager
+def recording_launch_shapes(seen: dict):
+    """Counts (B, H, T, S, D, dtype) of every flash launch made inside on
+    CUDA tensors into seen[wrapper] (collections.Counters keyed
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), through the forward's
+    route lookup and the backward kernels' launch functions; the wrappers
+    and their counts are unchanged."""
+    def key(q, k):
+        B, H, T, D = q.shape
+        return B, H, T, k.shape[2], D, str(q.dtype).replace("torch.", "")
+
+    reals = {"flash_bwd_dq": fa._dq_launch, "flash_bwd_dkv": fa._dkv_launch}
+
+    def wrap(name, real):
+        def recorded(route, q, k, *a, **kw):
+            seen[name][key(q, k)] += 1
+            return real(route, q, k, *a, **kw)
+        return recorded
+
+    fa._dq_launch = wrap("flash_bwd_dq", reals["flash_bwd_dq"])
+    fa._dkv_launch = wrap("flash_bwd_dkv", reals["flash_bwd_dkv"])
+    fwd = collections.Counter()
+    try:
+        with recording_flash_shapes(fwd):
+            yield seen
+    finally:
+        fa._dq_launch = reals["flash_bwd_dq"]
+        fa._dkv_launch = reals["flash_bwd_dkv"]
+        for k, n in fwd.items():
+            seen["flash_fwd"][k[:6]] += n
 
 
 def _errs(got, want):
@@ -5936,6 +5977,11 @@ DIST_STEPS = 3
 DIST_FSDP_STEPS = 2
 DIST_PREEMPT_STEPS = 5  # the run the SIGTERM cuts short
 DIST_LOSS_RTOL = 1e-5
+# tensor parallelism (17f, 17e's tp runs): the split GEMMs and the tp
+# all-reduce sum in other orders than one process, and under the
+# blockwise-int8 Adam (17f) a gradient that differs in its last bits can
+# move a moment's code by one step
+DIST_TP_LOSS_RTOL = 1e-4
 DIST_TREE_TOL = 1e-4  # of the largest entry of the LoRA
 DIST_TIMEOUT_S = 600
 
@@ -5953,15 +5999,19 @@ def dist_rank_worker(spec_path: str) -> int:
     the spec, the lora_db CLI's main with the run's flags, in the
     launcher's group; then RUN.rank{r}.json with the rank's per-step
     losses, step times (CUDA events), gradient all-reduce times, flash and
-    adam8bit launches (counts from 0 at the run's start), peak memory and
-    steps, and from rank 0 the final trainable leaves in RUN.pt. Each
-    step also writes its count to RUN.rank{r}.progress (17d's SIGTERM
-    waits for it)."""
+    adam8bit launches (counts from 0 at the run's start) and the shapes
+    of its flash launches, peak memory and steps, and from rank 0 the
+    final trainable leaves in RUN.pt. Under tensor parallelism, each
+    step's tp all-reduces (the split blocks' activations and gradients,
+    then the split gradients' bucket): their count and host time between
+    synchronizes. Each step also writes its count to RUN.rank{r}.progress
+    (17d's SIGTERM waits for it)."""
     import gc
 
     from lora_tpu_torch.cli import lora_db
     from lora_tpu_torch.parallel import mesh as mesh_lib
-    from lora_tpu_torch.training import optim
+    from lora_tpu_torch.parallel import tensor as tp_lib
+    from lora_tpu_torch.training import optim, train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device
     torch.backends.cudnn.allow_tf32 = False
@@ -5987,7 +6037,31 @@ def dist_rank_worker(spec_path: str) -> int:
         results["res"] = real_train(pipe, cfg)
         return results["res"]
 
+    tp_steps, tp_acc = [], {"ms": 0.0, "n": 0}
+    real_tp_reduce = tp_lib._all_reduce
+    real_tp_sum = train_step.sum_split_grads
+
+    def timed_tp_reduce(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_tp_reduce(*a, **kw)
+        torch.cuda.synchronize()
+        tp_acc["ms"] += 1e3 * (time.perf_counter() - t0)
+        tp_acc["n"] += 1
+        return out
+
+    def timed_tp_sum(params, mesh):  # the step's last tp all-reduce
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_tp_sum(params, mesh)
+        torch.cuda.synchronize()
+        tp_steps.append((tp_acc["ms"] + 1e3 * (time.perf_counter() - t0),
+                         tp_acc["n"] + 1))
+        tp_acc.update(ms=0.0, n=0)
+
     mesh_lib.Mesh.mean_grads = timed_mean
+    tp_lib._all_reduce = timed_tp_reduce
+    train_step.sum_split_grads = timed_tp_sum
     lora_db.train_dreambooth = captured
     # the group outlives each run's main(); it is left after the last
     lora_db.finalize_distributed = lambda: None
@@ -5997,18 +6071,28 @@ def dist_rank_worker(spec_path: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        tp_steps.clear()
         _zero_trainer_counts()
+        shapes = {w: collections.Counter() for w in
+                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        t0 = time.perf_counter()
         with timing_trainer_steps({}, progress=f"{out}.rank{rank}.progress",
-                                  loop_peak=True) as rec:
+                                  loop_peak=True) as rec, \
+                recording_launch_shapes(shapes):
             sys.argv = ["lora_db", *run["args"]]
             lora_db.main()
         torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
         res = results.pop("res")
         record = {"rank": rank, "world": mesh_lib.world_size(),
                   "device": str(torch.cuda.current_device()),
                   "losses": [float(x) for x in rec.get("losses", [])],
                   "step_ms": _step_ms(rec, skip=0),
                   "reduce_ms": list(reduce_ms), "launches": _launches(),
+                  "flash_shapes": {w: [[*k, n] for k, n in c.items()]
+                                   for w, c in shapes.items()},
+                  "tp_reduce_ms": [ms for ms, _ in tp_steps],
+                  "tp_reduces": [n for _, n in tp_steps], "run_s": run_s,
                   **_peaks(rec), "steps": res["steps"],
                   "preempted": res["preempted"]}
         with open(f"{out}.rank{rank}.json", "w") as f:
@@ -6112,10 +6196,11 @@ def _ref_run(lora_db, model: str, flags: dict) -> dict:
                        optim.tree_leaves(res["trainable"])]}
 
 
-def _same_run(what: str, got_losses, got_leaves, ref: dict) -> dict:
-    """Per-step losses within DIST_LOSS_RTOL and leaves within
-    DIST_TREE_TOL of the largest entry (where the reference has them);
-    the worst differences."""
+def _same_run(what: str, got_losses, got_leaves, ref: dict,
+              loss_rtol: float = DIST_LOSS_RTOL) -> dict:
+    """Per-step losses within loss_rtol and leaves within DIST_TREE_TOL of
+    the largest entry (where the reference has them); the worst
+    differences."""
     if len(got_losses) != len(ref["losses"]):
         raise AssertionError(f"{what}: {len(got_losses)} steps, the "
                              f"reference {len(ref['losses'])}")
@@ -6126,7 +6211,7 @@ def _same_run(what: str, got_losses, got_leaves, ref: dict) -> dict:
         top = max(float(x.abs().max()) for x in ref["leaves"])
         tree = max(float((a - b).abs().max()) for a, b in
                    zip(got_leaves, ref["leaves"])) / top
-    if not (np.isfinite(got_losses).all() and loss_rel <= DIST_LOSS_RTOL
+    if not (np.isfinite(got_losses).all() and loss_rel <= loss_rtol
             and tree <= DIST_TREE_TOL):
         raise AssertionError(f"{what}: losses {got_losses} against "
                              f"{ref['losses']} (worst relative "
@@ -6146,6 +6231,44 @@ def _expect_dist_launches(what: str, got: dict, steps: int,
             "flash_bwd_dkv": _scaled(dkv, steps), "adam8bit": adam}
     if got != want:
         raise AssertionError(f"{what} launched {got}, not {want}")
+
+
+def _check_tp_run(what: str, ranks: list, tp: int, steps: int,
+                  adam: int = 0) -> dict:
+    """A tensor-parallel run's ranks: every flash launch through the
+    tf32x3 kernels (_expect_dist_launches), every rank the same global
+    losses, every flash launch at SD-1.5's 8 heads / tp, and the forward,
+    dQ and dK/dV kernels against their plain versions at each shape the
+    ranks launched (untimed). Returns the shapes and the checks' worst
+    errors."""
+    for r in ranks:
+        _expect_dist_launches(f"{what} rank {r['rank']}", r["launches"],
+                              steps, adam=adam)
+        if r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"{what}: rank {r['rank']}'s losses "
+                                 f"{r['losses']} are not rank 0's "
+                                 f"{ranks[0]['losses']}")
+    shapes = {w: sorted({tuple(k[:6]) for r in ranks
+                         for k in r["flash_shapes"][w]})
+              for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    wrong = [k for ks in shapes.values() for k in ks if k[1] != 8 // tp]
+    if wrong or not shapes["flash_fwd"] or not shapes["flash_bwd_dkv"]:
+        raise AssertionError(f"{what}: flash launches at {shapes}, not at "
+                             f"{8 // tp} heads a rank")
+    gen = torch.Generator("cuda").manual_seed(SEED + 17)
+    fwd_err, bwd_err = 0.0, 0.0
+    for B, H, T, S, D, dt in shapes["flash_fwd"]:
+        row = check_kernel(B, H, T, S, D, getattr(torch, dt), gen,
+                           timed=False)
+        fwd_err = max(fwd_err, row["err_o"])
+    for B, H, T, S, D, dt in sorted(set(shapes["flash_bwd_dq"])
+                                    | set(shapes["flash_bwd_dkv"])):
+        row = check_bwd_kernels(B, H, T, S, D, getattr(torch, dt), gen,
+                                timed=False)
+        bwd_err = max(bwd_err, row["err_dq"], row["err_dk"], row["err_dv"])
+    return {"shapes": {w: [list(k) for k in ks] for w, ks in
+                       shapes.items()},
+            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
 
 
 def _preempt_rank1(proc, spec_dir: str, tag: str) -> None:
@@ -6242,7 +6365,7 @@ def phase_dist(smi: str, trainer_root=None, ref_losses=None) -> dict:
             flags_c, output_dir=os.path.join(root, "ref_c")))
         cli = dict(device="cuda", pretrained_model_name_or_path=model)
         pre_dir = os.path.join(root, "d_pre")
-        two = _dist_launch(root, "17bcd", 2, [
+        two = _dist_launch(root, "17bcdf", 2, [
             ("b", dict(flags_b, **cli, data_parallel=True,
                        train_batch_size=1,
                        output_dir=os.path.join(root, "b"))),
@@ -6252,7 +6375,10 @@ def phase_dist(smi: str, trainer_root=None, ref_losses=None) -> dict:
             ("d_resume", dict(flags_d, **cli,
                               output_dir=os.path.join(root, "d_resume"),
                               resume_state=os.path.join(
-                                  pre_dir, "train_state.safetensors")))],
+                                  pre_dir, "train_state.safetensors"))),
+            # 17f: 17a's run (12c's flags) with tensor_parallel = 2
+            ("f", dict(flags_a, **cli, tensor_parallel=2,
+                       output_dir=os.path.join(root, "f")))],
             on_start=lambda proc, d: _preempt_rank1(proc, d, "d_pre"))
         if not any("backend=gloo world_size=2 devices=['cuda:0', 'cuda:0']"
                    in ln for ln in two["log"]):
@@ -6278,7 +6404,7 @@ def phase_dist(smi: str, trainer_root=None, ref_losses=None) -> dict:
                                  f"lines, one process wrote {ref_files} and "
                                  f"{len(ref_lines)}")
         out["17b"] = {**_same_run("17b", rb[0]["losses"],
-                                  _dist_leaves(root, "17bcd", "b"), ref_b),
+                                  _dist_leaves(root, "17bcdf", "b"), ref_b),
                       "losses": rb[0]["losses"],
                       "ref_losses": ref_b["losses"],
                       "step_ms": [r["step_ms"] for r in rb],
@@ -6297,7 +6423,7 @@ def phase_dist(smi: str, trainer_root=None, ref_losses=None) -> dict:
             _expect_dist_launches(f"17c rank {r['rank']}", r["launches"],
                                   DIST_FSDP_STEPS)
         out["17c"] = {**_same_run("17c", rc[0]["losses"],
-                                  _dist_leaves(root, "17bcd", "c"), ref_c),
+                                  _dist_leaves(root, "17bcdf", "c"), ref_c),
                       "losses": rc[0]["losses"],
                       "ref_losses": ref_c["losses"],
                       "step_ms": [r["step_ms"] for r in rc],
@@ -6329,7 +6455,32 @@ def phase_dist(smi: str, trainer_root=None, ref_losses=None) -> dict:
         out["17d"] = {"stopped_at": stop, "resumed_steps": ran[0],
                       "files": made, "resumed_losses": resumed[0]["losses"]}
         log("dist 17d: " + json.dumps(out["17d"]))
-        out["launches_wall_s"] = {"17a": a["wall_s"], "17bcd": two["wall_s"]}
+        # 17f: the two ranks split every attention and FF block of the
+        # UNet and the text encoder (4 of SD-1.5's 8 heads a rank), the
+        # VAE's one-head attention gathered; held to 12c's losses (or the
+        # in-process run's)
+        rf = two["f"]
+        out["17f"] = {**_check_tp_run("17f", rf, 2, DIST_STEPS,
+                                      adam=2 * DIST_STEPS),
+                      **_same_run("17f", rf[0]["losses"], None,
+                                  {"losses": ref_a["losses"]},
+                                  DIST_TP_LOSS_RTOL),
+                      "losses": rf[0]["losses"],
+                      "ref_losses": ref_a["losses"],
+                      "step_ms": [r["step_ms"] for r in rf],
+                      "ref_step_ms": ra["step_ms"],
+                      "tp_reduce_ms": [r["tp_reduce_ms"] for r in rf],
+                      "tp_reduces": [r["tp_reduces"] for r in rf],
+                      "run_s": [r["run_s"] for r in rf],
+                      "peak_memory_gib": [r["peak_memory_gib"] for r in rf],
+                      "loop_peak_memory_gib": [r["loop_peak_memory_gib"]
+                                               for r in rf],
+                      "ref_peak_memory_gib": ra["peak_memory_gib"],
+                      "ref_loop_peak_memory_gib": ra["loop_peak_memory_gib"]}
+        log("dist 17f: " + json.dumps(out["17f"]))
+        out["launches_wall_s"] = {"17a": a["wall_s"],
+                                  "17bcdf": two["wall_s"]}
+        log("dist launch walls s: " + json.dumps(out["launches_wall_s"]))
         # the flash and adam8bit launches of every rank of every run
         runs = [ra] + [r for tag in ("b", "c", "d_pre", "d_resume")
                        for r in two[tag]]
@@ -6340,15 +6491,24 @@ def phase_dist(smi: str, trainer_root=None, ref_losses=None) -> dict:
         out["launches"]["adam8bit"] = sum(r["launches"]["adam8bit"]
                                           for r in runs)
         log("dist launches: " + json.dumps(out["launches"]))
+        out["launches_tp"] = {w: {k: sum(r["launches"][w][k] for r in rf)
+                                  for k in rf[0]["launches"][w]}
+                              for w in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")}
+        out["launches_tp"]["adam8bit"] = sum(r["launches"]["adam8bit"]
+                                             for r in rf)
+        log("dist_tp launches: " + json.dumps(out["launches_tp"]))
     log(f"dist: {smi}")
     return out
 
 
 def phase_dist_cards(smi: str) -> dict:
     """17e, on every card of the host (N >= 2; not part of the full run):
-    lora_db over NCCL, one rank a card, dp = N at train_batch_size 1, and
+    lora_db over NCCL, one rank a card, dp = N at train_batch_size 1,
     dp = N / 2 x fsdp = 2 at train_batch_size 2 (the NCCL all-gather of
-    the sharded base), each against one process at the global batch N."""
+    the sharded base), dp = N / 2 x tp = 2 at 2 and, on four cards, tp = 4
+    at 4 (the NCCL all-reduces of the split blocks), each against one
+    process at the global batch N."""
     from lora_tpu_torch.cli import lora_db
 
     n = torch.cuda.device_count()
@@ -6368,21 +6528,32 @@ def phase_dist_cards(smi: str) -> dict:
             flags, train_batch_size=n, output_dir=os.path.join(root, "ref")))
         cli = dict(flags, device="cuda", pretrained_model_name_or_path=model,
                    data_parallel=True)
+        tp_runs = {"dp_tp": 2} if n != 4 else {"dp_tp": 2, "tp4": 4}
         runs = _dist_launch(root, "17e", n, [
             ("dp", dict(cli, train_batch_size=1,
                         output_dir=os.path.join(root, "dp"))),
             ("fsdp", dict(cli, fsdp=2, train_batch_size=2,
-                          output_dir=os.path.join(root, "fsdp")))])
+                          output_dir=os.path.join(root, "fsdp")))] + [
+            (tag, dict(cli, tensor_parallel=tp, train_batch_size=tp,
+                       output_dir=os.path.join(root, tag)))
+            for tag, tp in tp_runs.items()])
         if not any(f"backend=nccl world_size={n}" in ln
                    for ln in runs["log"]):
             raise AssertionError("17e: the ranks did not join over NCCL")
-        for tag in ("dp", "fsdp"):
-            for r in runs[tag]:
-                _expect_dist_launches(f"17e {tag} rank {r['rank']}",
-                                      r["launches"], DIST_STEPS)
+        for tag in ("dp", "fsdp", *tp_runs):
+            tp = tp_runs.get(tag)
+            if tp is None:
+                for r in runs[tag]:
+                    _expect_dist_launches(f"17e {tag} rank {r['rank']}",
+                                          r["launches"], DIST_STEPS)
             out[tag] = {
+                **(_check_tp_run(f"17e {tag}", runs[tag], tp, DIST_STEPS)
+                   if tp else {}),
                 **_same_run(f"17e {tag}", runs[tag][0]["losses"],
-                            _dist_leaves(root, "17e", tag), ref),
+                            _dist_leaves(root, "17e", tag), ref,
+                            DIST_TP_LOSS_RTOL if tp else DIST_LOSS_RTOL),
+                "tp_reduce_ms": [r["tp_reduce_ms"] for r in runs[tag]],
+                "run_s": [r["run_s"] for r in runs[tag]],
                 "losses": runs[tag][0]["losses"],
                 "step_ms": [r["step_ms"] for r in runs[tag]],
                 "reduce_ms": [r["reduce_ms"] for r in runs[tag]],
@@ -6402,17 +6573,20 @@ def phase_dist_cards(smi: str) -> dict:
 
 def add_dist_launches(kernels: list, dist: dict) -> None:
     """Each flash row of the kernels line, and the adam8bit row, gains
-    phase 17's launches of its kernel, summed over every rank ("dist")."""
-    for row in kernels:
-        if row["name"] == "adam8bit":
-            n = dist["launches"]["adam8bit"]
-        elif row["name"] in FLASH_ROW_ROUTES:
-            wrapper, route = FLASH_ROW_ROUTES[row["name"]]
-            n = dist["launches"][wrapper][route]
-        else:
-            continue
-        row["launches"] += n
-        row["launches_by_path"]["dist"] = n
+    phase 17's launches of its kernel, summed over every rank: 17a-17d's
+    ("dist") and 17f's tensor-parallel run ("dist_tp")."""
+    for path, counts in (("dist", dist["launches"]),
+                         ("dist_tp", dist["launches_tp"])):
+        for row in kernels:
+            if row["name"] == "adam8bit":
+                n = counts["adam8bit"]
+            elif row["name"] in FLASH_ROW_ROUTES:
+                wrapper, route = FLASH_ROW_ROUTES[row["name"]]
+                n = counts[wrapper][route]
+            else:
+                continue
+            row["launches"] += n
+            row["launches_by_path"][path] = n
 
 
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
@@ -7290,6 +7464,7 @@ def main_dist() -> int:
         tf32x3_wide_probe()
     dist = phase_dist(smi)
     log("dist launches: " + json.dumps(dist["launches"]))
+    log("dist_tp launches: " + json.dumps(dist["launches_tp"]))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,12 @@ lora_tpu/cli/lora_db.py:
 SD-1.x / SD-2.x directory, or an SDXL one (with text_encoder_2/), which
 trains the XL way and writes kohya-XL files (--output_format safe);
 training runs on the card unless --device cpu. Under lora_launch_torch it
-joins the process group first, and --data_parallel / --fsdp N train across
-the ranks, each on its own device (cuda means the rank's card).
+joins the process group first, and --data_parallel / --fsdp N /
+--tensor_parallel N train across the ranks, each on its own device (cuda
+means the rank's card), e.g. on two CPU ranks:
+
+    lora_launch_torch --cpu --nproc 2 -- python -m lora_tpu_torch.cli.lora_db \
+        ... --tensor_parallel 2 --device cpu
 """
 
 from __future__ import annotations

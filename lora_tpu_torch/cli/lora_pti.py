@@ -8,7 +8,9 @@ lora_tpu/cli/lora_pti.py:
 
 (installed as the console script lora_pti_torch). DIR is a diffusers-layout
 SD-1.x / SD-2.x directory; training runs on the card unless --device cpu,
-in bf16 with --mixed_precision bf16, else in f32.
+in bf16 with --mixed_precision bf16, else in f32. Under lora_launch_torch
+it joins the process group first, and --data_parallel / --fsdp N /
+--tensor_parallel N train across the ranks.
 """
 
 from __future__ import annotations

@@ -355,22 +355,29 @@ def _maybe_diag(h: torch.Tensor, entry: dict, channel_dim: int) -> torch.Tensor:
 
 
 def _dropout(d: torch.Tensor, generator: Optional[torch.Generator],
-             p: float, rows: Optional[Tuple[int, int]] = None
+             p: float, rows: Optional[Tuple[int, int]] = None,
+             cols: Optional[Tuple[torch.Tensor, int]] = None
              ) -> torch.Tensor:
     """The JAX package's bypass dropout (lora_tpu/core/lora.py:381-383):
     keep each element with probability 1 - p and scale it by 1 / (1 - p).
     The mask comes from `generator` (one per site and step), so a
     checkpointed recompute draws the same mask. rows = (first, total): d
-    holds those rows of a batch of `total` (a data-parallel rank's block),
-    and the mask is the whole batch's, cut to them."""
+    holds those rows of a batch of `total` (a data-parallel rank's block);
+    cols = (index, width): d's last axis holds those features of `width`
+    (a tensor-parallel rank's block). The mask is the whole batch's at the
+    whole width, cut to them."""
     if generator is None or p <= 0.0:
         return d
-    if rows is None:
-        keep = torch.rand(d.shape, generator=generator, device=d.device)
-    else:
-        first, total = rows
-        keep = torch.rand((total,) + tuple(d.shape[1:]), generator=generator,
-                          device=d.device)[first:first + d.shape[0]]
+    shape = list(d.shape)
+    if rows is not None:
+        shape[0] = rows[1]
+    if cols is not None:
+        shape[-1] = cols[1]
+    keep = torch.rand(shape, generator=generator, device=d.device)
+    if rows is not None:
+        keep = keep[rows[0]:rows[0] + d.shape[0]]
+    if cols is not None:
+        keep = keep.index_select(-1, cols[0])
     keep = keep < 1.0 - p
     return torch.where(keep, d / (1.0 - p), torch.zeros((), dtype=d.dtype,
                                                         device=d.device))
@@ -380,18 +387,36 @@ def lora_delta_dense(x: torch.Tensor, entry: dict, scale: torch.Tensor,
                      dropout_generator: Optional[torch.Generator] = None,
                      dropout_p: float = 0.0,
                      idx: Optional[torch.Tensor] = None,
-                     dropout_rows: Optional[Tuple[int, int]] = None
+                     dropout_rows: Optional[Tuple[int, int]] = None,
+                     split: Optional[Tuple[str, torch.Tensor]] = None
                      ) -> torch.Tensor:
     """scale * up(selector(down(x))) for a linear site. x: (..., in).
 
     Stacked adapters (up (K, out, r)) route each batch element through
     adapter idx[b] (x must be batch-leading). A full-rank delta entry applies
     as one matmul: scale * x @ delta.T. Dropout (p > 0 with a generator)
-    masks the bypass output before the scale."""
+    masks the bypass output before the scale. split = (kind, index): a
+    tensor-parallel site (models/layers.py _dense_split) that holds the
+    index's output features ("column": up's rows, stacked or not, and the
+    mask's columns of the whole width) or input features ("row": down's
+    columns; x is that block, and the result a partial sum)."""
     dt = x.dtype
+    cols = None
+    if split is not None:
+        kind, index = split
+        # the axis of each factor that holds the split features: out of
+        # delta and up (..., out, r), in of delta and down (..., r, in)
+        if kind == "column":
+            axes = {"delta": lambda v: 0, "up": lambda v: v.ndim - 2}
+            cols = (index, entry["delta"].shape[0] if "delta" in entry
+                    else entry["up"].shape[-2])
+        else:
+            axes = {"delta": lambda v: 1, "down": lambda v: v.ndim - 1}
+        entry = {k: (v.index_select(axes[k](v), index) if k in axes else v)
+                 for k, v in entry.items()}
     if "delta" in entry:
         d = _dropout(x @ entry["delta"].to(dt).T, dropout_generator, dropout_p,
-                     dropout_rows)
+                     dropout_rows, cols)
         return d * scale.to(dt)
     down, up = entry["down"], entry["up"]
     if up.ndim == 3:
@@ -405,7 +430,8 @@ def lora_delta_dense(x: torch.Tensor, entry: dict, scale: torch.Tensor,
         return d * s.reshape((-1,) + (1,) * (d.ndim - 1))
     h = x @ down.to(dt).T
     h = _maybe_diag(h, entry, -1)
-    d = _dropout(h @ up.to(dt).T, dropout_generator, dropout_p, dropout_rows)
+    d = _dropout(h @ up.to(dt).T, dropout_generator, dropout_p, dropout_rows,
+                 cols)
     return d * scale.to(dt)
 
 

@@ -15,12 +15,15 @@ import torch
 
 from ..core.quantize import dequantize_weight
 from ..ops.attention import attention
+from ..parallel import tensor as tp_lib
 from .config import CLIPTextConfig
 from .layers import Initializer, ParamModule, Params, dense, gelu, layer_norm
 from .layers import quick_gelu
 
 # hidden_act values published in the SD text-encoder configs
 _ACTS = {"quick_gelu": quick_gelu, "gelu": gelu}
+_ATTN = (".q_proj.weight", ".k_proj.weight", ".v_proj.weight",
+         ".out_proj.weight")
 
 
 def init_clip_text(cfg: CLIPTextConfig, generator: Optional[torch.Generator],
@@ -94,11 +97,11 @@ def clip_text_forward(
     pos = params["text_model.embeddings.position_embedding.weight"][:T]
     x = (table[input_ids] + pos[None]).to(dtype)
 
-    def heads(y):  # (B, T, D) -> (B, h, T, dh)
-        return y.reshape(B, T, h, dh).transpose(1, 2)
+    def heads(y):  # (B, T, h' * dh) -> (B, h', T, dh), h' = h / tp if split
+        return y.reshape(B, T, -1, dh).transpose(1, 2)
 
     def unheads(y):
-        return y.transpose(1, 2).reshape(B, T, d)
+        return y.transpose(1, 2).reshape(B, T, -1)
 
     penult = None
     for i in range(cfg.num_hidden_layers):
@@ -110,16 +113,31 @@ def clip_text_forward(
         res = x
         y = layer_norm(params, base + ".layer_norm1", x, cfg.layer_norm_eps)
         sa = base + ".self_attn"
-        q = heads(dense(params, sa + ".q_proj", y, lora))
-        k = heads(dense(params, sa + ".k_proj", y, lora))
-        v = heads(dense(params, sa + ".v_proj", y, lora))
+        # tensor parallelism (parallel/tensor.py): the rank's heads when
+        # the attention splits, its hidden features when the MLP does
+        mesh = tp_lib.split_block(params, [sa + n for n in _ATTN], h)
+        split = None
+        if mesh is not None:
+            split = "column"
+            y = tp_lib.copy_to_tp(y, mesh)
+        q = heads(dense(params, sa + ".q_proj", y, lora, split))
+        k = heads(dense(params, sa + ".k_proj", y, lora, split))
+        v = heads(dense(params, sa + ".v_proj", y, lora, split))
         att = unheads(attention(q, k, v, causal=True))
-        x = res + dense(params, sa + ".out_proj", att, lora)
+        x = res + dense(params, sa + ".out_proj", att, lora,
+                        "row" if split else None)
 
         res = x
         y = layer_norm(params, base + ".layer_norm2", x, cfg.layer_norm_eps)
-        y = act(dense(params, base + ".mlp.fc1", y, lora))
-        x = res + dense(params, base + ".mlp.fc2", y, lora)
+        mesh = tp_lib.split_block(params, [base + ".mlp.fc1.weight",
+                                           base + ".mlp.fc2.weight"])
+        split = None
+        if mesh is not None:
+            split = "column"
+            y = tp_lib.copy_to_tp(y, mesh)
+        y = act(dense(params, base + ".mlp.fc1", y, lora, split))
+        x = res + dense(params, base + ".mlp.fc2", y, lora,
+                        "row" if split else None)
 
     hidden = (penult if penultimate
               else layer_norm(params, "text_model.final_layer_norm", x,

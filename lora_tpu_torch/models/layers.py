@@ -18,8 +18,10 @@ tree (core/lora.py) by its own param name:
 
 ("rows": a data-parallel rank's block of the global batch, whose dropout
 masks are the global batch's, cut to the block.) The params may be any
-mapping: under FSDP (parallel/mesh.py ShardedParams) reading a weight
-gathers it.
+mapping: under FSDP or tensor parallelism (parallel/mesh.py ShardedParams)
+reading a weight gathers it whole, and a split tensor-parallel block reads
+its rank's block of each weight instead (dense's split=, parallel/
+tensor.py).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from torch import nn
 from ..core.lora import lora_delta_conv, lora_delta_dense
 from ..core.quantize import SCALE_SUFFIX, dequantize_weight
 from ..ops.int8_matmul import int8_matmul
+from ..parallel import tensor as tp_lib
 
 Params = Dict[str, torch.Tensor]
 
@@ -145,7 +148,16 @@ def _lora_dropout(lora, name: str, device):
     return gen, p
 
 
-def dense(p: Params, name: str, x: torch.Tensor, lora=None) -> torch.Tensor:
+def dense(p: Params, name: str, x: torch.Tensor, lora=None,
+          split: Optional[str] = None) -> torch.Tensor:
+    """x @ W.T + b with the site's LoRA delta. split: "column" or "row",
+    a site of a tensor-parallel block (parallel/tensor.py split_block)
+    that runs on this rank's block of the weight: "column" computes the
+    rank's output features from the whole input (read through
+    copy_to_tp by the caller), "row" the partial output of the rank's
+    input features, all-reduced over tp before the bias."""
+    if split is not None:
+        return _dense_split(p, name, x, lora, split)
     w = p[name + ".weight"]
     b = p.get(name + ".bias")
     if w.dtype == torch.int8 and w.ndim == 2:
@@ -162,6 +174,46 @@ def dense(p: Params, name: str, x: torch.Tensor, lora=None) -> torch.Tensor:
         y = y + lora_delta_dense(x, entry, lora["scale"], gen, drop,
                                  idx=lora.get("idx"),
                                  dropout_rows=lora.get("rows"))
+    return y
+
+
+def _dense_split(p, name: str, x: torch.Tensor, lora, split: str
+                 ) -> torch.Tensor:
+    """The Megatron halves of a dense site with LoRA on both. Column: the
+    rank's rows of W, b and up (tp_index, so GEGLU's value and gate blocks
+    stay paired); down whole, on the whole input. Row: the rank's columns
+    of W and down, up whole; the LoRA delta joins the partial output
+    before the all-reduce (up, the diag and the dropout mask are linear in
+    it), the bias after. The trainable leaves read here get their part of
+    the gradient (tp_lib.partial_grad)."""
+    if split not in ("column", "row"):
+        raise ValueError(f"split must be 'column' or 'row', got {split!r}")
+    w = p.block(name + ".weight")
+    idx = p.tp_index(name + ".weight")
+    b = p.get(name + ".bias")
+    bias = None if b is None or split == "row" else b[idx].to(x.dtype)
+    if w.dtype == torch.int8 and w.ndim == 2:
+        # an int8 base: the block's rows (column) or columns (row) of the
+        # codes; the per-output-channel scale is cut to the rows, and
+        # scales a row site's partial sum as it does the whole one
+        s = p[name + ".weight" + SCALE_SUFFIX]
+        y = int8_matmul(x, w, s[idx] if split == "column" else s)
+        if bias is not None:
+            y = y + bias
+    else:
+        y = F.linear(x, w.to(x.dtype), bias)
+    entry = _lora_entry(lora, name)
+    if entry is not None:
+        gen, drop = _lora_dropout(lora, name, x.device)
+        y = y + lora_delta_dense(
+            x, {k: tp_lib.partial_grad(v) for k, v in entry.items()},
+            tp_lib.partial_grad(lora["scale"]), gen, drop,
+            idx=lora.get("idx"), dropout_rows=lora.get("rows"),
+            split=(split, idx))
+    if split == "row":
+        y = tp_lib.reduce_from_tp(y, p.mesh)
+        if b is not None:
+            y = y + b.to(x.dtype)
     return y
 
 

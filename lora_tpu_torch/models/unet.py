@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
+from ..parallel import tensor as tp_lib
 from . import structure
 from .config import UNetConfig
 from .layers import (
@@ -139,27 +140,50 @@ def _resnet(p: Params, prefix: str, x, temb, cfg: UNetConfig,
     return x + h
 
 
-def _attention(p: Params, prefix: str, x, ctx, heads: int, lora):
-    """One CrossAttention: x (B, T, C) queries, ctx (B, S, Ckv) keys/values."""
-    B, T, C = x.shape
-    dh = C // heads
-    q = dense(p, prefix + ".to_q", x, lora)
-    k = dense(p, prefix + ".to_k", ctx, lora)
-    v = dense(p, prefix + ".to_v", ctx, lora)
-    S = ctx.shape[1]
+_ATTN = (".to_q.weight", ".to_k.weight", ".to_v.weight", ".to_out.0.weight")
 
-    def split(y, L):  # (B, L, C) -> (B, heads, L, dh), a view
+
+def _attention(p: Params, prefix: str, x, ctx, heads: int, lora):
+    """One CrossAttention: x (B, T, C) queries, ctx (B, S, Ckv) keys/values.
+    Under tensor parallelism (parallel/tensor.py) a rank runs heads / tp
+    of the heads when the block splits."""
+    B, T, C = x.shape
+    split = None
+    mesh = tp_lib.split_block(p, [prefix + n for n in _ATTN], heads)
+    if mesh is not None:
+        split = "column"
+        heads //= mesh.shape["tp"]
+        xs = tp_lib.copy_to_tp(x, mesh)
+        ctx = xs if ctx is x else tp_lib.copy_to_tp(ctx, mesh)
+        x = xs
+    q = dense(p, prefix + ".to_q", x, lora, split)
+    k = dense(p, prefix + ".to_k", ctx, lora, split)
+    v = dense(p, prefix + ".to_v", ctx, lora, split)
+    S = ctx.shape[1]
+    dh = q.shape[-1] // heads
+
+    def split_heads(y, L):  # (B, L, heads * dh) -> (B, heads, L, dh), a view
         return y.reshape(B, L, heads, dh).transpose(1, 2)
 
-    att = attention(split(q, T), split(k, S), split(v, S))
-    att = att.transpose(1, 2).reshape(B, T, C)
-    return dense(p, prefix + ".to_out.0", att, lora)
+    att = attention(split_heads(q, T), split_heads(k, S), split_heads(v, S))
+    att = att.transpose(1, 2).reshape(B, T, heads * dh)
+    return dense(p, prefix + ".to_out.0", att, lora,
+                 "row" if split else None)
 
 
 def _ff_geglu(p: Params, prefix: str, x, lora):
-    y = dense(p, prefix + ".net.0.proj", x, lora)
+    """GEGLU feed-forward; split over tp when both weights are (the rank's
+    rows of net.0.proj are its value block then its gate block)."""
+    split = None
+    mesh = tp_lib.split_block(p, [prefix + ".net.0.proj.weight",
+                                  prefix + ".net.2.weight"])
+    if mesh is not None:
+        split = "column"
+        x = tp_lib.copy_to_tp(x, mesh)
+    y = dense(p, prefix + ".net.0.proj", x, lora, split)
     val, gate = y.chunk(2, dim=-1)
-    return dense(p, prefix + ".net.2", val * gelu(gate), lora)
+    return dense(p, prefix + ".net.2", val * gelu(gate), lora,
+                 "row" if split else None)
 
 
 def _transformer(p: Params, prefix: str, x, ctx, cfg: UNetConfig,

@@ -108,7 +108,10 @@ def _resnet(p: Params, prefix: str, x, cfg: VAEConfig):
 
 
 def _attn(p: Params, prefix: str, x, cfg: VAEConfig):
-    """Single-head self-attention over spatial positions (the mid block)."""
+    """Single-head self-attention over spatial positions (the mid block).
+    Its weights' names are the UNet's, so lora_tpu's rules shard them on
+    tp; one head does not split, and under tensor parallelism it reads
+    them whole (all-gathered)."""
     B, C, H, W = x.shape
     h = group_norm(p, prefix + ".group_norm", x, cfg.norm_num_groups, EPS)
     h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)

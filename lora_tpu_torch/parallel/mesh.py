@@ -15,13 +15,22 @@ One device per rank. A mesh is the process group's ranks laid out
           all-gathers it within the fsdp sub-group where it reads it
           (ShardedParams), and the gathered copy goes when autograd lets it
           go. Under gradient checkpointing the recompute gathers again.
-  - tp:   tensor parallelism is not ported: tensor_parallel > 1 raises
-          (ROADMAP Slice 7b).
+  - tp:   tensor parallelism of the attention and MLP blocks, Megatron
+          style. lora_tpu only annotates the weights (_TP_RULES) and lets
+          XLA partition the graph; torch has no SPMD partitioner, so the
+          port splits each block itself (parallel/tensor.py): every rank
+          keeps its tp block of each weight that param_pspec shards on tp
+          (ShardedParams), runs the block's heads or hidden features on it,
+          and one all-reduce joins the block's output. A block that cannot
+          split (heads or an axis that tp does not divide) reads its
+          weights whole, all-gathered over tp. The trainable leaves that a
+          split block reads get this rank's part of their gradient, summed
+          over tp before the dp mean (training/train_step.py).
 
-The ranks of one dp index (its fsdp peers) hold the same rows. Every rank
-draws the global batch's random draws from the same seeded generator and
-keeps its own rows (training/loss.py), so a run over the group is the run of
-one process at the global batch.
+The ranks of one dp index (its fsdp and tp peers) hold the same rows. Every
+rank draws the global batch's random draws from the same seeded generator
+and keeps its own rows (training/loss.py), so a run over the group is the
+run of one process at the global batch.
 
 Backends: NCCL where every rank has a GPU of its own; gloo on the CPU and for
 ranks that share a card. Collectives of a gloo group on CUDA tensors are
@@ -36,6 +45,7 @@ import collections
 import contextlib
 import datetime
 import os
+import re
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,9 +55,6 @@ import torch.distributed as dist
 AXES = ("dp", "fsdp", "tp")
 TIMEOUT_ENV = "LORA_TPU_TORCH_DIST_TIMEOUT_S"  # handshake / collective wait
 DEVICE_ENV = "LORA_TPU_TORCH_DIST_DEVICE"      # "cpu": ranks on the CPU
-NO_TP = ("tensor parallelism is not ported yet (ROADMAP Slice 7b): the "
-         "Megatron-style splits of the functional dense layers with LoRA on "
-         "both halves are a slice of their own; use data_parallel / fsdp")
 
 _host_group = None  # gloo over every rank: barriers and host-side flags
 _device: Optional[torch.device] = None
@@ -313,8 +320,6 @@ def make_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1,
               world: Optional[int] = None) -> Mesh:
     """Mesh (dp, fsdp, tp) over the group's ranks (`world`, default the
     group's size); dp=-1 takes the ranks left over."""
-    if tp > 1:
-        raise NotImplementedError(NO_TP)
     n = world_size() if world is None else int(world)
     if dp == -1:
         dp = n // (fsdp * tp)
@@ -328,7 +333,7 @@ BatchShard = collections.namedtuple("BatchShard", "index count")
 
 def batch_sharding(mesh: Optional[Mesh]) -> BatchShard:
     """The block of the global batch this rank holds: the dp index and the
-    dp size (fsdp peers hold the same block)."""
+    dp size (fsdp and tp peers hold the same block)."""
     if mesh is None:
         return BatchShard(0, 1)
     return BatchShard(mesh.coords["dp"], mesh.shape["dp"])
@@ -338,53 +343,122 @@ def data_parallel_size(mesh: Optional[Mesh]) -> int:
     return 1 if mesh is None else mesh.shape["dp"]
 
 
+# lora_tpu's rules (lora_tpu/parallel/mesh.py _TP_RULES): regex -> the tp
+# axis of a weight. Column-parallel (out-features split, axis 0): q/k/v, the
+# GEGLU projection, fc1. Row-parallel (in-features split, axis 1): the
+# attention output, the FF output, fc2.
+_TP_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    (r"\.to_q\.weight$", ("tp", None)),
+    (r"\.to_k\.weight$", ("tp", None)),
+    (r"\.to_v\.weight$", ("tp", None)),
+    (r"\.(q|k|v)_proj\.weight$", ("tp", None)),
+    (r"\.ff\.net\.0\.proj\.weight$", ("tp", None)),
+    (r"\.mlp\.fc1\.weight$", ("tp", None)),
+    (r"\.to_out\.0\.weight$", (None, "tp")),
+    (r"\.out_proj\.weight$", (None, "tp")),
+    (r"\.ff\.net\.2\.weight$", (None, "tp")),
+    (r"\.mlp\.fc2\.weight$", (None, "tp")),
+)
+_GEGLU = re.compile(r"\.ff\.net\.0\.proj\.weight$")
+
+
 def param_pspec(name: str, shape: Tuple[int, ...], mesh,
                 use_fsdp: bool = False, use_tp: bool = False
                 ) -> Tuple[Optional[str], ...]:
-    """lora_tpu's PartitionSpec of one base weight, as a tuple: with fsdp,
-    the largest axis that the fsdp size divides evenly (the first of equal
-    ones, never an axis of 1) is "fsdp"; every other axis is None."""
-    del name  # the tensor-parallel rules read it (Slice 7b)
-    if use_tp and mesh.shape["tp"] > 1:
-        raise NotImplementedError(NO_TP)
+    """lora_tpu's PartitionSpec of one base weight, as a tuple: with tp,
+    the axis its _TP_RULES entry names, where tp divides it; then with
+    fsdp, the largest still-free axis that the fsdp size divides evenly
+    (the first of equal ones, never an axis of 1); every other axis is
+    None."""
     spec: List[Optional[str]] = [None] * len(shape)
+    tp = mesh.shape["tp"]
+    if use_tp and tp > 1:
+        for pat, tp_spec in _TP_RULES:
+            if re.search(pat, name):
+                for i, ax in enumerate(tp_spec):
+                    if ax and shape[i] % tp == 0:
+                        spec[i] = ax
+                break
     n = mesh.shape["fsdp"]
     if use_fsdp and n > 1:
         for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
-            if shape[i] % n == 0 and shape[i] > 1:
+            if spec[i] is None and shape[i] % n == 0 and shape[i] > 1:
                 spec[i] = "fsdp"
                 break
     return tuple(spec)
 
 
-class ShardedParams(Mapping):
-    """A flat base-param dict sharded over the mesh's fsdp axis: each weight
-    that param_pspec shards keeps its own block (the sharded axis moved to
-    the front), and reading it (params[name], params.get(name)) all-gathers
-    the whole weight within the fsdp sub-group. Every rank of the sub-group
-    must read the same names in the same order, which one forward does."""
+def _tp_order(name: str, length: int, tp: int) -> Optional[torch.Tensor]:
+    """The whole weight's indices on its tp axis in block order (rank r
+    holds entries [r * length / tp, (r + 1) * length / tp) of it), or None
+    for the rows in their own order. The GEGLU projection's [value; gate]
+    rows go value block r then gate block r, so that a rank's GEGLU output
+    is the block of ff.net.2's columns it holds."""
+    if _GEGLU.search(name) and length % (2 * tp) == 0:
+        return torch.arange(length).view(2, tp, -1).transpose(0, 1
+                                                              ).reshape(-1)
+    return None
 
-    def __init__(self, params: Mapping[str, torch.Tensor], mesh: Mesh):
+
+class ShardedParams(Mapping):
+    """A flat base-param dict sharded over the mesh as param_pspec says.
+    A weight sharded on tp keeps this rank's tp block (its rows or columns
+    in _tp_order); a weight sharded on fsdp keeps its fsdp block (of the tp
+    block, if both), the sharded axis moved to the front. Reading a weight
+    (params[name], params.get(name)) gives it whole: all-gathered within
+    the fsdp sub-group, then within the tp sub-group. block(name) gives
+    the tp block (all-gathered over fsdp only), which a split tp block
+    reads (parallel/tensor.py). Every rank of a sub-group must read the
+    same names in the same order, which one forward does."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], mesh: Mesh,
+                 use_fsdp: bool = True, use_tp: bool = False):
         self.mesh = mesh
         n, i = mesh.shape["fsdp"], mesh.coords["fsdp"]
+        tp, ti = mesh.shape["tp"], mesh.coords["tp"]
         self._p: Dict[str, torch.Tensor] = {}
         self._dim: Dict[str, int] = {}
+        # name -> (tp axis, the whole axis's indices in block order or None
+        # for their own order, this rank's indices)
+        self._tp: Dict[str, Tuple[int, Optional[torch.Tensor],
+                                  torch.Tensor]] = {}
         for name, w in params.items():
-            spec = param_pspec(name, tuple(w.shape), mesh, use_fsdp=True)
+            spec = param_pspec(name, tuple(w.shape), mesh, use_fsdp, use_tp)
+            w = w.detach()  # an alias: host_offloaded may move the module's
+            if "tp" in spec:
+                d = spec.index("tp")
+                order = _tp_order(name, w.shape[d], tp)
+                own = (torch.arange(w.shape[d]) if order is None
+                       else order).view(tp, -1)[ti].to(w.device)
+                if order is not None:
+                    order = order.to(w.device)
+                self._tp[name] = (d, order, own)
+                w = w.index_select(d, own)
             if "fsdp" in spec:
                 d = spec.index("fsdp")
-                self._p[name] = w.detach().movedim(d, 0).chunk(n)[i].clone()
+                w = w.movedim(d, 0).chunk(n)[i].clone()
                 self._dim[name] = d
-            else:  # an alias: host_offloaded may move the module's copy
-                self._p[name] = w.detach()
+            self._p[name] = w
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def block(self, name: str) -> torch.Tensor:
+        """The weight's tp block (the whole weight if not sharded on tp),
+        all-gathered over fsdp."""
         w = self._p[name]
         d = self._dim.get(name)
         if d is None:
             return w
         # the unsharded layout, so the forward sums as it does unsharded
         return self.mesh.all_gather0(w).movedim(0, d).contiguous()
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        w = self.block(name)
+        if name not in self._tp:
+            return w
+        d, order, _ = self._tp[name]
+        whole = self.mesh.all_gather0(w.movedim(d, 0), "tp")
+        if order is not None:
+            whole = torch.empty_like(whole).index_copy_(0, order, whole)
+        return whole.movedim(0, d).contiguous()
 
     def __contains__(self, name) -> bool:
         return name in self._p
@@ -396,18 +470,28 @@ class ShardedParams(Mapping):
         return len(self._p)
 
     def local(self, name: str) -> torch.Tensor:
-        """This rank's block of the weight (the whole weight if unsharded)."""
+        """This rank's storage of the weight (the whole weight if
+        unsharded)."""
         return self._p[name]
+
+    def tp_index(self, name: str) -> torch.Tensor:
+        """The whole weight's indices on its tp axis that this rank's block
+        holds, in the block's order."""
+        return self._tp[name][2]
+
+    def tp_split(self, names: Iterable[str]) -> bool:
+        """Whether every one of the weights is sharded on tp."""
+        return all(n in self._tp for n in names)
 
 
 def shard_params(params: Mapping[str, torch.Tensor], mesh: Mesh,
                  use_fsdp: bool = False, use_tp: bool = False):
-    """The base params under the mesh: sharded over fsdp (ShardedParams)
-    with use_fsdp and an fsdp axis longer than 1, else the same dict."""
-    if use_tp and mesh.shape["tp"] > 1:
-        raise NotImplementedError(NO_TP)
-    if use_fsdp and mesh.shape["fsdp"] > 1:
-        return ShardedParams(params, mesh)
+    """The base params under the mesh: sharded (ShardedParams) with
+    use_fsdp and an fsdp axis longer than 1, or use_tp and a tp axis
+    longer than 1; else the same dict."""
+    if ((use_fsdp and mesh.shape["fsdp"] > 1)
+            or (use_tp and mesh.shape["tp"] > 1)):
+        return ShardedParams(params, mesh, use_fsdp, use_tp)
     return params
 
 
@@ -455,10 +539,8 @@ def mesh_from_flags(data_parallel: bool = False, fsdp: int = 1, tp: int = 1,
     """The trainers' mesh: None when no parallelism is asked for or the
     group has one rank, else (dp, fsdp, tp) where dp takes the ranks left
     after fsdp x tp when data_parallel is set (else 1)."""
-    if tp > 1:
-        raise NotImplementedError(NO_TP)
     n = world_size() if world is None else int(world)
-    if not (data_parallel or fsdp > 1) or n == 1:
+    if not (data_parallel or fsdp > 1 or tp > 1) or n == 1:
         return None
     if n % (fsdp * tp) != 0:
         raise ValueError(

@@ -20,13 +20,14 @@ nothing waits for the device.
 
 Across processes (parallel/mesh.py; lora_launch_torch): data_parallel
 spreads the global batch (train_batch_size x dp) over the ranks, fsdp
-shards the frozen base (its full weights wait in host memory for the run).
+shards the frozen base, and tensor_parallel splits its attention and MLP
+blocks over tp ranks (parallel/tensor.py); a sharded base's full weights
+wait in host memory for the run.
 Every rank draws the same sample stream and random draws and keeps its
 block, so the run is one process's at the global batch. Only rank 0 writes
 (metrics, artifacts, train state, class images; the others wait at a
 barrier), and a SIGTERM to any rank stops all of them at the same step.
-With one rank data_parallel and fsdp are no mesh, as in lora_tpu;
-tensor_parallel > 1 raises (ROADMAP Slice 7b).
+With one rank the mesh flags are no mesh, as in lora_tpu.
 """
 
 from __future__ import annotations
@@ -115,9 +116,8 @@ class DreamBoothConfig:
     mixed_precision: Optional[str] = None  # None | "bf16"
     cached_latents: bool = False
     cache_text_embeddings: bool = True  # off when the text encoder trains
-    # mesh flags (lora_tpu's, parallel/mesh.py): data_parallel and fsdp
-    # over the process group (no mesh on one rank); tensor_parallel > 1 is
-    # not ported (ROADMAP Slice 7b)
+    # mesh flags (lora_tpu's, parallel/mesh.py): data_parallel, fsdp and
+    # tensor_parallel over the process group (no mesh on one rank)
     data_parallel: bool = False
     preemption_sync_every: int = 10  # multi-process only
     fsdp: int = 1
@@ -204,12 +204,6 @@ def _sites(pipe, cfg: DreamBoothConfig):
                      f"got {cfg.lora_targets!r}")
 
 
-def _check_unported(cfg: DreamBoothConfig) -> None:
-    if cfg.tensor_parallel > 1:
-        raise NotImplementedError(
-            f"tensor_parallel={cfg.tensor_parallel}: {mesh_lib.NO_TP}")
-
-
 def _cached_latents(pipe, ds, cfg, dtype):
     """Every example encoded once (its augmentation fixed at cache time):
     ([(latent, host ids)] of the instances, the same of the class
@@ -277,7 +271,6 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     is_xl = _is_xl(pipe)
     if is_xl:
         _check_xl(cfg)
-    _check_unported(cfg)
     os.makedirs(cfg.output_dir, exist_ok=True)
     device = pipe.device
     dtype = torch.bfloat16 if cfg.mixed_precision == "bf16" else torch.float32
@@ -396,10 +389,12 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     modules = ((pipe.unet, pipe.text_encoder)
                + ((pipe.text_encoder_2,) if is_xl else ()) + (pipe.vae,))
     base = tuple(m.flat_params() for m in modules)
-    fsdp = mesh is not None and mesh.shape["fsdp"] > 1
-    if fsdp:
-        base = tuple(mesh_lib.shard_params(p, mesh, use_fsdp=True)
-                     for p in base)
+    sharded = mesh is not None and (mesh.shape["fsdp"] > 1
+                                    or mesh.shape["tp"] > 1)
+    if sharded:
+        base = tuple(mesh_lib.shard_params(
+            p, mesh, use_fsdp=cfg.fsdp > 1, use_tp=cfg.tensor_parallel > 1)
+            for p in base)
 
     @torch.no_grad()
     def save(step_tag: str, final=False):
@@ -484,7 +479,7 @@ def train_dreambooth(pipe, cfg: DreamBoothConfig) -> dict:
     stop = mesh_lib.PreemptionCoordinator(cfg.preemption_sync_every)
     try:
         with contextlib.ExitStack() as stack:
-            if fsdp:  # the device keeps the shards; the pipe's full weights
+            if sharded:  # the device keeps the shards; the pipe's full weights
                 # wait on the host
                 stack.enter_context(mesh_lib.host_offloaded(modules))
             guard = stack.enter_context(PreemptionGuard())

@@ -20,9 +20,10 @@ instead (`noise=`, `timesteps=`, `vae_noise=`, `masked_vae_noise=`,
 `dropout_seed=`): the parity tests draw them with jax.random and pass them.
 
 Under a data-parallel mesh (parallel/mesh.py) each rank holds its block of
-the global batch. Every draw is the global batch's, from the same seeded
-generator on every rank (or handed in for the global batch), cut to the
-rank's rows, dropout masks included; the batch-wide reductions (the prior
+the global batch (its fsdp and tp peers hold the same block). Every draw is
+the global batch's, from the same seeded generator on every rank (or
+handed in for the global batch), cut to the rank's rows, dropout masks
+included (a tensor-parallel rank's also cut to its features); the batch-wide reductions (the prior
 term's counts, the mask's peak) are global. The returned loss is then the
 rank's share: its mean over the dp ranks is the loss of the global batch,
 and so is its gradient (training/train_step.py averages both).

@@ -32,8 +32,9 @@ Across processes (parallel/mesh.py) data_parallel and fsdp work as in
 training/dreambooth.py: the TI rows' gradients are averaged over dp with
 the LoRA's, the norm prior runs on every rank and leaves the rows the same
 bits everywhere, only rank 0 writes (and evaluates), and a SIGTERM to any
-rank stops every rank at the same step. Under fsdp the pipe keeps its full
-weights beside the shards. tensor_parallel > 1 raises (ROADMAP Slice 7b).
+rank stops every rank at the same step. tensor_parallel splits the
+attention and MLP blocks over tp ranks (parallel/tensor.py). Under fsdp
+or tp the pipe keeps its full weights beside the shards.
 """
 
 from __future__ import annotations
@@ -130,8 +131,7 @@ class PTIConfig:
     max_grad_norm: float = 1.0
     out_name: str = "final_lora"
     mixed_precision: Optional[str] = None
-    # mesh flags (lora_tpu's, parallel/mesh.py); tensor_parallel > 1 is not
-    # ported (ROADMAP Slice 7b)
+    # mesh flags (lora_tpu's, parallel/mesh.py)
     data_parallel: bool = False
     fsdp: int = 1
     tensor_parallel: int = 1
@@ -265,7 +265,7 @@ def cached_loader(items, batch_size: int, seed: int = 0,
                    for key in chunk[0]}
 
 
-def _check_unported(pipe, cfg: PTIConfig) -> None:
+def _check_config(pipe, cfg: PTIConfig) -> None:
     if cfg.lora_targets not in ("default", "extended", "locon"):
         raise ValueError(f"lora_targets must be default|extended|locon, "
                          f"got {cfg.lora_targets!r}")
@@ -273,9 +273,6 @@ def _check_unported(pipe, cfg: PTIConfig) -> None:
         raise ValueError("use_extended_lora conflicts with "
                          "lora_targets='locon' (locon already covers the "
                          "extended conv sites); pass exactly one")
-    if cfg.tensor_parallel > 1:
-        raise NotImplementedError(
-            f"tensor_parallel={cfg.tensor_parallel}: {mesh_lib.NO_TP}")
 
 
 def _sites(pipe, cfg: PTIConfig):
@@ -328,7 +325,7 @@ def eval_at_save(pipe, trainable: dict, embeds: Optional[dict],
 
 
 def train_pti(pipe, cfg: PTIConfig) -> dict:
-    _check_unported(pipe, cfg)
+    _check_config(pipe, cfg)
     locon = cfg.lora_targets == "locon"
     os.makedirs(cfg.output_dir, exist_ok=True)
     device = pipe.device
@@ -393,8 +390,9 @@ def train_pti(pipe, cfg: PTIConfig) -> dict:
                 pipe.vae.flat_params())
         if mesh is None:
             return base
-        return tuple(mesh_lib.shard_params(p, mesh, use_fsdp=cfg.fsdp > 1)
-                     for p in base)
+        return tuple(mesh_lib.shard_params(
+            p, mesh, use_fsdp=cfg.fsdp > 1, use_tp=cfg.tensor_parallel > 1)
+            for p in base)
 
     base = base_params()
 

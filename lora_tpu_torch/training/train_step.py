@@ -12,7 +12,11 @@ Under a mesh (parallel/mesh.py) the batch is the rank's block of the global
 batch, and the trainable leaves' gradients and the loss are averaged over
 dp in one flat bucket before the optimizer (so before its global-norm clip
 and either low-memory Adam): lora_tpu's psum of the LoRA / TI gradients.
-The returned loss is the global batch's.
+Under tensor parallelism the parts of the gradients that split blocks gave
+(parallel/tensor.py) are first summed over tp in one flat bucket; a
+leaf's reads outside split blocks already gave its whole gradient on every
+tp rank, which a sum would count tp times. The returned loss is the global
+batch's.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from ..models import schedulers
 from ..parallel.mesh import Mesh
+from ..parallel.tensor import sum_split_grads
 from .loss import LossConfig, loss_step
 from .optim import GroupedAdamW, tree_leaves
 
@@ -47,11 +52,13 @@ def make_train_step(
     text2_params, vae_params) when text2_cfg is given (SDXL, with the
     tokenizer's eos_id), and draws the explicit random draws loss_step
     takes (noise=, timesteps=, ...; under a mesh the global batch's). The
-    base may be sharded over the mesh's fsdp axis (mesh.shard_params)."""
+    base may be sharded over the mesh's fsdp and tp axes
+    (mesh.shard_params)."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
     dp = 1 if mesh is None else mesh.shape["dp"]
+    tp = 1 if mesh is None else mesh.shape["tp"]
 
     def step(trainable, base, batch, generator=None, **draws):
         if text2_cfg is not None:
@@ -66,6 +73,8 @@ def make_train_step(
             text2_params=text2_p, text2_cfg=text2_cfg, eos_id=eos_id,
             mesh=mesh, **draws)
         loss.backward()
+        if tp > 1:
+            sum_split_grads(optimizer.params, mesh)
         if dp > 1:
             loss = mesh.mean_grads(optimizer.params, loss)
         optimizer.step()

@@ -413,18 +413,16 @@ def test_unported_paths_and_bad_flags_raise(params, tmp_path):
         output_dir=str(tmp_path / "xl")))
     assert res["steps"] == 1 and np.isfinite(res["final_loss"])
     pipe = port_pipe(params)
-    # fsdp on a 1-rank group is no mesh (lora_tpu's mesh_from_flags): it
-    # trains; tensor parallelism is Slice 7b's
+    # fsdp and tensor_parallel on a 1-rank group are no mesh (lora_tpu's
+    # mesh_from_flags): they train as one process
     from test_torch_port_mesh import one_rank_group
 
     with one_rank_group(tmp_path):
-        res = t_db.train_dreambooth(pipe, dataclasses.replace(
-            cfg, fsdp=2, max_train_steps=1,
-            output_dir=str(tmp_path / "fsdp")))
-    assert res["steps"] == 1 and np.isfinite(res["final_loss"])
-    with pytest.raises(NotImplementedError, match="Slice 7b"):
-        t_db.train_dreambooth(pipe, dataclasses.replace(cfg,
-                                                        tensor_parallel=2))
+        for flags in ({"fsdp": 2}, {"tensor_parallel": 2}):
+            res = t_db.train_dreambooth(pipe, dataclasses.replace(
+                cfg, max_train_steps=1,
+                output_dir=str(tmp_path / str(sorted(flags))), **flags))
+            assert res["steps"] == 1 and np.isfinite(res["final_loss"])
     for bad, match in (({"lora_targets": "locon"}, "kohya schema"),
                        ({"lora_targets": "locon", "output_format": "safe",
                          "resume_unet": "x.pt"}, "resume"),

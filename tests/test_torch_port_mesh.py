@@ -1,7 +1,7 @@
 """parallel/mesh.py, the port's counterpart of lora_tpu/parallel/mesh.py:
 the mesh refusals (against tests/test_training.py:225-240), param_pspec's
-FSDP axis for every weight of the tiny UNet and text encoder against
-lora_tpu's, a 1-rank group, and on two CPU ranks over gloo (through this
+tp and FSDP axes for every weight of the tiny UNet, text encoders and VAE
+against lora_tpu's, a 1-rank group, and on two CPU ranks over gloo (through this
 file: `python tests/test_torch_port_mesh.py --worker ROOT`):
 
   - the train step with dp = 2 against lora_tpu's single-device step at
@@ -37,6 +37,7 @@ from lora_tpu_torch.models.config import (  # noqa: E402
     TINY_TEXT,
     TINY_UNET,
     TINY_VAE,
+    TINY_XL_TEXT2,
 )
 from lora_tpu_torch.models.unet import UNet  # noqa: E402
 from lora_tpu_torch.models.vae import VAE  # noqa: E402
@@ -73,8 +74,7 @@ def _one_torch_thread():
 
 
 def test_mesh_from_flags_and_batch_guard():
-    """lora_tpu's refusals with the same messages; tensor_parallel names
-    Slice 7b."""
+    """lora_tpu's meshes and refusals with the same messages."""
     assert mesh_lib.mesh_from_flags(world=8) is None
     assert mesh_lib.mesh_from_flags(data_parallel=True, fsdp=2,
                                     world=1) is None
@@ -83,10 +83,19 @@ def test_mesh_from_flags_and_batch_guard():
     m2 = mesh_lib.mesh_from_flags(data_parallel=True, fsdp=2, world=8)
     assert (m2.shape["dp"], m2.shape["fsdp"]) == (4, 2)
     assert mesh_lib.mesh_from_flags(fsdp=8, world=8).shape["dp"] == 1
-    with pytest.raises(NotImplementedError, match="Slice 7b"):
-        mesh_lib.mesh_from_flags(data_parallel=True, fsdp=2, tp=2, world=8)
-    with pytest.raises(NotImplementedError, match="Slice 7b"):
-        mesh_lib.make_mesh(dp=4, tp=2, world=8)
+    # tensor parallelism: lora_tpu's (2, 2, 2) on 8 devices; tp alone is
+    # a mesh (dp 1), and no mesh on one device
+    m3 = mesh_lib.mesh_from_flags(data_parallel=True, fsdp=2, tp=2, world=8)
+    assert m3.shape == {"dp": 2, "fsdp": 2, "tp": 2} and not m3.distributed
+    assert m3.coords == {"dp": 0, "fsdp": 0, "tp": 0}
+    assert mesh_lib.mesh_from_flags(tp=2, world=2).shape == {
+        "dp": 1, "fsdp": 1, "tp": 2}
+    assert mesh_lib.mesh_from_flags(tp=2, world=1) is None
+    assert mesh_lib.make_mesh(dp=4, tp=2, world=8).shape["tp"] == 2
+    with pytest.raises(ValueError, match="divide the device count"):
+        mesh_lib.mesh_from_flags(tp=3, world=8)
+    with pytest.raises(ValueError, match="does not cover"):
+        mesh_lib.mesh_from_flags(tp=2, world=8)  # dp disabled, 2 != 8
     with pytest.raises(ValueError, match="divide the device count"):
         mesh_lib.mesh_from_flags(data_parallel=True, fsdp=3, world=8)
     with pytest.raises(ValueError, match="does not cover"):
@@ -107,28 +116,36 @@ def test_mesh_from_flags_and_batch_guard():
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_param_pspec_matches_lora_tpu(n):
-    """The FSDP axis of every weight of the tiny UNet and text encoder is
-    lora_tpu's."""
+    """The tp and FSDP axes of every weight of the tiny UNet, text
+    encoders (SD's, and SDXL's te2 with its projection) and VAE are
+    lora_tpu's: fsdp = n alone, and tp = n without and with fsdp = 2."""
     pytest.importorskip("jax")
     from lora_tpu.parallel import mesh as j_mesh
 
-    fake = types.SimpleNamespace(shape={"dp": 1, "fsdp": n, "tp": 1})
-    mesh = mesh_lib.make_mesh(dp=1, fsdp=n, world=n)
-    names = 0
-    for cls, cfg in ((UNet, TINY_UNET), (CLIPTextModel, TINY_TEXT)):
-        for name, w in cls(cfg, device="meta").flat_params().items():
-            shape = tuple(w.shape)
-            want = tuple(j_mesh.param_pspec(name, shape, fake,
-                                            use_fsdp=True))
-            assert mesh_lib.param_pspec(name, shape, mesh,
-                                        use_fsdp=True) == want, name
-            assert mesh_lib.param_pspec(name, shape, mesh) == \
-                (None,) * len(shape)
-            names += 1
-    assert names > 300
-    with pytest.raises(NotImplementedError, match="Slice 7b"):
-        mesh_lib.param_pspec("a.to_q.weight", (4, 4), types.SimpleNamespace(
-            shape={"dp": 1, "fsdp": 1, "tp": 2}), use_tp=True)
+    models = [(cls, cfg, cls(cfg, device="meta").flat_params())
+              for cls, cfg in ((UNet, TINY_UNET), (CLIPTextModel, TINY_TEXT),
+                               (CLIPTextModel, TINY_XL_TEXT2),
+                               (VAE, TINY_VAE))]
+    names = tp_axes = 0
+    for fsdp, tp in ((n, 1), (1, n), (2, n)):
+        shape = {"dp": 1, "fsdp": fsdp, "tp": tp}
+        fake = types.SimpleNamespace(shape=shape)
+        mesh = mesh_lib.make_mesh(dp=1, fsdp=fsdp, tp=tp, world=fsdp * tp)
+        for _, _, params in models:
+            for name, w in params.items():
+                shp = tuple(w.shape)
+                for use_fsdp, use_tp in ((True, True), (True, False),
+                                         (False, True)):
+                    want = tuple(j_mesh.param_pspec(
+                        name, shp, fake, use_fsdp=use_fsdp, use_tp=use_tp))
+                    assert mesh_lib.param_pspec(
+                        name, shp, mesh, use_fsdp=use_fsdp,
+                        use_tp=use_tp) == want, (name, shape)
+                    tp_axes += "tp" in want
+                assert mesh_lib.param_pspec(name, shp, mesh) == \
+                    (None,) * len(shp)
+                names += 1
+    assert names > 3 * 500 and tp_axes > 3 * 100
 
 
 def test_one_rank_group(tmp_path):

@@ -125,20 +125,18 @@ def test_refusals(inst, tmp_path):
                        "supported for SDXL training \\(dual-tokenizer TI is "
                        "out of scope\\)$"):
         t_pti.train_pti(xl, cfg)
-    # data_parallel and fsdp on a 1-rank group are no mesh (lora_tpu's
-    # mesh_from_flags): they train; tensor parallelism is Slice 7b's
+    # data_parallel, fsdp and tensor_parallel on a 1-rank group are no
+    # mesh (lora_tpu's mesh_from_flags): they train as one process
     from test_torch_port_mesh import one_rank_group
 
     with one_rank_group(tmp_path):
-        for flags in ({"data_parallel": True}, {"fsdp": 2}):
+        for flags in ({"data_parallel": True}, {"fsdp": 2},
+                      {"tensor_parallel": 2}):
             res = t_pti.train_pti(tiny_pipe(), dataclasses.replace(
                 cfg, max_train_steps_ti=1, max_train_steps_tuning=1,
                 gradient_accumulation_steps=1,
                 output_dir=str(tmp_path / str(sorted(flags))), **flags))
             assert not res["preempted"] and np.isfinite(res["final_loss"])
-    with pytest.raises(NotImplementedError, match="Slice 7b"):
-        t_pti.train_pti(tiny_pipe(), dataclasses.replace(
-            cfg, tensor_parallel=2))
     for bad, match in (
             ({"lora_targets": "everything"}, "default\\|extended\\|locon"),
             ({"lora_targets": "locon", "use_extended_lora": True},
