@@ -16,7 +16,9 @@ optionally flipped. The differences are in decoding and resizing:
 - Pillow's BILINEAR resize is F.interpolate(mode="bilinear",
   antialias=True) on the uint8 image, on the CPU: at most one level apart
   from Pillow's on a fraction of a percent of the pixels, exact where no
-  resize happens.
+  resize happens. data/resample.py gives Pillow's bytes, but its numpy
+  passes are far slower on photo-sized images, and this runs on every
+  image the loader reads.
 
 random.Random(seed) drives shuffling, h_flip, color_jitter, the
 inpainting holes, the caption templates and the stochastic attributes,

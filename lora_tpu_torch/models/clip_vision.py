@@ -10,22 +10,27 @@ the port; the patch embedding is a stride-`patch_size` conv on NCHW
 inside. Attention goes through ops/attention.py: ViT-L/14's 257 tokens
 fail the flash kernels' shape rule, so the tower takes the plain path, as
 lora_tpu's does.
+
+CLIPSeg (models/clipseg.py) runs the same tower under its "clip." keys:
+clip_vision_forward takes the position table resized to its patch grid
+and returns the hidden states of the encoder layers it reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data import resample
 from ..ops.attention import attention
 from .clip import clip_text_forward
 from .config import CLIPTextConfig
+from .hf_dir import act_fn
 from .layers import Initializer, ParamModule, Params, dense, layer_norm
-from .layers import quick_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +43,8 @@ class CLIPVisionConfig:
     patch_size: int = 14
     projection_dim: int = 768
     layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    num_channels: int = 3
 
 
 CLIP_VIT_L14_VISION = CLIPVisionConfig()
@@ -47,75 +54,98 @@ TINY_VISION = CLIPVisionConfig(hidden_size=32, intermediate_size=64,
                                projection_dim=16)
 
 
+def init_encoder_layer(ini: Initializer, base: str, d: int, ff: int):
+    """The params of a CLIP encoder layer at `base` (layer_norm1, the
+    self_attn projections, layer_norm2, mlp.fc1 and fc2): N(0, 0.02)
+    weights, zero biases, unit norms."""
+
+    def lin(name, i, o):
+        ini.p[name + ".weight"] = ini.normal((o, i), 0.02)
+        ini.p[name + ".bias"] = ini.zeros((o,))
+
+    ini.norm(base + ".layer_norm1", d)
+    for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+        lin(f"{base}.self_attn.{proj}", d, d)
+    ini.norm(base + ".layer_norm2", d)
+    lin(base + ".mlp.fc1", d, ff)
+    lin(base + ".mlp.fc2", ff, d)
+
+
 def init_clip_vision(cfg: CLIPVisionConfig,
                      generator: Optional[torch.Generator], *, device,
                      dtype=torch.float32) -> Params:
     """Random-init params (N(0, 0.02) weights and embeddings, zero biases,
     unit norms; uninitialised without a generator)."""
-    d, ff, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    d, L = cfg.hidden_size, cfg.num_hidden_layers
     n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
     ini = Initializer(generator, device, dtype)
     p = ini.p
-
-    def lin(name, i, o, bias=True):
-        p[name + ".weight"] = ini.normal((o, i), 0.02)
-        if bias:
-            p[name + ".bias"] = ini.zeros((o,))
-
     p["vision_model.embeddings.class_embedding"] = ini.normal((d,), 0.02)
     p["vision_model.embeddings.patch_embedding.weight"] = ini.normal(
-        (d, 3, cfg.patch_size, cfg.patch_size), 0.02)
+        (d, cfg.num_channels, cfg.patch_size, cfg.patch_size), 0.02)
     p["vision_model.embeddings.position_embedding.weight"] = ini.normal(
         (n_pos, d), 0.02)
     ini.norm("vision_model.pre_layrnorm", d)  # HF's key (typo upstream)
     for i in range(L):
-        base = f"vision_model.encoder.layers.{i}"
-        ini.norm(base + ".layer_norm1", d)
-        for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
-            lin(f"{base}.self_attn.{proj}", d, d)
-        ini.norm(base + ".layer_norm2", d)
-        lin(base + ".mlp.fc1", d, ff)
-        lin(base + ".mlp.fc2", ff, d)
+        init_encoder_layer(ini, f"vision_model.encoder.layers.{i}", d,
+                           cfg.intermediate_size)
     ini.norm("vision_model.post_layernorm", d)
-    lin("visual_projection", d, cfg.projection_dim, bias=False)
+    p["visual_projection.weight"] = ini.normal((cfg.projection_dim, d), 0.02)
     return p
 
 
+def self_attention(params: Params, base: str, x: torch.Tensor,
+                   heads: int) -> torch.Tensor:
+    """CLIP's attention block at `base` (q/k/v/out_proj) on (B, T, d),
+    unmasked."""
+    B, T, d = x.shape
+
+    def split(y):  # (B, T, d) -> (B, h, T, dh)
+        return y.reshape(B, T, heads, d // heads).transpose(1, 2)
+
+    att = attention(split(dense(params, base + ".q_proj", x)),
+                    split(dense(params, base + ".k_proj", x)),
+                    split(dense(params, base + ".v_proj", x)))
+    return dense(params, base + ".out_proj",
+                 att.transpose(1, 2).reshape(B, T, d))
+
+
 def clip_vision_forward(params: Params, pixel_values: torch.Tensor,
-                        cfg: CLIPVisionConfig,
-                        dtype=torch.float32) -> torch.Tensor:
+                        cfg: CLIPVisionConfig, dtype=torch.float32, *,
+                        positions: Optional[torch.Tensor] = None,
+                        extract_layers: Optional[Sequence[int]] = None):
     """pixel_values: (B, H, W, 3) CLIP-normalized. The pooled CLS state
-    after post_layernorm, (B, hidden)."""
+    after post_layernorm, (B, hidden). `positions` stands for the
+    checkpoint's position table (a table resized to another patch grid).
+    With `extract_layers`, the outputs of those encoder layers instead, a
+    list in that order (the layers past the last are not run)."""
     B = pixel_values.shape[0]
-    d, h = cfg.hidden_size, cfg.num_attention_heads
-    dh = d // h
+    d = cfg.hidden_size
+    act = act_fn(cfg.hidden_act)
     w = params["vision_model.embeddings.patch_embedding.weight"].to(dtype)
     patches = F.conv2d(pixel_values.to(dtype).permute(0, 3, 1, 2), w,
                        stride=cfg.patch_size)
     x = patches.flatten(2).transpose(1, 2)  # (B, patches, d), row-major
     cls = params["vision_model.embeddings.class_embedding"].to(dtype)
     x = torch.cat([cls.expand(B, 1, d), x], dim=1)
-    x = x + params["vision_model.embeddings.position_embedding.weight"][
-        :x.shape[1]].to(dtype)
+    if positions is None:
+        positions = params["vision_model.embeddings.position_embedding.weight"]
+    x = x + positions[:x.shape[1]].to(dtype)
     x = layer_norm(params, "vision_model.pre_layrnorm", x, cfg.layer_norm_eps)
-
-    def heads(y):  # (B, T, d) -> (B, h, T, dh)
-        return y.reshape(B, -1, h, dh).transpose(1, 2)
-
-    def unheads(y):
-        return y.transpose(1, 2).reshape(B, -1, d)
-
-    for i in range(cfg.num_hidden_layers):
+    n_layers = (cfg.num_hidden_layers if extract_layers is None
+                else max(extract_layers) + 1)
+    states = []
+    for i in range(n_layers):
         base = f"vision_model.encoder.layers.{i}"
         y = layer_norm(params, base + ".layer_norm1", x, cfg.layer_norm_eps)
-        sa = base + ".self_attn"
-        att = unheads(attention(heads(dense(params, sa + ".q_proj", y)),
-                                heads(dense(params, sa + ".k_proj", y)),
-                                heads(dense(params, sa + ".v_proj", y))))
-        x = x + dense(params, sa + ".out_proj", att)
+        x = x + self_attention(params, base + ".self_attn", y,
+                               cfg.num_attention_heads)
         y = layer_norm(params, base + ".layer_norm2", x, cfg.layer_norm_eps)
         x = x + dense(params, base + ".mlp.fc2",
-                      quick_gelu(dense(params, base + ".mlp.fc1", y)))
+                      act(dense(params, base + ".mlp.fc1", y)))
+        states.append(x)
+    if extract_layers is not None:
+        return [states[i] for i in extract_layers]
     return layer_norm(params, "vision_model.post_layernorm", x[:, 0],
                       cfg.layer_norm_eps)
 
@@ -129,11 +159,15 @@ def get_image_features(params: Params, pixel_values: torch.Tensor,
 
 
 def get_text_features(params: Params, input_ids: torch.Tensor,
-                      text_cfg: CLIPTextConfig) -> torch.Tensor:
-    """CLIPModel.get_text_features: the final state at each row's largest
-    id (the EOS: argmax pooling) through text_projection."""
+                      text_cfg: CLIPTextConfig,
+                      eos_token_id: int = 2) -> torch.Tensor:
+    """CLIPModel.get_text_features: the final state at each row's EOS
+    through text_projection. The EOS is the largest id where eos_token_id
+    is 2 (transformers' legacy rule, argmax pooling), else the first
+    eos_token_id."""
     hidden = clip_text_forward(params, input_ids, text_cfg)
-    eos_pos = input_ids.argmax(dim=-1)
+    eos_pos = (input_ids.argmax(dim=-1) if eos_token_id == 2
+               else (input_ids == eos_token_id).int().argmax(dim=-1))
     pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device),
                     eos_pos]
     return pooled @ params["text_projection.weight"].to(pooled.dtype).T
@@ -170,38 +204,15 @@ def _rgb(img) -> np.ndarray:
     return np.ascontiguousarray(a[..., :3], dtype=np.uint8)
 
 
-def _round_u8(x: torch.Tensor) -> torch.Tensor:
-    """Round half up and clamp to [0, 255], as Pillow stores each pass."""
-    return torch.floor(x + 0.5).clamp(0, 255)
-
-
-def resize_bicubic(img, height: int, width: int, device="cpu") -> torch.Tensor:
-    """An image resized to (height, width, 3) uint8 as Pillow's BICUBIC
-    resize does it: F.interpolate(mode="bicubic", antialias=True) (the
-    cubic a = -0.5, stretched over the scale when shrinking) in f32, the
-    horizontal pass first, each pass rounded and clamped to 8 bits as
-    Pillow stores it. Pillow sums in fixed point, so a pixel may differ
-    from its by one level."""
-    x = torch.from_numpy(_rgb(img)).to(device)
-    h, w = x.shape[:2]
-    if (h, w) == (height, width):
-        return x
-    y = x.permute(2, 0, 1)[None].float()
-    for size, resized in (((h, width), w != width),
-                          ((height, width), h != height)):
-        if resized:
-            y = _round_u8(F.interpolate(y, size=size, mode="bicubic",
-                                        align_corners=False, antialias=True))
-    return y[0].permute(1, 2, 0).to(torch.uint8)
-
-
 def preprocess_images(images, image_size: int = 224,
                       device="cpu") -> torch.Tensor:
     """uint8 images ((H, W, 3) arrays, or a (B, H, W, 3) array) ->
-    CLIP-normalized (B, S, S, 3) float32 on `device`, each resized as
-    Pillow's BICUBIC (resize_bicubic)."""
-    out = torch.stack([resize_bicubic(img, image_size, image_size, device)
-                       for img in images]).float() / 255.0
+    CLIP-normalized (B, S, S, 3) float32 on `device`, each resized by
+    Pillow's BICUBIC arithmetic (data/resample.py) on the host."""
+    out = torch.from_numpy(np.stack([
+        resample.resize(_rgb(img), (image_size, image_size),
+                        resample.BICUBIC) for img in images]))
+    out = out.to(device).float() / 255.0
     mean = torch.tensor(CLIP_IMAGE_MEAN, device=out.device)
     std = torch.tensor(CLIP_IMAGE_STD, device=out.device)
     return (out - mean) / std

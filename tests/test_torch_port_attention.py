@@ -22,6 +22,7 @@ from lora_tpu.ops import flash_attention as j_fa  # noqa: E402
 from lora_tpu_torch.ops import attention as t_att  # noqa: E402
 from lora_tpu_torch.ops import build as t_build  # noqa: E402
 from lora_tpu_torch.ops import flash_attention as t_fa  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 
 def _qkv(B, H, T, S, D, seed=0):

@@ -170,6 +170,7 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.cli.lora_distill",
                "lora_tpu_torch.cli.pt_to_safetensors",
                "lora_tpu_torch.cli.kohya_convert",
+               "lora_tpu_torch.cli.lora_ppim",
                "lora_tpu_torch.launch", "lora_tpu_torch.lora_manager",
                "lora_tpu_torch.parallel", "lora_tpu_torch.parallel.mesh",
                "lora_tpu_torch.parallel.tensor",
@@ -178,6 +179,8 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.core.svd",
                "lora_tpu_torch.data.dataset", "lora_tpu_torch.data.png",
                "lora_tpu_torch.data.preprocess",
+               "lora_tpu_torch.data.resample",
+               "lora_tpu_torch.data.bert_tokenizer",
                "lora_tpu_torch.data.tokenizer",
                "lora_tpu_torch.formats.ckpt_export",
                "lora_tpu_torch.formats.kohya",
@@ -185,13 +188,17 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.formats.pt_io",
                "lora_tpu_torch.formats.reader",
                "lora_tpu_torch.formats.safetensors_io",
+               "lora_tpu_torch.models.blip",
                "lora_tpu_torch.models.clip",
                "lora_tpu_torch.models.clip_vision",
+               "lora_tpu_torch.models.clipseg",
                "lora_tpu_torch.models.config",
+               "lora_tpu_torch.models.hf_dir",
                "lora_tpu_torch.models.hf_import",
                "lora_tpu_torch.models.layers",
                "lora_tpu_torch.models.schedulers",
                "lora_tpu_torch.models.structure",
+               "lora_tpu_torch.models.swin2sr",
                "lora_tpu_torch.models.unet", "lora_tpu_torch.models.vae",
                "lora_tpu_torch.native", "lora_tpu_torch.native.build",
                "lora_tpu_torch.ops.attention", "lora_tpu_torch.ops.build",
@@ -212,7 +219,9 @@ def test_port_imports_no_jax():
                "lora_tpu_torch.utils.profiling"]
     # ... and none imports Pillow or transformers at import time (the
     # card's machine has neither; the dataset imports Pillow only for a
-    # JPEG, utils/eval.py transformers only for a local CLIP checkpoint)
+    # JPEG, utils/eval.py transformers only for a local CLIP checkpoint,
+    # the preprocessing entry point Pillow only to write its JPEGs; the BLIP,
+    # CLIPSeg and Swin2SR towers need neither)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"

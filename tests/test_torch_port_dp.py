@@ -47,6 +47,7 @@ from lora_tpu_torch.pipelines.sdxl import (  # noqa: E402
 from lora_tpu_torch.training import dreambooth as t_db  # noqa: E402
 from lora_tpu_torch.training import optim as t_optim  # noqa: E402
 from lora_tpu_torch.training import pti as t_pti  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 64
@@ -226,14 +227,6 @@ def runs(tmp_path_factory):
     write_images(os.path.join(root, "inst"), 2, 0)
     out = ok(launch(__file__, [root, *CASES], timeout=400))
     return root, out
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -69,6 +69,7 @@ from lora_tpu_torch.training import dreambooth as t_db  # noqa: E402
 from lora_tpu_torch.training import optim as t_optim  # noqa: E402
 
 from test_torch_port_training import jax_draws, random_lora  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 SIZE = 64
 STEPS = 3
@@ -88,17 +89,6 @@ CASES = {
     "adam8bit": dict(use_8bit_adam=True, train_text_encoder=True),
     "grad_accum": dict(gradient_accumulation_steps=2),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them;
-    restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def write_images(d, n, seed):

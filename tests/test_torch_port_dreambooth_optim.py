@@ -16,14 +16,7 @@ from test_torch_port_dreambooth import (  # noqa: E402
     check_same_run,
     run_both,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 
 @pytest.fixture(scope="module")

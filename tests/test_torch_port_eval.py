@@ -1,8 +1,9 @@
 """The port's CLIP vision tower (lora_tpu_torch/models/clip_vision.py) and
 eval harness (utils/eval.py) against lora_tpu's on TINY_VISION /
 TINY_TEXT, in f32: the image and text features within 1e-5 relative L2;
-preprocess_images within one uint8 level of lora_tpu's Pillow BICUBIC
-resize on odd sizes, up and down, gray and RGBA; image_grid's pixels;
+preprocess_images on Pillow's BICUBIC bytes (data/resample.py,
+RESAMPLE_TOL levels) on odd sizes, up and down, gray and RGBA, and
+within one level of lora_tpu's normalized pixels; image_grid's pixels;
 text_img_alignment and clip_alignment_scores within 1e-5 on the same
 images; evaluate_pipe's prompts, count and statistics, and a tiny pipe
 scored by the in-port CLIP; visualize_progress's order and bounds."""
@@ -20,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from lora_tpu.data.tokenizer import CLIPTokenizer as JTokenizer  # noqa: E402
 from lora_tpu.models import clip_vision as j_cv  # noqa: E402
 from lora_tpu.utils import eval as j_eval  # noqa: E402
+from lora_tpu_torch.data import resample  # noqa: E402
 from lora_tpu_torch.data.tokenizer import default_tokenizer  # noqa: E402
 from lora_tpu_torch.models import clip_vision as t_cv  # noqa: E402
 from lora_tpu_torch.models.clip import init_clip_text  # noqa: E402
@@ -30,17 +32,10 @@ from lora_tpu_torch.models.config import (  # noqa: E402
 )
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
 from lora_tpu_torch.utils import eval as t_eval  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 REL = 1e-5
 VIS = t_cv.TINY_VISION
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_l2(got, want):
@@ -95,9 +90,10 @@ SIZES = [(37, 53, 3), (300, 211, 3), (28, 28, 3), (13, 9, 3), (64, 20, 3),
 
 @pytest.mark.parametrize("size", [28, 224])
 def test_preprocess_images_within_one_level(size):
-    """Each image resized as Pillow's BICUBIC to within one uint8 level on
-    every pixel, and the normalized pixels within one level of lora_tpu's;
-    a gray and an RGBA image convert as Pillow's convert("RGB")."""
+    """Each image resized as Pillow's BICUBIC to its bytes (RESAMPLE_TOL
+    levels, 0) on every pixel, and the normalized pixels within one level
+    of lora_tpu's; a gray and an RGBA image convert as Pillow's
+    convert("RGB")."""
     imgs = images(2, SIZES) + images(3, [(21, 17)])
     rgba = images(4, [(30, 25, 4)])[0]
     imgs.append(rgba)
@@ -105,9 +101,9 @@ def test_preprocess_images_within_one_level(size):
         mode = "L" if img.ndim == 2 else {3: "RGB", 4: "RGBA"}[img.shape[-1]]
         pil = Image.fromarray(img, mode).convert("RGB").resize(
             (size, size), Image.BICUBIC)
-        got = t_cv.resize_bicubic(img, size, size).numpy()
+        got = resample.resize(t_cv._rgb(img), (size, size), resample.BICUBIC)
         diff = np.abs(got.astype(int) - np.asarray(pil, int))
-        assert diff.max() <= 1, (img.shape, size)
+        assert diff.max() <= resample.RESAMPLE_TOL, (img.shape, size)
     got = t_cv.preprocess_images(imgs, size).numpy()
     want = np.asarray(j_cv.preprocess_images(
         [Image.fromarray(i) for i in imgs], size))

@@ -42,6 +42,7 @@ from test_torch_port_dp import (  # noqa: E402
     tiny_pipe,
     write_images,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 FWD_RTOL, FWD_ATOL = 2e-4, 1e-5  # tests/test_training.py:220's
 TRAIN = dict(DB, cached_latents=True, gradient_checkpointing=True,
@@ -126,14 +127,6 @@ def run(tmp_path_factory):
     write_images(os.path.join(root, "inst"), 2, 0)
     ok(launch(__file__, [root], timeout=300))
     return root
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("rank", [0, 1])

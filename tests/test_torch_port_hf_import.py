@@ -28,6 +28,7 @@ from lora_tpu_torch.models.config import (  # noqa: E402
 )
 from lora_tpu_torch.models.schedulers import make_schedule  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 
 def _port_pipe(schedule=None):

@@ -33,21 +33,11 @@ from lora_tpu_torch.models.config import TINY_TEXT, TINY_UNET, TINY_VAE  # noqa:
 from lora_tpu_torch.models.unet import UNet  # noqa: E402
 from lora_tpu_torch.models.vae import VAE  # noqa: E402
 from lora_tpu_torch.pipelines import sd as t_sd  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 PROMPTS = ["a photo of a dog", "a town at dusk"]
 TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_goldens.py's pipeline limits
 LAT = (2, 8, 8, 4)  # the tiny VAE's latents of a 64x64 image
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pipes(in_channels=4):

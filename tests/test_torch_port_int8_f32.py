@@ -26,6 +26,7 @@ from lora_tpu.core import quantize as j_q  # noqa: E402
 from lora_tpu.ops import int8_matmul as j_i8  # noqa: E402
 from lora_tpu_torch.ops import int8_matmul as t_i8  # noqa: E402
 from test_torch_port_quantize import SD15_INT8_SHAPES, _wq, _x  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 CSRC = os.path.join(os.path.dirname(t_i8.__file__), "csrc")
 # max |kernel - plain| / max |plain| of f32 outputs on the card

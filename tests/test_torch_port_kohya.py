@@ -30,6 +30,7 @@ from lora_tpu.pipelines.sd import StableDiffusionPipeline as JPipe  # noqa: E402
 from lora_tpu_torch.convert import lora_from_jax  # noqa: E402
 from lora_tpu_torch.formats import kohya as t_kohya  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 # the pipelines' limits (tests/test_torch_port_pipeline.py TOL)
 PIPE_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -37,17 +38,6 @@ PROMPTS = ["a photo of a dog", "a town"]
 # configs: (unet, text) tiny pairs of the SD-1 and the SD-2 topology
 CFGS = {"sd1": (j_cfg.TINY_UNET, j_cfg.TINY_TEXT),
         "sd2": (j_cfg.TINY_SD2_UNET, j_cfg.TINY_SD2_TEXT)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_entries_match(port, jtree, rel=1e-5):

@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 from lora_tpu.models import layers as j_layers  # noqa: E402
 from lora_tpu_torch.convert import lora_from_jax, to_torch  # noqa: E402
 from lora_tpu_torch.models import layers as t_layers  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 ATOL = 1e-5
 KINDS = ["plain", "diag", "delta", "stacked"]

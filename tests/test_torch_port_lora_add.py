@@ -30,16 +30,9 @@ from lora_tpu_torch.formats.safetensors_io import (  # noqa: E402
 from lora_tpu_torch.models import config as t_cfg  # noqa: E402
 from lora_tpu_torch.models.hf_import import save_pipeline_params  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 RANK = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_pipe(seed=0):

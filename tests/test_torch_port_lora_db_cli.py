@@ -30,22 +30,16 @@ from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
 from lora_tpu_torch.pipelines.sdxl import (  # noqa: E402
     StableDiffusionXLPipeline,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the tiny directory has no CLIP vocabulary: from_pretrained needs the
 # opt-in to the hashed tokenizer (data/tokenizer.py)
+# one intra-op thread in the CLI's process: the tiny steps gain nothing
+# from more, which oversubscribe the cores beside the other test workers
 ENV = dict(os.environ, LORA_TPU_ALLOW_HASHED_TOKENIZER="1",
+           OMP_NUM_THREADS="1",
            PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, which
-    oversubscribe the cores beside other test processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

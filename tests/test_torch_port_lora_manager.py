@@ -27,17 +27,10 @@ from lora_tpu_torch.formats.safetensors_io import (  # noqa: E402
     save_safeloras_with_embeds,
 )
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 REL = 1e-5
 PROMPTS = ["a <1> photo of <2>", "a town"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_pipes(seed=0):

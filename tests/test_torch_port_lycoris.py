@@ -41,17 +41,7 @@ from test_torch_port_kohya import (  # noqa: E402
     same_error,
     unet_and_text_calls,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 
 def _sites(cfg_name):

@@ -47,6 +47,7 @@ from lora_tpu_torch.training import optim as t_optim  # noqa: E402
 from lora_tpu_torch.training import train_step as t_ts  # noqa: E402
 
 from test_torch_port_dp import launch, ok  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 LRS = {"lora_unet": 1e-3, "lora_text": 5e-4, "ti": 5e-3}
 TI_IDS = np.array([998, 999], np.int32)
@@ -63,14 +64,6 @@ def one_rank_group(tmp_path):
         yield
     finally:
         dist.destroy_process_group()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_mesh_from_flags_and_batch_guard():

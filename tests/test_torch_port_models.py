@@ -26,6 +26,7 @@ from lora_tpu_torch.convert import lora_from_jax, state_dict_from_jax  # noqa: E
 from lora_tpu_torch.models.clip import CLIPTextModel  # noqa: E402
 from lora_tpu_torch.models.unet import UNet  # noqa: E402
 from lora_tpu_torch.models.vae import VAE  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "tiny_golden.npz")
 RTOL, ATOL = 1e-4, 1e-5

@@ -23,6 +23,7 @@ from lora_tpu_torch.convert import (  # noqa: E402
 )
 from lora_tpu_torch.ops import adam8bit  # noqa: E402
 from lora_tpu_torch.training import optim as t_optim  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 UPDATES = 5
 # params: the same f32 arithmetic up to XLA's contraction of a product

@@ -57,8 +57,8 @@ def test_port_wheel_stands_alone(tmp_path):
     """`pip wheel` of lora_tpu_torch/ alone (its own pyproject.toml) builds
     offline a wheel that requires torch and numpy, not jax; whose console
     scripts start the port's server, its DreamBooth, PTI and TI trainers,
-    its lora_add, lora_distill and kohya-converter tools and its
-    multi-process launcher; that carries
+    its lora_add, lora_distill and kohya-converter tools, its
+    preprocessing CLI and its multi-process launcher; that carries
     every package of the port and every csrc source (the blockwise-int8
     Adam's among them), the SDXL pipeline, the native resize's C source,
     and nothing of lora_tpu."""
@@ -93,6 +93,7 @@ def test_port_wheel_stands_alone(tmp_path):
     assert ("lora_kohya_torch = lora_tpu_torch.cli.kohya_convert:main"
             in scripts)
     assert "lora_launch_torch = lora_tpu_torch.launch:main" in scripts
+    assert "lora_ppim_torch = lora_tpu_torch.cli.lora_ppim:main" in scripts
     assert "lora_tpu." not in scripts, scripts
     assert not {n for n in names if n.startswith("lora_tpu/")}
     packages = {os.path.relpath(d, REPO) for d, _, files in os.walk(pkg)
@@ -107,6 +108,9 @@ def test_port_wheel_stands_alone(tmp_path):
     assert {"lora_tpu_torch/launch.py",
             "lora_tpu_torch/parallel/mesh.py"} <= names
     assert "lora_tpu_torch/native/imgops.c" in names
+    assert {"lora_tpu_torch/models/blip.py", "lora_tpu_torch/models/clipseg.py",
+            "lora_tpu_torch/models/swin2sr.py",
+            "lora_tpu_torch/data/resample.py"} <= names
     assert {n.split("/")[0] for n in names} == {"lora_tpu_torch", info}
 
 

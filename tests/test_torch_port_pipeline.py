@@ -33,21 +33,11 @@ from lora_tpu_torch.models.clip import CLIPTextModel  # noqa: E402
 from lora_tpu_torch.models.unet import UNet  # noqa: E402
 from lora_tpu_torch.models.vae import VAE  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "tiny_golden.npz")
 PROMPTS = ["a photo of <s1> dog", "a <s1> style town"]
 TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_goldens.py's pipeline limits
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_pipe(unet_p, text_p, vae_p):

@@ -56,6 +56,7 @@ from test_torch_port_dreambooth import (  # noqa: E402, F401
     write_images,
 )
 from test_torch_port_training import jax_draws  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 SIZE = 64
 # f32 on both sides; the frameworks sum convolutions and matmuls in other
@@ -86,17 +87,6 @@ class JaxChain:
     def split(self):
         self.rng, k = jax.random.split(self.rng)
         return k
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def hand_in_jax_draws(monkeypatch, module, seed, vae_cfg=TINY_VAE):

@@ -24,11 +24,15 @@ from lora_tpu_torch.models.config import (  # noqa: E402
 )
 from lora_tpu_torch.models.hf_import import save_pipeline_params  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the tiny directory has no CLIP vocabulary: from_pretrained needs the
 # opt-in to the hashed tokenizer (data/tokenizer.py)
+# one intra-op thread in the CLI's process: the tiny steps gain nothing
+# from more, which oversubscribe the cores beside the other test workers
 ENV = dict(os.environ, LORA_TPU_ALLOW_HASHED_TOKENIZER="1",
+           OMP_NUM_THREADS="1",
            PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
 

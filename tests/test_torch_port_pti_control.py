@@ -34,20 +34,13 @@ from lora_tpu_torch.pipelines.sdxl import (  # noqa: E402
 )
 from lora_tpu_torch.training import pti as t_pti  # noqa: E402
 from lora_tpu_torch.utils import eval as t_eval  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 SIZE = 64
 BASE = dict(resolution=SIZE, lora_rank=2, max_train_steps_ti=3,
             max_train_steps_tuning=3, gradient_accumulation_steps=2,
             save_steps=100, seed=0, placeholder_tokens="<s1>|<s2>",
             use_template="object", train_text_encoder=False)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_pipe():

@@ -18,20 +18,10 @@ from test_torch_port_pti import (  # noqa: E402, F401
     check_same_run,
     run_both,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 CASES = {"cached": dict(train_inpainting=True),
          "uncached": dict(train_inpainting=True, cached_latents=False)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

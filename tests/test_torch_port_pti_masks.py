@@ -32,23 +32,13 @@ from test_torch_port_pti import (  # noqa: E402, F401
     rel_l2,
     run_both,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 CASES = {
     "face_masks": dict(use_face_segmentation_condition=True,
                        mask_temperature=0.5, use_extended_lora=True),
     "locon": dict(lora_targets="locon", train_text_encoder=True),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from lora_tpu_torch.core.sites import unet_lora_sites  # noqa: E402
 from lora_tpu_torch.models.unet import UNet, unet_forward as t_unet  # noqa: E402
 from lora_tpu_torch.ops import int8_matmul as t_i8  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 # int8_matmul_reference vs the Pallas kernel: both round x to bf16 and sum
 # exact bf16 x int8 products in f32, in another order. f32 outputs: the

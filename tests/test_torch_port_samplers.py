@@ -32,6 +32,7 @@ from lora_tpu_torch.pipelines.sd import (  # noqa: E402
     SCHEDULERS,
     StableDiffusionPipeline,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "tiny_golden.npz")
 TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_goldens.py's pipeline limits
@@ -44,17 +45,6 @@ LAT_SHAPE = (2, 8, 8, 4)
 
 J_SCHED = j_sch.make_schedule()
 T_SCHED = t_sch.make_schedule()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rng(seed):

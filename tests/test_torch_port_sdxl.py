@@ -36,21 +36,11 @@ from lora_tpu_torch.models.unet import UNet  # noqa: E402
 from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline  # noqa: E402
 from test_torch_port_kohya import assert_entries_match, same_error  # noqa: E402
 from test_torch_port_lycoris import CASES, _rn, _save  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 XU, XT, XT2 = cfgs.TINY_XL_UNET, cfgs.TINY_XL_TEXT, cfgs.TINY_XL_TEXT2
 RTOL, ATOL = 1e-4, 1e-5  # tests/test_torch_port_models.py's UNet limits
 _jax_unet = jax.jit(j_unet.unet_forward, static_argnums=(4,))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -41,23 +41,13 @@ from lora_tpu_torch.pipelines.sd import SCHEDULERS  # noqa: E402
 from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline  # noqa: E402
 from test_torch_port_lycoris import CASES, _rn, _save  # noqa: E402
 from test_torch_port_sdxl import _module_tensors, _xl_sites  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 PROMPTS = ["a photo of a dog", "a town at dusk"]
 TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_torch_port_pipeline.py's TOL
 SIZE = 32  # the tiny XL UNet's stride: 8 * 2^2
 LAT = (2, SIZE // 8, SIZE // 8, 4)
 VOCAB = min(TINY_XL_TEXT.vocab_size, TINY_XL_TEXT2.vocab_size)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_pipe():
@@ -73,6 +63,13 @@ def _port(jpipe):
 @pytest.fixture(scope="module")
 def pipes():
     jpipe = _jax_pipe()
+    return jpipe, _port(jpipe)
+
+
+def _fresh(pipes):
+    """A new pair of pipes over the module's weights, to patch: lora_tpu's
+    random init runs op by op, so it runs once for the module."""
+    jpipe = dataclasses.replace(pipes[0])
     return jpipe, _port(jpipe)
 
 
@@ -230,11 +227,10 @@ def _kohya_xl_file(tmp_path, seed=0):
     return p
 
 
-def test_patch_scale_collapse_cycle(tmp_path):
+def test_patch_scale_collapse_cycle(pipes, tmp_path):
     """A kohya-XL file over the three models: patched, at alpha 0.5 and
     at 0 (the base image), removed; collapse_lora folds te2 too."""
-    jpipe = _jax_pipe()
-    pipe = _port(jpipe)
+    jpipe, pipe = _fresh(pipes)
     path = _kohya_xl_file(tmp_path)
     _, base = _txt2img_both(jpipe, pipe, steps=2)
     assert jpipe.patch_pipe(path) == pipe.patch_pipe(path) == {}
@@ -267,13 +263,12 @@ def test_patch_scale_collapse_cycle(tmp_path):
     np.testing.assert_array_equal(removed, base)
 
 
-def test_patch_pipe_lycoris_xl_matches_jax(tmp_path):
+def test_patch_pipe_lycoris_xl_matches_jax(pipes, tmp_path):
     """A LyCORIS-XL file (LoHa at an LDM-named UNet site, DoRA on te2, a
     norm module on te2's first layer_norm1) through patch_pipe in both
     packages; te2's base delta follows tune_lora_scale and remove_lora
     restores te2 bit for bit."""
-    jpipe = _jax_pipe()
-    pipe = _port(jpipe)
+    jpipe, pipe = _fresh(pipes)
     rng = np.random.default_rng(12)
     site, key = _xl_sites()[0]
     tensors = _module_tensors(key, CASES["loha_linear"][1](site, rng))
@@ -352,9 +347,9 @@ def test_quantize_base_leaves_te2_float(pipes):
     assert np.isfinite(out).all()
 
 
-def test_sd_unet_refused():
+def test_sd_unet_refused(pipes):
     """A UNet without the text_time conditioning is no SDXL UNet."""
-    pipe = _port(_jax_pipe())
+    pipe = pipes[1]
     with pytest.raises(ValueError, match="text_time"):
         StableDiffusionXLPipeline(UNet(TINY_UNET, device="cpu"),
                                   pipe.text_encoder, pipe.text_encoder_2,

@@ -41,20 +41,13 @@ from test_torch_port_training import (  # noqa: E402
     jax_draws,
     random_lora,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 # f32 on both sides (tests/test_torch_port_training.py:42-43)
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
 EOS = 999
 T = 9  # tokens per prompt
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

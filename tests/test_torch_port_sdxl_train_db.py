@@ -59,6 +59,7 @@ from test_torch_port_dreambooth import (  # noqa: E402
     hand_in_jax_init,
     write_images,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 BASE = dict(resolution=SIZE, lora_rank=2, max_train_steps=STEPS,
             save_steps=2, seed=0, instance_prompt="a photo of sks dog",
@@ -76,14 +77,6 @@ CASES = {
 CACHED_TEXT_RTOL = 2e-4
 MODELS = (("unet", UNet, TINY_XL_UNET), ("text", CLIPTextModel, TINY_XL_TEXT),
           ("text2", CLIPTextModel, TINY_XL_TEXT2), ("vae", VAE, TINY_VAE))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -119,9 +112,21 @@ def port_pipe(params):
         *modules, CLIPTokenizer(vocab_size=TINY_XL_TEXT.vocab_size))
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# the cases of test_train_dreambooth_xl_matches_jax: this file's, and
+# text_remat's in test_torch_port_dreambooth_xl_remat.py (the longest run
+# of the suite, so it takes a test worker of its own)
+CASES_HERE = ("cached_latents",)
+
+
+@pytest.mark.parametrize("case", CASES_HERE)
 def test_train_dreambooth_xl_matches_jax(case, params, tmp_path,
                                          monkeypatch):
+    check_train_dreambooth_xl(case, params, tmp_path, monkeypatch)
+
+
+def check_train_dreambooth_xl(case, params, tmp_path, monkeypatch):
+    """train_dreambooth on SDXL with one CASES entry's flags against
+    lora_tpu's, and the kohya-XL file's names and prefixes."""
     flags = dict(BASE, **CASES[case],
                  instance_data_dir=write_images(tmp_path / "inst", 3, 0))
     hand_in_jax_init(monkeypatch)

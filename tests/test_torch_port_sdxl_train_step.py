@@ -45,6 +45,7 @@ from test_torch_port_sdxl_train import (  # noqa: E402,F401
     bases,
 )
 from test_torch_port_training import jax_draws  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 CFGS = dict(unet_cfg=TINY_XL_UNET, text_cfg=TINY_XL_TEXT, vae_cfg=TINY_VAE,
             text2_cfg=TINY_XL_TEXT2)

@@ -49,6 +49,7 @@ from lora_tpu_torch.serve import (  # noqa: E402
     SchedulerDown,
     ServerOverloaded,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 # the quantized tiny pipeline, port vs lora_tpu with every 2-D int8 dense on
 # its Pallas kernel: both round each dense input to bf16, so f32 differences
@@ -58,17 +59,6 @@ from lora_tpu_torch.serve import (  # noqa: E402
 # [0, 1] after 2 steps and the VAE: 4x the measured gap (4.5e-3 max,
 # 3.3e-4 mean).
 IMAGE_MAX_ABS, IMAGE_MEAN_ABS = 2e-2, 1.5e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tiny_pipe(in_channels=4):

@@ -44,6 +44,7 @@ from lora_tpu_torch.models import config as cfg  # noqa: E402
 from lora_tpu_torch.models.hf_import import save_pipeline_params  # noqa: E402
 from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline  # noqa: E402
 from lora_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 PROD_REL = 1e-5
 # lora_tpu factors in f32: on the tree's sites its clamp threshold sits up
@@ -53,14 +54,6 @@ THRESH_REL = 2e-6
 # the files store fp16 factors: a product may move by the rounding of its
 # factors (2^-11 relative each)
 FILE_REL = 2e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def spectrum_delta(shape, rng, k=None, top=0.05):

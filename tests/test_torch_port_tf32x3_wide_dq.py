@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from lora_tpu.ops import flash_attention as j_fa  # noqa: E402
 from lora_tpu_torch.ops import flash_attention as t_fa  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 PI = [0, 2, 4, 6, 1, 3, 5, 7]
 # The kernel's dQ against the plain version, as a share of the largest

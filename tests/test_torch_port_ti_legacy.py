@@ -38,6 +38,7 @@ from test_torch_port_pti import (  # noqa: E402, F401
     write_images,
 )
 from test_torch_port_pti_control import preempt_at  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 FLAGS = dict(resolution=64, lora_rank=2, max_train_steps=4,
              unfreeze_lora_step=2, save_steps=2, seed=0,

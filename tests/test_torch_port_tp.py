@@ -88,6 +88,7 @@ from test_torch_port_dp import (  # noqa: E402
     tiny_pipe,
     write_images,
 )
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 FWD_RTOL, FWD_ATOL = 2e-4, 1e-5  # tests/test_training.py:220's
 # test_torch_port_quantize.py's floor for the tiny int8 UNet (of max|out|)
@@ -428,14 +429,6 @@ def launches(tmp_path_factory):
         if procs[name][0].poll() is None:
             procs[name][0].kill()
             procs[name][0].wait()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -35,17 +35,7 @@ from lora_tpu_torch.training import optim as t_optim  # noqa: E402
 from lora_tpu_torch.training import train_step as t_ts  # noqa: E402
 
 from test_torch_port_training import TI_IDS, jax_draws, random_lora  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 
 def _toy_trainable(with_ti=False):

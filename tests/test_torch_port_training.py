@@ -31,6 +31,7 @@ from lora_tpu_torch.models.clip import CLIPTextModel  # noqa: E402
 from lora_tpu_torch.models.unet import UNet  # noqa: E402
 from lora_tpu_torch.models.vae import VAE  # noqa: E402
 from lora_tpu_torch.training import loss as t_loss  # noqa: E402
+from _torch_port_threads import _one_torch_thread  # noqa: E402, F401
 
 TI_IDS = np.array([998, 999], np.int32)
 # f32 on both sides; the two frameworks' convolutions and matmuls sum in
@@ -38,17 +39,6 @@ TI_IDS = np.array([998, 999], np.int32)
 # their group's largest entry
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny CPU shapes gain nothing from intra-op threads, and with
-    several test processes on the cores those threads oversubscribe them
-    (several times slower); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def random_lora(sites, seed, r=2, scale=0.8):
@@ -160,8 +150,21 @@ def _assert_grads_close(got, want, where=""):
             err_msg=f"{where}{jax.tree_util.keystr(path)}")
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# the cases of test_loss_step_matches_jax, one JAX compile each, spread
+# over three files so that the test workers (one file each) share them:
+# this file, test_torch_port_loss_uncached.py and
+# test_torch_port_loss_prior.py
+CASES_HERE = ("mask",)
+
+
+@pytest.mark.parametrize("case", CASES_HERE)
 def test_loss_step_matches_jax(bases, case):
+    check_loss_step(bases, case)
+
+
+def check_loss_step(bases, case):
+    """The loss value and every trainable leaf's gradient of one CASES
+    entry against lora_tpu's jitted value_and_grad."""
     cfg_kw, sched_kw = CASES[case]
     j_cfg = j_loss.LossConfig(**cfg_kw)
     t_cfg = t_loss.LossConfig(**cfg_kw)
