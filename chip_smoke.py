@@ -97,12 +97,22 @@
                                         # batch 4 and 2, every shape phase
                                         # 16 ran checked against them, and
                                         # the flash_fwd row
+    python3 chip_smoke.py --sd21        # phases 1, 19 while nvcc builds the
+                                        # sources it and 19a run, 2 for
+                                        # their ptxas reports, then 19a and
+                                        # the kernels line's rows with
+                                        # phase 19's launches
 
 Phases, each printing its own lines and the full run its phases' end
-times (about 14 minutes on one H100, a fifth of it the build of the
-kernels; a slow host takes up to half as long again). The full run
-starts with phase 18, which launches no kernel of the port, while nvcc
-builds the kernels at the lowest CPU priority beside it:
+times (about 13 minutes on one H100; a slow host takes up to a third as
+long again). nvcc builds every source at the lowest CPU priority, one
+thread and nvcc a source, while the full run goes through the phases
+that launch none of the mma backward kernels (flash_bwd.cu, the build's
+longest): 18 (no kernel of the port), 19, 3, 8, 5, 9a, 9, 10 and 11, each
+waiting only for the libraries it launches. They launch the forward and
+int8 kernels (none of them new) before phase 2's probes, and phase 19 is
+checked against the plain versions in 19a, after phase 4; then 6, 7 and
+12-17:
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build: compiles every kernel of lora_tpu_torch/ops/csrc/
      (flash_fwd.cu, flash_fwd_wgmma.cu, flash_fwd_tf32x3.cu, flash_bwd.cu,
@@ -233,10 +243,11 @@ builds the kernels at the lowest CPU priority beside it:
      requests) coalesced into one device batch of 4; healthz, metrics and
      drain.
   10. modes: the rest of SD-1.5 sampling at full width, bf16, 512x512, 2
-     prompts, 50 steps, CFG 7.5, on the slice's pipeline (LoRA + TI at
-     0.8): txt2img under pndm, euler, euler_a, dpm++, euler_karras and
-     euler_a_karras; img2img (ddim) and latent-blend inpainting (ddim and
-     euler_a) at strength 0.8 (40 steps), the blend's kept region checked
+     prompts, MODE_STEPS (20) steps, CFG 7.5, on the slice's pipeline
+     (LoRA + TI at 0.8): txt2img under pndm, euler, euler_a, dpm++,
+     euler_karras and euler_a_karras; img2img (ddim) and latent-blend
+     inpainting (ddim and euler_a) at strength 0.8 (16 steps), the blend's
+     kept region checked
      to end at the image's latents exactly and the repainted region to
      move; the 9-channel inpaint (ddim) on a second random pipeline whose
      UNet is SD15_UNET with in_channels=9 (the runwayml/stable-diffusion-
@@ -260,7 +271,7 @@ builds the kernels at the lowest CPU priority beside it:
      largest value. On a bf16 pipeline: patch_pipe of K and of L timed,
      bf16 UNet calls at batch 4 without an adapter, with K and with L
      (median wall, profiler device time, 15 wgmma flash launches each);
-     L served over HTTP (2 prompts, 512px, 50 DDIM steps, seed 7) at alpha
+     L served over HTTP (2 prompts, 512px, 20 DDIM steps, seed 7) at alpha
      1.0, 0.5, 1.0: requests 1 and 3 the same PNG bytes, request 2 not,
      the embed cache one entry per text and alpha; then K patched on the
      live server: every norm and bias param back to its original bit for
@@ -380,10 +391,10 @@ builds the kernels at the lowest CPU priority beside it:
      and (1, 1280) pooled row of one prompt through both text encoders,
      the training-size time_ids, AdamW 1e-4; in bf16 its LoRA gradient
      through the kernels against the plain attention path (limit as
-     phase 7's) and with gradient checkpointing against without; then 2
-     warm-up and 5 timed steps without and with checkpointing: the median
-     step (CUDA events), the peak memory, one step under torch.profiler,
-     and each step's flash launches by kernel and level (70 forward, 140
+     phase 7's) and with gradient checkpointing against without; then 1
+     warm-up and 3 timed steps without and with checkpointing: the median
+     step (CUDA events), the peak memory, one step without checkpointing
+     under torch.profiler, and each step's flash launches by kernel and level (70 forward, 140
      with checkpointing, 70 dQ and 70 dK/dV: 10 at T = 4096 and 60 at
      1024, all wgmma; no int8). 15d: the bf16 pipeline written as an fp16
      diffusers directory and three instance PNGs (1024^2, 1280x1024,
@@ -402,10 +413,12 @@ builds the kernels at the lowest CPU priority beside it:
   16. tools: the adapter tooling at full width, random weights from the
      seed. 16a: an SD-1.5 base and a tuned copy that adds a known rank-4
      delta at every default UNet and text site, both written in f32;
-     `lora_distill` (its command line) at clamp 1.0 on the card and with
-     --device cpu: per site up @ down within DISTILL_REL_L2 of the delta
-     (the saved trees and the fp16 file), the card's within
-     DISTILL_DEVICE_REL_L2 of the CPU's; seconds per site and in total.
+     `lora_distill` (its command line) at clamp 1.0 on the card: per site
+     up @ down within DISTILL_REL_L2 of the delta (the saved trees and the
+     fp16 file); core/svd.py's svd_distill on the CPU at every
+     DISTILL_CPU_EVERY-th site's weights, within DISTILL_REL_L2 of the
+     delta and the card's within DISTILL_DEVICE_REL_L2 of it there;
+     seconds per site and in total.
      16b: a random kohya-XL file of rank 4 over the SDXL UNet's, te1's and
      te2's default sites, `lora_distill --from_lora` against phase 15's
      SDXL directory (--tools: one written from the seed the same way):
@@ -476,6 +489,45 @@ builds the kernels at the lowest CPU priority beside it:
      PPIM_SR_CHECK) within PPIM_PIXEL_TOL on at most PPIM_PIXEL_OFF_SHARE
      of the pixels. No flash or int8 kernel launches in the phase; the
      kernels line is unchanged by it.
+
+  19. sd21: SD-2.1 768-v at full width (models/config.py SD21_UNET,
+     SD21_TEXT, SD21_VAE: the published stabilityai/stable-diffusion-2-1
+     configs, OpenCLIP-H text encoder of 23 layers, linear proj_in and
+     proj_out, 1024-wide context) and 768x768, random weights from the
+     seed, in bf16, with the published scheduler config (DDIM,
+     scaled_linear 0.00085-0.012, steps_offset 1, set_alpha_to_one false,
+     v_prediction) and upcast_attention. Flash serves 10 self-attentions a
+     UNet call (5 at T = S = 9216, H 5; 5 at 2304, H 10; D 64); the 576-
+     and 144-token levels and every cross-attention take the plain path.
+     The pipe is first written as an fp16 diffusers directory with three
+     instance PNGs (19f's inputs). 19b: a rank-4 LoRA and one TI embed
+     patched at 0.8; a warm txt2img request (2 prompts, 50 DDIM steps,
+     CFG 7.5): exactly 500 wgmma forward launches and no backward, images
+     finite in [0, 1], its wall time and peak memory; one UNet call at
+     batch 4 through flash against the plain path (relative L2 within
+     SD21_FLASH_REL_L2), one under torch.profiler. 19c: txt2img under
+     every other sampler (MODE_SAMPLERS), img2img (ddim) and blend
+     inpaint (euler_a) at strength 0.8, SD21_SAMPLER_STEPS (10) steps
+     each, 10 wgmma launches a UNet call, the blend's kept region ending
+     at z0. 19d: quantize_base: 214 int8 launches a UNet call (SD-2's
+     linear proj_in and proj_out among them), 138 a text encode, all
+     wgmma; the int8 UNet call within QUANT_UNET_REL_L2_TOL of 19b's bf16
+     one. 19e: the quantized pipe behind a PipelineServer (max_batch 2):
+     two requests of both prompts, 20 steps, 768x768 PNGs, exactly the
+     int8 launches their weights imply, the second's embeddings (1024
+     wide) from the cache. 19f: cli.lora_db.train on the directory at
+     768px with the v target (every step's get_velocity counted): 4 steps
+     in f32 with the text encoder (10 tf32x3 forward, dQ and dK/dV
+     launches a step) and 2 in bf16 with cached latents (10 wgmma each a
+     step), finite losses, the f32 file through patch_pipe moving a UNet
+     call of the quantized pipe. 19a (after phase 4, or after the build
+     with --sd21): every flash forward layout, dQ and dK/dV shape and
+     int8 shape phase 19 ran, against its plain version; the forward
+     timed at (4, 5, 9216, 64) in bf16 and (1, 5, 9216, 64) in f32, dQ and
+     dK/dV at (1, 5, 9216, 64) in bf16 and f32, the int8 kernel at
+     proj_in there (36864, 320, 320).
+     Each flash and int8 row of the kernels line gains the "sd21",
+     "sd21_train" and "sd21_train_bf16" launches and its "sd21_768" rows.
 
 Any failed check raises, so the script exits nonzero. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it is the card
@@ -606,8 +658,10 @@ QUANT_UNET_BYTES_MAX = 0.55  # of the bf16 UNet's parameter bytes
 INT8_PER_CALL = {"unet": 182, "clip_encode": 72, "vae_decode": 4}
 B_REQUESTS = 4  # request B: concurrent one-prompt requests, one device batch
 # phase 10: every txt2img sampler but phase 5's ddim, each on one 2-prompt
-# request of STEPS steps; the image modes' strength (img2img and blend
-# inpainting run the last int(STEPS * 0.8) = 40 of the steps)
+# request of MODE_STEPS steps; the image modes' strength (img2img and blend
+# inpainting run the last int(MODE_STEPS * 0.8) = 16 of the steps). Phase
+# 11's HTTP requests take MODE_STEPS too
+MODE_STEPS = 20
 MODE_SAMPLERS = ("pndm", "euler", "euler_a", "dpm++", "euler_karras",
                  "euler_a_karras")
 MODE_STRENGTH = 0.8
@@ -665,44 +719,71 @@ def phase_device() -> str:
     return smi
 
 
-@contextlib.contextmanager
-def building_in_background():
-    """Compiles every csrc source (kernel_build.build) in a thread while
-    the block runs, the thread and the nvcc processes it starts at the
-    lowest CPU priority (nice 19: a child takes its thread's), so that the
-    block's host work keeps the cores; waits for the build at the block's
-    end and raises its error there."""
-    done = {}
-
-    def run():
-        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+def _build_each(stems, times: dict, nice=None) -> list:
+    """Starts one thread per csrc stem (every source when None), each
+    building its own library (kernel_build.build([stem]): its own lock, so
+    the libraries build side by side and each is loadable as soon as its
+    nvcc ends), at the given CPU priority where one is given (a child nvcc
+    takes its thread's). times[stem] gets the seconds, or the error.
+    Returns the threads."""
+    def run(stem):
+        if nice is not None:
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), nice)
         t0 = time.perf_counter()
         try:
-            kernel_build.build()
+            kernel_build.build([stem])
+            times[stem] = time.perf_counter() - t0
         except BaseException as e:  # raised in the caller's thread
-            done["error"] = e
-        done["s"] = time.perf_counter() - t0
+            times[stem] = e
 
-    thread = threading.Thread(target=run, name="nvcc", daemon=True)
-    thread.start()
+    stems = sorted(kernel_build._sources()) if stems is None else stems
+    threads = [threading.Thread(target=run, args=(stem,), name=f"nvcc {stem}",
+                                daemon=True) for stem in stems]
+    for thread in threads:
+        thread.start()
+    return threads
+
+
+def _joined(threads, times: dict) -> dict:
+    for thread in threads:
+        thread.join()
+    errors = [e for e in times.values() if isinstance(e, BaseException)]
+    if errors:
+        raise errors[0]
+    return times
+
+
+@contextlib.contextmanager
+def building_in_background(stems=None):
+    """Compiles the csrc stems (every source when None) while the block
+    runs, one thread and nvcc per source at the lowest CPU priority (nice
+    19), so that the block's host work keeps the cores; a kernel the block
+    launches waits for its own library only. Waits for the build at the
+    block's end and raises its error there; logs each source's seconds."""
+    times = {}
+    t0 = time.perf_counter()
+    threads = _build_each(stems, times, nice=19)
     try:
         yield
     finally:
-        thread.join()
-    if "error" in done:
-        raise done["error"]
-    log(f"build: every source in {done['s']:.1f} s, at nice 19 beside "
-        f"the block")
+        _joined(threads, times)
+    log(f"build: every source in {time.perf_counter() - t0:.1f} s, at nice "
+        f"19 beside the block; seconds by source (cached: ~0) "
+        + json.dumps({k: round(v, 1) for k, v in sorted(times.items())}))
 
 
 def phase_build(stems=None) -> None:
     """Builds the given csrc stems (all when None), one nvcc each, in
-    parallel; prints ptxas's report of the wgmma kernels and the int8 mma
-    kernel."""
+    parallel (a library already built is loaded as it is); prints each
+    source's seconds and ptxas's report of the wgmma kernels and the int8
+    mma kernel."""
     t0 = time.perf_counter()
+    times = {}
+    _joined(_build_each(stems, times), times)
     paths = kernel_build.build(stems)
     log(f"build: {sorted(os.path.relpath(p) for p in paths.values())} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; seconds by source (cached: ~0) "
+        + json.dumps({k: round(v, 1) for k, v in sorted(times.items())}))
     for stem in ("int8_matmul", "int8_matmul_wgmma", "int8_matmul_wgmma_f32",
                  "adam8bit", "flash_fwd_wgmma",
                  "flash_fwd_tf32x3", "flash_bwd_dkv_wgmma",
@@ -2722,26 +2803,28 @@ def phase_serve_int8_f32(smi: str):
         fwd_by_kernel
 
 
-def _unet_calls(scheduler: str = "ddim", strength=None) -> int:
-    """UNet calls of one request of STEPS steps: PNDM visits one timestep
-    twice; a strength runs the last int(STEPS * strength) steps."""
+def _unet_calls(scheduler: str = "ddim", strength=None,
+                steps: int = STEPS) -> int:
+    """UNet calls of one request of `steps` steps: PNDM visits one timestep
+    twice; a strength runs the last int(steps * strength) steps."""
     if strength is not None:
-        return min(int(STEPS * strength), STEPS)
-    return STEPS + (scheduler == "pndm")
+        return min(int(steps * strength), steps)
+    return steps + (scheduler == "pndm")
 
 
-def _mode_inputs(batch: int, gen):
-    """A smooth random image (batch, 512, 512, 3) in [-1, 1] (8x8 random
+def _mode_inputs(batch: int, gen, size: int = 512):
+    """A smooth random image (batch, size, size, 3) in [-1, 1] (8x8 random
     colours, bilinearly upsampled) and its inpainting mask (1 = repaint):
-    a centred box of 256x256 pixels and, in the last row, the bottom
+    a centred box of half the side and, in the last row, the bottom
     quarter too."""
     low = torch.rand((batch, 3, 8, 8), generator=gen, device="cuda")
     image = torch.nn.functional.interpolate(
-        low, size=(512, 512), mode="bilinear", align_corners=False)
+        low, size=(size, size), mode="bilinear", align_corners=False)
     image = (image * 2 - 1).permute(0, 2, 3, 1).contiguous()
-    mask = torch.zeros((batch, 512, 512, 1), device="cuda")
-    mask[:, 128:384, 128:384] = 1.0
-    mask[-1, 384:] = 1.0
+    mask = torch.zeros((batch, size, size, 1), device="cuda")
+    q = size // 4
+    mask[:, q:3 * q, q:3 * q] = 1.0
+    mask[-1, 3 * q:] = 1.0
     return image, mask
 
 
@@ -2790,7 +2873,7 @@ def counted_request(report: dict, tag: str, name: str, calls: int, fn,
 
 def phase_modes(smi: str):
     """Phase 10: the rest of SD-1.5 sampling at full width, bf16, 512x512,
-    2 prompts, STEPS steps, CFG 7.5, on the slice's pipeline (LoRA + TI at
+    2 prompts, MODE_STEPS steps, CFG 7.5, on the slice's pipeline (LoRA + TI at
     0.8): txt2img under every other sampler; img2img and latent-blend
     inpainting (ddim, euler_a) at strength 0.8, the blend's kept region
     checked to end at the image's latents exactly and the repainted region
@@ -2829,14 +2912,15 @@ def phase_modes(smi: str):
     # one short uncounted call: first-use costs (cuDNN plans, allocator)
     pipe(PROMPTS, num_inference_steps=2, height=512, width=512,
          generator=gen(1))
-    kw = dict(num_inference_steps=STEPS, guidance_scale=7.5)
+    kw = dict(num_inference_steps=MODE_STEPS, guidance_scale=7.5)
     for sched in MODE_SAMPLERS:
-        images = counted(f"txt2img {sched}", _unet_calls(sched),
+        images = counted(f"txt2img {sched}",
+                         _unet_calls(sched, steps=MODE_STEPS),
                          lambda: pipe(PROMPTS, height=512, width=512,
                                       generator=gen(1), scheduler=sched,
                                       **kw))
         _check_images(images, len(PROMPTS), f"txt2img {sched}")
-    blend_calls = _unet_calls(strength=MODE_STRENGTH)
+    blend_calls = _unet_calls(strength=MODE_STRENGTH, steps=MODE_STEPS)
     images = counted("img2img ddim", blend_calls,
                      lambda: pipe.img2img(PROMPTS, image,
                                           strength=MODE_STRENGTH,
@@ -2867,7 +2951,7 @@ def phase_modes(smi: str):
     inpaint_pipe = StableDiffusionPipeline.random_init(
         generator=gen(9), device="cuda", dtype=torch.bfloat16,
         unet_cfg=dataclasses.replace(SD15_UNET, in_channels=9))
-    images = counted("inpaint 9-channel ddim", STEPS,
+    images = counted("inpaint 9-channel ddim", MODE_STEPS,
                      lambda: inpaint_pipe.inpaint(PROMPTS, image, mask,
                                                   generator=gen(4), **kw))
     _check_images(images, len(PROMPTS), "inpaint 9-channel")
@@ -2904,7 +2988,7 @@ def phase_modes(smi: str):
         report["http warmup"] = {"wall_s": time.perf_counter() - t0}
         for mode in ("img2img", "inpaint"):
             payload = {"mode": mode, "prompt": PROMPTS, "image": image_png,
-                       "steps": STEPS, "guidance": 7.5,
+                       "steps": MODE_STEPS, "guidance": 7.5,
                        "strength": MODE_STRENGTH, "seed": http_seed}
             if mode == "inpaint":
                 payload["mask"] = mask_png
@@ -2950,7 +3034,7 @@ def phase_modes(smi: str):
     log("modes: " + json.dumps({
         "requests": report, "flash_fwd_launches": fwd_total,
         "http_int8_launches": int8_total, "int8_per_call": per_call,
-        "steps": STEPS, "strength": MODE_STRENGTH, "cfg": 7.5,
+        "steps": MODE_STEPS, "strength": MODE_STRENGTH, "cfg": 7.5,
         "card": smi}))
     del srv, pipe
     torch.cuda.empty_cache()
@@ -3349,9 +3433,9 @@ def phase_adapters(smi: str):
         try:
             images = []
             for i, alpha in enumerate(ADAPTER_ALPHAS):
-                body = counted(f"http L alpha {alpha} ({i + 1})", STEPS,
+                body = counted(f"http L alpha {alpha} ({i + 1})", MODE_STEPS,
                                lambda: _http(srv.port, "/generate", {
-                                   "prompt": PROMPTS, "steps": STEPS,
+                                   "prompt": PROMPTS, "steps": MODE_STEPS,
                                    "guidance": 7.5, "height": 512,
                                    "width": 512, "seed": 7,
                                    "alpha": alpha})[1])
@@ -3374,9 +3458,9 @@ def phase_adapters(smi: str):
             serving["norm_bias_params"] = len(orig)
             serving["restored_bit_for_bit"] = sum(
                 torch.equal(now[k], v) for k, v in orig.items())
-            body = counted("http K after live patch", STEPS,
+            body = counted("http K after live patch", MODE_STEPS,
                            lambda: _http(srv.port, "/generate", {
-                               "prompt": PROMPTS, "steps": STEPS,
+                               "prompt": PROMPTS, "steps": MODE_STEPS,
                                "guidance": 7.5, "height": 512,
                                "width": 512, "seed": 7})[1])
             _check_pngs(body["images"], len(PROMPTS), 512)
@@ -3458,13 +3542,13 @@ def phase_adapters(smi: str):
                                    batch_window_ms=50.0).start()
         try:
             body = counted("http int8 L without base-dependent modules",
-                           STEPS,
+                           MODE_STEPS,
                            lambda: _http(srv.port, "/generate", {
-                               "prompt": PROMPTS, "steps": STEPS,
+                               "prompt": PROMPTS, "steps": MODE_STEPS,
                                "guidance": 7.5, "height": 512,
                                "width": 512, "seed": 7})[1],
                            int8_want=lambda: (
-                               per_call["unet"] * STEPS
+                               per_call["unet"] * MODE_STEPS
                                + per_call["clip_encode"] * encodes[0]
                                + per_call["vae_decode"]))
             _check_pngs(body["images"], len(PROMPTS), 512)
@@ -3489,7 +3573,7 @@ def phase_adapters(smi: str):
         torch.cuda.empty_cache()
     log("adapters: " + json.dumps({
         "flash_fwd_launches": fwd_total, "f32_flash_fwd_launches": f32_total,
-        "http_int8_launches": int8_total, "steps": STEPS, "cfg": 7.5,
+        "http_int8_launches": int8_total, "steps": MODE_STEPS, "cfg": 7.5,
         "card": smi}))
     return fwd_total, f32_total, int8_total
 
@@ -3589,12 +3673,29 @@ def _trainer_groups():
                             TRAINER_RANK))
 
 
+def _instance_pngs(inst: str, sizes, seed: int) -> str:
+    """Instance images of the given (height, width) sizes, written to the
+    new directory `inst` as PNGs by the port's encoder: gradients with
+    noise from `seed`."""
+    from lora_tpu_torch.data.png import _png_bytes
+
+    os.makedirs(inst)
+    rng = np.random.default_rng(seed)
+    for i, (h, w) in enumerate(sizes):
+        yy, xx = np.mgrid[0:h, 0:w]
+        rgb = np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1),
+                        (xx + yy) % 256], -1) + rng.integers(-20, 20,
+                                                             (h, w, 3))
+        with open(os.path.join(inst, f"{i}.png"), "wb") as f:
+            f.write(_png_bytes(np.clip(rgb, 0, 255).astype(np.uint8)))
+    return inst
+
+
 def _trainer_inputs(root: str):
     """12b: a random full-width SD-1.5 pipeline from the seed in f32 on the
     card, written as an fp16 diffusers directory (no CLIP vocabulary: the
     hashed tokenizer, opted in through LORA_TPU_ALLOW_HASHED_TOKENIZER),
     and TRAINER_IMAGES as PNGs by the port's encoder."""
-    from lora_tpu_torch.data.png import _png_bytes
     from lora_tpu_torch.models.hf_import import save_pipeline_params
     from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
 
@@ -3603,16 +3704,8 @@ def _trainer_inputs(root: str):
         torch.Generator("cuda").manual_seed(SEED), "cuda")
     model = os.path.join(root, "model")
     save_pipeline_params(pipe, model, fp16=True)
-    inst = os.path.join(root, "instance")
-    os.makedirs(inst)
-    rng = np.random.default_rng(SEED)
-    for i, (h, w) in enumerate(TRAINER_IMAGES):
-        yy, xx = np.mgrid[0:h, 0:w]
-        rgb = np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1),
-                        (xx + yy) % 256], -1) + rng.integers(-20, 20,
-                                                             (h, w, 3))
-        with open(os.path.join(inst, f"{i}.png"), "wb") as f:
-            f.write(_png_bytes(np.clip(rgb, 0, 255).astype(np.uint8)))
+    inst = _instance_pngs(os.path.join(root, "instance"), TRAINER_IMAGES,
+                          SEED)
     os.environ["LORA_TPU_ALLOW_HASHED_TOKENIZER"] = "1"
     log(f"trainer: inputs {model} (fp16) and {len(TRAINER_IMAGES)} PNGs "
         f"{TRAINER_IMAGES} in {time.perf_counter() - t0:.1f} s")
@@ -4940,7 +5033,9 @@ def add_sdxl_launches(kernels: list, sdxl: dict) -> None:
 
 # phase 15: SDXL training at full width, 1024x1024
 SDXL_TRAIN_RANK = 8  # bench.py's xl_train_cached_bs1_1024 (and 15d's)
-SDXL_TRAIN_WARMUP, SDXL_TRAIN_STEPS = 2, 5  # 15a / 15b, each mode
+# 15a / 15b, each mode: warm-up and timed steps; one step of 15a's first
+# mode profiled
+SDXL_TRAIN_WARMUP, SDXL_TRAIN_STEPS = 1, 3
 SDXL_TIME_IDS = (1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0)
 SDXL_DB_STEPS = 4  # 15d: lora_db steps
 # 15d's instance PNGs (h, w): one at the training size, two that the native
@@ -5122,12 +5217,14 @@ def sdxl_grad_check(unet, trainable, batch, dt, gen) -> dict:
     return row
 
 
-def sdxl_train_steps(unet, trainable, batch, dt, remat: bool, gen) -> dict:
+def sdxl_train_steps(unet, trainable, batch, dt, remat: bool, gen,
+                     profiled: bool = False) -> dict:
     """SDXL_TRAIN_WARMUP + SDXL_TRAIN_STEPS steps of the bench.py SDXL step
     (AdamW 1e-4, clip 1.0) in `dt`: the median step by CUDA events, the
     peak memory over the timed steps, and each timed step's flash launches
     by kernel and level (counted from 0 just before it), which must be
-    _sdxl_step_want's, with no int8 launch."""
+    _sdxl_step_want's, with no int8 launch; `profiled`: then one more step
+    under torch.profiler."""
     from lora_tpu_torch.training.optim import make_optimizer
 
     step = _sdxl_make_step(make_optimizer(trainable, {"lora_unet": 1e-4}),
@@ -5173,8 +5270,9 @@ def sdxl_train_steps(unet, trainable, batch, dt, remat: bool, gen) -> dict:
            "launches_per_step": {k: v for k, v in want.items()
                                  if k.startswith("flash")},
            "fwd_by_T_per_step": want["fwd_by_T"]}
-    out["profile"] = {k: v for k, v in profile_step(
-        lambda: step(trainable, base, batch, gen)).items() if k != "top"}
+    if profiled:
+        out["profile"] = {k: v for k, v in profile_step(
+            lambda: step(trainable, base, batch, gen)).items() if k != "top"}
     log(f"sdxl train: {what}: " + json.dumps(out))
     return out
 
@@ -5237,7 +5335,8 @@ def phase_sdxl_train(smi: str, model_dir=None) -> dict:
         out["grad_bf16"] = sdxl_grad_check(pipe.unet, trainable, batch,
                                            torch.bfloat16, gen)
         out["bf16"] = [sdxl_train_steps(pipe.unet, trainable, batch,
-                                        torch.bfloat16, remat, gen)
+                                        torch.bfloat16, remat, gen,
+                                        profiled=not remat)
                        for remat in (False, True)]
         out["db"] = _sdxl_lora_db(pipe, gen, model_dir)
     del pipe, batch, trainable
@@ -5298,22 +5397,13 @@ def _sdxl_db_inputs(pipe, root: str, model=None):
     directory (no CLIP vocabulary: the hashed tokenizer, opted in), to
     `model` where given, else under `root`, and SDXL_DB_IMAGES as PNGs from
     the seed."""
-    from lora_tpu_torch.data.png import _png_bytes
     from lora_tpu_torch.models.hf_import import save_pipeline_params
 
     t0 = time.perf_counter()
     model = model or os.path.join(root, "model")
     save_pipeline_params(pipe, model, fp16=True)
-    inst = os.path.join(root, "instance")
-    os.makedirs(inst)
-    rng = np.random.default_rng(SEED + 15)
-    for i, (h, w) in enumerate(SDXL_DB_IMAGES):
-        yy, xx = np.mgrid[0:h, 0:w]
-        rgb = np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1),
-                        (xx + yy) % 256], -1) + rng.integers(-20, 20,
-                                                             (h, w, 3))
-        with open(os.path.join(inst, f"{i}.png"), "wb") as f:
-            f.write(_png_bytes(np.clip(rgb, 0, 255).astype(np.uint8)))
+    inst = _instance_pngs(os.path.join(root, "instance"), SDXL_DB_IMAGES,
+                          SEED + 15)
     os.environ["LORA_TPU_ALLOW_HASHED_TOKENIZER"] = "1"
     log(f"sdxl train: 15d: inputs {model} (fp16) and {len(SDXL_DB_IMAGES)} "
         f"PNGs {SDXL_DB_IMAGES} in {time.perf_counter() - t0:.1f} s")
@@ -5473,10 +5563,13 @@ TOOLS_EVAL = {"n_test": 2, "n_step": 10}  # 16e's evaluate_pipe
 # 2^-11, ~4e-4 relative on their product. A wrong site, rank or clamp
 # misses by O(1)
 DISTILL_REL_L2 = 1e-3
-# 16a: the card's products against the same call with --device cpu: both
-# factor the f32 residual's Gram matrix in f64 (core/svd.py), summing in
+# 16a: the card's products against core/svd.py's on the CPU at the same
+# sites: both factor the f32 residual's Gram matrix in f64, summing in
 # another order
 DISTILL_DEVICE_REL_L2 = 1e-4
+# 16a factors every 8th site on the CPU too (24 of 192): the card against
+# the CPU on the same residuals
+DISTILL_CPU_EVERY = 8
 # 16c and 16d, bf16 UNet call at batch 4: (W + a up down) x rounded to bf16
 # once more against W x + a (up down x) (the collapsed directory read back
 # in bf16 against the patched pipe), and the manager's joined LoRA gated
@@ -5583,9 +5676,11 @@ def _distill_recorded(rec: dict):
 def _tools_distill_sd(root: str, gen) -> dict:
     """16a: a random SD-1.5 base and a tuned copy that adds a known rank-4
     delta at every default UNet and text site, both written in f32;
-    lora_distill on them at clamp 1.0 on the card and with --device cpu."""
+    lora_distill on them at clamp 1.0 on the card, and core/svd.py's
+    svd_distill on the CPU at every DISTILL_CPU_EVERY-th site."""
     from lora_tpu_torch.cli import _fire, lora_distill
     from lora_tpu_torch.core.lora import init_lora
+    from lora_tpu_torch.core.svd import svd_distill
     from lora_tpu_torch.formats.safetensors_io import load_safeloras
     from lora_tpu_torch.models.hf_import import save_pipeline_params
     from lora_tpu_torch.pipelines.sd import StableDiffusionPipeline
@@ -5595,64 +5690,81 @@ def _tools_distill_sd(root: str, gen) -> dict:
         torch.Generator("cuda").manual_seed(SEED), "cuda")
     base, tuned = (os.path.join(root, n) for n in ("base", "tuned"))
     save_pipeline_params(pipe, base)
-    deltas = {}
-    for module, sites in ((pipe.unet, pipe.unet_sites()),
-                          (pipe.text_encoder, pipe.text_sites())):
-        lora = init_lora(sites, r=TOOLS_RANK, generator=gen, device="cuda")
+    sites = pipe.unet_sites() + pipe.text_sites()
+    cpu_sites = sites[::DISTILL_CPU_EVERY]
+    deltas, cpu_base, cpu_tuned = {}, {}, {}
+    for module, model_sites in ((pipe.unet, pipe.unet_sites()),
+                                (pipe.text_encoder, pipe.text_sites())):
+        lora = init_lora(model_sites, r=TOOLS_RANK, generator=gen,
+                         device="cuda")
         params = module.flat_params()
-        for s in sites:
+        for s in model_sites:
             e = lora["sites"][s.name]
             e["up"] = TOOLS_UP_STD * torch.randn(e["up"].shape,
                                                  generator=gen, device="cuda")
             deltas[s.name] = e["up"] @ e["down"]
-            module.set_param(s.name + ".weight",
-                             params[s.name + ".weight"] + deltas[s.name])
+            key = s.name + ".weight"
+            w = params[key] + deltas[s.name]
+            module.set_param(key, w)
+            if s in cpu_sites:
+                cpu_base[key], cpu_tuned[key] = params[key].cpu(), w.cpu()
     save_pipeline_params(pipe, tuned)
-    sites = pipe.unet_sites() + pipe.text_sites()
     del pipe
     torch.cuda.empty_cache()
     out = {"dirs_s": time.perf_counter() - t0, "sites": len(sites),
            "dir_gib": sum(os.path.getsize(os.path.join(d, f))
                           for d, _, fs in os.walk(base) for f in fs) / 2**30}
     products = {}
-    for device in ("cuda", "cpu"):
-        path = os.path.join(root, f"distilled_{device}.safetensors")
-        argv = [tuned, base, "--rank", str(TOOLS_RANK), "--clamp_quantile",
-                "1.0", "--save_path", path, "--device", device]
-        with _distill_recorded({}) as rec:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            _fire.fire(lora_distill.svd_distill_cli, argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-        trees = rec["trees"]
-        products[device] = {
-            **_products(trees["lora_unet"], trees["unet_sites"]),
-            **_products(trees["lora_text"], trees["text_sites"])}
-        out[device] = {"wall_s": wall, "svd_s": rec["svd_s"],
-                       "svd_s_per_site": rec["svd_s"] / len(sites)}
-        loras = load_safeloras(path)
-        file_products = {}
-        for model, ss in (("unet", trees["unet_sites"]),
-                          ("text_encoder", trees["text_sites"])):
-            flat, ranks, _ = loras[model]
-            if len(flat) != 2 * len(ss) or set(ranks) != {TOOLS_RANK}:
-                raise AssertionError(f"16a: the {device} file holds "
-                                     f"{len(flat) // 2} {model} pairs of "
-                                     f"ranks {set(ranks)}")
-            for s, up, down in zip(ss, flat[::2], flat[1::2]):
-                up, down = (torch.from_numpy(np.array(a)).to(
-                    "cuda", torch.float32) for a in (up, down))
-                file_products[s.name] = (up.reshape(up.shape[0], -1)
-                                         @ down.reshape(down.shape[0], -1))
-        out[device]["rel_l2_vs_delta"], worst = _worst_rel(products[device],
-                                                           deltas)
-        out[device]["file_rel_l2_vs_delta"], _ = _worst_rel(file_products,
-                                                            deltas)
-        if not (out[device]["rel_l2_vs_delta"] <= DISTILL_REL_L2
-                and out[device]["file_rel_l2_vs_delta"] <= DISTILL_REL_L2):
-            raise AssertionError(f"16a: the {device} distillation misses the "
-                                 f"delta (worst at {worst}): {out[device]}")
+    device = "cuda"
+    path = os.path.join(root, f"distilled_{device}.safetensors")
+    argv = [tuned, base, "--rank", str(TOOLS_RANK), "--clamp_quantile",
+            "1.0", "--save_path", path, "--device", device]
+    with _distill_recorded({}) as rec:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _fire.fire(lora_distill.svd_distill_cli, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    trees = rec["trees"]
+    products[device] = {
+        **_products(trees["lora_unet"], trees["unet_sites"]),
+        **_products(trees["lora_text"], trees["text_sites"])}
+    out[device] = {"wall_s": wall, "svd_s": rec["svd_s"],
+                   "svd_s_per_site": rec["svd_s"] / len(sites)}
+    loras = load_safeloras(path)
+    file_products = {}
+    for model, ss in (("unet", trees["unet_sites"]),
+                      ("text_encoder", trees["text_sites"])):
+        flat, ranks, _ = loras[model]
+        if len(flat) != 2 * len(ss) or set(ranks) != {TOOLS_RANK}:
+            raise AssertionError(f"16a: the {device} file holds "
+                                 f"{len(flat) // 2} {model} pairs of "
+                                 f"ranks {set(ranks)}")
+        for s, up, down in zip(ss, flat[::2], flat[1::2]):
+            up, down = (torch.from_numpy(np.array(a)).to(
+                "cuda", torch.float32) for a in (up, down))
+            file_products[s.name] = (up.reshape(up.shape[0], -1)
+                                     @ down.reshape(down.shape[0], -1))
+    out[device]["rel_l2_vs_delta"], worst = _worst_rel(products[device],
+                                                       deltas)
+    out[device]["file_rel_l2_vs_delta"], _ = _worst_rel(file_products,
+                                                        deltas)
+    if not (out[device]["rel_l2_vs_delta"] <= DISTILL_REL_L2
+            and out[device]["file_rel_l2_vs_delta"] <= DISTILL_REL_L2):
+        raise AssertionError(f"16a: the {device} distillation misses the "
+                             f"delta (worst at {worst}): {out[device]}")
+    # the CPU: core/svd.py on every DISTILL_CPU_EVERY-th site's weights
+    t1 = time.perf_counter()
+    tree = svd_distill(cpu_base, cpu_tuned, cpu_sites, TOOLS_RANK, 1.0)
+    cpu_s = time.perf_counter() - t1
+    products["cpu"] = _products(tree, cpu_sites)
+    out["cpu"] = {"sites": len(cpu_sites), "svd_s": cpu_s,
+                  "svd_s_per_site": cpu_s / len(cpu_sites)}
+    out["cpu"]["rel_l2_vs_delta"], worst = _worst_rel(
+        products["cpu"], {k: deltas[k] for k in products["cpu"]})
+    if not out["cpu"]["rel_l2_vs_delta"] <= DISTILL_REL_L2:
+        raise AssertionError(f"16a: the CPU distillation misses the delta "
+                             f"(worst at {worst}): {out['cpu']}")
     out["card_vs_cpu_rel_l2"], worst = _worst_rel(products["cuda"],
                                                   products["cpu"])
     log("tools: 16a: " + json.dumps(out))
@@ -7047,6 +7159,499 @@ def phase_ppim(smi: str) -> dict:
     return out
 
 
+# phase 19: SD-2.1 768-v at full width (models/config.py SD21_UNET,
+# SD21_TEXT, SD21_VAE: the published stabilityai/stable-diffusion-2-1
+# configs), 768x768, the v-prediction DDIM schedule of its scheduler config
+SD21_SIZE = 768
+# the routed self-attentions of one SD-2.1 UNet call at 768px (96x96
+# latents) by level, (heads, T = S, D): 320 channels in 5 heads at 96x96
+# (down_blocks.0: 2, up_blocks.3: 3) and 640 in 10 at 48x48 (down_blocks.1:
+# 2, up_blocks.2: 3); the 24x24 (T = 576) and 12x12 (144) levels and every
+# cross-attention (S = 77) fail supported() and take the plain path, as in
+# lora_tpu
+SD21_ATTN_LEVELS = ((5, 9216, 64), (10, 2304, 64))
+SD21_LAUNCHES_BY_LEVEL = {9216: 5, 2304: 5}
+SD21_ROUTED_PER_UNET_CALL = sum(SD21_LAUNCHES_BY_LEVEL.values())  # 10
+SD21_STEPS = 50          # 19b: bf16 txt2img, 2 prompts, CFG 7.5
+SD21_SAMPLER_STEPS = 10  # 19c: each other sampler and image mode
+SD21_HTTP_STEPS = 20     # 19e: each of the two requests
+SD21_DB_STEPS = 4        # 19f: lora_db in f32 (tf32x3)
+SD21_DB_BF16_STEPS = 2   # 19f: lora_db in bf16 (wgmma)
+SD21_DB_IMAGES = ((768, 768), (640, 960), (1024, 768))
+# int8 launches of one call under quantize_base: the UNet's 16 transformers
+# x 12 (q/k/v/out of both attentions, the GEGLU projection, ff out, and
+# SD-2's linear proj_in and proj_out, which SD-1.5 runs as 1x1 convs,
+# dequantized) and its 22 resnets' time_emb_proj; the 23-layer text
+# encoder's 6 a layer; the VAE decoder's mid-block attention
+SD21_INT8_PER_CALL = {"unet": 16 * 12 + 22, "clip_encode": 23 * 6,
+                      "vae_decode": 4}
+# one bf16 UNet call at batch 4 through the flash kernels against the plain
+# attention path: both round P to bf16 and store O in bf16, as at SDXL's
+# levels (SDXL_FLASH_REL_L2)
+SD21_FLASH_REL_L2 = GRAD_REL_L2_TOL
+# 19a's timed rows, all at the 96x96 level: the forward at the serving
+# batch in bf16 and at the training batch in f32, dQ and dK/dV at the
+# training batch in bf16 and f32; the int8 kernel at proj_in there, batch 4
+SD21_TIMED_FWD = ((4, 5, 9216, 9216, 64, "bfloat16"),
+                  (1, 5, 9216, 9216, 64, "float32"))
+SD21_TIMED_BWD = ((1, 5, 9216, 9216, 64, "bfloat16"),
+                  (1, 5, 9216, 9216, 64, "float32"))
+SD21_INT8_TIMED = (4 * 9216, 320, 320, "bfloat16")
+
+
+def _sd21_unet_inputs(pipe, batch: int, gen):
+    """Random latents (batch, 96, 96, 4), timesteps and a 1024-wide context
+    for one SD-2.1 UNet call, in the pipe's dtype."""
+    cfg = pipe.unet.cfg
+    side = SD21_SIZE // 8
+    lat = torch.randn((batch, side, side, cfg.in_channels), generator=gen,
+                      device="cuda")
+    ctx = torch.randn((batch, 77, cfg.cross_attention_dim), generator=gen,
+                      device="cuda")
+    return (lat.to(pipe.dtype), torch.full((batch,), 501, device="cuda"),
+            ctx.to(pipe.dtype))
+
+
+def _sd21_unet(pipe, inputs) -> torch.Tensor:
+    """One UNet call with the pipe's LoRA (none when it has none)."""
+    lat, t, ctx = inputs
+    with torch.inference_mode():
+        return pipe.unet(lat, t, ctx, lora=pipe.lora_unet)
+
+
+def phase_sd21(smi: str) -> dict:
+    """Phase 19: SD-2.1 768-v at full width, random weights from the seed,
+    the v-prediction schedule. 19b a bf16 txt2img request with a LoRA and
+    TI, one UNet call with flash on against off and one profiled; 19c every
+    other sampler, img2img and blend inpaint; 19d quantize_base; 19e two
+    requests through a PipelineServer; 19f lora_db on an fp16 SD-2.1
+    directory, f32 and bf16. Every flash launch (forward with its layout,
+    dQ, dK/dV) and int8 shape is recorded for 19a (sd21_kernel_rows), which
+    checks each against its plain version after the build. Returns the
+    requests, the launches by path and the recorded shapes."""
+    from lora_tpu_torch import serve
+    from lora_tpu_torch.cli import lora_db
+    from lora_tpu_torch.models import schedulers
+    from lora_tpu_torch.models.config import SD21_TEXT, SD21_UNET, SD21_VAE
+    from lora_tpu_torch.models.hf_import import save_pipeline_params
+    from lora_tpu_torch.ops.attention import (
+        set_use_memory_efficient_attention,
+    )
+    from lora_tpu_torch.pipelines.sd import (
+        StableDiffusionPipeline,
+        _latent_mask,
+    )
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name, t0):
+        parts[name] = time.perf_counter() - t0
+
+    def gen(offset):
+        return torch.Generator("cuda").manual_seed(SEED + offset)
+
+    report, out = {}, {}
+    totals = {"flash_fwd": dict.fromkeys(fa.flash_fwd.launches_by_kernel, 0),
+              "int8_matmul": dict.fromkeys(
+                  i8.int8_matmul.launches_by_kernel, 0)}
+    counted = functools.partial(counted_request, report, "sd21",
+                                per_call=SD21_ROUTED_PER_UNET_CALL,
+                                totals=totals)
+    flash = {w: collections.Counter() for w in FLASH_WRAPPERS}
+    root = tempfile.mkdtemp(prefix="sd21_")
+    try:
+        with recording_flash_shapes(set()) as layouts, \
+                recording_launch_shapes(flash), \
+                recording_int8_shapes(set()) as int8_seen:
+            # 19b: the bf16 pipeline with a LoRA and TI at 0.8
+            t0 = time.perf_counter()
+            pipe = StableDiffusionPipeline.random_init(
+                gen(0), "cuda", dtype=torch.bfloat16, unet_cfg=SD21_UNET,
+                text_cfg=SD21_TEXT, vae_cfg=SD21_VAE)
+            # the published scheduler config: DDIM, scaled_linear
+            # 0.00085-0.012, steps_offset 1, set_alpha_to_one false; and the
+            # UNet config's upcast_attention, which the directory keeps
+            pipe.schedule = schedulers.make_schedule(
+                prediction_type="v_prediction")
+            pipe.unet.upcast_attention = True
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            # the directory 19f trains on: the base as initialised
+            t1 = time.perf_counter()
+            model = os.path.join(root, "model")
+            save_pipeline_params(pipe, model, fp16=True)
+            inst = _instance_pngs(os.path.join(root, "instance"),
+                                  SD21_DB_IMAGES, SEED + 19)
+            part("19f inputs", t1)
+            t0 = time.perf_counter() - init_s
+            path = os.path.join(root, "lora.safetensors")
+            _random_lora_file(pipe, path, gen(1))
+            embeds = pipe.patch_pipe(path)
+            pipe.tune_lora_scale(0.8)
+            if list(embeds) != ["<s1>"] or pipe.lora_unet is None:
+                raise AssertionError(f"19b: patch_pipe loaded {list(embeds)}")
+            torch.cuda.synchronize()
+            out["sizes"] = {m: {"params": sum(t.numel()
+                                              for t in mod.parameters()),
+                                "bytes": _param_bytes(mod)}
+                            for m, mod in (("unet", pipe.unet),
+                                           ("text_encoder", pipe.text_encoder),
+                                           ("vae", pipe.vae))}
+            log("sd21: 19b: " + json.dumps({"init_s": init_s,
+                                            "by_model": out["sizes"]}))
+            size = dict(height=SD21_SIZE, width=SD21_SIZE)
+            pipe(PROMPTS, num_inference_steps=2, generator=gen(2), **size)
+            images = counted(
+                "19b txt2img", SD21_STEPS,
+                lambda: pipe(PROMPTS, num_inference_steps=SD21_STEPS,
+                             guidance_scale=7.5, generator=gen(2), **size))
+            bwd = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+            if bwd != (0, 0):
+                raise AssertionError(f"19b: serving launched backward "
+                                     f"kernels {bwd}")
+            _check_images(images, len(PROMPTS), "19b", SD21_SIZE)
+            inputs = _sd21_unet_inputs(pipe, 2 * len(PROMPTS), gen(3))
+            with recording_flash_shapes(collections.Counter()) as calls:
+                flash_on = counted("19b unet call", 1,
+                                   lambda: _sd21_unet(pipe, inputs))
+            if _by_T(calls) != SD21_LAUNCHES_BY_LEVEL:
+                raise AssertionError(f"19b: a UNet call launched flash_fwd "
+                                     f"{_by_T(calls)} times by T")
+            set_use_memory_efficient_attention(False)
+            try:
+                _zero_counts()
+                flash_off = _sd21_unet(pipe, inputs)
+                torch.cuda.synchronize()
+                off_launches = fa.flash_fwd.launches
+            finally:
+                set_use_memory_efficient_attention(True)
+            rel = _rel_l2(flash_on, flash_off)
+            profile = profile_step(lambda: _sd21_unet(pipe, inputs))
+            out["txt2img"] = {
+                **report["19b txt2img"], "flash_vs_plain_rel_l2": rel,
+                "limit": SD21_FLASH_REL_L2,
+                "unet_call": {k: profile[k] for k in (
+                    "wall_ms", "device_ms", "launches", "busy_share",
+                    "by_class")}}
+            log("sd21: 19b: " + json.dumps(out["txt2img"]))
+            if off_launches or not (np.isfinite(rel)
+                                    and rel <= SD21_FLASH_REL_L2):
+                raise AssertionError(
+                    f"19b: the UNet call through flash is {rel} (relative "
+                    f"L2) from the plain path, limit {SD21_FLASH_REL_L2} "
+                    f"({off_launches} flash launches with flash off)")
+            ref_unet = flash_on
+            del flash_off
+            part("19b", t0)
+
+            # 19c: every other sampler, img2img and blend inpaint
+            t0 = time.perf_counter()
+            kw = dict(num_inference_steps=SD21_SAMPLER_STEPS,
+                      guidance_scale=7.5)
+            for sched in MODE_SAMPLERS:
+                images = counted(
+                    f"19c txt2img {sched}",
+                    SD21_SAMPLER_STEPS + (sched == "pndm"),
+                    lambda: pipe(PROMPTS, generator=gen(4), scheduler=sched,
+                                 **size, **kw))
+                _check_images(images, len(PROMPTS), f"19c {sched}", SD21_SIZE)
+            image, mask = _mode_inputs(len(PROMPTS), gen(5), SD21_SIZE)
+            calls = int(SD21_SAMPLER_STEPS * MODE_STRENGTH)
+            images = counted("19c img2img ddim", calls,
+                             lambda: pipe.img2img(PROMPTS, image,
+                                                  strength=MODE_STRENGTH,
+                                                  generator=gen(6), **kw))
+            _check_images(images, len(PROMPTS), "19c img2img", SD21_SIZE)
+            images, lat, z0 = counted(
+                "19c inpaint_blend euler_a", calls,
+                lambda: pipe.inpaint_blend(
+                    PROMPTS, image, mask, strength=MODE_STRENGTH,
+                    generator=gen(7), scheduler="euler_a",
+                    return_latents=True, **kw))
+            _check_images(images, len(PROMPTS), "19c inpaint_blend",
+                          SD21_SIZE)
+            keep = (_latent_mask(mask, SD21_SIZE // 8, SD21_SIZE // 8,
+                                 torch.float32) == 0).expand(lat.shape)
+            if not torch.equal(lat[keep], z0[keep]) or not (
+                    lat[~keep].float() - z0[~keep].float()).abs().max() > 0:
+                raise AssertionError("19c: the blend's kept region is not "
+                                     "z0, or the repainted region did not "
+                                     "move")
+            del images, lat, z0, image, mask
+            part("19c", t0)
+
+            # 19d: quantize_base: a UNet call and a text encode, counted
+            t0 = time.perf_counter()
+            pipe.quantize_base()
+            torch.cuda.empty_cache()
+            per_call = {"unet": _int8_dense(pipe.unet),
+                        "clip_encode": _int8_dense(pipe.text_encoder),
+                        "vae_decode": _int8_dense(pipe.vae, "decoder.")}
+            proj = [_int8_dense(pipe.unet, f"down_blocks.0.attentions.0."
+                                           f"{n}") for n in ("proj_in",
+                                                             "proj_out")]
+            if per_call != SD21_INT8_PER_CALL or proj != [1, 1]:
+                raise AssertionError(f"19d: 2-D int8 weights per call "
+                                     f"{per_call}, proj_in/out {proj}")
+            int8_out = counted(
+                "19d unet call int8", 1, lambda: _sd21_unet(pipe, inputs),
+                int8_want=lambda: SD21_INT8_PER_CALL["unet"])
+            counted("19d text encode int8", 0,
+                    lambda: pipe.encode_prompt(PROMPTS),
+                    int8_want=lambda: SD21_INT8_PER_CALL["clip_encode"])
+            quant_rel = _rel_l2(int8_out, ref_unet)
+            out["int8"] = {"per_call": per_call,
+                           "unet_call_rel_l2_vs_bf16": quant_rel,
+                           "limit": QUANT_UNET_REL_L2_TOL,
+                           "param_bytes": {
+                               m: _param_bytes(getattr(pipe, m))
+                               for m in ("unet", "text_encoder", "vae")}}
+            log("sd21: 19d: " + json.dumps(out["int8"]))
+            if not (np.isfinite(quant_rel)
+                    and quant_rel <= QUANT_UNET_REL_L2_TOL):
+                raise AssertionError(f"19d: the int8 UNet call is "
+                                     f"{quant_rel} from bf16")
+            del int8_out, ref_unet, flash_on
+            part("19d", t0)
+
+            # 19e: the quantized pipe behind a PipelineServer, two requests
+            t0 = time.perf_counter()
+            out["http"] = _sd21_http(serve, pipe, counted)
+            part("19e", t0)
+
+            # 19f: lora_db on the SD-2.1 directory at 768px, v target
+            t0 = time.perf_counter()
+            os.environ["LORA_TPU_ALLOW_HASHED_TOKENIZER"] = "1"
+            out["lora_db"] = _sd21_lora_db(lora_db, schedulers, model, inst,
+                                           root)
+            out["lora_db"]["patched"] = _sd21_patched(
+                pipe, out["lora_db"]["file"], inputs)
+            log("sd21: 19f: " + json.dumps(out["lora_db"]))
+            part("19f", t0)
+            del pipe, inputs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    train = out["lora_db"]["launches"]
+    out.update(
+        requests=report,
+        layouts=layouts, int8_shapes=int8_seen,
+        launch_shapes={w: dict(c) for w, c in flash.items()},
+        launches={"sd21": {"flash_fwd": totals["flash_fwd"],
+                           "int8_matmul": totals["int8_matmul"]},
+                  "sd21_train": train["f32"],
+                  "sd21_train_bf16": train["bf16"]},
+        phase_s=time.perf_counter() - t_phase, part_s=parts)
+    log("sd21: " + json.dumps({
+        "phase_s": out["phase_s"], "part_s": parts,
+        "launches": out["launches"], "card": smi}))
+    return out
+
+
+def _sd21_http(serve, pipe, counted) -> dict:
+    """19e: two requests of both prompts (SD21_HTTP_STEPS steps, 768px) to
+    a PipelineServer on the quantized pipe (max_batch 2: the UNet at batch
+    4): each answered with two 768x768 PNGs and exactly the int8 launches
+    its weights imply; the second served its embeddings from the cache
+    (1024 wide), so it encodes nothing."""
+    encodes = [0]
+    encode_prompt = pipe.encode_prompt
+
+    def counted_encode(prompts):
+        encodes[0] += 1
+        return encode_prompt(prompts)
+
+    pipe.encode_prompt = counted_encode
+    srv = serve.PipelineServer(pipe, port=0, max_batch=2).start()
+    out = {}
+    try:
+        for i in range(2):
+            encodes[0] = 0
+            body = counted(
+                f"19e http {i + 1}", SD21_HTTP_STEPS,
+                lambda: _http(srv.port, "/generate", {
+                    "prompt": PROMPTS, "steps": SD21_HTTP_STEPS,
+                    "guidance": 7.5, "height": SD21_SIZE,
+                    "width": SD21_SIZE, "seed": 5 + i})[1],
+                int8_want=lambda: (
+                    SD21_INT8_PER_CALL["unet"] * SD21_HTTP_STEPS
+                    + SD21_INT8_PER_CALL["clip_encode"] * encodes[0]
+                    + SD21_INT8_PER_CALL["vae_decode"]))
+            _check_pngs(body["images"], len(PROMPTS), SD21_SIZE)
+            out[f"request_{i + 1}"] = {"latency_ms": body["latency_ms"],
+                                       "clip_encodes": encodes[0]}
+        widths = sorted({tuple(e.shape) for e in srv._embeds.values()})
+        out.update(embed_widths=widths, metrics=srv.metrics())
+        if out["request_2"]["clip_encodes"] != 0 or widths != [
+                (77, pipe.text_encoder.cfg.hidden_size)]:
+            raise AssertionError(f"19e: the embed cache: {out}")
+        if srv.drain(timeout=60) is not True:
+            raise AssertionError("19e: the server did not drain")
+    finally:
+        srv.stop()
+        pipe.encode_prompt = encode_prompt
+    log("sd21: 19e: " + json.dumps(out))
+    return out
+
+
+def _sd21_lora_db(lora_db, schedulers, model: str, inst: str,
+                  root: str) -> dict:
+    """19f: cli.lora_db.train on the fp16 SD-2.1 directory at 768px:
+    SD21_DB_STEPS steps in f32 (the trainer's default: the tf32x3 kernels)
+    with the text encoder, and SD21_DB_BF16_STEPS in bf16 (wgmma); every
+    step's loss against the v target (get_velocity counted) and
+    SD21_ROUTED_PER_UNET_CALL forward, dQ and dK/dV launches a step."""
+    common = dict(instance_data_dir=inst, instance_prompt="a photo of sks dog",
+                  resolution=SD21_SIZE, lora_rank=TRAINER_RANK, seed=SEED,
+                  learning_rate=1e-4, output_format="safe", save_steps=0)
+    velocity = schedulers.get_velocity
+    targets = [0]
+
+    def counted_velocity(*a):
+        targets[0] += 1
+        return velocity(*a)
+
+    out = {"launches": {}}
+    schedulers.get_velocity = counted_velocity
+    try:
+        for name, steps, extra in (
+                ("f32", SD21_DB_STEPS, dict(train_text_encoder=True)),
+                ("bf16", SD21_DB_BF16_STEPS, dict(mixed_precision="bf16",
+                                                  cached_latents=True))):
+            run = os.path.join(root, f"run_{name}")
+            targets[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_trainer_counts()
+            t0 = time.perf_counter()
+            with timing_trainer_steps({}) as rec:
+                res = lora_db.train(model, device="cuda", output_dir=run,
+                                    max_train_steps=steps,
+                                    **dict(common, **extra))
+            torch.cuda.synchronize()
+            _check_trainer_result(res, steps, f"19f {name}")
+            got = _launches()
+            route = "tf32x3" if name == "f32" else "wgmma"
+            n = SD21_ROUTED_PER_UNET_CALL * steps
+            want = {"flash_fwd": _only(route, n),
+                    "flash_bwd_dq": _only(route, n, fa.flash_bwd_dq),
+                    "flash_bwd_dkv": _only(route, n, fa.flash_bwd_dkv),
+                    "adam8bit": 0}
+            if got != want or targets[0] != steps:
+                raise AssertionError(f"19f {name}: launched {got}, not "
+                                     f"{want}; {targets[0]} v targets for "
+                                     f"{steps} steps")
+            out["launches"][name] = got
+            step_ms = _step_ms(rec, 1)
+            out[name] = {"steps": res["steps"], "v_targets": targets[0],
+                         "wall_s": time.perf_counter() - t0,
+                         "step_ms_median": statistics.median(step_ms),
+                         "step_ms": step_ms,
+                         "peak_mem_gib": torch.cuda.max_memory_allocated()
+                         / 2 ** 30,
+                         "losses": [float(x) for x in rec["losses"]],
+                         "final_loss": res["final_loss"]}
+            if not all(np.isfinite(out[name]["losses"])):
+                raise AssertionError(f"19f {name}: losses "
+                                     f"{out[name]['losses']}")
+        out["file"] = os.path.join(root, "run_f32", "lora_weight.safetensors")
+    finally:
+        schedulers.get_velocity = velocity
+    return out
+
+
+def _sd21_patched(pipe, path: str, inputs) -> dict:
+    """19f's f32 LoRA file through patch_pipe on the quantized pipe: one
+    UNet call at batch 4, finite and apart from the call without it."""
+    pipe.remove_lora()
+    plain = _sd21_unet(pipe, inputs)
+    pipe.patch_pipe(path)
+    lora = _sd21_unet(pipe, inputs)
+    pipe.remove_lora()
+    moved = (lora.float() - plain.float()).abs().max().item()
+    if not torch.isfinite(lora).all() or not moved > 0.0:
+        raise AssertionError(f"19f: the UNet call with {path} is not finite "
+                             f"or equals the call without it ({moved})")
+    return {"unet_max_abs_change": moved}
+
+
+def sd21_kernel_rows(sd21: dict) -> dict:
+    """19a: every flash forward layout, dQ and dK/dV shape and int8 shape
+    phase 19 ran, against its plain version (after the build: the checks
+    call the mma kernels beside the routed ones); the forward timed at the
+    serving batch in bf16 and the training batch in f32, the backward at
+    the training batch in bf16 and f32, at the 96x96 level (T = 9216), and
+    the int8 kernel at proj_in there."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 19)
+    fwd = [check_kernel(*key[:5], getattr(torch, key[5]), gen,
+                        timed=key[:6] in SD21_TIMED_FWD)
+           for key in sorted(sd21["layouts"])]
+    unchecked = sd21["layouts"] - {_row_key(r) for r in fwd}
+    if unchecked:
+        raise AssertionError(f"phase 19 ran flash_fwd at layouts 19a did "
+                             f"not check: {sorted(unchecked)}")
+    shapes = sd21["launch_shapes"]
+    bwd_keys = sorted(set(shapes["flash_bwd_dq"])
+                      | set(shapes["flash_bwd_dkv"]))
+    bwd = [check_bwd_kernels(*key[:5], getattr(torch, key[5]), gen,
+                             timed=key in SD21_TIMED_BWD)
+           for key in bwd_keys]
+    int8 = [check_int8(M, K, N, getattr(torch, dt), gen,
+                       timed=(M, K, N, dt) == SD21_INT8_TIMED)
+            for M, K, N, dt in sorted(sd21["int8_shapes"])]
+    if not set(SD21_TIMED_FWD) <= {k[:6] for k in sd21["layouts"]} or \
+            not set(SD21_TIMED_BWD) <= set(bwd_keys) or \
+            SD21_INT8_TIMED not in sd21["int8_shapes"]:
+        raise AssertionError("phase 19 did not run a timed shape of 19a")
+    log(f"sd21: 19a: flash_fwd ran {len(fwd)} layouts, dQ and dK/dV "
+        f"{len(bwd)} shapes, int8_matmul {len(int8)} shapes, each checked "
+        f"against its plain version")
+    return {"fwd_rows": fwd, "bwd_rows": bwd, "int8_rows": int8}
+
+
+def add_sd21_launches(kernels: list, sd21: dict, rows: dict) -> None:
+    """Each flash and int8 row of the kernels line gains phase 19's
+    launches of its kernel ("sd21": 19b-19e, bf16 serving; "sd21_train":
+    19f in f32; "sd21_train_bf16": 19f in bf16) and the timed 19a row of
+    its kernel at the 96x96 level ("sd21_768")."""
+    routes = {**FLASH_ROW_ROUTES,
+              "int8_matmul": ("int8_matmul", "wgmma"),
+              "int8_matmul_wgmma_f32": ("int8_matmul", "wgmma_f32"),
+              "int8_matmul_mma": ("int8_matmul", "mma")}
+    for row in kernels:
+        if row["name"] not in routes:
+            continue
+        wrapper, route = routes[row["name"]]
+        for path, launches in sd21["launches"].items():
+            n = launches.get(wrapper, {}).get(route, 0)
+            row["launches"] += n
+            row["launches_by_path"][path] = n
+        if wrapper == "flash_fwd":
+            timed = [r for r in rows["fwd_rows"]
+                     if "ms" in r and r["kernel"] == [route]]
+            keys = ("B", "H", "T", "D", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "err_o")
+        elif wrapper == "int8_matmul":
+            timed = [r for r in rows["int8_rows"]
+                     if "ms" in r and r["kernel"] == [route]]
+            keys = ("M", "K", "N", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "rel")
+        else:
+            p = "dq_" if wrapper == "flash_bwd_dq" else "dkv_"
+            rkey = "dq_route" if wrapper == "flash_bwd_dq" else "route"
+            timed = [r for r in rows["bwd_rows"]
+                     if p + "ms" in r and r[rkey] == route]
+            keys = ("B", "H", "T", "D", "dtype") + tuple(
+                p + k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by")) + ("library_ms",) + (
+                ("rel_dq",) if p == "dq_" else ("rel_dk", "rel_dv"))
+        if timed:
+            row["sd21_768"] = [{k: r[k] for k in keys if k in r}
+                               for r in timed]
+
+
 def check_recorded(flash_seen, rows, int8_seen, int8_rows) -> None:
     """Every flash forward call and int8 call recorded on the main paths was
     checked against its plain version: its shapes (and for flash, dtype and
@@ -7179,10 +7784,32 @@ def main() -> int:
         log(f"time: {what} done at {time.perf_counter() - t0:.1f} s")
 
     smi = phase_device()
-    # phase 18 launches no kernel of the port: it runs while nvcc builds them
+    # nvcc builds every source beside the phases that launch none of the
+    # mma backward kernels (flash_bwd.cu, the build's longest): 18 (no
+    # kernel of the port), 19 (SD-2.1; checked in 19a), 3 and 8 (the
+    # forward and int8 kernels against their plain versions) and the
+    # serving paths 5 and 9-11; each waits only for the libraries it
+    # launches
     with building_in_background():
         phase_ppim(smi)
         stamp("phase 18")
+        sd21_run = phase_sd21(smi)
+        stamp("phase 19")
+        rows = phase_kernels()
+        fwd_sums = flash_call_sums(rows)
+        int8_rows = phase_int8_kernels()
+        int8_sums = int8_call_sums(int8_rows)
+        stamp("phases 3, 8")
+        with recording_flash_shapes(set()) as flash_seen:
+            serve_fwd, bf16_request_s = phase_slice(smi)
+            with recording_int8_shapes(set()) as seen:
+                f32_launches, f32_fwd = phase_serve_int8_f32(smi)
+                int8_launches, serve_int8_fwd = phase_serve_int8(
+                    smi, bf16_request_s)
+                modes_fwd, modes_int8 = phase_modes(smi)
+                adapters_fwd, adapters_f32, adapters_int8 = \
+                    phase_adapters(smi)
+        stamp("phases 5, 9-11")
     phase_build()  # built by now: ptxas's report and the tiles
     stamp("build")
     with probes_together():
@@ -7195,27 +7822,17 @@ def main() -> int:
         tf32x3_wide_dq_probe()
         tf32x3_wide_probe()
     stamp("probes")
-    rows = phase_kernels()
-    fwd_sums = flash_call_sums(rows)
     bwd_rows = phase_bwd_kernels()
     bwd_sums = bwd_step_sums(bwd_rows)
-    stamp("phases 3-4")
-    with recording_flash_shapes(set()) as flash_seen:
-        serve_fwd, bf16_request_s = phase_slice(smi)
+    sd21_rows = sd21_kernel_rows(sd21_run)
+    stamp("phases 4, 19a")
+    with recording_flash_shapes(flash_seen):
         train_launches, train_fwd, train_dq, train_dkv = phase_train(smi)
         phase_grad()
         _zero_counts()  # the counted f32 training run
         grad_f32 = phase_grad(torch.float32)
-        int8_rows = phase_int8_kernels()
-        int8_sums = int8_call_sums(int8_rows)
-        with recording_int8_shapes(set()) as seen:
-            f32_launches, f32_fwd = phase_serve_int8_f32(smi)
-            int8_launches, serve_int8_fwd = phase_serve_int8(smi,
-                                                             bf16_request_s)
-            modes_fwd, modes_int8 = phase_modes(smi)
-            adapters_fwd, adapters_f32, adapters_int8 = phase_adapters(smi)
     check_recorded(flash_seen, rows, seen, int8_rows)
-    stamp("phases 5-11")
+    stamp("phases 6-7")
     # phase 12's inputs and class images outlive it: phase 17 reuses them
     sd_root = tempfile.mkdtemp(prefix="lora_db_")
     trainer = phase_trainer(smi, rows, bwd_rows, sd_root)
@@ -7798,7 +8415,39 @@ def main() -> int:
     add_sdxl_train_launches(kernels, sdxl_train)
     add_tools_launches(kernels, tools)
     add_dist_launches(kernels, dist)
+    add_sd21_launches(kernels, sd21_run, sd21_rows)
     log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+SD21_STEMS = ("flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3", "flash_bwd",
+              "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+              "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3", "int8_matmul",
+              "int8_matmul_wgmma")
+
+
+def main_sd21() -> int:
+    """Phases 1, 19 while nvcc builds the sources it and 19a run (the
+    forward, the bf16 and f32 D <= 96 backward and the bf16 int8 kernels,
+    and the mma kernels 19a calls beside them), 2 for those sources' ptxas
+    reports, then 19a; the kernels line's rows with phase 19's launches
+    and its timed rows."""
+    smi = phase_device()
+    t0 = time.perf_counter()
+    with building_in_background(SD21_STEMS):
+        sd21 = phase_sd21(smi)
+        log(f"time: phase 19 done at {time.perf_counter() - t0:.1f} s")
+    phase_build(SD21_STEMS)
+    rows = sd21_kernel_rows(sd21)
+    log(f"time: 19a done at {time.perf_counter() - t0:.1f} s")
+    kernels = [{"name": n, "launches": 0, "launches_by_path": {}}
+               for n in (*FLASH_ROW_ROUTES, "int8_matmul")]
+    add_sd21_launches(kernels, sd21, rows)
+    log("sd21 kernels: " + json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8019,11 +8668,13 @@ if __name__ == "__main__":
         sys.exit(main_ppim())
     if sys.argv[1:] == ["--dist-cards"]:
         sys.exit(main_dist_cards())
+    if sys.argv[1:] == ["--sd21"]:
+        sys.exit(main_sd21())
     if sys.argv[1:2] == ["--dist-rank"] and len(sys.argv) == 3:
         sys.exit(dist_rank_worker(sys.argv[2]))
     if sys.argv[1:]:
         sys.exit(f"usage: {sys.argv[0]} [--int8 | --int8-tiles | --flash | "
                  f"--flash-bwd | --modes | --adapters | --train | --pti | "
                  f"--sdxl | --sdxl-train | --tools | --dist | "
-                 f"--dist-cards | --ppim]")
+                 f"--dist-cards | --ppim | --sd21]")
     sys.exit(main())

@@ -117,6 +117,20 @@ def _image_size(img: np.ndarray) -> Tuple[int, int]:
     return img.shape[1], img.shape[0]
 
 
+def _fill_rectangle(mask: np.ndarray, x1: float, y1: float, x2: float,
+                    y2: float) -> None:
+    """Set the box to 255 in an (h, w) uint8 mask, as Pillow's
+    draw.rectangle(fill=255) does: each corner truncated toward zero, both
+    edges inside the box, nothing drawn where the box lies wholly outside
+    the image, the rest clipped to it."""
+    h, w = mask.shape
+    c0, c1 = sorted((int(x1), int(x2)))
+    r0, r1 = sorted((int(y1), int(y2)))
+    if c1 < 0 or r1 < 0 or c0 >= w or r0 >= h:
+        return
+    mask[max(r0, 0):r1 + 1, max(c0, 0):c1 + 1] = 255
+
+
 def face_mask_google_mediapipe(images: Sequence[np.ndarray],
                                blur_amount: float = 80.0,
                                bias: float = 0.05) -> List[np.ndarray]:
@@ -146,11 +160,7 @@ def face_mask_google_mediapipe(images: Sequence[np.ndarray],
                 y1 = bbox.ymin * h
                 x2 = x1 + bbox.width * w
                 y2 = y1 + bbox.height * h
-                # Pillow's draw.rectangle: corners truncated to ints, both
-                # edges inside the box
-                c0, c1 = sorted((max(int(x1), 0), max(int(x2), 0)))
-                r0, r1 = sorted((max(int(y1), 0), max(int(y2), 0)))
-                mask[r0:r1 + 1, c0:c1 + 1] = 255
+                _fill_rectangle(mask, x1, y1, x2, y2)
             mask = _gaussian_blur(mask, blur_amount)
             arr = mask.astype(np.float32) / 255
             arr = np.clip(arr + bias, 0, 1) * 255

@@ -14,13 +14,19 @@ arithmetic in the same order (Pillow's libImaging/Resample.c):
   level * weight in integers from half a unit, shifts back and clamps to
   a level;
 - the horizontal pass runs first (when the width changes), its result
-  stored as uint8, then the vertical pass (when the height changes).
+  stored as uint8, then the vertical pass (when the height changes);
+- an image with alpha (RGBA, LA) is resampled premultiplied, as Pillow
+  converts it to RGBa / La first and back after: each color level times
+  alpha / 255 rounded as its MULDIV255, and back as 255 * level / alpha
+  truncated and clamped (left as it is where alpha is 0 or 255).
 
 The tests hold resize and crop to Pillow's bytes with RESAMPLE_TOL = 0
-levels over filters, gray and RGB images, up and down, and odd sizes.
+levels over filters, gray, gray with alpha, RGB and RGBA images, up and
+down, and odd sizes.
 
-Images are (H, W) or (H, W, C) uint8 arrays; sizes are (width, height), as
-Pillow gives them.
+Images are (H, W) or (H, W, C) uint8 arrays, C = 2 being gray with alpha
+and C = 4 RGB with alpha, as Pillow's fromarray reads them; sizes are
+(width, height), as Pillow gives them.
 """
 
 from __future__ import annotations
@@ -114,10 +120,31 @@ def _pass(a: np.ndarray, out_size: int, resample: int) -> np.ndarray:
     return np.clip(ss >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def _premultiply(a: np.ndarray) -> np.ndarray:
+    """RGBA -> RGBa (LA -> La) as Pillow's converter does it: each color
+    level times alpha with MULDIV255's rounding, alpha kept."""
+    alpha = a[..., -1:].astype(np.int64)
+    tmp = a[..., :-1].astype(np.int64) * alpha + 128
+    return np.concatenate([((tmp >> 8) + tmp) >> 8, alpha],
+                          axis=-1).astype(np.uint8)
+
+
+def _unpremultiply(a: np.ndarray) -> np.ndarray:
+    """RGBa -> RGBA (La -> LA): 255 * level / alpha, truncated and clamped
+    to 255, where alpha is neither 0 nor 255; elsewhere the levels as they
+    are."""
+    alpha = a[..., -1:].astype(np.int64)
+    color = a[..., :-1].astype(np.int64)
+    scaled = np.minimum(255 * color // np.maximum(alpha, 1), 255)
+    color = np.where((alpha == 0) | (alpha == 255), color, scaled)
+    return np.concatenate([color, alpha], axis=-1).astype(np.uint8)
+
+
 def resize(img: np.ndarray, size: Sequence[int],
            resample: int = BICUBIC) -> np.ndarray:
     """Image.resize(size, resample) of a uint8 (H, W) or (H, W, C) array;
-    size is (width, height). An image already of that size is copied."""
+    size is (width, height). An image already of that size is copied; one
+    with alpha (C = 2 or 4) is resampled premultiplied."""
     if resample not in _FILTERS:
         raise ValueError(f"resample {resample!r} is not one of BICUBIC, "
                          "BILINEAR or LANCZOS")
@@ -129,10 +156,15 @@ def resize(img: np.ndarray, size: Sequence[int],
         raise ValueError(f"resize to {w}x{h}: both sides must be positive")
     gray = img.ndim == 2
     a = img[..., None] if gray else img
+    alpha = a.shape[-1] in (2, 4) and a.shape[:2] != (h, w)
+    if alpha:
+        a = _premultiply(a)
     if a.shape[1] != w:
         a = _pass(a, w, resample)
     if a.shape[0] != h:
         a = _pass(a.transpose(1, 0, 2), h, resample).transpose(1, 0, 2)
+    if alpha:
+        a = _unpremultiply(a)
     a = np.ascontiguousarray(a)
     return a[..., 0] if gray else a
 

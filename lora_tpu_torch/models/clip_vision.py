@@ -195,12 +195,12 @@ CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 
 def _rgb(img) -> np.ndarray:
     """An image as (H, W, 3) uint8, as Pillow's convert("RGB") gives it:
-    gray replicated, alpha dropped."""
+    gray replicated, alpha dropped (gray with alpha: the gray level)."""
     a = np.asarray(img)
     if a.ndim == 2:
         a = a[..., None]
-    if a.shape[-1] == 1:
-        a = np.repeat(a, 3, axis=-1)
+    if a.shape[-1] in (1, 2):
+        a = np.repeat(a[..., :1], 3, axis=-1)
     return np.ascontiguousarray(a[..., :3], dtype=np.uint8)
 
 

@@ -102,6 +102,16 @@ def load_unet(model_dir: str, dtype=torch.float32,
     return _to_params(_load_state_dict(model_dir), dtype, device), cfg
 
 
+def load_upcast_attention(model_dir: str) -> bool:
+    """The UNet config's upcast_attention (the published SD-2.1 768-v config
+    sets it): diffusers then computes the attention logits and softmax in
+    f32. Both of the port's attention routes already do
+    (ops/attention.py's plain path in f32, the flash kernels' f32 softmax
+    and logsumexp), so the flag moves no arithmetic; the pipeline keeps it
+    on its UNet only to write the directory back as it was read."""
+    return bool(_read_config(model_dir).get("upcast_attention", False))
+
+
 def load_vae(model_dir: str, dtype=torch.float32,
              device="cpu") -> Tuple[Params, VAEConfig]:
     cfg_json = _read_config(model_dir)
@@ -180,7 +190,7 @@ def load_pipeline_params(path: str, dtype=torch.float32, device="cpu"):
     return unet_p, text_p, vae_p, (unet_cfg, text_cfg, vae_cfg)
 
 
-def _unet_config_dict(u: UNetConfig) -> dict:
+def _unet_config_dict(u: UNetConfig, upcast_attention: bool = False) -> dict:
     return {
         "_class_name": "UNet2DConditionModel",
         "sample_size": u.sample_size, "in_channels": u.in_channels,
@@ -196,6 +206,9 @@ def _unet_config_dict(u: UNetConfig) -> dict:
             else u.transformer_layers),
         "cross_attention_dim": u.cross_attention_dim,
         "use_linear_projection": u.use_linear_projection,
+        # written where set (SD-2.1 768-v), as diffusers defaults it to
+        # false: other directories keep lora_tpu's keys
+        **({"upcast_attention": True} if upcast_attention else {}),
         "norm_num_groups": u.norm_num_groups,
         "freq_shift": u.freq_shift, "flip_sin_to_cos": u.flip_sin_to_cos,
         **({"addition_embed_type": u.addition_embed_type,
@@ -250,12 +263,14 @@ def save_pipeline_params(pipe, path: str, fp16: bool = False) -> None:
     from ..formats.reader import save_file
 
     os.makedirs(path, exist_ok=True)
-    dt = np.float16 if fp16 else np.float32
+    dt = torch.float16 if fp16 else torch.float32
 
     def dump(sub: str, module, cfg_dict: dict):
         d = os.path.join(path, sub)
         os.makedirs(d, exist_ok=True)
-        sd = {k: v.detach().float().cpu().numpy().astype(dt)
+        # cast where the tensors live: from the card, fp16 crosses to the
+        # host at half the bytes (rounded to nearest even on either side)
+        sd = {k: v.detach().to(dt).cpu().numpy()
               for k, v in module.state_dict().items()}
         fname = ("model.safetensors" if sub.startswith("text_encoder")
                  else "diffusion_pytorch_model.safetensors")
@@ -263,7 +278,8 @@ def save_pipeline_params(pipe, path: str, fp16: bool = False) -> None:
         with open(os.path.join(d, "config.json"), "w") as f:
             json.dump(cfg_dict, f, indent=2)
 
-    dump("unet", pipe.unet, _unet_config_dict(pipe.unet.cfg))
+    dump("unet", pipe.unet, _unet_config_dict(pipe.unet.cfg,
+                                              pipe.unet.upcast_attention))
     dump("vae", pipe.vae, _vae_config_dict(pipe.vae.cfg))
     dump("text_encoder", pipe.text_encoder,
          _text_config_dict(pipe.text_encoder.cfg))

@@ -1,7 +1,9 @@
 """Diffusion noise schedules: the DDPM forward process (add_noise, and
 get_velocity for v-prediction training) and the samplers: DDIM, PNDM
 (PLMS), DPM-Solver++(2M), Euler and Euler-ancestral (with linear or Karras
-sigmas) and DDPM.
+sigmas) and DDPM. The samplers but DDIM and DDPM step on eps; a v- or
+sample-prediction model's output reaches them through pred_to_x0_eps
+(timestep space) or sigma_pred_to_eps (sigma space).
 
 The counterpart of lora_tpu/models/schedulers.py (SD-1.5 schedule:
 scaled_linear betas 0.00085..0.012 over 1000 train steps). Timestep and
@@ -320,6 +322,26 @@ def euler_scale_model_input(sample: torch.Tensor,
     """The model's input at sigma: sample / sqrt(sigma^2 + 1), the divisor
     in the sample's dtype (sigma a float32 0-d tensor)."""
     return sample / (sigma**2 + 1.0).sqrt().to(sample.dtype)
+
+
+def sigma_pred_to_eps(sched: NoiseSchedule, model_out: torch.Tensor,
+                      sample: torch.Tensor,
+                      sigma: torch.Tensor) -> torch.Tensor:
+    """A model prediction as the eps the Euler steps take, in float32
+    (epsilon prediction: the output as it is). `sample` is the unscaled
+    latent at `sigma` (a float32 0-d tensor); x0 follows diffusers'
+    EulerDiscreteScheduler, x / (sigma^2 + 1) - v * sigma /
+    sqrt(sigma^2 + 1) for v-prediction and the output itself for sample
+    prediction, and eps = (x - x0) / sigma."""
+    if sched.prediction_type == "epsilon":
+        return model_out
+    x = sample.float()
+    if sched.prediction_type == "v_prediction":
+        x0 = (x / (sigma**2 + 1.0)
+              - model_out.float() * sigma / (sigma**2 + 1.0).sqrt())
+    else:  # "sample"
+        x0 = model_out.float()
+    return (x - x0) / sigma
 
 
 def euler_step(sample: torch.Tensor, eps: torch.Tensor, sigma: torch.Tensor,

@@ -327,6 +327,10 @@ def unet_forward(
 class UNet(ParamModule):
     """The UNet as an nn.Module whose state_dict keys are the flat names."""
 
+    # the directory's upcast_attention, written back by save_pipeline_params;
+    # no arithmetic reads it (models/hf_import.py load_upcast_attention)
+    upcast_attention = False
+
     def __init__(self, cfg: UNetConfig, *, device, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__(init_unet(cfg, generator, device=device, dtype=dtype))

@@ -10,11 +10,14 @@ else, where the package directory cannot be written (an installed wheel),
 lora_tpu_torch/build under the user's cache directory. The first CUDA call
 of a kernel wrapper builds only the library it needs; build() with no
 arguments compiles them all, one nvcc process per source, all started
-together. Processes that share the build directory (the ranks of a
-process group at their first call) build under an flock on
-<build dir>/.build.lock: one compiles, the others wait and load its
-libraries. Nothing is compiled at import, and a failed or impossible build
-raises (CUDA tensors have no other path).
+together. Processes and threads that share the build directory (the
+ranks of a process group at their first call) build each source under its
+own flock, <build dir>/.build.<stem>.lock, taken in sorted order: one
+compiles a source, the others wait for it and load its library, and
+sources build side by side (build([stem]) from one thread per source makes
+each library usable as soon as its nvcc ends). Nothing is compiled at
+import, and a failed or impossible build raises (CUDA tensors have no other
+path).
 """
 
 from __future__ import annotations
@@ -56,16 +59,20 @@ def build_dir() -> str:
 
 
 @contextlib.contextmanager
-def build_lock(out_dir: str):
-    """An exclusive flock on out_dir/.build.lock for the block: builds into
-    one directory from several processes run one at a time."""
+def build_lock(out_dir: str, names: Iterable[str] = ("",)):
+    """Exclusive flocks on out_dir/.build<.name>.lock for each name, taken
+    in sorted order (no two holders wait on each other), for the block:
+    builds of one name into one directory run one at a time, whichever
+    process or thread asks (flocks of separate opens exclude each other
+    within a process too). The default is the directory's one lock."""
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, ".build.lock"), "a") as f:
-        fcntl.flock(f, fcntl.LOCK_EX)
-        try:
-            yield
-        finally:
-            fcntl.flock(f, fcntl.LOCK_UN)
+    with contextlib.ExitStack() as stack:
+        for name in sorted(set(names)):
+            f = stack.enter_context(open(os.path.join(
+                out_dir, f".build{'.' + name if name else ''}.lock"), "a"))
+            fcntl.flock(f, fcntl.LOCK_EX)
+            stack.callback(fcntl.flock, f, fcntl.LOCK_UN)
+        yield
 
 
 def _find_nvcc() -> Optional[str]:
@@ -112,9 +119,12 @@ def build(stems: Optional[Iterable[str]] = None) -> Dict[str, str]:
     out_dir = build_dir()
     paths = {stem: os.path.join(out_dir, f"{stem}_{_key(src)}.so")
              for stem, src in sources.items()}
-    if all(os.path.exists(path) for path in paths.values()):
+    missing = [stem for stem, path in paths.items()
+               if not os.path.exists(path)]
+    if not missing:
         return paths
-    with build_lock(out_dir):  # another process may have built them
+    # another process or thread may be building some of them
+    with build_lock(out_dir, missing):
         _build_missing(sources, paths, out_dir)
     return paths
 

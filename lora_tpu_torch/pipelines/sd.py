@@ -25,6 +25,7 @@ cache does (serve.py).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -168,7 +169,11 @@ class StableDiffusionPipeline:
         require_real_tokenizer: with pretrained weights a missing CLIP vocab
         raises rather than silently degrading to hashed ids
         (data/tokenizer.py)."""
-        from ..models.hf_import import load_pipeline_params, load_scheduler_config
+        from ..models.hf_import import (
+            load_pipeline_params,
+            load_scheduler_config,
+            load_upcast_attention,
+        )
 
         _check_device(path, device)
         unet_p, text_p, vae_p, cfgs = load_pipeline_params(path, dtype, device)
@@ -176,6 +181,8 @@ class StableDiffusionPipeline:
                    for cls_, cfg, params in ((UNet, cfgs[0], unet_p),
                                              (CLIPTextModel, cfgs[1], text_p),
                                              (VAE, cfgs[2], vae_p))]
+        modules[0].upcast_attention = load_upcast_attention(
+            os.path.join(path, "unet"))
         return cls(*modules,
                    tokenizer or default_tokenizer(
                        path, vocab_size=cfgs[1].vocab_size,
@@ -539,9 +546,13 @@ class StableDiffusionPipeline:
         the kept region's final latents equal z0. euler_a's per-step noise
         comes from `step_noise` when given, else from `generator`.
         added_cond: SDXL's text_time rows ({"text_embeds", "time_ids"} on
-        the device), stacked uncond before cond under CFG as ctx is. The
-        tables are uploaded once; no step reads a value back to the
-        host."""
+        the device), stacked uncond before cond under CFG as ctx is. A
+        v-prediction (or sample-prediction) schedule's output is turned
+        into eps after CFG for every method but DDIM, whose step converts
+        it: at the step's timestep (pndm, dpm++) or at its sigma on the
+        unscaled latents (the Euler pair). lora_tpu's loop hands that
+        output to these steps as eps. The tables are uploaded once; no
+        step reads a value back to the host."""
         if method not in SCHEDULERS.values():
             raise ValueError(f"unknown scheduler method {method!r}")
         if method == "pndm" and blend is not None:
@@ -554,6 +565,7 @@ class StableDiffusionPipeline:
         dev = latents.device
         sched = self.schedule.to(dev)
         step_delta = sched.num_train_timesteps // num_inference_steps
+        to_eps = sched.prediction_type != "epsilon"
         use_cfg = uncond is not None
         ctx = torch.cat([uncond, text_emb]) if use_cfg else text_emb
         lora = self.lora_unet
@@ -616,10 +628,16 @@ class StableDiffusionPipeline:
                 latents = blend_t(latents, prev)
             elif method == "pndm":
                 out = eps_at(latents, t)
+                if to_eps:  # each output as eps before PLMS combines them
+                    out = schedulers.pred_to_x0_eps(
+                        sched, out.float(), latents.float(), t)[1]
                 latents, state = schedulers.pndm_step(
                     sched, state, out, t, latents, step_delta)
             elif method == "dpm++":
                 out = eps_at(latents, t)
+                if to_eps:
+                    out = schedulers.pred_to_x0_eps(
+                        sched, out.float(), latents.float(), t)[1]
                 latents, state = schedulers.dpmpp_step(
                     sched, state, out, t, latents, ts_next[i])
                 latents = blend_t(latents, ts_next[i].expand(B))
@@ -627,6 +645,9 @@ class StableDiffusionPipeline:
                 sigma, sigma_next = sig[i], sig[i + 1]
                 scaled = schedulers.euler_scale_model_input(latents, sigma)
                 out = eps_at(latents, t, scale_in=scaled)
+                if to_eps:
+                    out = schedulers.sigma_pred_to_eps(sched, out, latents,
+                                                       sigma)
                 if method == "euler":
                     latents = schedulers.euler_step(latents, out, sigma,
                                                     sigma_next)

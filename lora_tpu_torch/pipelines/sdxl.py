@@ -97,13 +97,17 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
             load_pipeline_params,
             load_scheduler_config,
             load_text_encoder,
+            load_upcast_attention,
         )
 
         _check_device(path, device)
         unet_p, text_p, vae_p, cfgs = load_pipeline_params(path, dtype, device)
         text2_p, text2_cfg = load_text_encoder(
             os.path.join(path, "text_encoder_2"), dtype, device)
-        return cls(_module_from(UNet, cfgs[0], unet_p, dtype),
+        unet = _module_from(UNet, cfgs[0], unet_p, dtype)
+        unet.upcast_attention = load_upcast_attention(
+            os.path.join(path, "unet"))
+        return cls(unet,
                    _module_from(CLIPTextModel, cfgs[1], text_p, dtype),
                    _module_from(CLIPTextModel, text2_cfg, text2_p, dtype),
                    _module_from(VAE, cfgs[2], vae_p, dtype),

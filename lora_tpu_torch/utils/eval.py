@@ -63,7 +63,8 @@ def image_grid(imgs: List[np.ndarray], rows: Optional[int] = None,
     (rows * h, cols * w, 3) uint8 (the reference's utils.py:54-70); a
     missing count is inferred, empty tiles are black, and an image of
     another size is resized to the first one's first (bicubic, as Pillow's
-    default resize, data/resample.py)."""
+    default resize, data/resample.py; with its alpha, before the alpha is
+    dropped, as lora_tpu resizes and then converts)."""
     from ..data import resample
     from ..models.clip_vision import _rgb
 
@@ -76,8 +77,8 @@ def image_grid(imgs: List[np.ndarray], rows: Optional[int] = None,
         cols = math.ceil(n / rows)
     h, w = np.asarray(imgs[0]).shape[:2]
     sheet = np.zeros((rows * cols, h, w, 3), np.uint8)
-    sheet[:n] = [_rgb(im) if np.asarray(im).shape[:2] == (h, w)
-                 else resample.resize(_rgb(im), (w, h), resample.BICUBIC)
+    sheet[:n] = [_rgb(im if np.asarray(im).shape[:2] == (h, w)
+                      else resample.resize(im, (w, h), resample.BICUBIC))
                  for im in imgs]
     return (sheet.reshape(rows, cols, h, w, 3)
             .transpose(0, 2, 1, 3, 4).reshape(rows * h, cols * w, 3))

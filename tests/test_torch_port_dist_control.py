@@ -350,5 +350,63 @@ def test_build_lock_one_process_compiles(tmp_path, which):
     assert log.read_text() == "compile\n"
 
 
+STAMP_STUB = textwrap.dedent("""\
+    #!{python}
+    import os, sys, time
+    out = sys.argv[sys.argv.index("-o") + 1]
+    src = os.path.basename(sys.argv[-1])
+    with open({log!r}, "a") as f:
+        f.write(f"start {{src}} {{time.time()}}\\n")
+    time.sleep(2)
+    with open(out, "wb") as f:
+        f.write(b"stub library")
+    with open({log!r}, "a") as f:
+        f.write(f"end {{src}} {{time.time()}}\\n")
+    """)
+
+BUILD_THREADS = """
+import threading
+from lora_tpu_torch.ops.build import build
+paths = {}
+def run(i, stem):
+    paths[i] = build([stem])[stem]
+threads = [threading.Thread(target=run, args=(i, s)) for i, s in
+           enumerate(["adam8bit", "int8_matmul", "adam8bit"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print("PATHS", paths[0] == paths[2], paths[0] != paths[1], flush=True)
+"""
+
+
+def test_build_lock_sources_build_side_by_side(tmp_path):
+    """Threads of one process building two sources at once compile them
+    side by side (each source's lock alone held), while two threads asking
+    for the same source compile it once."""
+    log = tmp_path / "compiles.log"
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    stub = bindir / "nvcc"
+    stub.write_text(STAMP_STUB.format(python=sys.executable, log=str(log)))
+    stub.chmod(0o755)
+    env = {**ENV, "LORA_TPU_TORCH_BUILD_DIR": str(tmp_path / "build"),
+           "PATH": f"{bindir}{os.pathsep}{ENV['PATH']}",
+           "CUDA_HOME": str(tmp_path / "no_cuda")}
+    proc = subprocess.run([sys.executable, "-c", BUILD_THREADS],
+                          capture_output=True, text=True, cwd=REPO, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "PATHS True True" in proc.stdout
+    events = [line.split() for line in log.read_text().splitlines()]
+    spans = {}
+    for kind, src, t in events:
+        spans.setdefault(src, {}).setdefault(kind, []).append(float(t))
+    assert sorted(spans) == ["adam8bit.cu", "int8_matmul.cu"]
+    assert all(len(v["start"]) == 1 for v in spans.values())
+    a, b = spans["adam8bit.cu"], spans["int8_matmul.cu"]
+    assert a["start"][0] < b["end"][0] and b["start"][0] < a["end"][0]
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
     worker(sys.argv[2:])

@@ -129,6 +129,24 @@ def test_image_grid():
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize("channels", [2, 4])
+def test_image_grid_with_alpha(channels):
+    """A semi-transparent image of another size (gray or RGB with alpha,
+    levels 0 and 255 among them) is resized with its alpha and then
+    converted, as lora_tpu's image_grid does: Pillow's bytes."""
+    same = images(7, [(8, 6, 3)] * 2)
+    odd = images(8, [(16, 4, channels), (8, 6, channels)])
+    odd[0][..., -1][::3] = 0
+    odd[0][..., -1][1::3] = 255
+    mode = {2: "LA", 4: "RGBA"}[channels]
+    got = t_eval.image_grid(same + odd, rows=2, cols=2)
+    want = np.asarray(j_eval.image_grid(
+        [Image.fromarray(i) for i in same]
+        + [Image.fromarray(i, mode) for i in odd], rows=2, cols=2))
+    assert got.shape == want.shape == (16, 12, 3)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_to_uint8():
     arr = np.array([[[-0.5, 0.0, 0.5], [1.5, 1.0, 0.25]]], np.float32)
     got = t_eval.to_uint8(arr)

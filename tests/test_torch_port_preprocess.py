@@ -164,16 +164,21 @@ def _level_check(ref: np.ndarray, got: np.ndarray, what: str) -> None:
 
 # -- Pillow's arithmetic -----------------------------------------------------
 
-@pytest.mark.parametrize("mode", ["L", "RGB"])
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA"])
 @pytest.mark.parametrize("filt", ["BICUBIC", "BILINEAR", "LANCZOS"])
 def test_resize_matches_pillow(filt, mode):
     """resize gives Pillow's bytes up, down, at odd sizes, one side at a
-    time and both, on gray and RGB images."""
+    time and both, on gray and RGB images, and on both with an alpha
+    channel (Pillow resamples those premultiplied) whose levels include
+    0 and 255."""
     f = getattr(resample, filt)
     rs = np.random.RandomState(len(filt) + len(mode))
     for h, w in [(1, 1), (7, 5), (40, 48), (33, 97), (577, 311)]:
-        shape = (h, w) if mode == "L" else (h, w, 3)
+        shape = (h, w) if mode == "L" else (h, w, len(mode))
         a = (rs.rand(*shape) * 255).astype(np.uint8)
+        if mode.endswith("A"):
+            a[..., -1][rs.rand(h, w) < 0.2] = 0
+            a[..., -1][rs.rand(h, w) < 0.2] = 255
         for size in [(2 * w + 1, 3 * h), (max(1, w // 3), max(1, h // 2)),
                      (64, 64), (384, 384), (w, h + 5), (w + 3, h),
                      (w, h)]:

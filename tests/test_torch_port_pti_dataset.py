@@ -310,3 +310,90 @@ def test_ellipse_and_face_mask_fallback_match_lora_tpu(monkeypatch):
         [Image.fromarray(i) for i in imgs], blur_amount=200)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
+
+
+# boxes (x1, y1, x2, y2) on a 10 x 8 image: inside, across each edge and
+# wholly outside each edge, corners on both sides of an integer
+RECT_BOXES = [
+    (2.7, 3.2, 2.9, 3.9), (1.0, 1.0, 6.5, 5.5),            # inside
+    (-3.5, -2.2, -1.2, 4.0), (-1.5, 2.0, -1.0, 5.0),       # left of it
+    (-1.5, 2.0, -0.99, 5.0), (-0.5, -0.5, -0.2, 3.0),      # truncate to 0
+    (3.0, -5.0, 6.0, -1.0), (3.0, -5.0, 6.0, -0.5),        # above it
+    (10.0, 2.0, 12.0, 4.0), (9.99, 7.99, 12.0, 12.0),      # right edge
+    (3.0, 8.0, 6.0, 9.5), (2.0, 6.5, 5.0, 20.0),           # bottom edge
+    (-2.0, -2.0, 12.0, 12.0), (-4.0, 3.0, 4.0, 3.0),       # across
+]
+
+
+@pytest.mark.parametrize("box", RECT_BOXES)
+def test_fill_rectangle_matches_pillow(box):
+    """The face box's fill gives Pillow's draw.rectangle(fill=255) bytes
+    (lora_tpu/data/preprocess.py's draw) on boxes inside, across and
+    wholly outside every edge of the image."""
+    from PIL import ImageDraw
+
+    want = Image.new("L", (10, 8), 0)
+    ImageDraw.Draw(want).rectangle(list(box), fill=255)
+    got = np.zeros((8, 10), np.uint8)
+    t_pre._fill_rectangle(got, *box)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+class _Box:
+    def __init__(self, xmin, ymin, width, height):
+        self.xmin, self.ymin, self.width, self.height = (xmin, ymin, width,
+                                                         height)
+
+
+def _stub_mediapipe(boxes_per_image):
+    """A stand-in for the mediapipe package: FaceDetection's process()
+    returns the given relative boxes, one image after another (an empty
+    list: no face)."""
+    import types
+
+    calls = iter(boxes_per_image)
+
+    class FaceDetection:
+        def __init__(self, model_selection, min_detection_confidence):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def process(self, arr):
+            assert arr.ndim == 3 and arr.shape[-1] == 3
+            dets = [types.SimpleNamespace(location_data=types.SimpleNamespace(
+                relative_bounding_box=_Box(*b))) for b in next(calls)]
+            return types.SimpleNamespace(detections=dets)
+
+    mp = types.ModuleType("mediapipe")
+    mp.solutions = types.SimpleNamespace(
+        face_detection=types.SimpleNamespace(FaceDetection=FaceDetection))
+    return mp
+
+
+def test_face_mask_mediapipe_branch_matches_lora_tpu(monkeypatch):
+    """face_mask_google_mediapipe with a stub mediapipe in sys.modules:
+    faces inside, across an edge and wholly left of or above the image
+    (drawing nothing, so the mask is the bias alone), and an image without
+    a face (the ellipse), against lora_tpu's masks drawn by Pillow."""
+    boxes = [[(0.2, 0.3, 0.4, 0.3)],
+             [(-0.1, 0.5, 0.3, 0.7), (0.8, -0.2, 0.4, 0.5)],
+             [(-0.5, 0.1, 0.3, 0.5), (0.2, -0.9, 0.5, 0.6)],
+             []]
+    imgs = [np.full((48, 80, 3), 100, np.uint8),
+            np.zeros((64, 64, 3), np.uint8),
+            np.zeros((40, 56, 3), np.uint8),
+            np.zeros((32, 32, 3), np.uint8)]
+    monkeypatch.setitem(sys.modules, "mediapipe", _stub_mediapipe(boxes))
+    got = t_pre.face_mask_google_mediapipe(imgs, blur_amount=10)
+    monkeypatch.setitem(sys.modules, "mediapipe", _stub_mediapipe(boxes))
+    want = j_pre.face_mask_google_mediapipe(
+        [Image.fromarray(i) for i in imgs], blur_amount=10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    bias = int(np.float32(0.05) * 255)
+    assert (got[2] == bias).all()  # both boxes off the image: no face
